@@ -1,0 +1,102 @@
+"""Model configuration: the FM shape, initialization and regularization.
+
+A copy of ``Task`` and ``FMConfig`` from ``sparkfm_tpu/config.py``, so the
+port imports without jax. The solver configs come with the solvers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+import numpy as np
+
+
+class Task(enum.Enum):
+    """Learning task; selects the head: squared loss and raw scores for
+    REGRESSION, logistic loss and P(y=1) for CLASSIFICATION."""
+
+    REGRESSION = "regression"
+    CLASSIFICATION = "classification"
+
+
+@dataclasses.dataclass(frozen=True)
+class FMConfig:
+    """Model shape + initialization + regularization.
+
+    ``use_bias`` / ``use_linear`` switch the w0 and <w, x> terms;
+    ``init_mean`` / ``init_stdev`` / ``seed`` set the N(mean, stdev) init
+    of V; ``reg0`` / ``reg_w`` / ``reg_v`` are per-group L2 strengths.
+    ``num_fields > 0`` selects the field-aware model (FFM), and
+    ``slot_major_fields`` promises that slot l holds a feature of field l;
+    the port does not score FFM yet. ``feature_groups`` with
+    ``group_reg_w`` / ``group_reg_v`` give per-attribute-group L2.
+    """
+
+    num_features: int
+    num_factors: int = 8
+    task: Task = Task.REGRESSION
+    use_bias: bool = True
+    use_linear: bool = True
+    init_mean: float = 0.0
+    init_stdev: float = 0.01
+    seed: int = 0
+    reg0: float = 0.0
+    reg_w: float = 0.0
+    reg_v: float = 10.0
+    dtype: str = "float32"          # parameter dtype
+    compute_dtype: str = "float32"  # dtype of the interaction math
+    num_fields: int = 0
+    slot_major_fields: bool = False
+    feature_groups: Optional[tuple] = None
+    group_reg_w: Optional[tuple] = None
+    group_reg_v: Optional[tuple] = None
+
+    def replace(self, **kw) -> "FMConfig":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def num_groups(self) -> int:
+        if self.feature_groups is None:
+            return 1
+        return int(max(self.feature_groups)) + 1
+
+    def reg_vectors(self):
+        """(reg_w_vec, reg_v_vec): per-feature L2 strengths as numpy (F,)
+        f32 arrays — per-group values spread to features when groups are
+        configured, else the scalars broadcast."""
+        if self.feature_groups is None:
+            return (np.full((self.num_features,), self.reg_w, np.float32),
+                    np.full((self.num_features,), self.reg_v, np.float32))
+        groups = np.asarray(self.feature_groups, np.int64)
+        if groups.shape != (self.num_features,):
+            raise ValueError(
+                f"feature_groups must have length num_features="
+                f"{self.num_features}, got {groups.shape}")
+        gw = (np.asarray(self.group_reg_w, np.float32)
+              if self.group_reg_w is not None
+              else np.full((self.num_groups,), self.reg_w, np.float32))
+        gv = (np.asarray(self.group_reg_v, np.float32)
+              if self.group_reg_v is not None
+              else np.full((self.num_groups,), self.reg_v, np.float32))
+        for name, arr in (("group_reg_w", gw), ("group_reg_v", gv)):
+            if arr.shape != (self.num_groups,):
+                raise ValueError(
+                    f"{name} must have length num_groups={self.num_groups}"
+                    f" (= max(feature_groups)+1), got {arr.shape}")
+        return gw[groups], gv[groups]
+
+    def to_json(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["task"] = self.task.value
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "FMConfig":
+        d = dict(d)
+        d["task"] = Task(d["task"])
+        for k in ("feature_groups", "group_reg_w", "group_reg_v"):
+            if d.get(k) is not None:
+                d[k] = tuple(d[k])
+        return cls(**d)

@@ -1,0 +1,132 @@
+"""Fixed-shape sparse batches and host-side batching. Port of
+``sparkfm_tpu/data/batching.py``.
+
+Examples are padded CSR: ids (B, L) int32, vals (B, L) float32, y (B,).
+A padded slot has val == 0, an exact no-op for FM, so the forward needs
+no mask; the tail batch is padded to the batch size and masked.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from sparkfm_tpu_torch.ops import embedding as E
+
+
+@dataclasses.dataclass
+class SparseBatch:
+    """One batch of examples, as tensors on one device."""
+
+    ids: torch.Tensor                        # (B, L) int32
+    vals: torch.Tensor                       # (B, L) float32
+    y: torch.Tensor                          # (B,) float32
+    mask: Optional[torch.Tensor] = None      # (B,) bool, False = padding
+    field_ids: Optional[torch.Tensor] = None  # (B, L) int32
+    plan: Optional[E.DedupBatch] = None      # host dedup plan, on device
+
+
+@dataclasses.dataclass
+class SparseDataset:
+    """A whole dataset as padded-CSR numpy arrays on the host."""
+
+    ids: np.ndarray                  # (N, L) int32
+    vals: np.ndarray                 # (N, L) float32
+    y: np.ndarray                    # (N,) float32
+    num_features: int
+    field_ids: Optional[np.ndarray] = None  # (N, L) int32
+
+    @property
+    def num_examples(self) -> int:
+        return self.ids.shape[0]
+
+    @property
+    def max_nnz(self) -> int:
+        return self.ids.shape[1]
+
+    def slice(self, idx: np.ndarray) -> "SparseDataset":
+        return SparseDataset(
+            ids=self.ids[idx], vals=self.vals[idx], y=self.y[idx],
+            num_features=self.num_features,
+            field_ids=None if self.field_ids is None else self.field_ids[idx])
+
+
+def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
+                   dedup_budget: Optional[str] = None,
+                   dedup_fill: Optional[int] = None) -> Iterator[SparseBatch]:
+    """Yield fixed-shape SparseBatches on ``device``, in dataset order;
+    the tail batch is padded and masked.
+
+    With ``dedup_budget="ladder"`` and ``dedup_fill`` set, each batch
+    carries a host dedup plan (``ops.embedding.host_dedup``) for scoring:
+    its unique ids, sized to the batch's unique count rounded up to a
+    ladder rung (``ladder_budget``), and the slots' ranks. Rungs only grow
+    within one iterator, so the plan shapes settle on one or two.
+    """
+    if dedup_budget not in (None, "ladder"):
+        raise ValueError(f"dedup_budget must be None or 'ladder', got "
+                         f"{dedup_budget!r}")
+    n = ds.num_examples
+    plans = dedup_budget is not None and dedup_fill is not None
+    ladder_cap = E.auto_budget(batch_size * ds.max_nnz)
+    rung = 1
+    for start in range(0, n, batch_size):
+        idx = np.arange(start, min(start + batch_size, n))
+        b = len(idx)
+        if b < batch_size:
+            idx = np.concatenate([idx, np.zeros((batch_size - b,), np.int64)])
+        mask = np.zeros((batch_size,), bool)
+        mask[:b] = True
+        ids_np = ds.ids[idx]
+        vals_np = ds.vals[idx] * mask[:, None]
+        plan = None
+        if plans:
+            hp = E.host_dedup(ids_np, ladder_cap, dedup_fill)
+            rung = max(rung, E.ladder_budget(int(hp.count), cap=ladder_cap))
+            plan = E.plan_to_device(
+                E.DedupBatch(uids=hp.uids[:rung], ranks=hp.ranks,
+                             count=hp.count, overflow=hp.overflow), device)
+        yield SparseBatch(
+            ids=torch.as_tensor(ids_np, device=device),
+            vals=torch.as_tensor(vals_np, device=device),
+            y=torch.as_tensor(ds.y[idx] * mask, device=device),
+            mask=torch.as_tensor(mask, device=device),
+            field_ids=(None if ds.field_ids is None
+                       else torch.as_tensor(ds.field_ids[idx],
+                                            device=device)),
+            plan=plan)
+
+
+def prefetch(it: Iterator, depth: int = 2) -> Iterator:
+    """Run an iterator in a background thread with a bounded queue, so
+    batch assembly, plan building and host-to-device copies overlap the
+    consumer's work. An exception in the worker is raised in the
+    consumer."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: list = []
+
+    def worker():
+        try:
+            for item in it:
+                q.put(item)
+        except BaseException as e:      # re-raised in the consumer below
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            t.join()
+            if err:
+                raise err[0]
+            return
+        yield item

@@ -1,0 +1,165 @@
+"""Dedup plans: touch each unique row of a big table once per batch.
+
+Port of the plan builders of ``sparkfm_tpu/ops/embedding.py``. A plan
+sorts a batch's flat ids, compacts them to a budget of U unique ids and
+maps every slot to its unique row, so scoring reads the big table U times
+(``ops/rowio.py::gather_rows``) instead of once per slot, and spreads the
+rows to slots from the small (U, K) matrix.
+
+Plans are built on the host (:func:`host_dedup`, in the input pipeline) or,
+when none is given, on the device (:func:`dedup_ids`). Both give the same
+arrays element for element.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+
+class DedupBatch(NamedTuple):
+    """Deduplicated lookup plan for one batch of flat ids.
+
+    uids:   (U,) int32 — unique ids, ascending; unused budget slots hold
+            ``fill`` (the table's last row, so the list stays sorted).
+    ranks:  same shape as the ids — position of each slot's id in uids.
+    count:  () int32 — number of distinct ids (may exceed U; see overflow).
+    overflow: () bool — True if distinct ids exceeded the budget U; slots
+            whose id ranked >= U alias the last budget slot.
+    order:  optional (N,) int32 — the stable id-sort permutation of flat
+            slots (flat_ids[order] is non-decreasing).
+    seg:    optional (N,) int32 — dense rank of each sorted slot's id,
+            clipped to [0, U): sorted, step <= 1.
+    svals:  optional (N,) f32 — slot values in id-sorted order.
+    sex:    optional (N,) int32 — each sorted slot's example index.
+
+    Host plans hold numpy arrays; :func:`plan_to_device` moves the per-slot
+    arrays to a device and keeps count/overflow on the host. Device plans
+    from :func:`dedup_ids` hold tensors.
+    """
+
+    uids: Any
+    ranks: Any
+    count: Any
+    overflow: Any
+    order: Any = None
+    seg: Any = None
+    svals: Any = None
+    sex: Any = None
+
+
+def dedup_ids(ids: torch.Tensor, budget: int, fill: int) -> DedupBatch:
+    """Build a DedupBatch on ``ids``' device from (possibly multi-dim)
+    int32 ids: one stable sort of the ids, one of the boundary flags, no
+    table access and no host round trip."""
+    shape = ids.shape
+    flat = ids.reshape(-1)
+    n = flat.shape[0]
+    sid, spos = torch.sort(flat, stable=True)
+    boundary = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    boundary[1:] = sid[1:] != sid[:-1]
+    seg = torch.cumsum(boundary, 0, dtype=torch.int32) - 1
+    count = seg[-1] + 1
+    overflow = count > budget
+    seg_c = seg.clamp(max=budget - 1)
+    ranks = torch.empty_like(seg_c)
+    ranks[spos] = seg_c                          # unsort to natural order
+    # A stable sort of the "not a boundary" flags brings the first slot of
+    # every run to the front, in ascending id order.
+    firsts = torch.sort((~boundary).to(torch.int32), stable=True).indices
+    take = min(budget, n)
+    uids = torch.full((budget,), fill, dtype=torch.int32, device=ids.device)
+    uids[:take] = sid[firsts[:take]]
+    slot = torch.arange(budget, device=ids.device)
+    uids = torch.where(slot < torch.clamp(count, max=budget), uids,
+                       torch.full_like(uids, fill))
+    return DedupBatch(uids=uids, ranks=ranks.reshape(shape), count=count,
+                      overflow=overflow, order=spos.to(torch.int32),
+                      seg=seg_c)
+
+
+def host_dedup(ids, budget: int, fill: int, vals=None) -> DedupBatch:
+    """Numpy plan for the host input pipeline; same arrays as
+    :func:`dedup_ids`.
+
+    With ``vals`` (same shape as ids) the plan also carries ``svals`` and
+    ``sex``. Runs the native radix-sort builder (``data/native_io.py``)
+    when it is available and the numpy code below otherwise; both give
+    the same arrays (``SPARKFM_NO_NATIVE=1`` forces numpy).
+    """
+    from sparkfm_tpu_torch.data import native_io
+    nat = native_io.dedup_plan_native(
+        np.asarray(ids), budget, fill,
+        None if vals is None else np.asarray(vals))
+    if nat is not None:
+        uids, ranks, count, overflow, order, seg, svals, sex = nat
+        return DedupBatch(uids=uids, ranks=ranks, count=count,
+                          overflow=overflow, order=order, seg=seg,
+                          svals=svals, sex=sex)
+    shape = np.shape(ids)
+    flat = np.asarray(ids, np.int32).reshape(-1)
+    n = flat.shape[0]
+    order = np.argsort(flat, kind="stable")
+    sid = flat[order]
+    boundary = np.empty(n, bool)
+    boundary[0] = True
+    boundary[1:] = sid[1:] != sid[:-1]
+    seg = np.cumsum(boundary, dtype=np.int64) - 1
+    count = int(seg[-1]) + 1
+    seg_c = np.minimum(seg, budget - 1).astype(np.int32)
+    ranks = np.empty(n, np.int32)
+    ranks[order] = seg_c
+    uids = np.full((budget,), fill, np.int32)
+    m = min(count, budget)
+    uids[:m] = sid[boundary][:m]
+    svals = sex = None
+    if vals is not None:
+        svals = np.asarray(vals, np.float32).reshape(-1)[order]
+        sex = (order // shape[-1]).astype(np.int32)
+    return DedupBatch(uids=uids, ranks=ranks.reshape(shape),
+                      count=np.int32(count), overflow=np.bool_(count > budget),
+                      order=order.astype(np.int32), seg=seg_c,
+                      svals=svals, sex=sex)
+
+
+def plan_to_device(plan: DedupBatch, device) -> DedupBatch:
+    """A host plan with its per-slot arrays as tensors on ``device``;
+    count and overflow stay host numbers, for the host to branch on."""
+    def move(x):
+        return None if x is None else torch.as_tensor(x, device=device)
+    return plan._replace(uids=move(plan.uids), ranks=move(plan.ranks),
+                         order=move(plan.order), seg=move(plan.seg),
+                         svals=move(plan.svals), sex=move(plan.sex))
+
+
+def auto_budget(n_slots: int, cap: int = 1 << 18) -> int:
+    """Static unique budget: next power of two >= n_slots, capped. With
+    budget >= n_slots overflow is impossible."""
+    b = 1
+    while b < n_slots:
+        b *= 2
+    return min(b, cap)
+
+
+def ladder_budget(count: int, cap: int = 1 << 18) -> int:
+    """Smallest ladder rung >= count; rungs are m * 2^k for m in 4..7
+    (quarter-octave steps, <= 25% padding).
+
+    The host knows each batch's exact unique count before the device
+    runs, so a plan is padded to a tight rung instead of a worst-case
+    power of two, while the bounded set of rungs keeps the number of
+    distinct shapes small.
+    """
+    if count <= 0:
+        return 1
+    if count <= 4:
+        return min(count, cap)
+    b = 1
+    while (b << 3) < count:
+        b <<= 1
+    for m in (4, 5, 6, 7, 8):
+        if m * b >= count:
+            return min(m * b, cap)
+    raise AssertionError("unreachable")

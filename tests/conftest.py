@@ -29,3 +29,5 @@ jax.config.update("jax_enable_x64", False)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (multi-process launch etc.)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc; skips without one")
