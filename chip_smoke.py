@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sparkfm_tpu_torch``) on one GPU.
 
-Drives the port's FM serving path once at the full width of BASELINE
-config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank 32, 39
-slots), with random weights from a seed:
+Drives the port's two paths once at the full width of BASELINE config 3
+(Criteo-shape logistic FM: 2^24 hashed buckets, rank 32, 39 slots), with
+random weights and data from a seed: FM serving, then hybrid SGD training.
 
-  1. builds the row-gather kernel from ``sparkfm_tpu_torch/csrc/rowio.cu``;
-  2. holds the kernel against its plain version (``index_select``) on the
+  1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
+     one nvcc per source in parallel (``rowio.cu``: row gather and row
+     write; ``segsum.cu``: factored backward), and prints ptxas's
+     registers and spills per kernel;
+  2. holds the gather kernel against its plain version (``index_select``) on the
      card, with exact equality (a gather is a copy), at the main path's
      shapes and at odd widths, and times both with CUDA events;
   3. shows, in a child process, that an id out of range traps the kernel;
@@ -20,7 +23,27 @@ slots), with random weights from a seed:
      run split into plan building, plan copy and the scoring call, and
      the host plan alone at both batch shapes. The plans must come from
      the native builder (``native/dedup_plan.cpp``); the smoke fails if
-     it did not build.
+     it did not build;
+  7. holds the row-write kernel against ``index_copy_`` (exact, every row
+     but the plan's fill row) on a (2^24+1, 68) fused-record table with
+     the uids of real bench-recipe ladder plans, at odd widths and on a
+     misaligned table, and the gather at the record's width;
+  8. holds the factored-backward kernel against its plain version on a
+     bench-recipe plan (N = 638,976 slots, one run of ~162k) and on a
+     ``synth_ctr`` plan, at k = 32, 4 and 33 (f32 sums in another order:
+     max |a - b| / (1 + |b|) < 1e-4), and shows its sums repeat exactly;
+  9. trains BASELINE config 3 with ``train_sgd`` (``synth_ctr`` of 20
+     batches of 16384, 2 epochs, adagrad, lr 0.05), with the three
+     kernels' launch counts set to 0 just before and read just after:
+     each must equal the number of steps, every loss must be finite and
+     the second epoch's below the first's. Then runs 5 hybrid steps on
+     bench-recipe batches twice from one initial table, with the kernels
+     and with their plain versions swapped in, and holds tables and
+     losses against each other;
+ 10. profiles training: device time per call of each kernel against its
+     plain version, the device's busy share of a one-epoch run with its
+     top device events, and the host wall time per step split into the
+     host plan, its copy to the card and the step's host side.
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -28,17 +51,22 @@ non-zero and prints no result. Run from the repository root:
     python3 chip_smoke.py
 
 The line before the last is the kernels' JSON (``ms``/``plain_ms``: one
-plan's V+w gather per call back to back under CUDA events, where the
-host's launch cost sets the pace; ``device_ms``/``plain_device_ms``: its
-device time from torch.profiler), the last line the result.
+call at the main path's shape, back to back under CUDA events, for the
+gather one plan's V+w serving gather, where the host's launch cost sets
+the pace; ``device_ms``/``plain_device_ms``: the device time of one call
+from torch.profiler; ``launches``: the count from the main paths' runs,
+serving and training), the last line the result.
 """
 
 import collections
 import contextlib
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -135,6 +163,396 @@ def timed_calls(targets, spent):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def swapped(targets):
+    """Replace ``module.name`` by ``fn`` for each (module, name, fn) of
+    ``targets`` while the block runs."""
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+    for mod, name, fn in targets:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def build_all(kernels):
+    """Build the kernels' libraries at once, one compiler process per
+    library; returns the seconds it took. Raises the first build error."""
+    errors = []
+
+    def build(kernel):
+        try:
+            kernel.build()
+        except Exception as e:          # re-raised below, in this thread
+            errors.append(e)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=build, args=(k,)) for k in kernels]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0
+
+
+def ptxas_summary(lib_path):
+    """'kernel: N registers, S spill bytes' per kernel from the build log
+    that nvcc -Xptxas -v left beside the library."""
+    out = []
+    name = None
+    spill = 0
+    with open(lib_path[:-len(".so")] + ".log") as log:
+        for line in log:
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                mangled = m.group(1)
+                k = re.search(r"([a-z][a-z_]*_kernel)(I\w*?E)?E", mangled)
+                name = (k.group(1) + (k.group(2) or "")) if k else mangled
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out.append(f"{name}: {m.group(1)} registers, {spill} "
+                           "spill bytes")
+                name = None
+    return "; ".join(out)
+
+
+def max_rel_err(got, want):
+    """max |a - b| / (1 + |b|)."""
+    return float(((got.double() - want).abs() / (1 + want.abs())).max())
+
+
+def plain64(vw_u, ex_srt, x, seg, num_segments, cv, cw):
+    """The factored backward's plain version evaluated in float64 and
+    rounded to float32: the oracle for both f32 versions. At the main
+    path's 162k-slot run the f32 plain version's own sums (atomic adds in
+    any order) are off by a few 1e-4, more than the kernel's chunked
+    sums."""
+    from sparkfm_tpu_torch.ops import segsum
+    return segsum.fm_grad_segsum_factored_reference(
+        vw_u.double(), ex_srt.double(), x.double(), seg, num_segments,
+        cv, cw).float()
+
+
+def assert_close_rows(a, b, rtol, atol, what, rows=1 << 22):
+    """np.allclose semantics over two big tables, a block of rows at a
+    time (the temporaries of one call would take several GB)."""
+    for r0 in range(0, a.shape[0], rows):
+        x, y = a[r0:r0 + rows], b[r0:r0 + rows]
+        bad = ((x - y).abs() > atol + rtol * y.abs()).sum().item()
+        if bad:
+            raise AssertionError(f"{what}: {bad} entries differ beyond rtol "
+                                 f"{rtol}, atol {atol} in rows {r0}..")
+
+
+def train_phases(dev, cfg, gen, rng, card):
+    """Phases 7-10, the training path; returns the kernels' JSON entries
+    for the row write and the factored backward, and the gather's numbers
+    at the record's width."""
+    from sparkfm_tpu_torch import SGDConfig, train_sgd
+    from sparkfm_tpu_torch.data import synth
+    from sparkfm_tpu_torch.data.batching import (SparseDataset,
+                                                 batch_iterator)
+    from sparkfm_tpu_torch.ops import embedding as E
+    from sparkfm_tpu_torch.ops import rowio, segsum
+    from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
+
+    width = sgd_fused.record_width(RANK)
+    used = 2 * RANK + 2
+    cap = E.auto_budget(BATCH * SLOTS)
+    ones = np.ones((BATCH, SLOTS), np.float32)
+    plans = [E.host_dedup(zipf_ids(rng, BATCH), cap, fill=BUCKETS,
+                          vals=ones) for _ in range(4)]
+    rung = max(E.ladder_budget(int(p.count), cap=cap) for p in plans)
+    uids = [torch.as_tensor(p.uids[:rung], device=dev) for p in plans]
+
+    # 7. the row write (and the gather at the record's width) against
+    # their plain versions on a full-size record table
+    table = torch.randn((BUCKETS + 1, width), generator=gen, device=dev)
+    for u in uids:
+        got = rowio.gather_rows(table, u)
+        if not torch.equal(got, rowio.gather_rows_reference(table, u)):
+            raise AssertionError(f"gather kernel wrong at W={width}")
+        rows = torch.randn((rung, width), generator=gen, device=dev)
+        want = rowio.scatter_set_rows_reference(table.clone(), u, rows)
+        if rowio.scatter_set_rows(table, u, rows) is not table:
+            raise AssertionError("scatter_set_rows did not write in place")
+        if not torch.equal(table[:-1], want[:-1]):
+            raise AssertionError(f"row write kernel != index_copy_ at "
+                                 f"{tuple(table.shape)}, U={rung}")
+        del want
+    odd = [(100003, 1, 1001), (100003, 33, 1001), (100003, 128, 1001)]
+    for r, w, n in odd:
+        t = torch.randn((r, w), generator=gen, device=dev)
+        ids = torch.as_tensor(rng.permutation(r - 1)[:n].astype(np.int32),
+                              device=dev)
+        ids[-n // 10:] = r - 1                     # repeated fill row
+        new = torch.randn((n, w), generator=gen, device=dev)
+        want = rowio.scatter_set_rows_reference(t.clone(), ids, new)
+        if not torch.equal(rowio.scatter_set_rows(t, ids, new)[:-1],
+                           want[:-1]):
+            raise AssertionError(f"row write kernel wrong at {(r, w, n)}")
+    t = torch.randn(1000 * 4 + 1, device=dev, generator=gen)[1:].view(1000, 4)
+    ids = torch.arange(999, -1, -3, dtype=torch.int32, device=dev)
+    new = torch.randn((ids.numel(), 4), generator=gen, device=dev)
+    want = rowio.scatter_set_rows_reference(t.clone(), ids, new)
+    if not torch.equal(rowio.scatter_set_rows(t, ids, new), want):
+        raise AssertionError("row write kernel wrong on a misaligned table")
+    torch.cuda.synchronize()
+    print(f"check: row write kernel == index_copy_ (every row but the fill "
+          f"row) on the record table {tuple(table.shape)} with U={rung} (4 "
+          f"bench-recipe plans, counts {[int(p.count) for p in plans]}), at "
+          f"(R, W, U) {odd} and on a misaligned table; gather kernel == "
+          f"index_select at W={width}", flush=True)
+    rows = [torch.randn((rung, width), generator=gen, device=dev)
+            for _ in uids]
+    wargs = list(zip(uids, rows))
+    times = {
+        "gather": (time_ms(lambda u: rowio.gather_rows(table, u),
+                           [(u,) for u in uids]),
+                   time_ms(lambda u: rowio.gather_rows_reference(table, u),
+                           [(u,) for u in uids])),
+        "write": (time_ms(lambda u, r: rowio.scatter_set_rows(table, u, r),
+                          wargs),
+                  time_ms(lambda u, r: rowio.scatter_set_rows_reference(
+                      table, u, r), wargs))}
+    dev_us = {
+        "gather": tuple(device_us(lambda: [g(table, u) for u in uids])[0]
+                        / len(uids) for g in (
+                            rowio.gather_rows, rowio.gather_rows_reference)),
+        "write": tuple(device_us(lambda: [w(table, u, r) for u, r in wargs])
+                       [0] / len(wargs) for w in (
+                           rowio.scatter_set_rows,
+                           rowio.scatter_set_rows_reference))}
+    del table, rows, wargs
+    torch.cuda.empty_cache()
+
+    # 8. the factored backward against its plain version: the main path's
+    # plan (a bench-recipe batch), a synth_ctr plan, and other widths
+    sds = synth.synth_ctr(num_examples=BATCH, num_fields=SLOTS,
+                          num_buckets=BUCKETS, seed=SEED + 1)
+    sp = E.host_dedup(sds.ids, cap, fill=BUCKETS, vals=sds.vals)
+    cv = torch.tensor(2e-6 / BATCH, device=dev)
+    cw = torch.tensor(2e-6 / BATCH, device=dev)
+
+    def case(plan, k):
+        n = plan.seg.shape[0]
+        u = E.ladder_budget(int(plan.count), cap=cap)
+        seg = torch.as_tensor(plan.seg, device=dev)
+        vw_u = 0.01 * torch.randn((u, k + 1), generator=gen, device=dev)
+        ex = torch.randn((n, k + 2), generator=gen, device=dev)
+        ex[:, k + 1] = (torch.rand(n, generator=gen, device=dev) < 0.9)
+        x = torch.randn(n, generator=gen, device=dev)
+        return vw_u, ex, x, seg, u
+
+    runs = {}
+    checked = []
+    main_case = None
+    for label, plan, k in (("bench", plans[0], RANK), ("synth_ctr", sp, RANK),
+                           ("bench", plans[1], 4), ("synth_ctr", sp, 33)):
+        seg = plan.seg
+        edges = np.flatnonzero(np.r_[True, seg[1:] != seg[:-1], True])
+        runs[label] = int(np.diff(edges).max())
+        args = case(plan, k)
+        want = segsum.fm_grad_segsum_factored_reference(*args, cv, cw)
+        exact = plain64(*args, cv, cw)
+        got = segsum.fm_grad_segsum_factored(*args, cv, cw)
+        err, plain_err = max_rel_err(got, exact), max_rel_err(want, exact)
+        gap = max_rel_err(got, want)
+        if not (err < 1e-4 and gap < plain_err + 1e-4):
+            raise AssertionError(
+                f"factored backward kernel off at {label}, k={k}: "
+                f"{err:.3g} from the float64 sums, {gap:.3g} from the f32 "
+                f"plain version (itself {plain_err:.3g} off)")
+        if not torch.equal(got, segsum.fm_grad_segsum_factored(*args, cv,
+                                                                cw)):
+            raise AssertionError("factored backward sums do not repeat")
+        checked.append(f"{label} k={k} N={seg.shape[0]} U={args[4]}: "
+                       f"kernel {err:.3g}, plain {plain_err:.3g}, kernel vs "
+                       f"plain {gap:.3g}")
+        if main_case is None:
+            main_case, main_err, main_plain_err = args, err, plain_err
+            main_abs = float((got - exact).abs().max())
+    print(f"check: factored backward kernel against the plain version in "
+          f"float64, max |a-b|/(1+|b|) (kernel < 1e-4; kernel vs the f32 "
+          f"plain version within the plain version's own error + 1e-4): "
+          f"{'; '.join(checked)}; sums repeat exactly; longest run: "
+          f"bench-recipe {runs['bench']} slots, synth_ctr "
+          f"{runs['synth_ctr']}", flush=True)
+    times["backward"] = (
+        time_ms(lambda: segsum.fm_grad_segsum_factored(*main_case, cv, cw),
+                [()]),
+        time_ms(lambda: segsum.fm_grad_segsum_factored_reference(
+            *main_case, cv, cw), [()]))
+    dev_us["backward"] = tuple(
+        device_us(lambda: [f(*main_case, cv, cw) for _ in range(5)])[0] / 5
+        for f in (segsum.fm_grad_segsum_factored,
+                  segsum.fm_grad_segsum_factored_reference))
+    del main_case
+    for name, (ms, plain) in times.items():
+        print(f"time: {name} per call at the main path's shape (U={rung}, "
+              f"W={width}, N={BATCH * SLOTS}): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms back to back (CUDA events, best of 5 "
+              f"windows of 20); device {dev_us[name][0]:.2f} us vs "
+              f"{dev_us[name][1]:.2f} us (torch.profiler); {card}",
+              flush=True)
+
+    # 9. train BASELINE config 3 through train_sgd: the training path's run
+    ds = synth.synth_ctr(num_examples=BATCH * 20, num_fields=SLOTS,
+                         num_buckets=BUCKETS, seed=SEED)
+    sgd = SGDConfig(batch_size=BATCH, learning_rate=0.05,
+                    optimizer="adagrad", epochs=2)
+    kernels = {"gather_rows": rowio.GATHER, "scatter_set_rows": rowio.SCATTER,
+               "fm_grad_segsum_factored": segsum.FACTORED}
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = train_sgd(cfg, sgd, ds, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    steps = sgd.epochs * 20
+    if any(n != steps for n in launches.values()):
+        raise AssertionError(f"training launches {launches}, expected "
+                             f"{steps} of each kernel")
+    losses = [h["train_loss"] for h in res.history]
+    if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"training losses {losses}")
+    if res.params.v.shape != (BUCKETS, RANK) or not bool(
+            torch.isfinite(res.params.v).all()):
+        raise AssertionError("trained V is not finite at full shape")
+    print(f"train: train_sgd BASELINE config 3, {ds.num_examples} examples "
+          f"x {sgd.epochs} epochs = {steps} steps of {BATCH}: epoch losses "
+          f"{losses}, {res.examples_per_sec:.0f} ex/s (first step left out)"
+          f", {train_s:.3f} s wall in all; launches {launches}; {card}",
+          flush=True)
+    del res
+
+    # 5 hybrid steps on bench-recipe batches, kernels against plain
+    bds = SparseDataset(ids=np.concatenate([zipf_ids(rng, BATCH)
+                                            for _ in range(5)]),
+                        vals=np.ones((5 * BATCH, SLOTS), np.float32),
+                        y=rng.integers(0, 2, 5 * BATCH).astype(np.float32),
+                        num_features=BUCKETS)
+    batches = list(batch_iterator(bds, BATCH, device=dev,
+                                  dedup_budget="ladder", dedup_fill=BUCKETS))
+    state = sgd_fused.init_fused_state(cfg, torch.Generator(
+        device=dev).manual_seed(SEED + 2), device=dev)
+    first = state.table.clone()
+    step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
+    # Each step runs twice from the same state, with the kernels and with
+    # the plain versions (the backward's in float64: see plain64), and the
+    # run goes on from the kernels' result. Run freely, the two would
+    # drift apart beyond any tolerance for a reason that is no fault of
+    # either: on random labels at lr 0.05 the loss grows by orders of
+    # magnitude within a few steps, and that growth amplifies the f32
+    # rounding of the sums.
+    losses = []
+    for b in batches:
+        plain_in = dataclasses.replace(state, table=state.table.clone())
+        state, aux = step(state, b)
+        counts = [k.launches for k in kernels.values()]
+        with swapped([(rowio, "gather_rows", rowio.gather_rows_reference),
+                      (rowio, "scatter_set_rows",
+                       rowio.scatter_set_rows_reference),
+                      (segsum, "fm_grad_segsum_factored", plain64)]):
+            plain_out, plain_aux = step(plain_in, b)
+        if [k.launches for k in kernels.values()] != counts:
+            raise AssertionError("the plain step launched a kernel")
+        losses.append(float(aux["loss"]))
+        np.testing.assert_allclose(losses[-1], float(plain_aux["loss"]),
+                                   rtol=1e-5)
+        assert_close_rows(state.table[:BUCKETS, :used],
+                          plain_out.table[:BUCKETS, :used], 1e-4, 1e-6,
+                          f"step {len(losses)} tables")
+        np.testing.assert_allclose(float(state.w0), float(plain_out.w0),
+                                   rtol=1e-5)
+        del plain_in, plain_out
+    moved = int((state.table[:BUCKETS, :used] != first[:BUCKETS, :used])
+                .any(dim=1).sum())
+    print(f"check: 5 hybrid steps on bench-recipe batches (uniques "
+          f"{[int(b.plan.count) for b in batches]}), each from the same "
+          f"state with the kernels and with the plain versions: losses "
+          f"{losses} equal (rtol 1e-5), tables [:F, :{used}] equal (rtol "
+          f"1e-4, atol 1e-6), {moved} rows updated in all", flush=True)
+    del state, first
+    torch.cuda.empty_cache()
+
+    # 10. where a training step's time goes
+    one = SGDConfig(batch_size=BATCH, learning_rate=0.05, epochs=1)
+    t0 = time.perf_counter()
+    train_sgd(cfg, one, ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, events = device_us(lambda: train_sgd(cfg, one, ds, device=dev))
+    top = "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total:.0f}"
+                    for e in events[:8])
+    print(f"profile: one-epoch train_sgd (20 steps, state init included): "
+          f"device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms untraced "
+          f"wall ({100 * (1 - busy / 1e6 / wall):.1f}% idle); top device "
+          f"events (us): {top}; {card}", flush=True)
+    # the host side of a step, phase by phase, in a loop without prefetch
+    spent = collections.defaultdict(float)
+    state = sgd_fused.init_fused_state(cfg, device=dev)
+    it = batch_iterator(ds, BATCH, device=dev, dedup_budget="ladder",
+                        dedup_fill=BUCKETS)
+    torch.cuda.synchronize()
+    with timed_calls((("host_dedup", E, "host_dedup"),
+                      ("plan_to_device", E, "plan_to_device")), spent):
+        t0 = time.perf_counter()
+        n = 0
+        while True:
+            tb = time.perf_counter()
+            b = next(it, None)
+            spent["batch (with plan)"] += time.perf_counter() - tb
+            if b is None:
+                break
+            ts = time.perf_counter()
+            state, aux = step(state, b)
+            spent["step (host)"] += time.perf_counter() - ts
+            n += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    parts = ", ".join(f"{k} {v * 1e3 / n:.3f} ms ({100 * v / wall:.1f}%)"
+                      for k, v in spent.items())
+    print(f"profile: host wall per step without prefetch "
+          f"{wall * 1e3 / n:.3f} ms over {n} steps: {parts} (host_dedup and "
+          f"plan_to_device lie inside 'batch'); {card}", flush=True)
+
+    entries = [
+        {"name": "scatter_set_rows", "route": "cuda",
+         "source": "sparkfm_tpu_torch/csrc/rowio.cu",
+         "replaces": "sparkfm_tpu/ops/pallas_rowio.py:74",
+         "launches": launches["scatter_set_rows"], "max_abs_err": 0.0,
+         "ms": times["write"][0], "plain_ms": times["write"][1],
+         "device_ms": dev_us["write"][0] / 1e3,
+         "plain_device_ms": dev_us["write"][1] / 1e3},
+        {"name": "fm_grad_segsum_factored", "route": "cuda",
+         "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+         "replaces": "sparkfm_tpu/ops/pallas_segsum.py:613",
+         "launches": launches["fm_grad_segsum_factored"],
+         "max_abs_err": main_abs, "max_rel_err": main_err,
+         "plain_f32_max_rel_err": main_plain_err,
+         "err_against": "plain version in float64",
+         "ms": times["backward"][0], "plain_ms": times["backward"][1],
+         "device_ms": dev_us["backward"][0] / 1e3,
+         "plain_device_ms": dev_us["backward"][1] / 1e3}]
+    gather_record = {
+        "launches_training": launches["gather_rows"],
+        "record_ms": times["gather"][0],
+        "record_plain_ms": times["gather"][1],
+        "record_device_ms": dev_us["gather"][0] / 1e3,
+        "record_plain_device_ms": dev_us["gather"][1] / 1e3}
+    return entries, gather_record
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -146,7 +564,7 @@ def main():
     from sparkfm_tpu_torch.models import fm as fm_model
     from sparkfm_tpu_torch.ops import embedding as E
     from sparkfm_tpu_torch.ops import interaction as I
-    from sparkfm_tpu_torch.ops import rowio
+    from sparkfm_tpu_torch.ops import rowio, segsum
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -157,15 +575,15 @@ def main():
     card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
     print(f"device: {name}; nvidia-smi: {smi}", flush=True)
 
-    # 1. build
-    t0 = time.perf_counter()
-    rowio.GATHER.build()
-    build_s = time.perf_counter() - t0
-    with open(rowio.GATHER.path[:-len(".so")] + ".log") as log:
-        ptxas = [ln.split(":", 1)[-1].strip() for ln in log
-                 if "registers" in ln or "spill" in ln]
-    print(f"build: rowio.cu -> {os.path.relpath(rowio.GATHER.path, root)} "
-          f"in {build_s:.2f} s; ptxas: {'; '.join(ptxas)}", flush=True)
+    # 1. build every kernel library at once, one nvcc per source
+    build_s = build_all([rowio.GATHER, segsum.FACTORED])
+    rowio.SCATTER.build()                      # the same library as GATHER
+    for kernel in (rowio.GATHER, segsum.FACTORED):
+        print(f"build: {os.path.relpath(kernel.source, root)} -> "
+              f"{os.path.relpath(kernel.path, root)}; ptxas: "
+              f"{ptxas_summary(kernel.path)}", flush=True)
+    print(f"build: both CUDA sources in {build_s:.2f} s (in parallel)",
+          flush=True)
     # every host plan below must come from the native builder: its numpy
     # path has the same semantics but is several times slower
     t0 = time.perf_counter()
@@ -414,15 +832,20 @@ def main():
               f"{sorted(plan_s)[2] * 1e3:.3f} ms of 5 (host CPU; native "
               f"builder: {native_io.available()})", flush=True)
 
+    # 7-10. the training path
+    train_entries, gather_record = train_phases(dev, cfg, gen, rng, card)
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
         "source": "sparkfm_tpu_torch/csrc/rowio.cu",
         "replaces": "sparkfm_tpu/ops/pallas_rowio.py:140",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + gather_record["launches_training"],
+        "launches_serving": launches, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms,
         "device_ms": device_ms("kernel"),
-        "plain_device_ms": device_ms("index_select")}]}))
+        "plain_device_ms": device_ms("index_select"), **gather_record},
+        *train_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
-"""Model configuration: the FM shape, initialization and regularization.
+"""Model and solver configuration.
 
-A copy of ``Task`` and ``FMConfig`` from ``sparkfm_tpu/config.py``, so the
-port imports without jax. The solver configs come with the solvers.
+A copy of ``Task``, ``FMConfig`` and ``SGDConfig`` from
+``sparkfm_tpu/config.py``, so the port imports without jax and one set of
+keyword arguments builds the same config in both packages. The other
+solvers' configs come with those solvers.
 """
 
 from __future__ import annotations
@@ -100,3 +102,40 @@ class FMConfig:
             if d.get(k) is not None:
                 d[k] = tuple(d[k])
         return cls(**d)
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDConfig:
+    """SGD solver settings; same fields and defaults as the JAX package's.
+
+    The port trains on the hybrid update path only
+    (``solvers/sgd_hybrid.py``): ``update_path`` "auto" or "hybrid",
+    adagrad / adagrad_row / sgd without momentum, host plans
+    (``host_plan=True``) and one step per dispatch. What else a field can
+    select raises ``NotImplementedError`` when a step or the trainer is
+    built (``solvers/sgd.py::check_supported``).
+
+    ``max_seconds``: wall-clock budget, checked at epoch boundaries (0 =
+    none). ``unique_budget``: 0 sizes each batch's plan by the ladder
+    (``ops/embedding.py::ladder_budget``); a positive value pins one
+    budget. ``pallas_scatter``, ``sparse_updates`` and ``accumulate`` are
+    TPU dispatch knobs of the JAX package; the port accepts them and they
+    have no effect here (the write-back always runs the port's row-write
+    kernel on the card).
+    """
+
+    learning_rate: float = 0.05
+    max_seconds: float = 0.0
+    optimizer: str = "adagrad"      # adagrad | adagrad_row | sgd | adam
+    batch_size: int = 8192
+    epochs: int = 10
+    momentum: float = 0.0
+    adagrad_eps: float = 1e-8
+    sparse_updates: bool = True
+    shuffle_each_epoch: bool = True
+    update_path: str = "auto"
+    unique_budget: int = 0
+    pallas_scatter: str = "auto"
+    host_plan: bool = True
+    accumulate: str = "auto"
+    steps_per_dispatch: int = 1

@@ -1,0 +1,328 @@
+// Factored FM backward over id-sorted slots: per-run sums of the FM
+// gradient and of its square,
+//
+//   out[r] = [ sum g_v (k) | sum g_w | sum g_v^2 (k) | sum g_w^2 ]
+//   g_v[i] = dsx_i * (s_i - v * x_i) + cv * a_i * v,   g_w[i] = dsx_i + cw * w * a_i
+//   dsx_i = ds_i * x_i,   a_i = wt_i if x_i != 0 else 0
+//
+// over the sorted slots i of run r (seg[i] == r), where (v, w) = vw_u[r]
+// is the run's unique row and (s_i, ds_i, wt_i) = ex_srt[i] its example's
+// forward sums, loss derivative and weight. Ranks with no slots are zero.
+//
+// Replaces the TPU kernel sparkfm_tpu/ops/pallas_segsum.py::
+// _fm_grad_factored_kernel (called through _fm_grad_factored_pallas, public
+// fm_grad_segsum_factored), the backward of the hybrid train step
+// (sparkfm_tpu_torch/solvers/sgd_hybrid.py). The TPU kernel runs its grid in
+// order with a carry between steps and reduces each subtile with a one-hot
+// matrix product; it factors V_u out of the run sums so the (N, k+1)
+// per-slot row stream never exists. Here blocks run in no order, so the
+// design is different:
+//
+// What bounds it: bytes. It reads ex_srt (N x (k+2) floats, 87 MB at the
+// main path's N = 638,976 and k = 32) once, plus x and seg, and does ~6k
+// flops per slot. Two things stand in the way of streaming that at HBM rate:
+//
+// * Run skew. Hashed zipf ids put a quarter of a batch's slots in one run
+//   (162,323 of 638,976 at the main path's recipe), so a warp per run would
+//   leave the card idle behind one warp. Pass 1 therefore cuts the sorted
+//   stream into fixed chunks of kChunk slots, one warp per chunk. A run
+//   that lies inside one chunk is summed by that warp and written to
+//   out[r] directly. A run that crosses a chunk boundary leaves one partial
+//   row per chunk it touches, in `partials` (two rows per chunk: its first
+//   run's, if that run began in an earlier chunk, and its last run's, if
+//   that run goes on into the next). Pass 2 runs one block per chunk; the
+//   block of the chunk where a crossing run begins sums that run's partials
+//   in a fixed order (warps over partial rows, then the warps' sums in warp
+//   order) and writes out[r]. No atomics: the sums are the same from run to
+//   run.
+// * Latency. Within a chunk a warp walks the slots in order; lane f owns
+//   factor f (and f + 32, ... for k > 32), lane 0 also owns w. The warp
+//   loads the scalars of G slots at once (lane j holds slot j's seg, x, ds,
+//   wt and hands them out by shuffle) and the G slots' rows of s before it
+//   uses them, so G loads per lane are in flight instead of one.
+//
+// Numerics: the run's row (v, w) is constant within a run, so each lane
+// loads it once per run into registers and forms each slot's gradient
+// directly, in f32, and accumulates sum g and sum g^2. This is the exact
+// form of the JAX package's XLA branch, without the factored squared-sum
+// combine (sum t1^2 - 2 V sum t1 t2 + V^2 sum t2^2) that the JAX note
+// warns can cancel. Only the order of the f32 sums differs: sequential
+// within a chunk, then chunk by chunk.
+//
+// A rank outside [0, num_segments) traps the kernel. seg must be sorted
+// (the plan's dense ranks are); k is at most 128.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kChunk = 256;        // sorted slots per pass-1 work item
+constexpr int kThreads1 = 256;         // pass 1: 8 warps, one chunk each
+constexpr int kWarps1 = kThreads1 / 32;
+constexpr int kThreads2 = 256;         // pass 2: 8 warps per crossing run
+constexpr int kWarps2 = kThreads2 / 32;
+constexpr int kMaxK = 128;
+constexpr int kMaxWidth = 2 * kMaxK + 2;
+constexpr int kMaxCols = (kMaxWidth + 31) / 32;
+
+// KPL factors per lane (k <= 32 * KPL); G slots loaded ahead per step.
+template <int KPL, int G>
+__global__ void __launch_bounds__(kThreads1)
+fm_grad_chunks_kernel(const float* __restrict__ vw_u,   // (U, k+1)
+                      const float* __restrict__ ex,     // (N, k+2)
+                      const float* __restrict__ x,      // (N,)
+                      const int32_t* __restrict__ seg,  // (N,) sorted
+                      const float* __restrict__ coef,   // [cv, cw]
+                      float* __restrict__ out,          // (U, 2k+2)
+                      float* __restrict__ partials,     // (chunks, 2, 2k+2)
+                      int64_t n, int64_t num_segments, int k,
+                      int64_t num_chunks) {
+  const int lane = threadIdx.x & 31;
+  const int64_t width = 2 * k + 2;
+  const int64_t ex_width = k + 2;
+  const float cv = coef[0];
+  const float cw = coef[1];
+  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kWarps1;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps1 +
+                   (threadIdx.x >> 5);
+       c < num_chunks; c += num_warps) {
+    const int64_t s0 = c * kChunk;
+    const int64_t s1 = s0 + kChunk < n ? s0 + kChunk : n;
+    const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
+    const int32_t after = s1 < n ? seg[s1] : -1;
+
+    int32_t rank = -1;
+    bool first_run = true;
+    float g[KPL], sq[KPL], v[KPL];
+    float gw = 0.f, sqw = 0.f, w = 0.f;
+#pragma unroll
+    for (int q = 0; q < KPL; ++q) g[q] = sq[q] = v[q] = 0.f;
+
+    // Writes the sums of the run `rank` to out[rank], or to this chunk's
+    // partial row 0 (the run began in an earlier chunk) or 1 (it goes on
+    // into the next chunk).
+    auto flush = [&](bool last) {
+      const bool head = first_run && before == rank;
+      const bool tail = last && after == rank;
+      float* dst = head   ? partials + (2 * c) * width
+                   : tail ? partials + (2 * c + 1) * width
+                          : out + static_cast<int64_t>(rank) * width;
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const int f = lane + 32 * q;
+        if (f < k) {
+          dst[f] = g[q];
+          dst[k + 1 + f] = sq[q];
+        }
+      }
+      if (lane == 0) {
+        dst[k] = gw;
+        dst[2 * k + 1] = sqw;
+      }
+    };
+
+    for (int64_t base = s0; base < s1; base += G) {
+      const int cnt = static_cast<int>(s1 - base < G ? s1 - base : G);
+      int32_t my_seg = 0;
+      float my_x = 0.f, my_ds = 0.f, my_wt = 0.f;
+      if (lane < cnt) {
+        const int64_t i = base + lane;
+        my_seg = seg[i];
+        my_x = x[i];
+        my_ds = ex[i * ex_width + k];
+        my_wt = ex[i * ex_width + k + 1];
+      }
+      float s[G][KPL];
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const int f = lane + 32 * q;
+          s[t][q] = (t < cnt && f < k) ? ex[(base + t) * ex_width + f] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        if (t >= cnt) break;                      // cnt is warp-uniform
+        const int32_t r = __shfl_sync(kFull, my_seg, t);
+        const float xi = __shfl_sync(kFull, my_x, t);
+        const float dsi = __shfl_sync(kFull, my_ds, t);
+        const float wti = __shfl_sync(kFull, my_wt, t);
+        if (r != rank) {
+          if (rank >= 0) {
+            flush(false);
+            first_run = false;
+          }
+          if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
+          rank = r;
+          const float* row = vw_u + static_cast<int64_t>(r) * (k + 1);
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) {
+            const int f = lane + 32 * q;
+            v[q] = f < k ? row[f] : 0.f;
+            g[q] = sq[q] = 0.f;
+          }
+          w = row[k];
+          gw = sqw = 0.f;
+        }
+        const float a = xi != 0.f ? wti : 0.f;
+        const float dsx = dsi * xi;
+        const float cva = cv * a;
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          const float gv = dsx * (s[t][q] - v[q] * xi) + cva * v[q];
+          g[q] += gv;
+          sq[q] += gv * gv;
+        }
+        const float gwi = dsx + cw * w * a;
+        gw += gwi;
+        sqw += gwi * gwi;
+      }
+    }
+    if (rank >= 0) flush(true);
+  }
+}
+
+// One block per chunk c. If a run crosses the end of chunk c and began in
+// it, sums that run's partial rows (chunk c's row 1, then row 0 of every
+// later chunk the run reaches) in a fixed order into out[r].
+__global__ void __launch_bounds__(kThreads2)
+fm_grad_crossing_kernel(const int32_t* __restrict__ seg,
+                        const float* __restrict__ partials,
+                        float* __restrict__ out, int64_t n, int width,
+                        int64_t num_chunks) {
+  __shared__ float sums[kWarps2][kMaxWidth];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int64_t c = blockIdx.x; c < num_chunks; c += gridDim.x) {
+    const int64_t end = (c + 1) * kChunk;         // first slot of chunk c+1
+    if (end >= n) continue;                       // the last chunk
+    const int32_t r = seg[end - 1];
+    if (seg[end] != r) continue;                  // no run crosses
+    if (c > 0 && seg[c * kChunk - 1] == r) continue;  // began earlier
+    // The run goes on through chunks c+1 .. last: those whose first slot
+    // is in it. seg is sorted, so they are a prefix of the later chunks.
+    int64_t last = c + 1;
+    for (int64_t probe = c + 2;; probe += kThreads2) {
+      const int64_t cc = probe + threadIdx.x;
+      const int hit = cc < num_chunks && seg[cc * kChunk] == r;
+      const int hits = __syncthreads_count(hit);
+      last += hits;
+      if (hits < kThreads2) break;
+    }
+    float acc[kMaxCols];
+#pragma unroll
+    for (int q = 0; q < kMaxCols; ++q) acc[q] = 0.f;
+#pragma unroll 4
+    for (int64_t j = warp; j <= last - c; j += kWarps2) {
+      const float* row =
+          partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * width;
+#pragma unroll
+      for (int q = 0; q < kMaxCols; ++q) {
+        const int col = lane + 32 * q;
+        if (col < width) acc[q] += row[col];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxCols; ++q) {
+      const int col = lane + 32 * q;
+      if (col < width) sums[warp][col] = acc[q];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int col = lane; col < width; col += 32) {
+        float total = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps2; ++w) total += sums[w][col];
+        out[static_cast<int64_t>(r) * width + col] = total;
+      }
+    }
+    __syncthreads();                              // before sums is reused
+  }
+}
+
+template <int KPL, int G>
+void launch_chunks(const float* vw_u, const float* ex, const float* x,
+                   const int32_t* seg, const float* coef, float* out,
+                   float* partials, int64_t n, int64_t num_segments, int k,
+                   int64_t num_chunks, unsigned blocks, cudaStream_t stream) {
+  fm_grad_chunks_kernel<KPL, G><<<blocks, kThreads1, 0, stream>>>(
+      vw_u, ex, x, seg, coef, out, partials, n, num_segments, k, num_chunks);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Number of float32 partial rows the caller allocates for N sorted slots
+// and width 2k+2: two per chunk, (chunks * 2) x (2k+2) floats.
+int64_t sfm_fm_grad_partial_rows(int64_t n) {
+  return 2 * ((n + kChunk - 1) / kChunk);
+}
+
+// Launches both passes on `stream` and returns cudaGetLastError() (0 on
+// success). The caller zero-fills `out` (num_segments x (2k+2)), allocates
+// `partials` (sfm_fm_grad_partial_rows(n) x (2k+2)), checks shapes and
+// types (1 <= k <= 128), and keeps the tensors alive until the stream has
+// run the kernels.
+int sfm_fm_grad_segsum_factored(const float* vw_u, const float* ex,
+                                const float* x, const int32_t* seg,
+                                const float* coef, float* out,
+                                float* partials, int64_t n,
+                                int64_t num_segments, int64_t k,
+                                void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0;
+  int num_sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
+  int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
+  const int64_t resident = static_cast<int64_t>(num_sms) * (2048 / kThreads1);
+  if (blocks > resident) blocks = resident;
+  const int ki = static_cast<int>(k);
+  const unsigned b1 = static_cast<unsigned>(blocks);
+  switch ((ki + 31) / 32) {
+    case 1:
+      launch_chunks<1, 32>(vw_u, ex, x, seg, coef, out, partials, n,
+                           num_segments, ki, num_chunks, b1, s);
+      break;
+    case 2:
+      launch_chunks<2, 16>(vw_u, ex, x, seg, coef, out, partials, n,
+                           num_segments, ki, num_chunks, b1, s);
+      break;
+    case 3:
+      launch_chunks<3, 8>(vw_u, ex, x, seg, coef, out, partials, n,
+                          num_segments, ki, num_chunks, b1, s);
+      break;
+    default:
+      launch_chunks<4, 8>(vw_u, ex, x, seg, coef, out, partials, n,
+                          num_segments, ki, num_chunks, b1, s);
+      break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks > 1) {
+    int64_t blocks2 = num_chunks;
+    const int64_t cap = static_cast<int64_t>(num_sms) * 64;
+    if (blocks2 > cap) blocks2 = cap;
+    fm_grad_crossing_kernel<<<static_cast<unsigned>(blocks2), kThreads2, 0,
+                              s>>>(seg, partials, out, n, 2 * ki + 2,
+                                   num_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* sfm_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

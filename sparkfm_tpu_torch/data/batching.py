@@ -57,28 +57,44 @@ class SparseDataset:
 
 
 def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
-                   dedup_budget: Optional[str] = None,
+                   shuffle: bool = False, seed: int = 0,
+                   drop_remainder: bool = False, epoch: int = 0,
+                   dedup_budget=None,
                    dedup_fill: Optional[int] = None) -> Iterator[SparseBatch]:
-    """Yield fixed-shape SparseBatches on ``device``, in dataset order;
-    the tail batch is padded and masked.
+    """Yield fixed-shape SparseBatches on ``device``; the tail batch is
+    padded and masked, or dropped with ``drop_remainder``.
 
-    With ``dedup_budget="ladder"`` and ``dedup_fill`` set, each batch
-    carries a host dedup plan (``ops.embedding.host_dedup``) for scoring:
-    its unique ids, sized to the batch's unique count rounded up to a
-    ladder rung (``ladder_budget``), and the slots' ranks. Rungs only grow
-    within one iterator, so the plan shapes settle on one or two.
+    ``shuffle`` permutes the examples with a generator keyed by
+    ``(seed, epoch)``, the same order as the JAX package's iterator.
+
+    With ``dedup_budget`` and ``dedup_fill`` set, each batch carries a
+    host dedup plan (``ops.embedding.host_dedup``): its unique ids, the
+    slots' ranks, and the id-sorted ``order/seg/svals/sex`` that the
+    hybrid train step's backward reads. An integer budget fixes the plan's
+    size; ``"ladder"`` sizes it to the batch's unique count rounded up to
+    a ladder rung (``ladder_budget``). Rungs only grow within one
+    iterator, so the plan shapes settle on one or two.
     """
-    if dedup_budget not in (None, "ladder"):
-        raise ValueError(f"dedup_budget must be None or 'ladder', got "
-                         f"{dedup_budget!r}")
+    ladder = dedup_budget == "ladder"
+    if not (dedup_budget is None or ladder or (
+            isinstance(dedup_budget, (int, np.integer))
+            and not isinstance(dedup_budget, bool) and dedup_budget > 0)):
+        raise ValueError("dedup_budget must be None, a positive int or "
+                         f"'ladder', got {dedup_budget!r}")
     n = ds.num_examples
+    order = np.arange(n)
+    if shuffle:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+        rng.shuffle(order)
     plans = dedup_budget is not None and dedup_fill is not None
     ladder_cap = E.auto_budget(batch_size * ds.max_nnz)
     rung = 1
     for start in range(0, n, batch_size):
-        idx = np.arange(start, min(start + batch_size, n))
+        idx = order[start:start + batch_size]
         b = len(idx)
         if b < batch_size:
+            if drop_remainder:
+                return
             idx = np.concatenate([idx, np.zeros((batch_size - b,), np.int64)])
         mask = np.zeros((batch_size,), bool)
         mask[:b] = True
@@ -86,11 +102,13 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
         vals_np = ds.vals[idx] * mask[:, None]
         plan = None
         if plans:
-            hp = E.host_dedup(ids_np, ladder_cap, dedup_fill)
-            rung = max(rung, E.ladder_budget(int(hp.count), cap=ladder_cap))
-            plan = E.plan_to_device(
-                E.DedupBatch(uids=hp.uids[:rung], ranks=hp.ranks,
-                             count=hp.count, overflow=hp.overflow), device)
+            hp = E.host_dedup(ids_np, ladder_cap if ladder else dedup_budget,
+                              dedup_fill, vals=vals_np)
+            if ladder:
+                rung = max(rung, E.ladder_budget(int(hp.count),
+                                                 cap=ladder_cap))
+                hp = hp._replace(uids=hp.uids[:rung])
+            plan = E.plan_to_device(hp, device)
         yield SparseBatch(
             ids=torch.as_tensor(ids_np, device=device),
             vals=torch.as_tensor(vals_np, device=device),

@@ -9,19 +9,29 @@ compiler writes to a temporary name that is renamed into place only when
 it succeeds, so a reader never sees a half-written library. The
 compiler's output (for ``nvcc -Xptxas -v``: registers, shared memory and
 spills per kernel) is kept beside the library as ``<name>.log``.
+
+:class:`CudaKernel` binds one ``extern "C"`` launcher of a CUDA source
+under ``csrc/`` and counts its launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import fcntl
 import hashlib
 import os
+import shutil
 import subprocess
+import threading
 from typing import Sequence
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class BuildError(RuntimeError):
@@ -62,3 +72,61 @@ def build_shared_library(name: str, sources: Sequence[str], compiler: str,
             log.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         os.replace(tmp, path)
     return path
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``nvcc`` on the PATH, else under CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+class CudaKernel:
+    """One kernel launcher of a CUDA source under ``csrc/``.
+
+    The source's library is compiled with ``nvcc`` at first use (sources
+    sharing a library name share one build) and bound with ctypes. The
+    launcher is an ``extern "C"`` function taking ``argtypes`` and then
+    the stream, and returning a ``cudaError_t`` (0 on success).
+    ``launches`` counts the calls of :meth:`launch`, one per launch of the
+    kernel, and nowhere else.
+    """
+
+    def __init__(self, library: str, source: str, symbol: str,
+                 argtypes: Sequence):
+        self.library, self.source, self.symbol = library, source, symbol
+        self.argtypes = list(argtypes)
+        self._lib = None
+        self._lock = threading.Lock()
+        self.path = None
+        self.launches = 0
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (or reuse) and load the library; raises
+        ``BuildError`` when ``nvcc`` is missing or fails."""
+        with self._lock:
+            if self._lib is None:
+                path = build_shared_library(self.library, [self.source],
+                                            nvcc(), NVCC_FLAGS)
+                lib = ctypes.CDLL(path)
+                fn = getattr(lib, self.symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+                lib.sfm_error_string.restype = ctypes.c_char_p
+                lib.sfm_error_string.argtypes = [ctypes.c_int]
+                self.path, self._lib = path, lib
+            return self._lib
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raises if the launch
+        was refused. Arguments must already have been checked."""
+        lib = self.build()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, self.symbol)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} kernel launch failed: "
+                               + lib.sfm_error_string(err).decode())
+        self.launches += 1

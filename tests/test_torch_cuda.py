@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the gather kernel against its plain version,
-and the scoring paths on the card against the CPU.
+"""The port on a CUDA card: the row gather, row write and factored
+backward kernels against their plain versions, and the scoring and
+training paths on the card against the CPU.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -11,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from sparkfm_tpu_torch import FMConfig, MicroBatcher, Task
+from sparkfm_tpu_torch import FMConfig, MicroBatcher, SGDConfig, Task
+from sparkfm_tpu_torch import train_sgd
+from sparkfm_tpu_torch.data import synth as psynth
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
-from sparkfm_tpu_torch.ops import rowio
+from sparkfm_tpu_torch.ops import rowio, segsum
 
 pytestmark = pytest.mark.cuda
 
@@ -82,3 +85,91 @@ def test_microbatcher_on_card_runs_the_kernel(dev):
     assert rowio.GATHER.launches - before == 2 * 2     # 2 chunks x (V, w)
     assert [o.shape for o in out] == [(1,), (300,), (17,)]
     assert all(np.all((o > 0) & (o < 1)) for o in out)
+
+
+@pytest.mark.parametrize("rows,width,n", [
+    (1000, 1, 777), (1000, 4, 1), (100003, 68, 40960), (5000, 33, 333),
+    (5000, 128, 1025)])
+def test_scatter_kernel_equals_plain(dev, rows, width, n):
+    """Unique ids plus a repeated fill row (the last): every row but the
+    fill row must equal index_copy_'s."""
+    g = torch.Generator(device=dev).manual_seed(rows + width)
+    table = torch.randn((rows, width), generator=g, device=dev)
+    ids = torch.randperm(rows - 1, generator=g, device=dev)[:n].to(
+        torch.int32)
+    ids[n - n // 10:] = rows - 1
+    new = torch.randn((n, width), generator=g, device=dev)
+    want = rowio.scatter_set_rows_reference(table.clone(), ids, new)
+    before = rowio.SCATTER.launches
+    got = rowio.scatter_set_rows(table, ids, new)
+    assert got is table and rowio.SCATTER.launches == before + 1
+    assert torch.equal(got[:-1], want[:-1])
+
+
+def test_scatter_kernel_misaligned_table(dev):
+    table = torch.randn(600 * 4 + 1, device=dev)[1:].view(600, 4)
+    ids = torch.arange(599, -1, -2, dtype=torch.int32, device=dev)
+    new = torch.randn((300, 4), device=dev)
+    want = rowio.scatter_set_rows_reference(table.clone(), ids, new)
+    assert torch.equal(rowio.scatter_set_rows(table, ids, new), want)
+
+
+def _sorted_case(dev, n, k, long_run, seed):
+    rng = np.random.default_rng(seed)
+    incr = (rng.random(n) < 0.3).astype(np.int64)
+    incr[0] = 0
+    if long_run:
+        incr[n // 3 + 1:n // 3 + long_run] = 0
+    seg = np.cumsum(incr).astype(np.int32)
+    u = int(seg[-1]) + 5
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return (t(rng.normal(size=(u, k + 1)).astype(np.float32)),
+            t(rng.normal(size=(n, k + 2)).astype(np.float32)),
+            t(np.where(rng.random(n) < 0.2, 0.0,
+                       rng.normal(size=n)).astype(np.float32)),
+            t(seg), u)
+
+
+@pytest.mark.parametrize("n,k,long_run", [
+    (1, 4, 0), (255, 4, 0), (257, 32, 0), (5000, 33, 0), (20000, 32, 9000),
+    (3000, 128, 2999), (700, 1, 0)])
+def test_factored_kernel_equals_plain(dev, n, k, long_run):
+    """Chunks of every kind: runs inside one chunk, runs crossing one and
+    many chunk boundaries, ranks beyond the last run. f32 sums in another
+    order: max |a - b| / (1 + |b|) < 1e-4."""
+    vw_u, ex, x, seg, u = _sorted_case(dev, n, k, long_run, seed=n + k)
+    cv = torch.tensor(3e-3, device=dev)
+    want = segsum.fm_grad_segsum_factored_reference(vw_u, ex, x, seg, u,
+                                                    cv, 7e-3)
+    before = segsum.FACTORED.launches
+    got = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
+    assert segsum.FACTORED.launches == before + 1
+    assert float(((got - want).abs() / (1 + want.abs())).max()) < 1e-4
+    again = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
+    assert torch.equal(got, again)                 # no atomics
+
+
+def test_train_sgd_on_card_matches_cpu(dev):
+    """A few epochs on the card through the three kernels, against the
+    same run on the CPU's plain versions."""
+    ds = psynth.synth_ctr(num_examples=2000, num_fields=8,
+                          num_buckets=1 << 17, seed=1)
+    cfg = FMConfig(num_features=1 << 17, num_factors=8,
+                   task=Task.CLASSIFICATION, reg_v=1e-4, seed=1)
+    sgd = SGDConfig(batch_size=256, learning_rate=0.1, epochs=2)
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    counts = [k.launches for k in (rowio.GATHER, rowio.SCATTER,
+                                   segsum.FACTORED)]
+    on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
+    steps = 2 * 8
+    assert [k.launches - c for k, c in zip(
+        (rowio.GATHER, rowio.SCATTER, segsum.FACTORED), counts)] == [
+            steps, steps, steps]
+    on_cpu = train_sgd(cfg, sgd, ds, init_params=init, device="cpu")
+    np.testing.assert_allclose(
+        [h["train_loss"] for h in on_card.history],
+        [h["train_loss"] for h in on_cpu.history], rtol=1e-4)
+    np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
+                               on_cpu.params.v.numpy(), rtol=1e-4,
+                               atol=1e-6)

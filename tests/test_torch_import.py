@@ -57,3 +57,17 @@ def test_import_builds_nothing():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "None 0"
+
+
+def test_training_slice_imports_with_jax_blocked():
+    r = _run_blocked("""
+        import sparkfm_tpu_torch.solvers.sgd_hybrid
+        import sparkfm_tpu_torch.ops.segsum as segsum
+        import sparkfm_tpu_torch.ops.rowio as rowio
+        import sparkfm_tpu_torch.training.trainer
+        from sparkfm_tpu_torch import SGDConfig, evaluate, train_sgd
+        kernels = (rowio.GATHER, rowio.SCATTER, segsum.FACTORED)
+        print([(k.path, k.launches) for k in kernels])
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[(None, 0), (None, 0), (None, 0)]"

@@ -1,6 +1,6 @@
-"""The port's row gather against the JAX package's Pallas gather
-(``gather_rows_pallas`` in interpret mode on the CPU). A gather is a copy,
-so the two must agree exactly."""
+"""The port's row gather and row write against the JAX package's Pallas
+kernels (``gather_rows_pallas`` and ``scatter_set_rows`` in interpret mode
+on the CPU). Both are copies, so the two must agree exactly."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,7 +9,7 @@ import torch
 
 from sparkfm_tpu.ops import pallas_rowio as PR
 from sparkfm_tpu_torch.ops import rowio
-from sparkfm_tpu_torch.utils.build import BuildError
+from sparkfm_tpu_torch.utils.build import BuildError, CudaKernel
 
 torch.set_num_threads(1)
 
@@ -92,12 +92,104 @@ def test_cpu_out_of_range_id_raises():
                           torch.tensor([0, 4], dtype=torch.int32))
 
 
+def _fresh(kernel):
+    """An unbuilt copy of a module's kernel binding."""
+    return CudaKernel(kernel.library, kernel.source, kernel.symbol,
+                      kernel.argtypes)
+
+
 def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     """No fallback: without a CUDA compiler the kernel build raises, and
     nothing is counted as launched."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
-    kernel = rowio.CudaGather()
+    kernel = _fresh(rowio.GATHER)
     with pytest.raises(BuildError, match="nvcc"):
         kernel.build()
     assert kernel.launches == 0 and kernel.path is None
+
+
+def test_scatter_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    kernel = _fresh(rowio.SCATTER)
+    with pytest.raises(BuildError, match="nvcc"):
+        kernel.build()
+    assert kernel.launches == 0 and kernel.path is None
+
+
+# ---- B2: the row write-back, against the JAX package's Pallas writer
+
+def _write_case(rows, width, n, seed, fill_tail):
+    """A table, unique ids with the last `fill_tail` slots repeating the
+    fill row (R - 1), and new rows: a plan's write-back."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(rows, width)).astype(np.float32)
+    ids = rng.permutation(rows - 1)[:n].astype(np.int32)
+    ids[n - fill_tail:] = rows - 1
+    new = rng.normal(size=(n, width)).astype(np.float32)
+    return table, ids, new
+
+
+@pytest.mark.parametrize("width", [1, 4, 68, 128])
+@pytest.mark.parametrize("fill_tail", [0, 5])
+def test_scatter_matches_pallas_interpret(width, fill_tail):
+    """Exact equality on every row except the fill row (its content is
+    unspecified when repeated), against the Pallas writer in interpret
+    mode and against the JAX dispatcher."""
+    table, ids, new = _write_case(300, width, 48, seed=width + fill_tail,
+                                  fill_tail=fill_tail)
+    want = np.asarray(PR.scatter_set_rows(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(new), tile=16,
+        interpret=True))
+    want_dispatch = np.asarray(PR.scatter_set(
+        jnp.asarray(table), jnp.asarray(ids), jnp.asarray(new),
+        force="interpret", unique_indices=True))
+    t = torch.from_numpy(table.copy())
+    before = rowio.SCATTER.launches
+    got = rowio.scatter_set_rows(t, torch.from_numpy(ids),
+                                 torch.from_numpy(new))
+    assert got is t                              # in place
+    assert rowio.SCATTER.launches == before      # CPU: plain version
+    keep = slice(0, 299) if fill_tail else slice(None)
+    np.testing.assert_array_equal(got.numpy()[keep], want[keep])
+    np.testing.assert_array_equal(got.numpy()[keep], want_dispatch[keep])
+    if fill_tail:      # one of the fill row's writers won
+        assert any(np.array_equal(got.numpy()[299], r)
+                   for r in new[48 - fill_tail:])
+
+
+def test_scatter_reference_is_index_copy():
+    table, ids, new = _write_case(50, 3, 20, seed=1, fill_tail=0)
+    want = table.copy()
+    want[ids] = new
+    got = rowio.scatter_set_rows_reference(torch.from_numpy(table),
+                                           torch.from_numpy(ids),
+                                           torch.from_numpy(new))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_scatter_empty_ids_leaves_table():
+    t = torch.ones((4, 3))
+    out = rowio.scatter_set_rows(t, torch.zeros((0,), dtype=torch.int32),
+                                 torch.zeros((0, 3)))
+    assert out is t and torch.equal(t, torch.ones((4, 3)))
+
+
+@pytest.mark.parametrize("rows,match", [
+    (torch.zeros((2, 4)), r"\(U, W\)"),
+    (torch.zeros((2, 3), dtype=torch.float64), "float32"),
+    (torch.zeros((3, 2)).t(), "contiguous"),
+    (torch.zeros((2, 3), device="meta"), "device"),
+])
+def test_scatter_rejects_what_the_kernel_does_not_take(rows, match):
+    with pytest.raises(ValueError, match=match):
+        rowio.scatter_set_rows(torch.zeros((4, 3)),
+                               torch.zeros((2,), dtype=torch.int32), rows)
+
+
+def test_scatter_cpu_out_of_range_id_raises():
+    with pytest.raises(IndexError):
+        rowio.scatter_set_rows(torch.zeros((4, 3)),
+                               torch.tensor([0, 4], dtype=torch.int32),
+                               torch.ones((2, 3)))

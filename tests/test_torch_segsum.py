@@ -1,0 +1,166 @@
+"""The port's factored FM backward (kernel B3) against the JAX package's
+``fm_grad_segsum_factored``:
+
+- in interpret mode (the Pallas kernel itself, ``bf16x2=False``) at
+  rtol/atol 1e-4, the JAX test's own tolerance for that kernel: it factors
+  V_u out of the squared sums, which loses precision under cancellation;
+- against the XLA branch (the same direct formula, summed in another
+  order) at rtol 1e-5, atol 1e-6.
+
+The plain version of B4, ``fm_grad_segsum_reference``, is held against
+the JAX ``fm_grad_segsum(force="xla")`` at the same tolerance."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sparkfm_tpu.ops import pallas_segsum as S
+from sparkfm_tpu_torch.ops import segsum
+from sparkfm_tpu_torch.utils.build import BuildError, CudaKernel
+
+torch.set_num_threads(1)
+CV, CW = 3e-3, 7e-3
+
+
+def _factored_case(rng, n, k, u_extra=3, long_run=0):
+    """Sorted dense ranks with unique rows consistent per run (the
+    factored contract), 0/1 example weights and ~20% zero values; with
+    ``long_run`` one run of that many slots (a zipf head id)."""
+    incr = rng.integers(0, 2, n)
+    incr[0] = 0
+    if long_run:
+        start = n // 3
+        incr[start + 1:start + long_run] = 0
+    seg = np.cumsum(incr).astype(np.int32)
+    u = int(seg[-1]) + u_extra
+    vw_u = rng.normal(size=(u, k + 1)).astype(np.float32)
+    ex = rng.normal(size=(n, k + 2)).astype(np.float32)
+    ex[:, k + 1] = rng.integers(0, 2, n)
+    x = np.where(rng.random(n) < 0.2, 0.0,
+                 rng.normal(size=n)).astype(np.float32)
+    return vw_u, ex, x, seg, u
+
+
+def _port(vw_u, ex, x, seg, u, cv=CV, cw=CW):
+    t = torch.from_numpy
+    before = segsum.FACTORED.launches
+    out = segsum.fm_grad_segsum_factored(t(vw_u), t(ex), t(x), t(seg), u,
+                                         cv, cw)
+    assert segsum.FACTORED.launches == before   # CPU: plain version
+    assert out.shape == (u, vw_u.shape[1] * 2) and out.dtype == torch.float32
+    return out.numpy()
+
+
+def _jax(vw_u, ex, x, seg, u, force, cv=CV, cw=CW, **kw):
+    j = jnp.asarray
+    return np.asarray(S.fm_grad_segsum_factored(
+        j(vw_u), j(ex), j(x), j(seg), u, cv, cw, force=force, **kw))
+
+
+CASES = [  # (n, k, u_extra, long_run, cv, cw)
+    (96, 4, 3, 0, CV, CW),
+    (96, 32, 3, 0, CV, CW),
+    (70, 8, 9, 0, CV, 0.0),          # ranks beyond seg[-1]; cw = 0
+    (40, 4, 1, 0, 0.0, 0.0),
+    (6000, 4, 2, 5000, CV, CW),      # one run of 5,000 slots
+]
+
+
+@pytest.mark.parametrize("n,k,u_extra,long_run,cv,cw", CASES)
+def test_factored_matches_pallas_interpret(n, k, u_extra, long_run, cv, cw):
+    rng = np.random.default_rng(n + k)
+    case = _factored_case(rng, n, k, u_extra, long_run)
+    want = _jax(*case, force="interpret", cv=cv, cw=cw, bf16x2=False,
+                tile=8 if n < 1000 else 1024, subtile=4 if n < 1000 else 256)
+    np.testing.assert_allclose(_port(*case, cv=cv, cw=cw), want,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,k,u_extra,long_run,cv,cw", CASES)
+def test_factored_matches_xla(n, k, u_extra, long_run, cv, cw):
+    rng = np.random.default_rng(n + k + 1)
+    case = _factored_case(rng, n, k, u_extra, long_run)
+    got = _port(*case, cv=cv, cw=cw)
+    np.testing.assert_allclose(got, _jax(*case, force="xla", cv=cv, cw=cw),
+                               rtol=1e-5, atol=1e-6)
+    seg, u = case[3], case[4]
+    outside = np.ones(u, bool)
+    outside[seg[0]:seg[-1] + 1] = False
+    assert not got[outside].any()          # ranks outside the runs: zero
+
+
+def test_zero_values_and_weights_give_no_gradient():
+    """A slot with x = 0 or weight 0 adds nothing: its ds·x term and its
+    L2 term both vanish."""
+    rng = np.random.default_rng(5)
+    vw_u, ex, x, seg, u = _factored_case(rng, 64, 4)
+    x[:] = 0.0
+    assert not _port(vw_u, ex, x, seg, u).any()
+    vw_u, ex, x, seg, u = _factored_case(rng, 64, 4)
+    ex[:, 4] = 0.0               # ds
+    ex[:, 5] = 0.0               # wt
+    assert not _port(vw_u, ex, x, seg, u).any()
+
+
+def test_tensor_coefficients_match_floats():
+    """The step passes cv/cw as 0-d tensors (they depend on the batch's
+    weights); they give the same sums as Python floats."""
+    rng = np.random.default_rng(6)
+    case = _factored_case(rng, 80, 4)
+    np.testing.assert_array_equal(
+        _port(*case, cv=torch.tensor(CV), cw=torch.tensor(CW)),
+        _port(*case))
+
+
+def test_segsum_reference_matches_jax_xla():
+    rng = np.random.default_rng(12)
+    n, k = 50, 8
+    incr = rng.integers(0, 2, n)
+    incr[0] = 0
+    seg = np.cumsum(incr).astype(np.int32)
+    u = int(seg[-1]) + 2
+    vw = rng.normal(size=(n, k + 1)).astype(np.float32)
+    ex = rng.normal(size=(n, k + 2)).astype(np.float32)
+    x = rng.normal(size=n).astype(np.float32)
+    want = np.asarray(S.fm_grad_segsum(
+        jnp.asarray(vw), jnp.asarray(ex), jnp.asarray(x), jnp.asarray(seg),
+        u, 1e-2, 2e-2, force="xla"))
+    t = torch.from_numpy
+    got = segsum.fm_grad_segsum_reference(t(vw), t(ex), t(x), t(seg), u,
+                                          1e-2, 2e-2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_empty_stream_gives_zeros():
+    got = segsum.fm_grad_segsum_factored(
+        torch.ones((5, 3)), torch.zeros((0, 4)), torch.zeros((0,)),
+        torch.zeros((0,), dtype=torch.int32), 5, CV, CW)
+    assert got.shape == (5, 6) and not got.any()
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(seg=torch.zeros((4,), dtype=torch.int64)), "int32"),
+    (dict(ex=torch.zeros((4, 4), dtype=torch.float64)), "float32"),
+    (dict(ex=torch.zeros((4, 3))), "shapes"),
+    (dict(vw=torch.zeros((6, 3))), "num_segments"),
+    (dict(x=torch.zeros((8,))[::2]), "contiguous"),
+    (dict(x=torch.zeros((4,), device="meta")), "devices"),
+])
+def test_rejects_what_the_kernel_does_not_take(change, match):
+    args = dict(vw=torch.zeros((5, 3)), ex=torch.zeros((4, 4)),
+                x=torch.zeros((4,)), seg=torch.zeros((4,), dtype=torch.int32))
+    args.update(change)
+    with pytest.raises(ValueError, match=match):
+        segsum.fm_grad_segsum_factored(args["vw"], args["ex"], args["x"],
+                                       args["seg"], 5, CV, CW)
+
+
+def test_segsum_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    k = segsum.FACTORED
+    kernel = CudaKernel(k.library, k.source, k.symbol, k.argtypes)
+    with pytest.raises(BuildError, match="nvcc"):
+        kernel.build()
+    assert kernel.launches == 0 and kernel.path is None

@@ -121,10 +121,17 @@ def test_batches_match_jax(trained):
 
 
 def test_batch_iterator_plans_only_the_ladder(trained):
+    """Budgets are the ladder or a fixed positive int (training's
+    ``unique_budget``); anything else raises, and no budget means no
+    plan."""
     _, pds, _, _ = trained
     with pytest.raises(ValueError, match="ladder"):
         next(pbatching.batch_iterator(pds, 512, device="cpu",
-                                      dedup_budget=4096, dedup_fill=F - 1))
+                                      dedup_budget="pow2", dedup_fill=F - 1))
+    fixed = next(pbatching.batch_iterator(pds, 512, device="cpu",
+                                          dedup_budget=4096,
+                                          dedup_fill=F - 1))
+    assert fixed.plan.uids.shape == (4096,)
     plain = next(pbatching.batch_iterator(pds, 512, device="cpu"))
     assert plain.plan is None
 
