@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sparkfm_tpu_torch``) on one GPU.
 
-Drives the port's two paths once at the full width of BASELINE config 3
-(Criteo-shape logistic FM: 2^24 hashed buckets, rank 32, 39 slots), with
-random weights and data from a seed: FM serving, then hybrid SGD training.
+Drives the port's three paths once, with random weights and data from a
+seed: FM serving and hybrid SGD training at the full width of BASELINE
+config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank 32, 39
+slots), then ALS training at the full size of BASELINE config 2
+(ML-25M-shape regression FM: 221,588 features, rank 32, 25M ratings) and
+the ``FM`` facade.
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
      one nvcc per source in parallel (``rowio.cu``: row gather and row
-     write; ``segsum.cu``: factored backward), and prints ptxas's
-     registers and spills per kernel;
+     write; ``segsum.cu``: factored backward and per-rank stream sums),
+     and prints ptxas's registers and spills per kernel;
   2. holds the gather kernel against its plain version (``index_select``) on the
      card, with exact equality (a gather is a copy), at the main path's
      shapes and at odd widths, and times both with CUDA events;
@@ -43,7 +46,29 @@ random weights and data from a seed: FM serving, then hybrid SGD training.
  10. profiles training: device time per call of each kernel against its
      plain version, the device's busy share of a one-epoch run with its
      top device events, and the host wall time per step split into the
-     host plan, its copy to the card and the step's host side.
+     host plan, its copy to the card and the step's host side;
+ 11. frees the SGD tables, makes BASELINE config 2's data with
+     ``benchmarks/bench_configs.py::bench_als``'s recipe (seed 0, 25M
+     ratings, 162,541 uniform users, zipf(1.3) movies hashed into 59,047)
+     and its ALS workspace, and holds the stream-sum kernel
+     (``segment_colsums``) against its plain version in float64 (max |a -
+     b| / (1 + |b|) < 1e-4) on the movie block's real ranks (25M slots, a
+     6.4M-slot head run) at S = 5 and 1, and at odd shapes; shows that
+     its sums repeat exactly and, in a child process, that a rank out of
+     range traps;
+ 12. trains BASELINE config 2 with ALS: the structure flags must be
+     column_pure / csc_uniform / slice_identity = True / True / (True,
+     False); one sweep with the kernel and one with the float64 plain
+     version swapped in, from the same parameters, must agree; then
+     ``train_als`` runs 3 sweeps with the kernel's launch count set to 0
+     just before and read just after (3 x 33 x 2 = 198), and the
+     regularized squared loss, in float64 from the parameters, must fall
+     after sweep 1 and again by sweep 3;
+ 13. fits ``FM(solver="als")`` on the card on ``synth_movielens`` and
+     checks its eval RMSE;
+ 14. profiles ALS: device time per stream-sum call against its plain
+     version, the device's busy share of one sweep with its top device
+     events, and the host time of the workspace build, part by part.
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -80,6 +105,9 @@ SLOTS = 39
 BATCH = 16384           # bench.py's score batch
 MAX_BATCH = 4096        # MicroBatcher default
 SEED = 0
+ALS_N = 25_000_000      # BASELINE config 2: ML-25M shape
+ALS_USERS, ALS_MOVIES = 162541, 59047
+ALS_SWEEPS = 3
 
 
 def zipf_ids(rng, rows):
@@ -237,6 +265,23 @@ def plain64(vw_u, ex_srt, x, seg, num_segments, cv, cw):
     return segsum.fm_grad_segsum_factored_reference(
         vw_u.double(), ex_srt.double(), x.double(), seg, num_segments,
         cv, cw).float()
+
+
+COLSUMS_TRAP_CHILD = """
+import sys, torch
+from sparkfm_tpu_torch.ops import segsum
+seg = torch.tensor([0, 1, 1, 5], dtype=torch.int32, device="cuda")
+streams = [torch.ones(4, device="cuda")]
+try:
+    segsum.segment_colsums(streams, seg, 5)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    if "unspecified launch failure" not in str(e):   # not the trap
+        raise
+    print("trapped:", str(e).splitlines()[0])
+    sys.exit(3)
+print("no trap")
+"""
 
 
 def assert_close_rows(a, b, rtol, atol, what, rows=1 << 22):
@@ -553,6 +598,310 @@ def train_phases(dev, cfg, gen, rng, card):
     return entries, gather_record
 
 
+def als_data():
+    """BASELINE config 2's ratings by bench_als's recipe at seed 0: uniform
+    users, zipf(1.3) movies hashed into the catalogue, half-star labels."""
+    from sparkfm_tpu_torch.data.batching import SparseDataset
+    rng = np.random.default_rng(SEED)
+    uid = rng.integers(0, ALS_USERS, ALS_N).astype(np.int32)
+    mid = ((rng.zipf(1.3, size=ALS_N).astype(np.int64) * 2654435761)
+           % ALS_MOVIES).astype(np.int32)
+    ids = np.stack([uid, ALS_USERS + mid], axis=1)
+    y = (rng.integers(1, 11, ALS_N) * 0.5).astype(np.float32)
+    return SparseDataset(ids=ids, vals=np.ones((ALS_N, 2), np.float32), y=y,
+                         num_features=ALS_USERS + ALS_MOVIES)
+
+
+def als_loss(params, ws, cfg):
+    """The objective ALS descends, in float64 from the parameters:
+    sum (yhat - y)^2 + reg0 w0^2 + reg_w |w|^2 + reg_v |V|^2."""
+    present = ws.present.long()
+    rank, val = ws.slot_rank.long(), ws.slot_val.double()
+    w0 = params.w0.double()
+    score = w0 + (params.w.double()[present][rank] * val).sum(0)
+    v_c = params.v.double()[present]
+    for f in range(v_c.shape[1]):
+        vr = v_c[:, f][rank] * val
+        score += 0.5 * (vr.sum(0).square() - vr.square().sum(0))
+    return float((score - ws.y.double()).square().sum()
+                 + cfg.reg0 * w0.square()
+                 + cfg.reg_w * params.w.double().square().sum()
+                 + cfg.reg_v * params.v.double().square().sum())
+
+
+def colsums64(streams, seg, num_segments):
+    """The stream sums' plain version evaluated in float64 and rounded to
+    float32: the oracle of both f32 versions (the f32 plain version's
+    atomic adds into a 6.4M-slot run drift)."""
+    from sparkfm_tpu_torch.ops import segsum
+    return segsum.segment_colsums_reference(
+        [s.double() for s in streams], seg, num_segments).float()
+
+
+def als_phases(dev, gen, card):
+    """Phases 11-14, the ALS path; returns the stream-sum kernel's JSON
+    entry."""
+    from sparkfm_tpu_torch import FM, ALSConfig, FMConfig, train_als
+    from sparkfm_tpu_torch.data import split, synth
+    from sparkfm_tpu_torch.models import fm as fm_model
+    from sparkfm_tpu_torch.ops import segsum
+    from sparkfm_tpu_torch.solvers import als as A
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    # 11. the data, its workspace (the host parts timed for phase 14)
+    t0 = time.perf_counter()
+    ds = als_data()
+    data_s = time.perf_counter() - t0
+    movie_counts = np.bincount(ds.ids[:, 1] - ALS_USERS, minlength=ALS_MOVIES)
+    cfg = FMConfig(num_features=ALS_USERS + ALS_MOVIES, num_factors=RANK,
+                   reg_w=0.1, reg_v=1.0, seed=SEED)
+    host = collections.defaultdict(float)
+    parts = [(name, A, name) for name in (
+        "slot_blocks", "sort_examples", "csc_view", "to_device",
+        "blocks_are_column_pure", "csc_blocks_uniform",
+        "csc_slice_identity")]
+    with timed_calls(parts, host):
+        als_cfg = ALSConfig(epochs=ALS_SWEEPS,
+                            feature_blocks=A.slot_blocks(ds))
+        t0 = time.perf_counter()
+        ws, nb = A.build_workspace(ds, cfg, als_cfg, device=dev)
+        torch.cuda.synchronize()
+        host["build_workspace"] = time.perf_counter() - t0
+        bof, _ = A.feature_blocks_of(cfg.num_features, als_cfg)
+        cpure = A.blocks_are_column_pure(ds, bof)
+        uniform = cpure and A.csc_blocks_uniform(ds, bof)
+        ident = A.csc_slice_identity(ws, nb, ALS_N) if uniform else ()
+    n_ranks = int(ws.present.shape[0])
+    print(f"als: BASELINE config 2 data ({ALS_N} ratings, {ALS_USERS} users, "
+          f"{int((movie_counts > 0).sum())} of {ALS_MOVIES} movies rated, "
+          f"head movie {int(movie_counts.max())} ratings = "
+          f"{movie_counts.max() / ALS_N:.4f}) made in {data_s:.2f} s; "
+          f"{n_ranks} present features, {nb} slot blocks; column_pure "
+          f"{cpure}, csc_uniform {uniform}, slice_identity {ident}",
+          flush=True)
+    if (cpure, uniform, ident) != (True, True, (True, False)):
+        raise AssertionError("BASELINE config 2 must sweep as column_pure, "
+                             "csc_uniform, slice_identity (True, False)")
+
+    # the stream-sum kernel against its plain version in float64: the
+    # movie block's real ranks, the user block's, odd shapes
+    checked = []
+
+    def hold(streams, seg, u, label):
+        exact = segsum.segment_colsums_reference(
+            [x.double() for x in streams], seg, u)
+        got = segsum.segment_colsums(streams, seg, u)
+        err = max_rel_err(got, exact)
+        plain_err = max_rel_err(
+            segsum.segment_colsums_reference(streams, seg, u), exact)
+        if not err < 1e-4:
+            raise AssertionError(f"stream-sum kernel off at {label}: {err:.3g}"
+                                 f" from the float64 sums (plain f32 "
+                                 f"{plain_err:.3g})")
+        if not torch.equal(got, segsum.segment_colsums(streams, seg, u)):
+            raise AssertionError(f"stream sums do not repeat at {label}")
+        empty = torch.ones(u, dtype=torch.bool, device=dev)
+        empty[seg.long()] = False
+        if got[empty].any():
+            raise AssertionError(f"a rank without slots is not zero at "
+                                 f"{label}")
+        checked.append(f"{label}: kernel {err:.3g}, plain f32 {plain_err:.3g}")
+        return float((got.double() - exact).abs().max()), err, plain_err
+
+    seg_user, seg_movie = ws.col_rank[:ALS_N], ws.col_rank[ALS_N:]
+    streams = [torch.randn(ALS_N, generator=gen, device=dev)
+               for _ in range(5)]
+    main_abs, main_err, main_plain_err = hold(
+        streams, seg_movie, n_ranks, f"movie block N={ALS_N} S=5")
+    hold(streams[:1], seg_movie, n_ranks, "movie block S=1")
+    hold(streams, seg_user, n_ranks, "user block S=5")
+    rng = np.random.default_rng(SEED + 3)
+    for n, width, kind in ((1, 1, "runs"), (1000, 16, "runs"),
+                           (3073, 5, "runs"), (1 << 20, 5, "one run"),
+                           (4097, 16, "unique"), (100003, 1, "unique")):
+        if kind == "runs":                   # seg[0] > 0 and gaps
+            seg = 3 + np.cumsum(rng.integers(0, 3, n) * (rng.random(n) < 0.4))
+        elif kind == "one run":
+            seg = np.full(n, 2)
+        else:
+            seg = np.arange(n)
+        seg = torch.as_tensor(seg.astype(np.int32), device=dev)
+        hold([torch.randn(n, generator=gen, device=dev) for _ in range(width)],
+             seg, int(seg[-1]) + 3, f"N={n} S={width} {kind}")
+    child = subprocess.run([sys.executable, "-c", COLSUMS_TRAP_CHILD],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+    if child.returncode != 3:
+        raise AssertionError("out-of-range rank did not trap: rc "
+                             f"{child.returncode}\n{child.stdout}"
+                             f"{child.stderr[-2000:]}")
+    print(f"check: stream-sum kernel against the plain version in float64, "
+          f"max |a-b|/(1+|b|) < 1e-4: {'; '.join(checked)}; sums repeat "
+          f"exactly; ranks without slots are zero; out-of-range rank -> "
+          f"{child.stdout.strip()}", flush=True)
+    args = (streams, seg_movie, n_ranks)
+    ms = (time_ms(segsum.segment_colsums, [args], reps=10, windows=3),
+          time_ms(segsum.segment_colsums_reference, [args], reps=10,
+                  windows=3))
+    dev_us = tuple(device_us(lambda: [f(*args) for _ in range(5)])[0] / 5
+                   for f in (segsum.segment_colsums,
+                             segsum.segment_colsums_reference))
+    user_us = tuple(device_us(lambda: [f(streams, seg_user, n_ranks)
+                                       for _ in range(5)])[0] / 5
+                    for f in (segsum.segment_colsums,
+                              segsum.segment_colsums_reference))
+    print(f"time: stream sums per call, movie block (N={ALS_N}, S=5, head "
+          f"run {int(movie_counts.max())}): kernel {ms[0]:.4f} ms, plain "
+          f"{ms[1]:.4f} ms back to back (CUDA events, best of 3 windows of "
+          f"10); device {dev_us[0]:.2f} us vs {dev_us[1]:.2f} us; user "
+          f"block device {user_us[0]:.2f} us vs {user_us[1]:.2f} us "
+          f"(torch.profiler); kernel reads {6 * 4 * ALS_N / dev_us[0] / 1e3:.0f}"
+          f" GB/s of device time; {card}", flush=True)
+    del streams, args
+
+    # 12. one sweep with the kernel and one with the float64 plain version
+    # swapped in, from the same parameters
+    p0 = fm_model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    rw, rv = (torch.as_tensor(r, device=dev) for r in cfg.reg_vectors())
+
+    def sweep(p):
+        return A.als_sweep_compact(p, ws, nb, n_ranks, cfg.reg0, rw, rv,
+                                   column_pure=cpure, csc_uniform=uniform,
+                                   slice_identity=ident)
+
+    loss0 = als_loss(p0, ws, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_kernel = sweep(p0)
+    torch.cuda.synchronize()
+    first_sweep_s = time.perf_counter() - t0
+    count = segsum.COLSUMS.launches
+    with swapped([(segsum, "segment_colsums", colsums64)]):
+        p_plain = sweep(p0)
+    if segsum.COLSUMS.launches != count:
+        raise AssertionError("the plain sweep launched the kernel")
+    loss_k, loss_p = als_loss(p_kernel, ws, cfg), als_loss(p_plain, ws, cfg)
+    if abs(loss_k - loss_p) > 1e-6 * abs(loss_p):
+        raise AssertionError(f"sweep losses differ: kernel {loss_k}, plain "
+                             f"{loss_p}")
+    # Entries must agree at rtol 1e-3, atol 1e-4, except guard flips: a
+    # feature rated once has den = (q - v)^2 formed from the factored sums
+    # q^2 - 2vq + v^2, which rounds to <= 0 or just above it depending on
+    # the last bits of the sums, and den > 0 decides whether the
+    # coordinate moves at all. A flip leaves the entry at its initial
+    # value on one side only; anything else beyond tolerance fails.
+    flips = 0
+    for name in ("w", "v"):
+        a, b, a0 = (getattr(p, name) for p in (p_kernel, p_plain, p0))
+        bad = (a - b).abs() > 1e-4 + 1e-3 * b.abs()
+        flip = (a == a0) ^ (b == a0)
+        if (bad & ~flip).any():
+            raise AssertionError(f"sweep {name}: {int((bad & ~flip).sum())} "
+                                 "entries differ beyond tolerance")
+        flips += int((bad & flip).sum())
+    if flips > 1e-4 * p0.v.numel():
+        raise AssertionError(f"{flips} guard flips between the sweeps")
+    np.testing.assert_allclose(float(p_kernel.w0), float(p_plain.w0),
+                               rtol=1e-6)
+    print(f"check: one sweep with the kernel vs with the float64 plain "
+          f"version from the same parameters: losses {loss_k:.10g} vs "
+          f"{loss_p:.10g} (rtol 1e-6); w, V equal at rtol 1e-3, atol 1e-4 "
+          f"but for {flips} den > 0 guard flips (<= 1e-4 of V's entries); "
+          f"first sweep {first_sweep_s:.3f} s", flush=True)
+    del p_plain
+
+    # train_als, 3 sweeps: the ALS path's run; the parameters after each
+    # sweep are kept for the loss
+    after = []
+    sweep_fn = A.als_sweep_compact
+
+    def keeping(*a, **k):
+        out = sweep_fn(*a, **k)
+        after.append(tuple(t.detach().clone() for t in (out.w0, out.w,
+                                                        out.v)))
+        return out
+
+    torch.cuda.synchronize()
+    segsum.COLSUMS.launches = 0
+    with swapped([(A, "als_sweep_compact", keeping)]):
+        t0 = time.perf_counter()
+        res = train_als(cfg, als_cfg, ds, params=p0, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    launches = segsum.COLSUMS.launches
+    expected = ALS_SWEEPS * (RANK + 1) * nb
+    if launches != expected:
+        raise AssertionError(f"train_als launched the stream-sum kernel "
+                             f"{launches} times, expected {expected}")
+    losses = [als_loss(fm_model.FMParams(*t), ws, cfg) for t in after]
+    if not (np.all(np.isfinite(losses)) and losses[0] < loss0
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"ALS losses {loss0} -> {losses}")
+    if not all(bool(torch.isfinite(t).all()) for t in (
+            res.params.w0, res.params.w, res.params.v)):
+        raise AssertionError("ALS parameters are not finite")
+    sweep_ms = 1e3 * ALS_N / res.examples_per_sec
+    print(f"train: train_als BASELINE config 2, {ALS_SWEEPS} sweeps of "
+          f"{ALS_N} ratings: regularized loss (float64) {loss0:.10g} -> "
+          f"{' -> '.join(f'{x:.10g}' for x in losses)}; "
+          f"{res.examples_per_sec:.0f} swept ex/s, {sweep_ms:.3f} ms per "
+          f"sweep ({train_s:.3f} s wall with the workspace build and its "
+          f"checks); launches {launches}; {card}", flush=True)
+    del res, after
+
+    # 13. the facade on the card
+    mds = synth.synth_movielens(60, 80, 8000, rank=3, noise=0.1, seed=0)
+    coll = split.split_by_random(mds, 0.8, 0.2, seed=0)
+    count = segsum.COLSUMS.launches
+    model = FM(num_factors=8, solver="als", max_iter=8, reg_w=0.1,
+               reg_v=0.5).fit(coll.training, eval_ds=coll.test, device=dev)
+    facade_launches = segsum.COLSUMS.launches - count
+    rmses = [h["eval_rmse"] for h in model.history]
+    base = float(np.std(coll.test.y))
+    if not (model.device == dev and facade_launches == 8 * 9 * 2
+            and rmses[-1] < 0.7 * base and rmses[-1] < rmses[0]):
+        raise AssertionError(f"FM(solver='als') on the card: eval RMSE "
+                             f"{rmses} against std {base}, "
+                             f"{facade_launches} launches")
+    print(f"check: FM(solver='als').fit on the card (synth_movielens 60x80, "
+          f"8000 ratings, 8 sweeps): eval RMSE {rmses[0]:.4f} -> "
+          f"{rmses[-1]:.4f} < 0.7 x std {base:.4f}; {facade_launches} "
+          f"launches", flush=True)
+
+    # 14. where an ALS sweep's time goes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep(p0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, events = device_us(lambda: sweep(p0))
+    top = "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total:.0f}"
+                    for e in events[:8])
+    print(f"profile: one ALS sweep: device busy {busy / 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}"
+          f"% idle); top device events (us): {top}; {card}", flush=True)
+    build = host["build_workspace"]
+    inner = ("sort_examples", "csc_view", "to_device")
+    rest = build - sum(host[k] for k in inner)
+    print(f"profile: host time of the ALS set-up: slot_blocks "
+          f"{host['slot_blocks']:.3f} s; build_workspace {build:.3f} s = "
+          + ", ".join(f"{k} {host[k]:.3f} s" for k in inner)
+          + f", other (block map, den_w, ranks) {rest:.3f} s; structure "
+          f"checks: " + ", ".join(f"{k} {host[k]:.3f} s" for k in (
+              "blocks_are_column_pure", "csc_blocks_uniform",
+              "csc_slice_identity")) + " (host CPU)", flush=True)
+    return {"name": "segment_colsums", "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+            "replaces": "sparkfm_tpu/ops/pallas_segsum.py:808",
+            "launches": launches, "launches_facade": facade_launches,
+            "max_abs_err": main_abs, "max_rel_err": main_err,
+            "plain_f32_max_rel_err": main_plain_err,
+            "err_against": "plain version in float64",
+            "ms": ms[0], "plain_ms": ms[1],
+            "device_ms": dev_us[0] / 1e3, "plain_device_ms": dev_us[1] / 1e3}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -578,6 +927,7 @@ def main():
     # 1. build every kernel library at once, one nvcc per source
     build_s = build_all([rowio.GATHER, segsum.FACTORED])
     rowio.SCATTER.build()                      # the same library as GATHER
+    segsum.COLSUMS.build()                     # the same library as FACTORED
     for kernel in (rowio.GATHER, segsum.FACTORED):
         print(f"build: {os.path.relpath(kernel.source, root)} -> "
               f"{os.path.relpath(kernel.path, root)}; ptxas: "
@@ -834,6 +1184,10 @@ def main():
 
     # 7-10. the training path
     train_entries, gather_record = train_phases(dev, cfg, gen, rng, card)
+    # 11-14. the ALS path, with the serving model's 2 GB table freed
+    del params, model, mb, w_col, uids
+    torch.cuda.empty_cache()
+    als_entry = als_phases(dev, gen, card)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -845,7 +1199,7 @@ def main():
         "ms": kernel_ms, "plain_ms": plain_ms,
         "device_ms": device_ms("kernel"),
         "plain_device_ms": device_ms("index_select"), **gather_record},
-        *train_entries]}))
+        *train_entries, als_entry]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

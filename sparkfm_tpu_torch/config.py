@@ -1,6 +1,6 @@
 """Model and solver configuration.
 
-A copy of ``Task``, ``FMConfig`` and ``SGDConfig`` from
+A copy of ``Task``, ``FMConfig``, ``SGDConfig`` and ``ALSConfig`` from
 ``sparkfm_tpu/config.py``, so the port imports without jax and one set of
 keyword arguments builds the same config in both packages. The other
 solvers' configs come with those solvers.
@@ -139,3 +139,21 @@ class SGDConfig:
     host_plan: bool = True
     accumulate: str = "auto"
     steps_per_dispatch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ALSConfig:
+    """Blocked coordinate-descent (Rendle ALS) settings; same fields and
+    defaults as the JAX package's.
+
+    Features are swept in blocks: Jacobi within a block, exact
+    Gauss-Seidel across blocks (``solvers/als.py``). ``feature_blocks`` is
+    an explicit feature -> block map (e.g. ``slot_blocks(ds)``); without
+    it, contiguous blocks of ``block_size`` features. ``max_seconds``: a
+    wall-clock budget checked between sweeps (0 = none).
+    """
+
+    epochs: int = 10
+    block_size: int = 4096
+    max_seconds: float = 0.0
+    feature_blocks: Optional[tuple] = None

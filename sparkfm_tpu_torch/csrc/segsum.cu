@@ -1,4 +1,16 @@
-// Factored FM backward over id-sorted slots: per-run sums of the FM
+// Segmented sums over sorted slots, two kernels:
+//
+// * B3, the factored FM backward (fm_grad_chunks_kernel and
+//   fm_grad_crossing_kernel), below;
+// * B7, segment_colsums (colsums_chunks_kernel and
+//   colsums_crossing_kernel), after it.
+//
+// Both cut the sorted stream into fixed chunks, one warp per chunk, write
+// runs that lie inside a chunk straight out, and sum the partial rows of
+// runs that cross chunks in a second pass, in a fixed order, without
+// atomics.
+//
+// B3. Factored FM backward over id-sorted slots: per-run sums of the FM
 // gradient and of its square,
 //
 //   out[r] = [ sum g_v (k) | sum g_w | sum g_v^2 (k) | sum g_w^2 ]
@@ -253,6 +265,200 @@ void launch_chunks(const float* vw_u, const float* ex, const float* x,
       vw_u, ex, x, seg, coef, out, partials, n, num_segments, k, num_chunks);
 }
 
+
+// ---------------------------------------------------------------------------
+// B7. segment_colsums: per-rank sums of S <= 16 one-dimensional float
+// streams over sorted slots,
+//
+//   out[r * S + j] = sum of streams[j][i] over the slots i with seg[i] == r.
+//
+// Replaces the TPU kernel sparkfm_tpu/ops/pallas_segsum.py::
+// _segsum_streams_kernel (called through _segment_colsums_pallas, public
+// segment_colsums): the ALS sweep's per-feature sums
+// (sparkfm_tpu_torch/solvers/als.py), S = 1 for a w block and S = 5 for a
+// (factor, block). The TPU kernel reduces each subtile with a one-hot
+// matrix product and carries a run's sum through its ordered grid.
+//
+// What bounds it: bytes, (S + 1) * 4 per slot read once (600 MB for the
+// movie block of BASELINE config 2: N = 25M, S = 5), against ~S adds per
+// slot. The streams are 1-D, so lanes own slots, not columns (B3's
+// lane-per-column layout would idle 27 of 32 lanes at S = 5): a warp loads
+// 32 consecutive slots of every stream with coalesced 128-byte reads, then
+// a segmented inclusive scan over the warp (five shuffle steps keyed on
+// seg: it is sorted, so lane l - d lies in lane l's run iff their ranks are
+// equal) leaves each run's sum on the run's last lane. A run still open at
+// the warp's last lane is carried in registers into the next 32 slots.
+//
+// Run skew: the head movie of the ML-25M-shape data holds a quarter of all
+// ratings, 6.4M slots of a 25M block. As in B3, pass 1 gives each warp a
+// fixed chunk (kColChunk = 1024 slots: 32 steps of 32); a run inside one
+// chunk is written straight to out, a run that crosses a chunk boundary
+// leaves one partial row per chunk it touches. The head run crosses ~6,100
+// chunks, so pass 2 spreads its partial rows over the block's 256 threads
+// (thread t sums rows t, t + 256, ...) and adds the threads' sums in a
+// fixed tree. No atomics: the sums repeat bit for bit.
+//
+// Ranks with no slots are not written: the caller zero-fills out. seg must
+// be sorted; gaps between ranks are allowed (a block's slice of the CSC
+// view holds only that block's ranks). A rank outside [0, num_segments)
+// traps.
+
+constexpr int64_t kColChunk = 1024;    // sorted slots per pass-1 warp
+constexpr int kMaxStreams = 16;
+constexpr int kColThreads1 = 256;
+constexpr int kColWarps1 = kColThreads1 / 32;
+constexpr int kColThreads2 = 256;
+
+struct Streams {
+  const float* p[kMaxStreams];
+};
+
+// SM: a power of two >= s, the streams held per lane.
+template <int SM>
+__global__ void __launch_bounds__(kColThreads1)
+colsums_chunks_kernel(Streams streams, int s,
+                      const int32_t* __restrict__ seg,   // (N,) sorted
+                      float* __restrict__ out,           // (U, s)
+                      float* __restrict__ partials,      // (chunks, 2, s)
+                      int64_t n, int64_t num_segments, int64_t num_chunks) {
+  const int lane = threadIdx.x & 31;
+  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kColWarps1;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kColWarps1 +
+                   (threadIdx.x >> 5);
+       c < num_chunks; c += num_warps) {
+    const int64_t s0 = c * kColChunk;
+    const int64_t s1 = s0 + kColChunk < n ? s0 + kColChunk : n;
+    const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
+    const int32_t after = s1 < n ? seg[s1] : -1;
+    int32_t carry_rank = -1;
+    float carry[SM];
+#pragma unroll
+    for (int q = 0; q < SM; ++q) carry[q] = 0.f;
+
+    for (int64_t base = s0; base < s1; base += 32) {
+      const int cnt = static_cast<int>(s1 - base < 32 ? s1 - base : 32);
+      const bool more = base + 32 < s1;           // warp-uniform
+      const bool valid = lane < cnt;
+      const int64_t i = base + lane;
+      int32_t r = -1;                             // lanes past the end
+      float v[SM];
+      if (valid) {
+        r = seg[i];
+        if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
+      }
+#pragma unroll
+      for (int q = 0; q < SM; ++q)
+        v[q] = (valid && q < s) ? streams.p[q][i] : 0.f;
+      // the run left open by the previous 32 slots continues at lane 0
+      if (lane == 0 && r == carry_rank) {
+#pragma unroll
+        for (int q = 0; q < SM; ++q) v[q] += carry[q];
+      }
+      // segmented inclusive scan: lane l ends with the sum of its run's
+      // slots up to l
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t rd = __shfl_up_sync(kFull, r, d);
+        const bool same = lane >= d && rd == r;
+#pragma unroll
+        for (int q = 0; q < SM; ++q) {
+          if (q < s) {                            // warp-uniform
+            const float u = __shfl_up_sync(kFull, v[q], d);
+            if (same) v[q] += u;
+          }
+        }
+      }
+      // the rank of the slot after this one: the next lane's, the next
+      // 32 slots' first, or the next chunk's first (-1 past the end)
+      const int32_t r_next = __shfl_down_sync(kFull, r, 1);
+      const bool last_lane = lane == cnt - 1;
+      const bool chunk_last = last_lane && !more;
+      int32_t following = r_next;
+      if (last_lane) following = more ? seg[i + 1] : after;
+      if (valid && (following != r || chunk_last)) {
+        // a run ends here, or at the chunk's end: out[r], or this chunk's
+        // partial row 0 (the run began in an earlier chunk) or 1 (it goes
+        // on into the next)
+        const bool head = r == before;
+        const bool tail = chunk_last && following == r;
+        float* dst = head   ? partials + (2 * c) * s
+                     : tail ? partials + (2 * c + 1) * s
+                            : out + static_cast<int64_t>(r) * s;
+#pragma unroll
+        for (int q = 0; q < SM; ++q)
+          if (q < s) dst[q] = v[q];
+      }
+      if (more) {             // cnt == 32; lane 31's run may go on
+        carry_rank = __shfl_sync(kFull, r, 31);
+#pragma unroll
+        for (int q = 0; q < SM; ++q) carry[q] = __shfl_sync(kFull, v[q], 31);
+      }
+    }
+  }
+}
+
+// One block per chunk c. If a run crosses the end of chunk c and began in
+// it, sums that run's partial rows (chunk c's row 1, then row 0 of every
+// later chunk the run reaches) into out[r]: thread t sums rows t, t + 256,
+// ..., then the threads' sums are added in a fixed tree.
+__global__ void __launch_bounds__(kColThreads2)
+colsums_crossing_kernel(const int32_t* __restrict__ seg,
+                        const float* __restrict__ partials,
+                        float* __restrict__ out, int64_t n, int s,
+                        int64_t num_chunks) {
+  __shared__ float red[kMaxStreams][kColThreads2];
+  const int t = threadIdx.x;
+  for (int64_t c = blockIdx.x; c < num_chunks; c += gridDim.x) {
+    const int64_t end = (c + 1) * kColChunk;      // first slot of chunk c+1
+    if (end >= n) continue;                       // the last chunk
+    const int32_t r = seg[end - 1];
+    if (seg[end] != r) continue;                  // no run crosses
+    if (c > 0 && seg[c * kColChunk - 1] == r) continue;  // began earlier
+    // The run goes on through chunks c+1 .. last: those whose first slot
+    // is in it, a prefix of the later chunks since seg is sorted.
+    int64_t last = c + 1;
+    for (int64_t probe = c + 2;; probe += kColThreads2) {
+      const int64_t cc = probe + t;
+      const int hit = cc < num_chunks && seg[cc * kColChunk] == r;
+      const int hits = __syncthreads_count(hit);
+      last += hits;
+      if (hits < kColThreads2) break;
+    }
+    float acc[kMaxStreams];
+#pragma unroll
+    for (int q = 0; q < kMaxStreams; ++q) acc[q] = 0.f;
+    for (int64_t j = t; j <= last - c; j += kColThreads2) {
+      const float* row = partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * s;
+#pragma unroll
+      for (int q = 0; q < kMaxStreams; ++q)
+        if (q < s) acc[q] += row[q];
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxStreams; ++q)
+      if (q < s) red[q][t] = acc[q];
+    __syncthreads();
+    for (int half = kColThreads2 / 2; half > 0; half >>= 1) {
+      if (t < half) {
+#pragma unroll
+        for (int q = 0; q < kMaxStreams; ++q)
+          if (q < s) red[q][t] += red[q][t + half];
+      }
+      __syncthreads();
+    }
+    if (t < s) out[static_cast<int64_t>(r) * s + t] = red[t][0];
+    __syncthreads();                              // before red is reused
+  }
+}
+
+template <int SM>
+void launch_colsums(const Streams& streams, int s, const int32_t* seg,
+                    float* out, float* partials, int64_t n,
+                    int64_t num_segments, int64_t num_chunks, unsigned blocks,
+                    cudaStream_t stream) {
+  colsums_chunks_kernel<SM><<<blocks, kColThreads1, 0, stream>>>(
+      streams, s, seg, out, partials, n, num_segments, num_chunks);
+}
+
 }  // namespace
 
 extern "C" {
@@ -317,6 +523,69 @@ int sfm_fm_grad_segsum_factored(const float* vw_u, const float* ex,
     fm_grad_crossing_kernel<<<static_cast<unsigned>(blocks2), kThreads2, 0,
                               s>>>(seg, partials, out, n, 2 * ki + 2,
                                    num_chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Number of partial rows (of s floats) that the caller allocates for
+// segment_colsums over N sorted slots: two per chunk.
+int64_t sfm_colsums_partial_rows(int64_t n) {
+  return 2 * ((n + kColChunk - 1) / kColChunk);
+}
+
+// Launches both passes of segment_colsums on `stream` and returns
+// cudaGetLastError() (0 on success). `stream_ptrs` is a host array of s
+// device pointers, each to N floats. The caller zero-fills `out`
+// (num_segments x s), allocates `partials` (sfm_colsums_partial_rows(n) x
+// s), checks shapes and types (1 <= s <= 16), and keeps the tensors alive
+// until the stream has run the kernels.
+int sfm_segment_colsums(const void* stream_ptrs, int64_t s,
+                        const int32_t* seg, float* out, float* partials,
+                        int64_t n, int64_t num_segments, void* stream) {
+  if (n <= 0) return 0;
+  if (s < 1 || s > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
+  Streams streams{};
+  const float* const* ptrs = static_cast<const float* const*>(stream_ptrs);
+  for (int q = 0; q < s; ++q) streams.p[q] = ptrs[q];
+  int device = 0;
+  int num_sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + kColChunk - 1) / kColChunk;
+  int64_t blocks = (num_chunks + kColWarps1 - 1) / kColWarps1;
+  const int64_t resident =
+      static_cast<int64_t>(num_sms) * (2048 / kColThreads1);
+  if (blocks > resident) blocks = resident;
+  const unsigned b1 = static_cast<unsigned>(blocks);
+  const int si = static_cast<int>(s);
+  if (si <= 1) {
+    launch_colsums<1>(streams, si, seg, out, partials, n, num_segments,
+                      num_chunks, b1, st);
+  } else if (si <= 2) {
+    launch_colsums<2>(streams, si, seg, out, partials, n, num_segments,
+                      num_chunks, b1, st);
+  } else if (si <= 4) {
+    launch_colsums<4>(streams, si, seg, out, partials, n, num_segments,
+                      num_chunks, b1, st);
+  } else if (si <= 8) {
+    launch_colsums<8>(streams, si, seg, out, partials, n, num_segments,
+                      num_chunks, b1, st);
+  } else {
+    launch_colsums<16>(streams, si, seg, out, partials, n, num_segments,
+                       num_chunks, b1, st);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks > 1) {
+    int64_t blocks2 = num_chunks;
+    const int64_t cap = static_cast<int64_t>(num_sms) * 64;
+    if (blocks2 > cap) blocks2 = cap;
+    colsums_crossing_kernel<<<static_cast<unsigned>(blocks2), kColThreads2,
+                              0, st>>>(seg, partials, out, n, si, num_chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,40 @@
-"""Synthetic hashed power-law CTR data (Criteo/Avazu shape). Port of
-``sparkfm_tpu/data/synth.py::synth_ctr``; numpy only, so the same seed
-gives the same arrays in both packages."""
+"""Synthetic datasets: low-rank MovieLens-style ratings and hashed
+power-law CTR data (Criteo/Avazu shape). Port of
+``sparkfm_tpu/data/synth.py::synth_movielens`` and ``synth_ctr``; numpy
+only, so the same seed gives the same arrays in both packages."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from sparkfm_tpu_torch.data.batching import SparseDataset
+
+
+def synth_movielens(num_users: int = 200, num_items: int = 300,
+                    num_examples: int = 20000, rank: int = 4,
+                    noise: float = 0.1, seed: int = 0,
+                    rating_range: tuple = (1.0, 5.0)) -> SparseDataset:
+    """Low-rank ratings y = mu + b_u + b_i + <p_u, q_i> + noise, clipped to
+    ``rating_range``. Two one-hot features per example: the user (ids
+    [0, num_users)) and the item (ids [num_users, num_users + num_items))."""
+    rng = np.random.default_rng(seed)
+    mu = (rating_range[0] + rating_range[1]) / 2.0
+    bu = 0.3 * rng.normal(size=num_users)
+    bi = 0.3 * rng.normal(size=num_items)
+    p = rng.normal(size=(num_users, rank)) / np.sqrt(rank)
+    q = rng.normal(size=(num_items, rank)) / np.sqrt(rank)
+
+    users = rng.integers(0, num_users, num_examples)
+    items = rng.integers(0, num_items, num_examples)
+    y = (mu + bu[users] + bi[items]
+         + np.einsum("nk,nk->n", p[users], q[items])
+         + noise * rng.normal(size=num_examples))
+    y = np.clip(y, rating_range[0], rating_range[1]).astype(np.float32)
+
+    ids = np.stack([users, num_users + items], axis=1).astype(np.int32)
+    vals = np.ones((num_examples, 2), np.float32)
+    return SparseDataset(ids=ids, vals=vals, y=y,
+                         num_features=num_users + num_items)
 
 
 def synth_ctr(num_examples: int = 100000, num_fields: int = 16,

@@ -1,7 +1,8 @@
-"""The hybrid train step's backward: per-run sums of the FM gradient over
-id-sorted slots.
+"""Segmented sums over sorted slots: the hybrid train step's backward and
+the ALS sweep's per-feature sums.
 
-Port of the training slice's part of ``sparkfm_tpu/ops/pallas_segsum.py``:
+Port of the parts of ``sparkfm_tpu/ops/pallas_segsum.py`` that the ported
+paths run:
 
 - :func:`fm_grad_segsum_factored` (kernel B3) takes the (U, k+1) unique
   rows ``vw_u`` and the per-slot example pack; its kernel is CUDA C++ for
@@ -13,11 +14,15 @@ Port of the training slice's part of ``sparkfm_tpu/ops/pallas_segsum.py``:
   ``fm_grad_segsum`` (TPU kernel B4) from per-slot rows: exactly the JAX
   package's XLA branch, and the parity oracle of B3. Its kernel comes in a
   later slice.
+- :func:`segment_colsums` (kernel B7) sums up to 16 one-dimensional
+  streams per rank, for the ALS sweep (``solvers/als.py``); its kernel is
+  in the same CUDA source, its plain version
+  :func:`segment_colsums_reference`.
 
-Both keep the JAX signatures and contract: ``seg`` holds the sorted dense
-rank of each sorted slot in [0, num_segments); the output is (U, 2k+2)
-float32 ``[Σg_v | Σg_w | Σg_v² | Σg_w²]`` per rank, zero for ranks that
-no slot has (so every rank outside ``[seg[0], seg[-1]]``), with
+All keep the JAX signatures and contract: ``seg`` holds the sorted rank of
+each sorted slot in [0, num_segments), and ranks that no slot has come out
+zero. The backward's output is (U, 2k+2) float32
+``[Σg_v | Σg_w | Σg_v² | Σg_w²]`` per rank, with
 
     g_v = ds·x·(s − v·x) + cv·a·v,   g_w = ds·x + cw·w·a,   a = wt·[x ≠ 0]
 
@@ -38,9 +43,14 @@ from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "segsum.cu")
 MAX_FACTORS = 128          # the kernel's largest k
+MAX_STREAMS = 16           # segment_colsums' largest S
 FACTORED = CudaKernel(
     "segsum", SOURCE, "sfm_fm_grad_segsum_factored",
     [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
+COLSUMS = CudaKernel(
+    "segsum", SOURCE, "sfm_segment_colsums",
+    [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64] * 2)
 
 
 def fm_grad_segsum_reference(vw_srt: torch.Tensor, ex_srt: torch.Tensor,
@@ -136,4 +146,68 @@ def fm_grad_segsum_factored(vw_u: torch.Tensor, ex_srt: torch.Tensor,
     FACTORED.launch(device, vw_u.data_ptr(), ex_srt.data_ptr(), x.data_ptr(),
                     seg.data_ptr(), coef.data_ptr(), out.data_ptr(),
                     partials.data_ptr(), n, num_segments, k)
+    return out
+
+
+def segment_colsums_reference(streams, seg: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """Plain version of B7: one ``index_add_`` per stream into (U,),
+    stacked to (U, S), as the JAX package's XLA branch sums one stream at
+    a time. Keeps the streams' dtype (the card's checks run it in
+    float64)."""
+    seg_l = seg.long()
+    return torch.stack(
+        [torch.zeros((num_segments,), dtype=s.dtype,
+                     device=s.device).index_add_(0, seg_l, s)
+         for s in streams], dim=1)
+
+
+def _check_colsums(streams, seg, num_segments) -> None:
+    if not 1 <= len(streams) <= MAX_STREAMS:
+        raise ValueError(f"segment_colsums takes 1 to {MAX_STREAMS} "
+                         f"streams, got {len(streams)}")
+    if seg.dtype != torch.int32 or seg.dim() != 1 or not seg.is_contiguous():
+        raise ValueError("segment_colsums takes a contiguous 1-D int32 seg, "
+                         f"got {seg.dtype} {tuple(seg.shape)}")
+    for j, t in enumerate(streams):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"segment_colsums takes contiguous float32 "
+                             f"streams, stream {j} is {t.dtype}")
+        if t.shape != seg.shape:
+            raise ValueError(f"stream {j} has shape {tuple(t.shape)}, seg "
+                             f"{tuple(seg.shape)}")
+    devices = {t.device for t in (seg, *streams)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    if seg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"segment_colsums has no kernel for {seg.device}")
+    if num_segments < 0:
+        raise ValueError(f"num_segments must be >= 0, got {num_segments}")
+
+
+def segment_colsums(streams, seg: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """(U, S) float32 per-rank sums of the S float32 streams (each (N,))
+    over the sorted int32 ranks ``seg`` (N,): column j is stream j summed
+    per rank, and ranks no slot has are zero. CUDA tensors run the kernel
+    (which traps on a rank outside [0, U)); its sums are deterministic.
+    CPU tensors run the plain version."""
+    streams = list(streams)
+    _check_colsums(streams, seg, num_segments)
+    device = seg.device
+    if device.type == "cpu":
+        return segment_colsums_reference(streams, seg, num_segments)
+    s, n = len(streams), seg.shape[0]
+    out = torch.zeros((num_segments, s), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    partial_rows = COLSUMS.build().sfm_colsums_partial_rows
+    partial_rows.restype, partial_rows.argtypes = ctypes.c_int64, [
+        ctypes.c_int64]
+    partials = torch.empty((partial_rows(n), s), dtype=torch.float32,
+                           device=device)
+    ptrs = (ctypes.c_void_p * s)(*[t.data_ptr() for t in streams])
+    COLSUMS.launch(device, ctypes.cast(ptrs, ctypes.c_void_p), s,
+                   seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,
+                   num_segments)
     return out

@@ -1,0 +1,210 @@
+"""The port's ``FM`` facade (``sparkfm_tpu_torch/api.py``), held to the
+behaviours of ``tests/test_api_cli.py::TestFMFacade``, its timeout and
+warm-start tests, and to the JAX facade itself: ``FM(solver="als")``
+warm-started from the same numpy parameters gives the same model (rtol
+2e-4 / atol 2e-5, the ALS sweep parity of ``tests/test_torch_als.py``).
+
+The SGD cases pin ``update_path="hybrid"``: under "auto" the JAX package
+trains tables below 2^16 rows on its direct path, which is not ported.
+
+One divergence from the JAX facade, on purpose: a callable solver given
+``init_params`` or a nonzero ``timeout`` raises ``ValueError``, where the
+JAX facade drops both silently (``sparkfm_tpu/api.py:524-525``).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sparkfm_tpu as sfm
+from sparkfm_tpu.data import synth as jsynth
+from sparkfm_tpu.models import fm as jfm
+from sparkfm_tpu_torch import (FM, ALSConfig, FMModel, TrainResult,
+                               params_from_numpy, train_als)
+from sparkfm_tpu_torch.data import synth
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def ratings():
+    return synth.synth_movielens(num_users=50, num_items=60,
+                                 num_examples=4000, seed=0)
+
+
+def test_fit_als_and_metrics(ratings):
+    model = FM(num_factors=4, max_iter=4, solver="als", reg_v=0.1,
+               seed=0).fit(ratings, eval_ds=ratings, device="cpu")
+    rmse = model.compute_rmse(ratings)
+    assert rmse < 0.6
+    assert model.compute_mae(ratings) < rmse      # true MAE <= RMSE
+    assert 0.0 <= model.compute_accuracy(ratings) <= 1.0
+    assert [h["epoch"] for h in model.history] == [0, 1, 2, 3]
+    assert model.history[-1]["eval_rmse"] == pytest.approx(rmse, rel=1e-5)
+    assert model.examples_per_sec > 0
+
+
+def test_fit_sgd(ratings):
+    model = FM(num_factors=4, max_iter=6, solver="sgd", learning_rate=0.1,
+               batch_size=512, reg_v=0.01, seed=0,
+               update_path="hybrid").fit(ratings, device="cpu")
+    assert model.compute_rmse(ratings) < 0.8
+    assert len(model.history) == 6 and model.examples_per_sec > 0
+
+
+def test_custom_solver_callable(ratings):
+    calls = {}
+
+    def my_solver(cfg, train, eval_ds, eval_every, generator):
+        calls.update(cfg=cfg, generator=generator, eval_every=eval_every)
+        return train_als(cfg, ALSConfig(epochs=2), train, generator=generator,
+                         device="cpu")
+
+    model = FM(num_factors=3, solver=my_solver, eval_every=3).fit(
+        ratings, device="cpu")
+    assert calls["cfg"].num_factors == 3 and calls["eval_every"] == 3
+    assert isinstance(calls["generator"], torch.Generator)
+    assert np.isfinite(model.compute_rmse(ratings))
+    assert len(model.history) == 2
+
+
+@pytest.mark.parametrize("kw,fit_kw", [({}, "init_params"),
+                                       (dict(timeout=5.0), None)])
+def test_callable_solver_refuses_what_it_cannot_honour(ratings, kw, fit_kw):
+    """The JAX facade drops init_params and timeout for a callable solver
+    without a word; the port raises."""
+    called = []
+
+    def my_solver(*args):
+        called.append(args)
+        return TrainResult(params=None, history=[])
+
+    fm = FM(num_factors=3, solver=my_solver, **kw)
+    extra = {}
+    if fit_kw:
+        init = FM(num_factors=3, max_iter=1).fit(ratings, device="cpu")
+        extra = {fit_kw: init}
+    with pytest.raises(ValueError, match="callable solver"):
+        fm.fit(ratings, device="cpu", **extra)
+    assert not called
+
+
+def test_save_load_roundtrip(ratings, tmp_path):
+    model = FM(num_factors=3, max_iter=2, solver="als", reg_v=0.1).fit(
+        ratings, device="cpu")
+    d = str(tmp_path / "model")
+    model.save(d)
+    loaded = FMModel.load(d, device="cpu")
+    assert loaded.cfg == model.cfg
+    a = model.predict(ratings.ids[:8], ratings.vals[:8])
+    b = loaded.predict(ratings.ids[:8], ratings.vals[:8])
+    np.testing.assert_allclose(a, b, rtol=1e-6)
+
+
+def test_unknown_solver_raises(ratings):
+    with pytest.raises(ValueError, match="unknown solver"):
+        FM(solver="newton").fit(ratings, device="cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        FM(model="wide")
+
+
+class _Relational:
+    """Stands in for the JAX package's RelationalDataset."""
+
+    num_features = 10
+
+    def materialize(self):
+        raise AssertionError("not reached")
+
+
+@pytest.mark.parametrize("kw,fit_kw,match", [
+    (dict(solver="mcmc"), {}, "A11"),
+    (dict(mesh="4x1"), {}, "A15"),
+    (dict(model="deepfm", solver="sgd"), {}, "A12"),
+    ({}, dict(checkpoint_dir="ckpt"), "A5"),
+    ({}, dict(train=_Relational()), "A10"),
+    (dict(feature_groups=type("Vectorizer", (), {"offsets": (0,)})()), {},
+     "A14"),
+])
+def test_unported_options_raise(ratings, kw, fit_kw, match):
+    fit_kw = dict(fit_kw)
+    train = fit_kw.pop("train", ratings)
+    with pytest.raises(NotImplementedError, match=match):
+        FM(max_iter=1, **kw).fit(train, device="cpu", **fit_kw)
+
+
+def test_timeout_knob_stops_training_early():
+    """A sub-microsecond budget is spent when the first epoch ends: both
+    solvers run exactly one epoch."""
+    ds = synth.synth_movielens(num_users=30, num_items=40,
+                               num_examples=2000, seed=0)
+    for solver in ("sgd", "als"):
+        model = FM(num_factors=4, solver=solver, max_iter=500,
+                   timeout=1e-6, batch_size=256, reg_v=0.1,
+                   learning_rate=0.05, update_path="hybrid").fit(
+                       ds, device="cpu")
+        assert len(model.history) == 1, (solver, len(model.history))
+
+
+def test_warm_start_continues_training():
+    ds = synth.synth_movielens(num_users=30, num_items=40,
+                               num_examples=3000, seed=4)
+    for solver in ("sgd", "als"):
+        fm = FM(num_factors=4, solver=solver, max_iter=2, reg_v=0.1,
+                batch_size=512, learning_rate=0.1, update_path="hybrid")
+        m1 = fm.fit(ds, eval_ds=ds, device="cpu")
+        r1 = m1.history[-1]["eval_rmse"]
+        v1 = m1.params.v.clone()
+        m2 = fm.fit(ds, eval_ds=ds, init_params=m1, device="cpu")
+        r2 = m2.history[-1]["eval_rmse"]
+        # 2 more epochs from m1 beat m1: the fit started from it
+        assert r2 < r1, (solver, r1, r2)
+        # and trained a copy: m1 itself is unchanged
+        assert torch.equal(m1.params.v, v1)
+
+
+def test_feature_groups_reach_the_config(ratings):
+    groups = tuple([0] * 50 + [1] * 60)
+    model = FM(num_factors=3, max_iter=1, feature_groups=groups,
+               group_reg_v=(0.5, 2.0)).fit(ratings, device="cpu")
+    assert model.cfg.feature_groups == groups
+    assert model.cfg.group_reg_v == (0.5, 2.0)
+    with pytest.raises(ValueError, match="feature_groups length"):
+        FM(feature_groups=(0, 1)).fit(ratings, device="cpu")
+
+
+def test_als_facade_matches_jax_facade():
+    """Both facades, warm-started from the same numpy parameters on the
+    same data, fit the same model and report the same evals."""
+    kw = dict(num_users=40, num_items=50, num_examples=3000, seed=2)
+    pds, jds = synth.synth_movielens(**kw), jsynth.synth_movielens(**kw)
+    rng = np.random.default_rng(2)
+    w0 = np.float32(3.0)
+    w = rng.normal(0, 0.05, 90).astype(np.float32)
+    v = rng.normal(0, 0.05, (90, 4)).astype(np.float32)
+    fm_kw = dict(num_factors=4, max_iter=3, solver="als", reg_w=0.1,
+                 reg_v=0.5)
+    got = FM(**fm_kw).fit(pds, eval_ds=pds, device="cpu",
+                          init_params=params_from_numpy(w0, w, v,
+                                                        device="cpu"))
+    want = sfm.FM(**fm_kw).fit(jds, eval_ds=jds, init_params=jfm.FMParams(
+        w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(v)))
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(got.params, name).numpy(),
+                                   np.asarray(getattr(want.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    assert len(got.history) == len(want.history) == 3
+    for g, h in zip(got.history, want.history):
+        np.testing.assert_allclose(g["eval_rmse"], h["eval_rmse"], rtol=1e-4)
+    assert got.cfg.to_json() == {
+        **{k: v for k, v in want.cfg.__dict__.items() if k != "task"},
+        "task": want.cfg.task.value}
+
+
+def test_fitted_model_fields_match_jax():
+    import dataclasses
+    want = [f.name for f in dataclasses.fields(sfm.FMModel)]
+    assert [f.name for f in dataclasses.fields(FMModel)] == want
+    assert FMModel(params=None, cfg=None).history == []
+    assert FMModel(params=None, cfg=None).examples_per_sec == 0.0

@@ -1,6 +1,6 @@
-"""The port on a CUDA card: the row gather, row write and factored
-backward kernels against their plain versions, and the scoring and
-training paths on the card against the CPU.
+"""The port on a CUDA card: the row gather, row write, factored backward
+and per-rank stream-sum kernels against their plain versions, and the
+scoring, SGD and ALS training paths on the card against the CPU.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from sparkfm_tpu_torch import FMConfig, MicroBatcher, SGDConfig, Task
-from sparkfm_tpu_torch import train_sgd
+from sparkfm_tpu_torch import (ALSConfig, FMConfig, MicroBatcher,
+                               SGDConfig, Task, train_als, train_sgd)
 from sparkfm_tpu_torch.data import synth as psynth
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
 from sparkfm_tpu_torch.ops import rowio, segsum
+from sparkfm_tpu_torch.solvers import als as pals
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +174,73 @@ def test_train_sgd_on_card_matches_cpu(dev):
     np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
                                on_cpu.params.v.numpy(), rtol=1e-4,
                                atol=1e-6)
+
+
+def _colsums_case(dev, n, s, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "runs":               # short runs, seg[0] > 0, gaps
+        seg = 3 + np.cumsum(rng.integers(0, 3, n) * (rng.random(n) < 0.4))
+    elif kind == "one_run":
+        seg = np.full(n, 2)
+    elif kind == "unique":
+        seg = np.arange(n)
+    else:                            # "long": one run of 60% of the slots
+        incr = (rng.random(n) < 0.5).astype(np.int64)
+        incr[n // 5 + 1:n // 5 + 3 * n // 5] = 0
+        seg = np.cumsum(incr)
+    seg = seg.astype(np.int32)
+    u = int(seg[-1]) + 4
+    streams = [torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                               device=dev) for _ in range(s)]
+    return streams, torch.as_tensor(seg, device=dev), u
+
+
+@pytest.mark.parametrize("n,s,kind", [
+    (1, 1, "runs"), (1000, 5, "runs"), (3073, 16, "runs"),
+    (5000, 5, "one_run"), (4097, 3, "unique"), (300001, 5, "long"),
+    (300001, 1, "long")])
+def test_colsums_kernel_equals_plain_in_float64(dev, n, s, kind):
+    """Chunks of every kind: N not a multiple of the 1024-slot chunk,
+    seg[0] > 0, gaps, one run over all of N, all slots unique, a run across
+    ~180 chunks. Against the plain version in float64: max |a - b| / (1 +
+    |b|) < 1e-4; repeated calls are bitwise equal (no atomics); ranks
+    without slots are zero."""
+    streams, seg, u = _colsums_case(dev, n, s, kind, seed=n + s)
+    want = segsum.segment_colsums_reference(
+        [x.double() for x in streams], seg, u)
+    before = segsum.COLSUMS.launches
+    got = segsum.segment_colsums(streams, seg, u)
+    assert segsum.COLSUMS.launches == before + 1
+    assert got.shape == (u, s)
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
+    assert torch.equal(got, segsum.segment_colsums(streams, seg, u))
+    empty = torch.ones(u, dtype=torch.bool, device=dev)
+    empty[seg.long()] = False
+    assert not got[empty].any()
+
+
+def test_train_als_on_card_matches_cpu(dev):
+    """A few sweeps on the card through B7 (one call per w block and per
+    (factor, block)), against the same run on the CPU's plain version."""
+    ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=1)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=8, reg_w=0.1,
+                   reg_v=0.5, seed=1)
+    als_cfg = ALSConfig(epochs=3, feature_blocks=pals.slot_blocks(ds))
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    before = segsum.COLSUMS.launches
+    on_card = train_als(cfg, als_cfg, ds, eval_ds=ds, params=init,
+                        device=dev)
+    assert segsum.COLSUMS.launches - before == 3 * (8 + 1) * 2
+    on_cpu = train_als(cfg, als_cfg, ds, eval_ds=ds, params=init,
+                       device="cpu")
+    np.testing.assert_allclose(
+        [h["eval_rmse"] for h in on_card.history],
+        [h["eval_rmse"] for h in on_cpu.history], rtol=1e-4)
+    # f32 sums in another order, compounded over 3 sweeps of exact
+    # coordinate steps
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
+                                   getattr(on_cpu.params, name),
+                                   rtol=1e-3, atol=1e-4, err_msg=name)

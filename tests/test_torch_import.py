@@ -71,3 +71,19 @@ def test_training_slice_imports_with_jax_blocked():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[(None, 0), (None, 0), (None, 0)]"
+
+
+def test_als_slice_imports_with_jax_blocked():
+    """The ALS solver, the facade, the data helpers and B7 import without
+    jax, and importing them builds no kernel."""
+    r = _run_blocked("""
+        import sparkfm_tpu_torch.solvers.als
+        import sparkfm_tpu_torch.data.split
+        import sparkfm_tpu_torch.data.synth
+        import sparkfm_tpu_torch.ops.segsum as segsum
+        from sparkfm_tpu_torch import FM, ALSConfig, train_als
+        from sparkfm_tpu_torch.data.synth import synth_movielens
+        print(segsum.COLSUMS.path, segsum.COLSUMS.launches)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "None 0"

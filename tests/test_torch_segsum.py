@@ -8,7 +8,12 @@
   order) at rtol 1e-5, atol 1e-6.
 
 The plain version of B4, ``fm_grad_segsum_reference``, is held against
-the JAX ``fm_grad_segsum(force="xla")`` at the same tolerance."""
+the JAX ``fm_grad_segsum(force="xla")`` at the same tolerance.
+
+The plain version of B7, ``segment_colsums_reference`` (what
+``segment_colsums`` runs for CPU tensors), is held against the JAX
+``segment_colsums`` in its XLA branch and in interpret mode (tile 16,
+subtile 8) at 1e-5, the JAX test's tolerance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -164,3 +169,106 @@ def test_segsum_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     with pytest.raises(BuildError, match="nvcc"):
         kernel.build()
     assert kernel.launches == 0 and kernel.path is None
+
+
+def _colsums_case(rng, n, s, kind):
+    """Sorted ranks of the given kind and ``s`` normal streams; the JAX
+    Pallas kernel (interpret mode) needs dense ranks, step <= 1."""
+    if kind == "jax_test":                 # tests/test_pallas_segsum.py
+        incr = rng.integers(0, 2, n)
+        incr[0] = 0
+        seg = np.cumsum(incr)
+    elif kind == "offset":                 # seg[0] > 0
+        incr = rng.integers(0, 2, n)
+        incr[0] = 0
+        seg = 7 + np.cumsum(incr)
+    elif kind == "one_run":
+        seg = np.full(n, 4)
+    elif kind == "unique":
+        seg = np.arange(n)
+    else:                                  # "gaps": step up to 3
+        incr = rng.integers(0, 4, n)
+        incr[0] = 0
+        seg = np.cumsum(incr)
+    seg = seg.astype(np.int32)
+    u = int(seg[-1]) + 3
+    return [rng.normal(size=n).astype(np.float32) for _ in range(s)], seg, u
+
+
+COLSUMS_CASES = [  # (n, s, kind)
+    (90, 5, "jax_test"), (90, 1, "jax_test"), (77, 16, "jax_test"),
+    (53, 5, "offset"), (45, 5, "one_run"), (61, 3, "unique"),
+    (2100, 5, "jax_test")]
+
+
+def _colsums_port(streams, seg, u):
+    before = segsum.COLSUMS.launches
+    out = segsum.segment_colsums([torch.from_numpy(s) for s in streams],
+                                 torch.from_numpy(seg), u)
+    assert segsum.COLSUMS.launches == before      # CPU: plain version
+    assert out.shape == (u, len(streams)) and out.dtype == torch.float32
+    return out.numpy()
+
+
+@pytest.mark.parametrize("force", ["xla", "interpret"])
+@pytest.mark.parametrize("n,s,kind", COLSUMS_CASES)
+def test_colsums_matches_jax(n, s, kind, force):
+    rng = np.random.default_rng(31 + n + s)
+    streams, seg, u = _colsums_case(rng, n, s, kind)
+    want = np.asarray(S.segment_colsums(
+        [jnp.asarray(x) for x in streams], jnp.asarray(seg), u, tile=16,
+        subtile=8, force=force))
+    got = _colsums_port(streams, seg, u)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    outside = np.ones(u, bool)
+    outside[np.unique(seg)] = False
+    assert not got[outside].any()          # ranks without slots: zero
+
+
+def test_colsums_gapped_ranks_match_jax_xla():
+    """A block's slice of the CSC view holds only that block's ranks: gaps
+    in seg (the XLA branch sums any sorted seg)."""
+    streams, seg, u = _colsums_case(np.random.default_rng(8), 300, 5,
+                                    "gaps")
+    want = np.asarray(S.segment_colsums([jnp.asarray(x) for x in streams],
+                                        jnp.asarray(seg), u, force="xla"))
+    np.testing.assert_allclose(_colsums_port(streams, seg, u), want,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_colsums_reference_keeps_float64():
+    """The card's checks evaluate the plain version in float64."""
+    streams, seg, u = _colsums_case(np.random.default_rng(9), 50, 2,
+                                    "jax_test")
+    got = segsum.segment_colsums_reference(
+        [torch.from_numpy(x.astype(np.float64)) for x in streams],
+        torch.from_numpy(seg), u)
+    want = np.zeros((u, 2))
+    for j, x in enumerate(streams):
+        np.add.at(want[:, j], seg, x.astype(np.float64))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+
+
+def test_colsums_empty_stream_gives_zeros():
+    got = segsum.segment_colsums([torch.zeros((0,))] * 2,
+                                 torch.zeros((0,), dtype=torch.int32), 4)
+    assert got.shape == (4, 2) and not got.any()
+
+
+@pytest.mark.parametrize("streams,seg,match", [
+    ([], torch.zeros((4,), dtype=torch.int32), "streams"),
+    ([torch.zeros((4,))] * 17, torch.zeros((4,), dtype=torch.int32),
+     "streams"),
+    ([torch.zeros((4,))], torch.zeros((4,), dtype=torch.int64), "int32"),
+    ([torch.zeros((4,), dtype=torch.float64)],
+     torch.zeros((4,), dtype=torch.int32), "float32"),
+    ([torch.zeros((5,))], torch.zeros((4,), dtype=torch.int32), "shape"),
+    ([torch.zeros((8,))[::2]], torch.zeros((4,), dtype=torch.int32),
+     "contiguous"),
+    ([torch.zeros((4,), device="meta")],
+     torch.zeros((4,), dtype=torch.int32), "devices"),
+])
+def test_colsums_rejects_what_the_kernel_does_not_take(streams, seg, match):
+    with pytest.raises(ValueError, match=match):
+        segsum.segment_colsums(streams, seg, 5)
