@@ -1,17 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``sparkfm_tpu_torch``) on one GPU.
 
-Drives the port's three paths once, with random weights and data from a
-seed: FM serving and hybrid SGD training at the full width of BASELINE
-config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank 32, 39
-slots), then ALS training at the full size of BASELINE config 2
+Drives the port's paths once, with random weights and data from a seed:
+FM serving and SGD training (hybrid, fused and sorted) at the full width
+of BASELINE config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank
+32, 39 slots), then ALS training at the full size of BASELINE config 2
 (ML-25M-shape regression FM: 221,588 features, rank 32, 25M ratings) and
 the ``FM`` facade.
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
      one nvcc per source in parallel (``rowio.cu``: row gather and row
-     write; ``segsum.cu``: factored backward and per-rank stream sums),
-     and prints ptxas's registers and spills per kernel;
+     write; ``segsum.cu``: the two backwards, row sums and per-rank stream
+     sums), and prints ptxas's registers and spills per kernel;
   2. holds the gather kernel against its plain version (``index_select``) on the
      card, with exact equality (a gather is a copy), at the main path's
      shapes and at odd widths, and times both with CUDA events;
@@ -68,7 +68,28 @@ the ``FM`` facade.
      checks its eval RMSE;
  14. profiles ALS: device time per stream-sum call against its plain
      version, the device's busy share of one sweep with its top device
-     events, and the host time of the workspace build, part by part.
+     events, and the host time of the workspace build, part by part;
+ 15. holds the row-sum kernel B5 (``segment_rowsum``) against its plain
+     version in float64 (max |a - b| / (1 + |b|) < 1e-4) on a bench-recipe
+     plan (N = 638,976, a ~162k-slot head run) at W = 66 and 35 (the fused
+     and sorted payloads) and 1, 3, 130, 354, with seg[0] > 0, with gaps
+     and at N = 100,003; its sums repeat exactly, ranks without slots are
+     zero, and an out-of-range rank traps in a child process;
+ 16. trains BASELINE config 3 on the fused path with
+     ``accumulate="segsum"`` (``train_sgd``, as phase 9), the launch counts
+     set to 0 just before: B1 = B2 = B5 = steps, B3 = 0; runs 5 fused
+     steps against the plain versions as phase 9 does; runs 3 steps on
+     plans built on the card (``host_plan=False``) under both accumulate
+     modes (B5 launches 0 under "scatter");
+ 17. the same on the sorted path: ``train_sgd(update_path="sorted")``
+     (B1 = B2 = B5 = steps) and 5 steps against the plain versions;
+ 18. holds B6 (``segment_rowsum_sq``) and B4 (``fm_grad_segsum``) against
+     their plain versions in float64 on phase 15's plan at k = 32, 4 and
+     33, and B4 against B3 on the rows it expands (< 1e-6); sums repeat,
+     out-of-range ranks trap; then profiles B4, B5 and B6 per call against
+     their plain versions, and one epoch of each SGD path (hybrid, fused
+     on host plans, fused on device plans, sorted): trained ex/s, the
+     device's busy share and its top events.
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -80,7 +101,9 @@ call at the main path's shape, back to back under CUDA events, for the
 gather one plan's V+w serving gather, where the host's launch cost sets
 the pace; ``device_ms``/``plain_device_ms``: the device time of one call
 from torch.profiler; ``launches``: the count from the main paths' runs,
-serving and training), the last line the result.
+serving and training; B4 and B6, which no path runs, count one call each
+at the main path's shapes, as their ``path`` field says), the last line
+the result.
 """
 
 import collections
@@ -295,6 +318,42 @@ def assert_close_rows(a, b, rtol, atol, what, rows=1 << 22):
                                  f"{rtol}, atol {atol} in rows {r0}..")
 
 
+def steps_against_plain(step, state, batches, swaps, kernels, label):
+    """Run ``step`` over ``batches`` from ``state`` (updated in place).
+    Each step runs twice from the same state, with the kernels and with
+    the plain versions ``swaps`` (module, name, fn) swapped in, and the
+    run goes on from the kernels' result: losses must agree at rtol 1e-5,
+    tables [:F, :2k+2] at rtol 1e-4, atol 1e-6, and the plain step must
+    launch none of ``kernels``. Run freely, the two would drift apart
+    beyond any tolerance for a reason that is no fault of either: on
+    random labels at lr 0.05 the loss grows by orders of magnitude within
+    a few steps, and that growth amplifies the f32 rounding of the sums.
+    Returns the losses and the number of rows the run changed."""
+    kernels = list(kernels)
+    used = 2 * RANK + 2
+    first = state.table[:BUCKETS, :used].clone()
+    losses = []
+    for b in batches:
+        plain_in = dataclasses.replace(state, table=state.table.clone())
+        state, aux = step(state, b)
+        counts = [k.launches for k in kernels]
+        with swapped(swaps):
+            plain_out, plain_aux = step(plain_in, b)
+        if [k.launches for k in kernels] != counts:
+            raise AssertionError(f"the plain {label} step launched a kernel")
+        losses.append(float(aux["loss"]))
+        np.testing.assert_allclose(losses[-1], float(plain_aux["loss"]),
+                                   rtol=1e-5)
+        assert_close_rows(state.table[:BUCKETS, :used],
+                          plain_out.table[:BUCKETS, :used], 1e-4, 1e-6,
+                          f"{label} step {len(losses)} tables")
+        np.testing.assert_allclose(float(state.w0), float(plain_out.w0),
+                                   rtol=1e-5)
+        del plain_in, plain_out
+    moved = int((state.table[:BUCKETS, :used] != first).any(dim=1).sum())
+    return losses, moved
+
+
 def train_phases(dev, cfg, gen, rng, card):
     """Phases 7-10, the training path; returns the kernels' JSON entries
     for the row write and the factored backward, and the gather's numbers
@@ -490,44 +549,18 @@ def train_phases(dev, cfg, gen, rng, card):
                                   dedup_budget="ladder", dedup_fill=BUCKETS))
     state = sgd_fused.init_fused_state(cfg, torch.Generator(
         device=dev).manual_seed(SEED + 2), device=dev)
-    first = state.table.clone()
     step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
-    # Each step runs twice from the same state, with the kernels and with
-    # the plain versions (the backward's in float64: see plain64), and the
-    # run goes on from the kernels' result. Run freely, the two would
-    # drift apart beyond any tolerance for a reason that is no fault of
-    # either: on random labels at lr 0.05 the loss grows by orders of
-    # magnitude within a few steps, and that growth amplifies the f32
-    # rounding of the sums.
-    losses = []
-    for b in batches:
-        plain_in = dataclasses.replace(state, table=state.table.clone())
-        state, aux = step(state, b)
-        counts = [k.launches for k in kernels.values()]
-        with swapped([(rowio, "gather_rows", rowio.gather_rows_reference),
-                      (rowio, "scatter_set_rows",
-                       rowio.scatter_set_rows_reference),
-                      (segsum, "fm_grad_segsum_factored", plain64)]):
-            plain_out, plain_aux = step(plain_in, b)
-        if [k.launches for k in kernels.values()] != counts:
-            raise AssertionError("the plain step launched a kernel")
-        losses.append(float(aux["loss"]))
-        np.testing.assert_allclose(losses[-1], float(plain_aux["loss"]),
-                                   rtol=1e-5)
-        assert_close_rows(state.table[:BUCKETS, :used],
-                          plain_out.table[:BUCKETS, :used], 1e-4, 1e-6,
-                          f"step {len(losses)} tables")
-        np.testing.assert_allclose(float(state.w0), float(plain_out.w0),
-                                   rtol=1e-5)
-        del plain_in, plain_out
-    moved = int((state.table[:BUCKETS, :used] != first[:BUCKETS, :used])
-                .any(dim=1).sum())
+    losses, moved = steps_against_plain(
+        step, state, batches,
+        [(rowio, "gather_rows", rowio.gather_rows_reference),
+         (rowio, "scatter_set_rows", rowio.scatter_set_rows_reference),
+         (segsum, "fm_grad_segsum_factored", plain64)],
+        kernels.values(), "hybrid")
     print(f"check: 5 hybrid steps on bench-recipe batches (uniques "
           f"{[int(b.plan.count) for b in batches]}), each from the same "
           f"state with the kernels and with the plain versions: losses "
           f"{losses} equal (rtol 1e-5), tables [:F, :{used}] equal (rtol "
           f"1e-4, atol 1e-6), {moved} rows updated in all", flush=True)
-    del state, first
     torch.cuda.empty_cache()
 
     # 10. where a training step's time goes
@@ -902,6 +935,355 @@ def als_phases(dev, gen, card):
             "device_ms": dev_us[0] / 1e3, "plain_device_ms": dev_us[1] / 1e3}
 
 
+SEGSUM_TRAP_CHILD = """
+import sys, torch
+from sparkfm_tpu_torch.ops import segsum
+seg = torch.tensor([0, 1, 1, 5], dtype=torch.int32, device="cuda")
+ones = lambda *shape: torch.ones(shape, device="cuda")
+try:
+    {call}
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    if "unspecified launch failure" not in str(e):   # not the trap
+        raise
+    print("trapped:", str(e).splitlines()[0])
+    sys.exit(3)
+print("no trap")
+"""
+SEGSUM_TRAP_CALLS = {
+    "segment_rowsum": "segsum.segment_rowsum(ones(4, 3), seg, 5)",
+    "segment_rowsum_sq": "segsum.segment_rowsum_sq(ones(4, 3), seg, 5)",
+    "fm_grad_segsum": "segsum.fm_grad_segsum(ones(4, 5), ones(4, 6), "
+                      "ones(4), seg, 5, 1e-3, 1e-3)"}
+
+
+def traps(names, root):
+    """Run each named kernel on a rank outside [0, U) in a child process
+    (a trap leaves the CUDA context of its process unusable), all children
+    at once; returns each child's report. Raises if one did not trap."""
+    children = {name: subprocess.Popen(
+        [sys.executable, "-c",
+         SEGSUM_TRAP_CHILD.format(call=SEGSUM_TRAP_CALLS[name])], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in names}
+    out = {}
+    for name, child in children.items():
+        stdout, stderr = child.communicate(timeout=300)
+        if child.returncode != 3:
+            raise AssertionError(f"{name}: out-of-range rank did not trap: "
+                                 f"rc {child.returncode}\n{stdout}"
+                                 f"{stderr[-2000:]}")
+        out[name] = stdout.strip()
+    return out
+
+
+def rowsum64(g, seg, num_segments):
+    """B5's plain version evaluated in float64 and rounded to float32: the
+    plain step's reduce (the f32 plain version's atomic adds into the
+    162k-slot head run drift, as B3's do)."""
+    from sparkfm_tpu_torch.ops import segsum
+    return segsum.segment_rowsum_reference(g.double(), seg,
+                                           num_segments).float()
+
+
+def as64(a):
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
+def segsum_phases(dev, cfg, gen, rng, card):
+    """Phases 15-18: the row sums (B5), the fused and sorted SGD paths on
+    them, the unfactored backward (B4) and the row sums with squares (B6);
+    and where the time of the four SGD paths goes. Returns the kernels'
+    JSON entries for B4, B5 and B6."""
+    from sparkfm_tpu_torch import SGDConfig, train_sgd
+    from sparkfm_tpu_torch.data import synth
+    from sparkfm_tpu_torch.data.batching import (SparseDataset,
+                                                 batch_iterator)
+    from sparkfm_tpu_torch.ops import embedding as E
+    from sparkfm_tpu_torch.ops import rowio, segsum
+    from sparkfm_tpu_torch.solvers import sgd_fused, sgd_sorted
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cap = E.auto_budget(BATCH * SLOTS)
+    plan = E.host_dedup(zipf_ids(rng, BATCH), cap, fill=BUCKETS,
+                        vals=np.ones((BATCH, SLOTS), np.float32))
+    u = E.ladder_budget(int(plan.count), cap=cap)
+    seg = torch.as_tensor(plan.seg, device=dev)
+    n = seg.shape[0]
+    edges = np.flatnonzero(np.r_[True, plan.seg[1:] != plan.seg[:-1], True])
+    head = int(np.diff(edges).max())
+
+    def hold(fn, plain, args, label, checked):
+        """``fn`` against ``plain`` in float64 on ``args`` (max |a - b| /
+        (1 + |b|) < 1e-4), repeated bitwise, ranks without slots zero;
+        returns (max abs error, max rel error, the f32 plain version's)."""
+        exact = plain(*[as64(a) for a in args])
+        got = fn(*args)
+        err = max_rel_err(got, exact)
+        plain_err = max_rel_err(plain(*args), exact)
+        if not err < 1e-4:
+            raise AssertionError(f"{label}: kernel {err:.3g} from the float64 "
+                                 f"sums (plain f32 {plain_err:.3g})")
+        if not torch.equal(got, fn(*args)):
+            raise AssertionError(f"{label}: sums do not repeat")
+        ranks = args[3] if len(args) > 3 else args[1]
+        empty = torch.ones(got.shape[0], dtype=torch.bool, device=dev)
+        empty[ranks.long()] = False
+        if got[empty].any():
+            raise AssertionError(f"{label}: a rank without slots is not zero")
+        checked.append(f"{label}: kernel {err:.3g}, plain f32 "
+                       f"{plain_err:.3g}")
+        return float((got.double() - exact).abs().max()), err, plain_err
+
+    # 15. B5 against its float64 plain version: the fused and sorted
+    # payloads at the main path's plan, then odd shapes
+    checked = []
+    g66 = torch.randn((n, 2 * RANK + 2), generator=gen, device=dev)
+    rowsum_main = hold(segsum.segment_rowsum,
+                       segsum.segment_rowsum_reference, (g66, seg, u),
+                       f"W=66 N={n} U={u}", checked)
+    for w in (RANK + 3, 1, 3, 130, 354):
+        g = torch.randn((n, w), generator=gen, device=dev)
+        hold(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+             (g, seg, u), f"W={w}", checked)
+    del g
+    gaps = seg + torch.cumsum((torch.rand(n, generator=gen, device=dev)
+                               < 0.05).int(), 0, dtype=torch.int32)
+    odd = 100003
+    for label, s in (("seg[0] = 5", seg + 5), ("gaps", gaps),
+                     (f"N={odd}", seg[:odd])):
+        hold(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+             (g66[:s.shape[0]], s, int(s[-1]) + 3), label, checked)
+    trapped = traps(["segment_rowsum"], root)
+    print(f"check: row-sum kernel (B5) against the plain version in float64, "
+          f"max |a-b|/(1+|b|) < 1e-4, on a bench-recipe plan (head run "
+          f"{head} slots): {'; '.join(checked)}; sums repeat exactly; ranks "
+          f"without slots are zero; out-of-range rank -> "
+          f"{trapped['segment_rowsum']}", flush=True)
+
+    # 16. the fused path at BASELINE config 3: train_sgd, then 5 steps
+    # against the plain versions, then steps on plans built on the card
+    ds = synth.synth_ctr(num_examples=BATCH * 20, num_fields=SLOTS,
+                         num_buckets=BUCKETS, seed=SEED)
+    bds = SparseDataset(ids=np.concatenate([zipf_ids(rng, BATCH)
+                                            for _ in range(5)]),
+                        vals=np.ones((5 * BATCH, SLOTS), np.float32),
+                        y=rng.integers(0, 2, 5 * BATCH).astype(np.float32),
+                        num_features=BUCKETS)
+    batches = list(batch_iterator(bds, BATCH, device=dev,
+                                  dedup_budget="ladder", dedup_fill=BUCKETS))
+    kernels = {"gather_rows": rowio.GATHER, "scatter_set_rows": rowio.SCATTER,
+               "segment_rowsum": segsum.ROWSUM,
+               "fm_grad_segsum_factored": segsum.FACTORED}
+    plain_swaps = [(rowio, "gather_rows", rowio.gather_rows_reference),
+                   (rowio, "scatter_set_rows",
+                    rowio.scatter_set_rows_reference),
+                   (segsum, "segment_rowsum", rowsum64)]
+    steps = 2 * 20
+    train_launches = {}
+
+    def train(label, **kw):
+        sgd = SGDConfig(batch_size=BATCH, learning_rate=0.05,
+                        optimizer="adagrad", epochs=2, **kw)
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = train_sgd(cfg, sgd, ds, generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in kernels.items()}
+        want = dict.fromkeys(kernels, steps)
+        want["fm_grad_segsum_factored"] = 0
+        if launches != want:
+            raise AssertionError(f"{label} training launches {launches}, "
+                                 f"expected {want}")
+        losses = [h["train_loss"] for h in res.history]
+        if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+            raise AssertionError(f"{label} training losses {losses}")
+        if not bool(torch.isfinite(res.params.v).all()):
+            raise AssertionError(f"{label}: trained V is not finite")
+        print(f"train: train_sgd BASELINE config 3 on the {label} path, "
+              f"{ds.num_examples} examples x 2 epochs = {steps} steps of "
+              f"{BATCH}: epoch losses {losses}, {res.examples_per_sec:.0f} "
+              f"ex/s (first step left out), {wall:.3f} s wall in all; "
+              f"launches {launches}; {card}", flush=True)
+        train_launches[label] = launches["segment_rowsum"]
+
+    def init_state():
+        return sgd_fused.init_fused_state(cfg, torch.Generator(
+            device=dev).manual_seed(SEED + 2), device=dev)
+
+    train("fused (segsum)", update_path="fused", accumulate="segsum")
+    fused_cfg = SGDConfig(batch_size=BATCH, learning_rate=0.05,
+                          update_path="fused", accumulate="segsum")
+    losses, moved = steps_against_plain(
+        sgd_fused.make_fused_train_step(cfg, fused_cfg), init_state(),
+        batches, plain_swaps, kernels.values(), "fused")
+    print(f"check: 5 fused (segsum) steps on bench-recipe batches, each from "
+          f"the same state with the kernels and with the plain versions: "
+          f"losses {losses} equal (rtol 1e-5), tables equal (rtol 1e-4, "
+          f"atol 1e-6), {moved} rows updated in all", flush=True)
+    torch.cuda.empty_cache()
+    device_runs = []
+    for accumulate in ("segsum", "scatter"):
+        step = sgd_fused.make_fused_train_step(cfg, dataclasses.replace(
+            fused_cfg, host_plan=False, accumulate=accumulate))
+        state = init_state()
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        run = []
+        for b in batches[:3]:
+            state, aux = step(state, dataclasses.replace(b, plan=None))
+            run.append(aux)
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        want = {"gather_rows": 3, "scatter_set_rows": 3,
+                "segment_rowsum": 3 if accumulate == "segsum" else 0,
+                "fm_grad_segsum_factored": 0}
+        run_losses = [float(a["loss"]) for a in run]
+        if launches != want or not np.all(np.isfinite(run_losses)) or any(
+                bool(a["unique_overflow"]) for a in run):
+            raise AssertionError(f"device-plan fused steps ({accumulate}): "
+                                 f"launches {launches}, losses {run_losses}")
+        # the first step starts from the host-plan run's initial state
+        np.testing.assert_allclose(run_losses[0], losses[0], rtol=1e-5)
+        device_runs.append(f"{accumulate}: losses {run_losses}, uniques "
+                           f"{[int(a['unique_count']) for a in run]} of a "
+                           f"{cap}-slot budget, launches {launches}")
+        del state
+    print(f"check: 3 fused steps on plans built on the card (host_plan=False)"
+          f": {'; '.join(device_runs)}; first losses equal the host-plan "
+          f"step's (rtol 1e-5)", flush=True)
+    torch.cuda.empty_cache()
+
+    # 17. the sorted path: train_sgd, then 5 steps against the plain
+    # versions
+    train("sorted", update_path="sorted")
+    losses, moved = steps_against_plain(
+        sgd_sorted.make_sorted_train_step(cfg, dataclasses.replace(
+            fused_cfg, update_path="sorted")), init_state(),
+        batches, plain_swaps, kernels.values(), "sorted")
+    print(f"check: 5 sorted steps on bench-recipe batches, each from the "
+          f"same state with the kernels and with the plain versions: losses "
+          f"{losses} equal (rtol 1e-5), tables equal (rtol 1e-4, atol 1e-6)"
+          f", {moved} rows updated in all", flush=True)
+    torch.cuda.empty_cache()
+
+    # 18. B6 and B4 against their float64 plain versions on the phase-15
+    # plan, B4 against B3 on the rows B4's per-slot rows expand
+    checked, gaps_b3 = [], []
+    cv = torch.tensor(2e-6 / BATCH, device=dev)
+    cw = torch.tensor(2e-6 / BATCH, device=dev)
+    for k in (RANK, 4, 33):
+        g = torch.randn((n, k + 1), generator=gen, device=dev)
+        res_sq = hold(segsum.segment_rowsum_sq,
+                      segsum.segment_rowsum_sq_reference, (g, seg, u),
+                      f"B6 W={k + 1}", checked)
+        vw_u = 0.01 * torch.randn((u, k + 1), generator=gen, device=dev)
+        ex = torch.randn((n, k + 2), generator=gen, device=dev)
+        ex[:, k + 1] = (torch.rand(n, generator=gen, device=dev) < 0.9)
+        x = torch.randn(n, generator=gen, device=dev)
+        args = (vw_u.index_select(0, seg.long()), ex, x, seg, u, cv, cw)
+        res_b4 = hold(segsum.fm_grad_segsum, segsum.fm_grad_segsum_reference,
+                      args, f"B4 k={k}", checked)
+        factored = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, cw)
+        gap = max_rel_err(segsum.fm_grad_segsum(*args), factored.double())
+        if not gap < 1e-6:
+            raise AssertionError(f"B4 differs from B3 by {gap:.3g} at k={k}")
+        gaps_b3.append(f"k={k} {gap:.3g}")
+        if k == RANK:
+            sq_res, b4_res = res_sq, res_b4
+            main = {"sq": (g, seg, u), "b4": args}
+    trapped = traps(["segment_rowsum_sq", "fm_grad_segsum"], root)
+    # B4 and B6 have no production path in either package: their launch
+    # counts come from one call each at the main path's shapes
+    driven = {}
+    for name, kernel, fn, args in (
+            ("segment_rowsum_sq", segsum.ROWSUM_SQ, segsum.segment_rowsum_sq,
+             main["sq"]),
+            ("fm_grad_segsum", segsum.FM_GRAD, segsum.fm_grad_segsum,
+             main["b4"])):
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        fn(*args)
+        torch.cuda.synchronize()
+        driven[name] = kernel.launches
+    print(f"check: B6 and B4 against their plain versions in float64, max "
+          f"|a-b|/(1+|b|) < 1e-4: {'; '.join(checked)}; sums repeat exactly; "
+          f"B4 vs B3 on the same rows (< 1e-6): {', '.join(gaps_b3)}; "
+          f"out-of-range rank -> {trapped}", flush=True)
+
+    # profile: the three kernels per call, then one epoch of each SGD path
+    timed = {
+        "segment_rowsum": (segsum.segment_rowsum,
+                           segsum.segment_rowsum_reference, (g66, seg, u)),
+        "segment_rowsum_sq": (segsum.segment_rowsum_sq,
+                              segsum.segment_rowsum_sq_reference,
+                              main["sq"]),
+        "fm_grad_segsum": (segsum.fm_grad_segsum,
+                           segsum.fm_grad_segsum_reference, main["b4"])}
+    times = {}
+    for name, (fn, plain, args) in timed.items():
+        ms = (time_ms(fn, [args]), time_ms(plain, [args]))
+        us = tuple(device_us(lambda f=f: [f(*args) for _ in range(5)])[0] / 5
+                   for f in (fn, plain))
+        times[name] = ms + us
+        print(f"time: {name} per call (N={n}, U={u}, head run {head}): "
+              f"kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms back to back "
+              f"(CUDA events, best of 5 windows of 20); device {us[0]:.2f} us "
+              f"vs {us[1]:.2f} us (torch.profiler); {card}", flush=True)
+    del g66, timed, main
+    torch.cuda.empty_cache()
+    for label, kw in (("hybrid", dict(update_path="hybrid")),
+                      ("fused, host plans", dict(update_path="fused",
+                                                 accumulate="segsum")),
+                      ("fused, device plans", dict(update_path="fused",
+                                                   accumulate="segsum",
+                                                   host_plan=False)),
+                      ("sorted", dict(update_path="sorted"))):
+        one = SGDConfig(batch_size=BATCH, learning_rate=0.05, epochs=1, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_sgd(cfg, one, ds, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy, events = device_us(lambda: train_sgd(cfg, one, ds, device=dev))
+        top = "; ".join(f"{e.key[:50]} x{e.count} "
+                        f"{e.self_device_time_total:.0f}" for e in events[:8])
+        print(f"profile: one-epoch train_sgd, {label} (20 steps, state init "
+              f"included): {res.examples_per_sec:.0f} ex/s (first step left "
+              f"out); device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+              f"untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}% idle); top "
+              f"device events (us): {top}; {card}", flush=True)
+        del res
+
+    def entry(name, line, res, t, **extra):
+        return {"name": name, "route": "cuda",
+                "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+                "replaces": f"sparkfm_tpu/ops/pallas_segsum.py:{line}",
+                **extra, "max_abs_err": res[0], "max_rel_err": res[1],
+                "plain_f32_max_rel_err": res[2],
+                "err_against": "plain version in float64",
+                "ms": t[0], "plain_ms": t[1], "device_ms": t[2] / 1e3,
+                "plain_device_ms": t[3] / 1e3}
+
+    no_path = ("none in either package; launches are one call at the main "
+               "path's shapes (phase 18)")
+    return [
+        entry("fm_grad_segsum", 418, b4_res, times["fm_grad_segsum"],
+              launches=driven["fm_grad_segsum"], path=no_path),
+        entry("segment_rowsum", 101, rowsum_main, times["segment_rowsum"],
+              launches=train_launches["fused (segsum)"],
+              launches_sorted=train_launches["sorted"],
+              path="train_sgd fused accumulate='segsum' (phase 16), sorted "
+                   "(phase 17)"),
+        entry("segment_rowsum_sq", 238, sq_res, times["segment_rowsum_sq"],
+              launches=driven["segment_rowsum_sq"], path=no_path)]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -927,7 +1309,9 @@ def main():
     # 1. build every kernel library at once, one nvcc per source
     build_s = build_all([rowio.GATHER, segsum.FACTORED])
     rowio.SCATTER.build()                      # the same library as GATHER
-    segsum.COLSUMS.build()                     # the same library as FACTORED
+    for kernel in (segsum.FM_GRAD, segsum.ROWSUM, segsum.ROWSUM_SQ,
+                   segsum.COLSUMS):
+        kernel.build()                         # the same library as FACTORED
     for kernel in (rowio.GATHER, segsum.FACTORED):
         print(f"build: {os.path.relpath(kernel.source, root)} -> "
               f"{os.path.relpath(kernel.path, root)}; ptxas: "
@@ -1188,6 +1572,9 @@ def main():
     del params, model, mb, w_col, uids
     torch.cuda.empty_cache()
     als_entry = als_phases(dev, gen, card)
+    # 15-18. the row sums, the fused and sorted SGD paths, B4 and B6
+    torch.cuda.empty_cache()
+    segsum_entries = segsum_phases(dev, cfg, gen, rng, card)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1199,7 +1586,7 @@ def main():
         "ms": kernel_ms, "plain_ms": plain_ms,
         "device_ms": device_ms("kernel"),
         "plain_device_ms": device_ms("index_select"), **gather_record},
-        *train_entries, als_entry]}))
+        *train_entries, als_entry, *segsum_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

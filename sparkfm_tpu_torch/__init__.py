@@ -6,11 +6,11 @@ reference every module here is tested against. This package imports
 torch and numpy, never jax, and nothing from ``sparkfm_tpu``. It covers
 the FM serving path (dedup plans, the row-gather kernel, FM scoring,
 ``MicroBatcher``, ``FMModel``), single-device SGD training on the
-hybrid path (``SGDConfig``, ``train_sgd``, ``evaluate``) with the
-row-write and factored-backward kernels, single-device ALS training
-(``ALSConfig``, ``train_als``) with the per-rank stream-sum kernel, and
-the ``FM`` facade over both solvers. The kernels are CUDA C++ under
-``csrc/``.
+hybrid, fused and sorted paths (``SGDConfig``, ``train_sgd``,
+``evaluate``) with the row-write, backward and row-sum kernels,
+single-device ALS training (``ALSConfig``, ``train_als``) with the
+per-rank stream-sum kernel, and the ``FM`` facade over both solvers. The
+kernels are CUDA C++ under ``csrc/``.
 """
 
 from sparkfm_tpu_torch.api import FM, FMModel

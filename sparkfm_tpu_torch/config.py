@@ -108,20 +108,28 @@ class FMConfig:
 class SGDConfig:
     """SGD solver settings; same fields and defaults as the JAX package's.
 
-    The port trains on the hybrid update path only
-    (``solvers/sgd_hybrid.py``): ``update_path`` "auto" or "hybrid",
-    adagrad / adagrad_row / sgd without momentum, host plans
-    (``host_plan=True``) and one step per dispatch. What else a field can
-    select raises ``NotImplementedError`` when a step or the trainer is
-    built (``solvers/sgd.py::check_supported``).
+    The port trains on three update paths, all on the fused record
+    table: "hybrid" (``solvers/sgd_hybrid.py``), "fused"
+    (``solvers/sgd_fused.py``) and "sorted" (``solvers/sgd_sorted.py``);
+    ``update_path="auto"`` picks among them as the JAX package does.
+    Optimizers: adagrad / adagrad_row / sgd without momentum (the sorted
+    path: adagrad / sgd). ``host_plan=False`` makes the fused step build
+    its plans on the device (the hybrid path needs host plans and raises
+    ``ValueError``). What else a field can select (the "direct" and
+    "dedup" paths, adam, momentum, several steps per dispatch) raises
+    ``NotImplementedError`` when a step or the trainer is built
+    (``solvers/sgd.py::check_supported``).
 
     ``max_seconds``: wall-clock budget, checked at epoch boundaries (0 =
     none). ``unique_budget``: 0 sizes each batch's plan by the ladder
-    (``ops/embedding.py::ladder_budget``); a positive value pins one
-    budget. ``pallas_scatter``, ``sparse_updates`` and ``accumulate`` are
-    TPU dispatch knobs of the JAX package; the port accepts them and they
-    have no effect here (the write-back always runs the port's row-write
-    kernel on the card).
+    (``ops/embedding.py::ladder_budget``), or by ``auto_budget`` where the
+    step builds its own; a positive value pins one budget. ``accumulate``
+    selects the fused step's per-unique reduce: "auto"/"scatter" an
+    ``index_add_`` by rank, "segsum" the row-sum kernel B5 over id-sorted
+    runs. ``pallas_scatter`` and ``sparse_updates`` are TPU dispatch knobs
+    of the JAX package; the port accepts them and they have no effect
+    here (the write-back always runs the port's row-write kernel on the
+    card).
     """
 
     learning_rate: float = 0.05

@@ -1,11 +1,13 @@
-// Segmented sums over sorted slots, two kernels:
+// Segmented sums over sorted slots, five kernels in three families:
 //
-// * B3, the factored FM backward (fm_grad_chunks_kernel and
-//   fm_grad_crossing_kernel), below;
+// * B3, the factored FM backward, and B4, the same backward from per-slot
+//   rows (fm_grad_chunks_kernel, then rows_crossing_kernel), below;
+// * B5, segment_rowsum, and B6, segment_rowsum_sq (rowsum_chunks_kernel,
+//   then rows_crossing_kernel), after them;
 // * B7, segment_colsums (colsums_chunks_kernel and
-//   colsums_crossing_kernel), after it.
+//   colsums_crossing_kernel), last.
 //
-// Both cut the sorted stream into fixed chunks, one warp per chunk, write
+// All cut the sorted stream into fixed chunks, one warp per chunk, write
 // runs that lie inside a chunk straight out, and sum the partial rows of
 // runs that cross chunks in a second pass, in a fixed order, without
 // atomics.
@@ -63,6 +65,15 @@
 //
 // A rank outside [0, num_segments) traps the kernel. seg must be sorted
 // (the plan's dense ranks are); k is at most 128.
+//
+// B4. fm_grad_segsum: the same sums from per-slot rows, (v, w) =
+// vw_srt[i] for sorted slot i instead of the run's one row. Replaces
+// sparkfm_tpu/ops/pallas_segsum.py::_fm_grad_segsum_kernel (called through
+// _fm_grad_segsum_pallas, public fm_grad_segsum), which no path of the JAX
+// package runs on the TPU (its XLA form is B3's fallback there); here it
+// is B3's kernel with one template flag: each slot's row is loaded beside
+// its example pack, G slots ahead, so the (N, k+1) row stream adds 4(k+1)
+// bytes per slot to what B3 reads.
 
 #include <cstdint>
 
@@ -77,13 +88,15 @@ constexpr int kWarps1 = kThreads1 / 32;
 constexpr int kThreads2 = 256;         // pass 2: 8 warps per crossing run
 constexpr int kWarps2 = kThreads2 / 32;
 constexpr int kMaxK = 128;
-constexpr int kMaxWidth = 2 * kMaxK + 2;
-constexpr int kMaxCols = (kMaxWidth + 31) / 32;
+constexpr int kCols2 = 9;              // pass 2: columns per lane per tile
+constexpr int kTile2 = 32 * kCols2;    // pass 2: columns per tile
 
 // KPL factors per lane (k <= 32 * KPL); G slots loaded ahead per step.
-template <int KPL, int G>
+// kSlotRows: (v, w) is vw[i] of each sorted slot i (B4), else vw[rank] of
+// the run's rank (B3).
+template <int KPL, int G, bool kSlotRows>
 __global__ void __launch_bounds__(kThreads1)
-fm_grad_chunks_kernel(const float* __restrict__ vw_u,   // (U, k+1)
+fm_grad_chunks_kernel(const float* __restrict__ vw,     // (U or N, k+1)
                       const float* __restrict__ ex,     // (N, k+2)
                       const float* __restrict__ x,      // (N,)
                       const int32_t* __restrict__ seg,  // (N,) sorted
@@ -139,21 +152,26 @@ fm_grad_chunks_kernel(const float* __restrict__ vw_u,   // (U, k+1)
     for (int64_t base = s0; base < s1; base += G) {
       const int cnt = static_cast<int>(s1 - base < G ? s1 - base : G);
       int32_t my_seg = 0;
-      float my_x = 0.f, my_ds = 0.f, my_wt = 0.f;
+      float my_x = 0.f, my_ds = 0.f, my_wt = 0.f, my_w = 0.f;
       if (lane < cnt) {
         const int64_t i = base + lane;
         my_seg = seg[i];
         my_x = x[i];
         my_ds = ex[i * ex_width + k];
         my_wt = ex[i * ex_width + k + 1];
+        if constexpr (kSlotRows) my_w = vw[i * (k + 1) + k];
       }
       float s[G][KPL];
+      float vs[kSlotRows ? G : 1][KPL];
 #pragma unroll
       for (int t = 0; t < G; ++t) {
 #pragma unroll
         for (int q = 0; q < KPL; ++q) {
           const int f = lane + 32 * q;
-          s[t][q] = (t < cnt && f < k) ? ex[(base + t) * ex_width + f] : 0.f;
+          const bool in = t < cnt && f < k;
+          s[t][q] = in ? ex[(base + t) * ex_width + f] : 0.f;
+          if constexpr (kSlotRows)
+            vs[t][q] = in ? vw[(base + t) * (k + 1) + f] : 0.f;
         }
       }
 #pragma unroll
@@ -170,15 +188,23 @@ fm_grad_chunks_kernel(const float* __restrict__ vw_u,   // (U, k+1)
           }
           if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
           rank = r;
-          const float* row = vw_u + static_cast<int64_t>(r) * (k + 1);
 #pragma unroll
-          for (int q = 0; q < KPL; ++q) {
-            const int f = lane + 32 * q;
-            v[q] = f < k ? row[f] : 0.f;
-            g[q] = sq[q] = 0.f;
-          }
-          w = row[k];
+          for (int q = 0; q < KPL; ++q) g[q] = sq[q] = 0.f;
           gw = sqw = 0.f;
+          if constexpr (!kSlotRows) {
+            const float* row = vw + static_cast<int64_t>(r) * (k + 1);
+#pragma unroll
+            for (int q = 0; q < KPL; ++q) {
+              const int f = lane + 32 * q;
+              v[q] = f < k ? row[f] : 0.f;
+            }
+            w = row[k];
+          }
+        }
+        if constexpr (kSlotRows) {
+          w = __shfl_sync(kFull, my_w, t);
+#pragma unroll
+          for (int q = 0; q < KPL; ++q) v[q] = vs[t][q];
         }
         const float a = xi != 0.f ? wti : 0.f;
         const float dsx = dsi * xi;
@@ -198,15 +224,16 @@ fm_grad_chunks_kernel(const float* __restrict__ vw_u,   // (U, k+1)
   }
 }
 
-// One block per chunk c. If a run crosses the end of chunk c and began in
-// it, sums that run's partial rows (chunk c's row 1, then row 0 of every
-// later chunk the run reaches) in a fixed order into out[r].
+// Pass 2 of B3-B6. One block per chunk c. If a run crosses the end of
+// chunk c and began in it, sums that run's partial rows (chunk c's row 1,
+// then row 0 of every later chunk the run reaches) in a fixed order into
+// out[r], kTile2 columns at a time.
 __global__ void __launch_bounds__(kThreads2)
-fm_grad_crossing_kernel(const int32_t* __restrict__ seg,
-                        const float* __restrict__ partials,
-                        float* __restrict__ out, int64_t n, int width,
-                        int64_t num_chunks) {
-  __shared__ float sums[kWarps2][kMaxWidth];
+rows_crossing_kernel(const int32_t* __restrict__ seg,
+                     const float* __restrict__ partials,
+                     float* __restrict__ out, int64_t n, int64_t width,
+                     int64_t num_chunks) {
+  __shared__ float sums[kWarps2][kTile2];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int64_t c = blockIdx.x; c < num_chunks; c += gridDim.x) {
@@ -225,44 +252,283 @@ fm_grad_crossing_kernel(const int32_t* __restrict__ seg,
       last += hits;
       if (hits < kThreads2) break;
     }
-    float acc[kMaxCols];
+    for (int64_t col0 = 0; col0 < width; col0 += kTile2) {
+      float acc[kCols2];
 #pragma unroll
-    for (int q = 0; q < kMaxCols; ++q) acc[q] = 0.f;
+      for (int q = 0; q < kCols2; ++q) acc[q] = 0.f;
 #pragma unroll 4
-    for (int64_t j = warp; j <= last - c; j += kWarps2) {
-      const float* row =
-          partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * width;
+      for (int64_t j = warp; j <= last - c; j += kWarps2) {
+        const float* row =
+            partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * width + col0;
 #pragma unroll
-      for (int q = 0; q < kMaxCols; ++q) {
+        for (int q = 0; q < kCols2; ++q) {
+          const int col = lane + 32 * q;
+          if (col0 + col < width) acc[q] += row[col];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kCols2; ++q) {
         const int col = lane + 32 * q;
-        if (col < width) acc[q] += row[col];
+        if (col0 + col < width) sums[warp][col] = acc[q];
       }
-    }
+      __syncthreads();
+      if (warp == 0) {
+        for (int col = lane; col < kTile2 && col0 + col < width; col += 32) {
+          float total = 0.f;
 #pragma unroll
-    for (int q = 0; q < kMaxCols; ++q) {
-      const int col = lane + 32 * q;
-      if (col < width) sums[warp][col] = acc[q];
-    }
-    __syncthreads();
-    if (warp == 0) {
-      for (int col = lane; col < width; col += 32) {
-        float total = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps2; ++w) total += sums[w][col];
-        out[static_cast<int64_t>(r) * width + col] = total;
+          for (int w = 0; w < kWarps2; ++w) total += sums[w][col];
+          out[static_cast<int64_t>(r) * width + col0 + col] = total;
+        }
       }
+      __syncthreads();                            // before sums is reused
     }
-    __syncthreads();                              // before sums is reused
   }
 }
 
-template <int KPL, int G>
-void launch_chunks(const float* vw_u, const float* ex, const float* x,
+// Launches pass 2 of B3-B6 over partial rows of `width` floats.
+void launch_crossing(const int32_t* seg, const float* partials, float* out,
+                     int64_t n, int64_t width, int64_t num_chunks,
+                     int num_sms, cudaStream_t stream) {
+  if (num_chunks <= 1) return;
+  int64_t blocks = num_chunks;
+  const int64_t cap = static_cast<int64_t>(num_sms) * 64;
+  if (blocks > cap) blocks = cap;
+  rows_crossing_kernel<<<static_cast<unsigned>(blocks), kThreads2, 0,
+                         stream>>>(seg, partials, out, n, width, num_chunks);
+}
+
+// The current card's SM count in *num_sms; returns the CUDA error.
+cudaError_t sm_count(int* num_sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(num_sms, cudaDevAttrMultiProcessorCount,
+                                device);
+}
+
+template <int KPL, int G, bool kSlotRows>
+void launch_chunks(const float* vw, const float* ex, const float* x,
                    const int32_t* seg, const float* coef, float* out,
                    float* partials, int64_t n, int64_t num_segments, int k,
                    int64_t num_chunks, unsigned blocks, cudaStream_t stream) {
-  fm_grad_chunks_kernel<KPL, G><<<blocks, kThreads1, 0, stream>>>(
-      vw_u, ex, x, seg, coef, out, partials, n, num_segments, k, num_chunks);
+  fm_grad_chunks_kernel<KPL, G, kSlotRows><<<blocks, kThreads1, 0, stream>>>(
+      vw, ex, x, seg, coef, out, partials, n, num_segments, k, num_chunks);
+}
+
+// Both passes of B3 (kSlotRows false) or B4 (true); returns
+// cudaGetLastError().
+template <bool kSlotRows>
+int launch_fm_grad(const float* vw, const float* ex, const float* x,
+                   const int32_t* seg, const float* coef, float* out,
+                   float* partials, int64_t n, int64_t num_segments,
+                   int64_t k, void* stream) {
+  if (n <= 0) return 0;
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  int num_sms = 0;
+  cudaError_t err = sm_count(&num_sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
+  int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
+  const int64_t resident = static_cast<int64_t>(num_sms) * (2048 / kThreads1);
+  if (blocks > resident) blocks = resident;
+  const int ki = static_cast<int>(k);
+  const unsigned b1 = static_cast<unsigned>(blocks);
+  switch ((ki + 31) / 32) {
+    case 1:
+      launch_chunks<1, 32, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
+                                      num_segments, ki, num_chunks, b1, s);
+      break;
+    case 2:
+      launch_chunks<2, 16, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
+                                      num_segments, ki, num_chunks, b1, s);
+      break;
+    case 3:
+      launch_chunks<3, 8, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
+                                     num_segments, ki, num_chunks, b1, s);
+      break;
+    default:
+      launch_chunks<4, 8, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
+                                     num_segments, ki, num_chunks, b1, s);
+      break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_crossing(seg, partials, out, n, 2 * k + 2, num_chunks, num_sms, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// B5. segment_rowsum: per-run sums of the rows of a (N, W) float matrix
+// over sorted slots,
+//
+//   out[r] = sum of g[i] over the slots i with seg[i] == r      (U, W)
+//
+// and B6, segment_rowsum_sq, which also sums the squares, formed in the
+// kernel: out[r] = [ sum g[i] | sum g[i]^2 ]                    (U, 2W)
+//
+// B5 replaces sparkfm_tpu/ops/pallas_segsum.py::_segsum_kernel (called
+// through _segment_rowsum_pallas, public segment_rowsum): the per-unique
+// gradient sums of the fused step's accumulate="segsum" (W = 2k+2 = 66,
+// or k+3 = 35 under adagrad_row) and of the sorted step (W = 66), in
+// sparkfm_tpu_torch/solvers/sgd_fused.py and sgd_sorted.py. B6 replaces
+// _segsum_sq_kernel (through _segment_rowsum_sq_pallas, public
+// segment_rowsum_sq), which no path of the JAX package runs. The TPU
+// kernels reduce each tile with a one-hot matrix product on the MXU and
+// carry a run's sum through the ordered grid; B6's bf16x2 split is an MXU
+// device with no counterpart here (the sums are f32).
+//
+// What bounds them: bytes. At the main path's N = 638,976 slots and W = 66
+// the kernel reads 169 MB of g and 2.6 MB of seg once and adds once per
+// float: a ~50 us floor at 3.35 TB/s. The layout is B3's: lanes own
+// columns (lane l owns columns col0 + l, col0 + l + 32, ... of a tile of
+// 32 * C columns), so a warp reads each row of its tile with coalesced
+// 128-byte loads, G rows ahead; wider rows take more tiles, one per
+// blockIdx.y, so any W works (a later FFM slice packs 2 F k + 2 columns).
+// Run skew (one ~162k-slot run per zipf batch), the 256-slot chunks per
+// warp and pass 2 are B3's. Ranks with no slots are not written: the
+// caller zero-fills out. seg must be sorted; a rank outside
+// [0, num_segments) traps.
+
+constexpr int64_t kMaxRowWidth = 1 << 16;
+
+// C columns per lane (a tile of 32 * C), G rows loaded ahead per step; SQ
+// also sums the squares.
+template <int C, int G, bool SQ>
+__global__ void __launch_bounds__(kThreads1)
+rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
+                     const int32_t* __restrict__ seg,   // (N,) sorted
+                     float* __restrict__ out,           // (U, w or 2w)
+                     float* __restrict__ partials,      // (chunks, 2, w or 2w)
+                     int64_t n, int64_t num_segments, int64_t w,
+                     int64_t num_chunks) {
+  const int lane = threadIdx.x & 31;
+  const int64_t out_width = SQ ? 2 * w : w;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.y) * 32 * C;
+  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kWarps1;
+  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps1 +
+                   (threadIdx.x >> 5);
+       c < num_chunks; c += num_warps) {
+    const int64_t s0 = c * kChunk;
+    const int64_t s1 = s0 + kChunk < n ? s0 + kChunk : n;
+    const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
+    const int32_t after = s1 < n ? seg[s1] : -1;
+
+    int32_t rank = -1;
+    bool first_run = true;
+    float acc[C], sq[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) acc[q] = sq[q] = 0.f;
+
+    // Writes the sums of the run `rank` to out[rank], or to this chunk's
+    // partial row 0 (the run began in an earlier chunk) or 1 (it goes on
+    // into the next chunk).
+    auto flush = [&](bool last) {
+      const bool head = first_run && before == rank;
+      const bool tail = last && after == rank;
+      float* dst = head   ? partials + (2 * c) * out_width
+                   : tail ? partials + (2 * c + 1) * out_width
+                          : out + static_cast<int64_t>(rank) * out_width;
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int64_t col = col0 + lane + 32 * q;
+        if (col < w) {
+          dst[col] = acc[q];
+          if constexpr (SQ) dst[w + col] = sq[q];
+        }
+      }
+    };
+
+    for (int64_t base = s0; base < s1; base += G) {
+      const int cnt = static_cast<int>(s1 - base < G ? s1 - base : G);
+      const int32_t my_seg = lane < cnt ? seg[base + lane] : 0;
+      float v[G][C];
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+          const int64_t col = col0 + lane + 32 * q;
+          v[t][q] = (t < cnt && col < w) ? g[(base + t) * w + col] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        if (t >= cnt) break;                      // cnt is warp-uniform
+        const int32_t r = __shfl_sync(kFull, my_seg, t);
+        if (r != rank) {
+          if (rank >= 0) {
+            flush(false);
+            first_run = false;
+          }
+          if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
+          rank = r;
+#pragma unroll
+          for (int q = 0; q < C; ++q) acc[q] = sq[q] = 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < C; ++q) {
+          acc[q] += v[t][q];
+          if constexpr (SQ) sq[q] += v[t][q] * v[t][q];
+        }
+      }
+    }
+    if (rank >= 0) flush(true);
+  }
+}
+
+template <int C, int G, bool SQ>
+void launch_rowsum_chunks(const float* g, const int32_t* seg, float* out,
+                          float* partials, int64_t n, int64_t num_segments,
+                          int64_t w, int64_t num_chunks, dim3 grid,
+                          cudaStream_t stream) {
+  rowsum_chunks_kernel<C, G, SQ><<<grid, kThreads1, 0, stream>>>(
+      g, seg, out, partials, n, num_segments, w, num_chunks);
+}
+
+// Both passes of B5 (SQ false) or B6 (true); returns cudaGetLastError().
+template <bool SQ>
+int launch_rowsum(const float* g, const int32_t* seg, float* out,
+                  float* partials, int64_t n, int64_t num_segments, int64_t w,
+                  void* stream) {
+  if (n <= 0) return 0;
+  if (w < 1 || w > kMaxRowWidth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int num_sms = 0;
+  cudaError_t err = sm_count(&num_sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
+  const int cols = w >= 128 ? 4 : static_cast<int>((w + 31) / 32);
+  const int64_t tiles = (w + 32 * cols - 1) / (32 * cols);
+  int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
+  int64_t resident = static_cast<int64_t>(num_sms) * (2048 / kThreads1) / tiles;
+  if (resident < 1) resident = 1;
+  if (blocks > resident) blocks = resident;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
+  switch (cols) {
+    case 1:
+      launch_rowsum_chunks<1, 32, SQ>(g, seg, out, partials, n, num_segments,
+                                      w, num_chunks, grid, s);
+      break;
+    case 2:
+      launch_rowsum_chunks<2, 16, SQ>(g, seg, out, partials, n, num_segments,
+                                      w, num_chunks, grid, s);
+      break;
+    case 3:
+      launch_rowsum_chunks<3, 8, SQ>(g, seg, out, partials, n, num_segments,
+                                     w, num_chunks, grid, s);
+      break;
+    default:
+      launch_rowsum_chunks<4, 8, SQ>(g, seg, out, partials, n, num_segments,
+                                     w, num_chunks, grid, s);
+      break;
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_crossing(seg, partials, out, n, SQ ? 2 * w : w, num_chunks, num_sms,
+                  s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -463,68 +729,53 @@ void launch_colsums(const Streams& streams, int s, const int32_t* seg,
 
 extern "C" {
 
-// Number of float32 partial rows the caller allocates for N sorted slots
-// and width 2k+2: two per chunk, (chunks * 2) x (2k+2) floats.
-int64_t sfm_fm_grad_partial_rows(int64_t n) {
+// Number of partial rows the caller of B3-B6 allocates for N sorted
+// slots: two per chunk, each as wide as the output row.
+int64_t sfm_chunk_partial_rows(int64_t n) {
   return 2 * ((n + kChunk - 1) / kChunk);
 }
 
-// Launches both passes on `stream` and returns cudaGetLastError() (0 on
-// success). The caller zero-fills `out` (num_segments x (2k+2)), allocates
-// `partials` (sfm_fm_grad_partial_rows(n) x (2k+2)), checks shapes and
-// types (1 <= k <= 128), and keeps the tensors alive until the stream has
-// run the kernels.
+// B3 and B4 launch both passes on `stream` and return cudaGetLastError()
+// (0 on success). The caller zero-fills `out` (num_segments x (2k+2)),
+// allocates `partials` (sfm_chunk_partial_rows(n) x (2k+2)), checks
+// shapes and types (1 <= k <= 128), and keeps the tensors alive until the
+// stream has run the kernels. B3 reads the unique rows vw_u (num_segments
+// x (k+1)), B4 the per-slot rows vw_srt (N x (k+1)).
 int sfm_fm_grad_segsum_factored(const float* vw_u, const float* ex,
                                 const float* x, const int32_t* seg,
                                 const float* coef, float* out,
                                 float* partials, int64_t n,
                                 int64_t num_segments, int64_t k,
                                 void* stream) {
-  if (n <= 0) return 0;
-  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  int device = 0;
-  int num_sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
-                               device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
-  int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
-  const int64_t resident = static_cast<int64_t>(num_sms) * (2048 / kThreads1);
-  if (blocks > resident) blocks = resident;
-  const int ki = static_cast<int>(k);
-  const unsigned b1 = static_cast<unsigned>(blocks);
-  switch ((ki + 31) / 32) {
-    case 1:
-      launch_chunks<1, 32>(vw_u, ex, x, seg, coef, out, partials, n,
-                           num_segments, ki, num_chunks, b1, s);
-      break;
-    case 2:
-      launch_chunks<2, 16>(vw_u, ex, x, seg, coef, out, partials, n,
-                           num_segments, ki, num_chunks, b1, s);
-      break;
-    case 3:
-      launch_chunks<3, 8>(vw_u, ex, x, seg, coef, out, partials, n,
-                          num_segments, ki, num_chunks, b1, s);
-      break;
-    default:
-      launch_chunks<4, 8>(vw_u, ex, x, seg, coef, out, partials, n,
-                          num_segments, ki, num_chunks, b1, s);
-      break;
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_chunks > 1) {
-    int64_t blocks2 = num_chunks;
-    const int64_t cap = static_cast<int64_t>(num_sms) * 64;
-    if (blocks2 > cap) blocks2 = cap;
-    fm_grad_crossing_kernel<<<static_cast<unsigned>(blocks2), kThreads2, 0,
-                              s>>>(seg, partials, out, n, 2 * ki + 2,
-                                   num_chunks);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fm_grad<false>(vw_u, ex, x, seg, coef, out, partials, n,
+                               num_segments, k, stream);
+}
+
+int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
+                       const int32_t* seg, const float* coef, float* out,
+                       float* partials, int64_t n, int64_t num_segments,
+                       int64_t k, void* stream) {
+  return launch_fm_grad<true>(vw_srt, ex, x, seg, coef, out, partials, n,
+                              num_segments, k, stream);
+}
+
+// B5 and B6 launch both passes on `stream` and return cudaGetLastError().
+// The caller zero-fills `out` (num_segments x W for B5, x 2W for B6),
+// allocates `partials` (sfm_chunk_partial_rows(n) rows of the same
+// width), checks shapes and types (1 <= W <= 65536), and keeps the tensors
+// alive until the stream has run the kernels.
+int sfm_segment_rowsum(const float* g, const int32_t* seg, float* out,
+                       float* partials, int64_t n, int64_t num_segments,
+                       int64_t w, void* stream) {
+  return launch_rowsum<false>(g, seg, out, partials, n, num_segments, w,
+                              stream);
+}
+
+int sfm_segment_rowsum_sq(const float* g, const int32_t* seg, float* out,
+                          float* partials, int64_t n, int64_t num_segments,
+                          int64_t w, void* stream) {
+  return launch_rowsum<true>(g, seg, out, partials, n, num_segments, w,
+                             stream);
 }
 
 // Number of partial rows (of s floats) that the caller allocates for
@@ -547,12 +798,8 @@ int sfm_segment_colsums(const void* stream_ptrs, int64_t s,
   Streams streams{};
   const float* const* ptrs = static_cast<const float* const*>(stream_ptrs);
   for (int q = 0; q < s; ++q) streams.p[q] = ptrs[q];
-  int device = 0;
   int num_sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount,
-                               device);
+  cudaError_t err = sm_count(&num_sms);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + kColChunk - 1) / kColChunk;

@@ -8,7 +8,11 @@ rows to slots from the small (U, K) matrix.
 
 Plans are built on the host (:func:`host_dedup`, in the input pipeline) or,
 when none is given, on the device (:func:`dedup_ids`). Both give the same
-arrays element for element.
+arrays element for element. The sorted SGD path's plan,
+:func:`sorted_plan`, is built on the device. The unique-row helpers
+(:func:`gather_unique`, :func:`spread`, the accumulates and
+:func:`scatter_set_unique`) go through the kernels of ``ops/rowio.py`` and
+``ops/segsum.py``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from sparkfm_tpu_torch.ops import rowio, segsum
 
 
 class DedupBatch(NamedTuple):
@@ -50,34 +56,128 @@ class DedupBatch(NamedTuple):
     sex: Any = None
 
 
-def dedup_ids(ids: torch.Tensor, budget: int, fill: int) -> DedupBatch:
-    """Build a DedupBatch on ``ids``' device from (possibly multi-dim)
-    int32 ids: one stable sort of the ids, one of the boundary flags, no
-    table access and no host round trip."""
-    shape = ids.shape
-    flat = ids.reshape(-1)
+class SortedPlan(NamedTuple):
+    """Slot-sorted lookup plan of the sorted SGD path
+    (``solvers/sgd_sorted.py``): slots reordered by id, so per-unique
+    reductions are sums over contiguous runs, with the values and example
+    indices carried through the sort; nothing returns to natural order.
+
+    svals: (N,) f32 — slot values in sorted order.
+    sex:   (N,) int32 — each sorted slot's example index.
+    seg:   (N,) int32 — dense rank of each sorted slot's id, clipped to
+           [0, budget).
+    uids:  (U,) int32 — unique ids, ascending; unused slots hold ``fill``.
+    count / overflow: as DedupBatch, 0-d tensors on the device.
+    """
+
+    svals: torch.Tensor
+    sex: torch.Tensor
+    seg: torch.Tensor
+    uids: torch.Tensor
+    count: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _sorted_runs(flat: torch.Tensor, budget: int, fill: int):
+    """One stable sort of flat int32 ids, then the runs of equal ids:
+    (sorted position of each slot, clipped dense ranks, count, overflow,
+    uids). No table access and no host round trip."""
     n = flat.shape[0]
     sid, spos = torch.sort(flat, stable=True)
-    boundary = torch.ones((n,), dtype=torch.bool, device=ids.device)
+    boundary = torch.ones((n,), dtype=torch.bool, device=flat.device)
     boundary[1:] = sid[1:] != sid[:-1]
     seg = torch.cumsum(boundary, 0, dtype=torch.int32) - 1
     count = seg[-1] + 1
-    overflow = count > budget
-    seg_c = seg.clamp(max=budget - 1)
-    ranks = torch.empty_like(seg_c)
-    ranks[spos] = seg_c                          # unsort to natural order
     # A stable sort of the "not a boundary" flags brings the first slot of
     # every run to the front, in ascending id order.
     firsts = torch.sort((~boundary).to(torch.int32), stable=True).indices
     take = min(budget, n)
-    uids = torch.full((budget,), fill, dtype=torch.int32, device=ids.device)
+    uids = torch.full((budget,), fill, dtype=torch.int32, device=flat.device)
     uids[:take] = sid[firsts[:take]]
-    slot = torch.arange(budget, device=ids.device)
+    slot = torch.arange(budget, device=flat.device)
     uids = torch.where(slot < torch.clamp(count, max=budget), uids,
                        torch.full_like(uids, fill))
-    return DedupBatch(uids=uids, ranks=ranks.reshape(shape), count=count,
+    return spos, seg.clamp(max=budget - 1), count, count > budget, uids
+
+
+def dedup_ids(ids: torch.Tensor, budget: int, fill: int) -> DedupBatch:
+    """Build a DedupBatch on ``ids``' device from (possibly multi-dim)
+    int32 ids: one stable sort of the ids, one of the boundary flags, no
+    table access and no host round trip."""
+    spos, seg_c, count, overflow, uids = _sorted_runs(ids.reshape(-1),
+                                                      budget, fill)
+    ranks = torch.empty_like(seg_c)
+    ranks[spos] = seg_c                          # unsort to natural order
+    return DedupBatch(uids=uids, ranks=ranks.reshape(ids.shape), count=count,
                       overflow=overflow, order=spos.to(torch.int32),
                       seg=seg_c)
+
+
+def sorted_plan(ids: torch.Tensor, vals: torch.Tensor, budget: int,
+                fill: int) -> SortedPlan:
+    """Sort the (B, L) batch's slots by id on the device, carrying each
+    slot's value and position; derive the dense ranks and the unique ids.
+    The sort is stable, so equal ids keep their slots' natural order."""
+    spos, seg_c, count, overflow, uids = _sorted_runs(ids.reshape(-1),
+                                                      budget, fill)
+    return SortedPlan(svals=vals.reshape(-1)[spos],
+                      sex=(spos // ids.shape[1]).to(torch.int32), seg=seg_c,
+                      uids=uids, count=count, overflow=overflow)
+
+
+def gather_unique(table: torch.Tensor, plan) -> torch.Tensor:
+    """(U, W) rows of the plan's unique ids from the (R, W) float32 table:
+    the only read of the big table, through the row-gather kernel B1."""
+    return rowio.gather_rows(table, plan.uids)
+
+
+def spread(rows_u: torch.Tensor, plan: DedupBatch) -> torch.Tensor:
+    """Per-slot rows in natural order from the small unique matrix:
+    (U, ...) -> ranks.shape + (...)."""
+    flat = plan.ranks.reshape(-1).long()
+    return rows_u.index_select(0, flat).view(*plan.ranks.shape,
+                                             *rows_u.shape[1:])
+
+
+def accumulate_to_unique(g_slots: torch.Tensor, plan: DedupBatch,
+                         budget: int) -> torch.Tensor:
+    """Per-slot gradients summed per unique row (the transpose of
+    :func:`spread`) by ``index_add_`` over the ranks."""
+    flat = plan.ranks.reshape(-1)
+    g2 = g_slots.reshape(flat.shape[0], *g_slots.shape[plan.ranks.dim():])
+    out = torch.zeros((budget, *g2.shape[1:]), dtype=g2.dtype,
+                      device=g2.device)
+    return out.index_add_(0, flat.long(), g2)
+
+
+def accumulate_to_unique_sorted(g_slots: torch.Tensor, plan: DedupBatch,
+                                budget: int) -> torch.Tensor:
+    """:func:`accumulate_to_unique` by another route: the per-slot
+    gradients permuted into id-sorted order (``plan.order``), then summed
+    over contiguous runs (``plan.seg``) by kernel B5
+    (``ops/segsum.py::segment_rowsum``). The same sums up to float
+    summation order. Per-slot scalars ride as a width-1 column."""
+    if plan.order is None or plan.seg is None:
+        raise ValueError("the sorted accumulate needs plan.order/plan.seg")
+    n = plan.order.shape[0]
+    flat = g_slots.reshape(n, *g_slots.shape[plan.ranks.dim():])
+    scalar = flat.dim() == 1
+    if scalar:
+        flat = flat[:, None]
+    elif flat.dim() > 2:
+        raise ValueError("sorted accumulate supports (N,) or (N, W) "
+                         f"payloads, got trailing shape {flat.shape[1:]}")
+    srt = flat.index_select(0, plan.order.long())
+    out = segsum.segment_rowsum(srt, plan.seg, budget)
+    return out[:, 0] if scalar else out
+
+
+def scatter_set_unique(table: torch.Tensor, plan,
+                       rows_u: torch.Tensor) -> torch.Tensor:
+    """Write the updated unique rows back in place through the row-write
+    kernel B2. Unused budget slots point at the fill row, whose content is
+    then unspecified."""
+    return rowio.scatter_set_rows(table, plan.uids, rows_u)
 
 
 def host_dedup(ids, budget: int, fill: int, vals=None) -> DedupBatch:

@@ -1,11 +1,13 @@
-"""SGD solver: the update-path policy, the dense scalar update and what
-the port's SGD paths share. Port of the parts of
-``sparkfm_tpu/solvers/sgd.py`` that the hybrid training path uses.
+"""SGD solver: the update-path policy, the per-batch loss, the dense
+scalar update and what the port's SGD paths share. Port of the parts of
+``sparkfm_tpu/solvers/sgd.py`` that the fused-record paths use.
 
-The port trains on the hybrid path only (``solvers/sgd_hybrid.py``). The
-JAX package's other paths (direct, dedup, fused, sorted), adam and
-momentum are not ported yet; selecting them raises
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The port trains on three of the JAX package's update paths, all on the
+fused record table: "hybrid" (``solvers/sgd_hybrid.py``), "fused"
+(``solvers/sgd_fused.py``, with host or device plans) and "sorted"
+(``solvers/sgd_sorted.py``). The "direct" and "dedup" paths, adam,
+momentum and FFM are not ported yet; selecting them raises
+``NotImplementedError`` naming ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -14,8 +16,53 @@ import torch
 
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig
 from sparkfm_tpu_torch.models.fm import FMParams
+from sparkfm_tpu_torch.ops import interaction as I
+from sparkfm_tpu_torch.ops import losses as L
 
 _PORTED_OPTIMIZERS = ("adagrad", "adagrad_row", "sgd")
+
+
+def reg_vectors(cfg: FMConfig):
+    """The per-feature L2 strengths (reg_w, reg_v) as CPU float32 (F,)
+    tensors when ``cfg.feature_groups`` is set, else None: the step moves
+    them to its device once."""
+    if cfg.feature_groups is None:
+        return None
+    return tuple(torch.from_numpy(r) for r in cfg.reg_vectors())
+
+
+def _batch_loss_from_rows(w0: torch.Tensor, w_rows: torch.Tensor,
+                          v_rows: torch.Tensor, batch, cfg: FMConfig,
+                          reg_vecs=None):
+    """Mean loss over valid examples as a function of the gathered rows
+    (plain FM): ``(data loss + L2, (scores, data loss))``.
+
+    Per-appearance L2 (libFM SGD semantics): each active slot (value != 0,
+    example unmasked) regularizes its row, over max(Σmask, 1). With
+    ``reg_vecs`` (the (F,) reg_w and reg_v vectors of attribute groups, on
+    the batch's device) the strengths are per-slot gathers."""
+    s = I.fm_scores_from_gathered(
+        w0, w_rows, v_rows, batch.vals, use_bias=cfg.use_bias,
+        use_linear=cfg.use_linear,
+        compute_dtype=getattr(torch, cfg.compute_dtype))
+    weights = None if batch.mask is None else batch.mask.to(torch.float32)
+    data_loss = L.loss_for_task(cfg.task)(s, batch.y, weights)
+    active = (batch.vals != 0).to(torch.float32)
+    if weights is not None:
+        active = active * weights[:, None]
+        denom = weights.sum().clamp(min=1.0)
+    else:
+        denom = max(float(batch.vals.shape[0]), 1.0)
+    if reg_vecs is not None:
+        flat = batch.ids.reshape(-1).long()
+        rw, rv = (r.index_select(0, flat).view(batch.ids.shape)
+                  for r in reg_vecs)
+    else:
+        rw, rv = cfg.reg_w, cfg.reg_v
+    reg = (cfg.reg0 * w0.square()
+           + (rw * w_rows.square() * active).sum() / denom
+           + ((rv * active)[..., None] * v_rows.square()).sum() / denom)
+    return data_loss + reg, (s, data_loss)
 
 
 def _dense_scalar_update(opt: str, lr: float, sgd_cfg: SGDConfig,
@@ -69,20 +116,18 @@ def _jax_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
 
 
 def _unported_path(path: str) -> NotImplementedError:
-    item = "A13" if path == "sorted" else "A9"
     return NotImplementedError(
-        f"update path {path!r} is not ported yet (ROADMAP {item}); the "
-        "port trains on the hybrid path: plain FM, float32, "
-        "adagrad/adagrad_row/sgd without momentum, host plans, and "
-        "num_features >= 2^16 under update_path='auto'")
+        f"update path {path!r} is not ported yet (ROADMAP A9); the port "
+        "trains on 'hybrid', 'fused' and 'sorted', and tables below 2^16 "
+        "rows take the direct path under update_path='auto'")
 
 
 def resolve_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
-    """"hybrid" where the JAX package's auto policy (or a pinned
-    ``update_path``) picks it; any other path raises
-    ``NotImplementedError``, since only the hybrid path is ported."""
+    """The path the JAX package's auto policy (or a pinned
+    ``update_path``) picks: "hybrid", "fused" or "sorted" where the JAX
+    one picks them; "direct" and "dedup" raise ``NotImplementedError``."""
     path = _jax_update_path(cfg, sgd_cfg)
-    if path != "hybrid":
+    if path not in ("hybrid", "fused", "sorted"):
         raise _unported_path(path)
     return path
 
@@ -90,16 +135,12 @@ def resolve_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
 def check_supported(sgd_cfg: SGDConfig) -> None:
     """Raise ``NotImplementedError`` for SGDConfig values the port cannot
     honour yet, naming the ROADMAP item that brings each."""
-    if sgd_cfg.update_path not in ("auto", "hybrid"):
+    if sgd_cfg.update_path in ("direct", "dedup"):
         raise _unported_path(sgd_cfg.update_path)
     if sgd_cfg.steps_per_dispatch > 1:
         raise NotImplementedError(
             "steps_per_dispatch > 1 (CUDA-graph multi-step) is not ported "
             "yet (ROADMAP A3)")
-    if not sgd_cfg.host_plan:
-        raise NotImplementedError(
-            "host_plan=False (device plans feed the fused and dedup paths) "
-            "is not ported yet (ROADMAP A9)")
 
 
 def trim_params(params: FMParams, num_features: int) -> FMParams:

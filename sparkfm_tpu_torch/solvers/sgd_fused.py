@@ -1,7 +1,7 @@
-"""Fused-record training state: all per-feature state in one row.
+"""Fused-record SGD: all per-feature state in one row.
 
-Port of the state half of ``sparkfm_tpu/solvers/sgd_fused.py`` (the fused
-train step itself comes with ROADMAP A9):
+Port of ``sparkfm_tpu/solvers/sgd_fused.py``: the state every SGD path of
+the port shares, and the fused train step (plain FM) that trains on it:
 
     record[f] = [ v[f] (K) | slot_v[f] (K) | w[f] (1) | slot_w[f] (1) | pad ]
 
@@ -15,6 +15,27 @@ for K = 32, against 128), so every row is 16-byte aligned for the row
 kernels' float4 accesses (``csrc/rowio.cu``), the table takes about half
 the bytes (4.6 GB against 8.6 GB at 2^24 rows) and each gather and
 write-back moves about half as many. Tests compare ``table[:F, :2K+2]``.
+
+The train step (:func:`make_fused_train_step`):
+
+1. one gather of the batch's unique records (kernel B1,
+   ``ops/rowio.py::gather_rows``), rows past the plan's count zeroed;
+2. the spread of ``[v | w]`` to the slots by the plan's ranks, and
+   ``torch.autograd.grad`` of the batch loss
+   (``solvers/sgd.py::_batch_loss_from_rows``) with respect to the bias
+   and the per-slot rows;
+3. the per-unique reduce of ``[g_v | g_v² | g_w | g_w²]`` (adagrad_row:
+   ``[g_v | mean g_v² | g_w | g_w²]``): ``index_add_`` by the ranks under
+   ``accumulate="scatter"``/``"auto"``, or, under ``"segsum"``, the
+   gradients permuted into id-sorted order and summed over runs by kernel
+   B5 (``ops/segsum.py::segment_rowsum``);
+4. the adagrad / adagrad_row / sgd update and one write-back of the
+   records (kernel B2, ``ops/rowio.py::scatter_set_rows``), IN PLACE on
+   ``state.table``;
+5. the bias update.
+
+It takes the batch's host plan when it has one, else builds a plan on the
+device (``ops/embedding.py::dedup_ids``) with no host round trip.
 """
 
 from __future__ import annotations
@@ -25,8 +46,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparkfm_tpu_torch.config import FMConfig
+from sparkfm_tpu_torch.config import FMConfig, SGDConfig
 from sparkfm_tpu_torch.models.fm import FMParams
+from sparkfm_tpu_torch.ops import embedding as E
+from sparkfm_tpu_torch.ops import segsum
+from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 
 _INIT_CHUNK_BYTES = 1 << 28        # V drawn 256 MiB at a time
 
@@ -132,3 +156,147 @@ def fused_state_from_numpy(table, w0, slot_w0, step, cfg: FMConfig, *,
     return FusedState(table=out, **_scalars(
         device, float(np.asarray(w0)), float(np.asarray(slot_w0)),
         int(np.asarray(step))))
+
+
+def valid_slots(count, budget: int, device) -> torch.Tensor:
+    """(budget,) bool: the plan's slots that hold a unique id. ``count``
+    is a host number (host plans) or a 0-d tensor on the device (device
+    plans), which is compared there, without a host round trip."""
+    limit = (count.clamp(max=budget) if torch.is_tensor(count)
+             else min(int(count), budget))
+    return torch.arange(budget, device=device) < limit
+
+
+def update_records(opt: str, sgd_cfg: SGDConfig, rec_u: torch.Tensor,
+                   acc: torch.Tensor, k: int) -> torch.Tensor:
+    """The optimizer update of the unique records ``rec_u`` (U, W) from
+    the reduced ``acc``: ``[Σg_v | Σg_v² | Σg_w | Σg_w²]`` (U, 2k+2), or
+    under adagrad_row ``[Σg_v | Σ mean g_v² | Σg_w | Σg_w²]`` (U, k+3).
+    Returns the new (U, W) records, padding zero."""
+    lr, eps = sgd_cfg.learning_rate, sgd_cfg.adagrad_eps
+    v_u, slot_v_u = rec_u[:, :k], rec_u[:, k:2 * k]
+    w_u, slot_w_u = rec_u[:, 2 * k], rec_u[:, 2 * k + 1]
+    if opt == "adagrad_row":
+        g_v_u, sq_row_u = acc[:, :k], acc[:, k]
+        g_w_u, sq_w_u = acc[:, k + 1], acc[:, k + 2]
+        slot_row_new = slot_v_u[:, 0] + sq_row_u
+        v_new = v_u - lr * g_v_u * torch.rsqrt(slot_row_new + eps)[:, None]
+        slot_v_new = torch.cat([slot_row_new[:, None],
+                                torch.zeros_like(slot_v_u[:, 1:])], dim=1)
+        slot_w_new = slot_w_u + sq_w_u
+        w_new = w_u - lr * g_w_u * torch.rsqrt(slot_w_new + eps)
+    else:
+        g_v_u, sq_v_u = acc[:, :k], acc[:, k:2 * k]
+        g_w_u, sq_w_u = acc[:, 2 * k], acc[:, 2 * k + 1]
+        if opt == "adagrad":
+            slot_v_new = slot_v_u + sq_v_u
+            v_new = v_u - lr * g_v_u * torch.rsqrt(slot_v_new + eps)
+            slot_w_new = slot_w_u + sq_w_u
+            w_new = w_u - lr * g_w_u * torch.rsqrt(slot_w_new + eps)
+        else:
+            slot_v_new, slot_w_new = slot_v_u, slot_w_u
+            v_new = v_u - lr * g_v_u
+            w_new = w_u - lr * g_w_u
+    pad = rec_u.shape[1] - (2 * k + 2)
+    return torch.cat([v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
+                      rec_u.new_zeros((rec_u.shape[0], pad))], dim=1)
+
+
+def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
+    """(FusedState, SparseBatch) -> (FusedState, aux), with aux holding
+    ``loss`` and ``scores`` (tensors on the device) and the plan's
+    ``unique_count`` and ``unique_overflow`` (host numbers for host plans,
+    0-d device tensors for device plans). The returned state holds the
+    same table tensor, updated in place.
+
+    Optimizers: "adagrad" (element-wise accumulators), "adagrad_row" (one
+    accumulator per row, the mean of the squared gradient over the k
+    lanes, kept in slot lane 0) and plain "sgd". The module doc lists the
+    steps; the kernels are looked up through their modules at each call.
+    """
+    if cfg.num_fields > 0:
+        raise NotImplementedError("the fused step's FFM record is not "
+                                  "ported yet (ROADMAP A9)")
+    if sgd_cfg.optimizer not in ("adagrad", "adagrad_row", "sgd"):
+        raise ValueError("fused path supports adagrad/adagrad_row/sgd; use "
+                         "update_path='dedup' for adam/momentum")
+    if sgd_cfg.momentum > 0 and sgd_cfg.optimizer == "sgd":
+        raise ValueError("fused path: momentum not supported")
+    if sgd_cfg.accumulate not in ("auto", "scatter", "segsum"):
+        raise ValueError(
+            f"unknown accumulate={sgd_cfg.accumulate!r}; expected "
+            "'auto', 'scatter' or 'segsum'")
+    sgd_solver.check_supported(sgd_cfg)
+    k = v_lanes(cfg)
+    opt = sgd_cfg.optimizer
+    use_segsum = sgd_cfg.accumulate == "segsum"
+    reg_cpu = sgd_solver.reg_vectors(cfg)
+    reg_on = {}                         # device -> the reg vectors there
+
+    def train_step(state: FusedState, batch):
+        device = state.table.device
+        plan = batch.plan
+        if plan is not None:
+            budget = plan.uids.shape[0]
+        else:
+            budget = sgd_cfg.unique_budget or E.auto_budget(batch.ids.numel())
+            plan = E.dedup_ids(batch.ids, budget,
+                               fill=state.table.shape[0] - 1)
+        if use_segsum and plan.order is None:
+            raise ValueError(
+                "accumulate='segsum' requires a plan with the id-sort "
+                "permutation (plan.order/plan.seg); both dedup_ids and "
+                "host_dedup emit it - this plan was built without it")
+        if reg_cpu is not None and device not in reg_on:
+            reg_on[device] = tuple(r.to(device) for r in reg_cpu)
+
+        with torch.no_grad():
+            rec_u = E.gather_unique(state.table, plan)          # (U, W)
+            rec_u = torch.where(
+                valid_slots(plan.count, budget, device)[:, None], rec_u, 0.0)
+            vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]], 1)
+            vw_rows = E.spread(vw_u, plan)                      # (B, L, k+1)
+        w0 = state.w0.detach().requires_grad_()
+        w_rows = vw_rows[..., k].detach().requires_grad_()
+        v_rows = vw_rows[..., :k].detach().requires_grad_()
+        with torch.enable_grad():
+            total, (scores, data_loss) = sgd_solver._batch_loss_from_rows(
+                w0, w_rows, v_rows, batch, cfg, reg_on.get(device))
+            g_w0, g_wrows, g_vrows = torch.autograd.grad(
+                total, (w0, w_rows, v_rows))
+
+        with torch.no_grad():
+            gv_s = g_vrows.reshape(-1, k)
+            gw_s = g_wrows.reshape(-1, 1)
+            if use_segsum:
+                gvw_s = torch.cat([gv_s, gw_s], 1).index_select(
+                    0, plan.order.long())
+                gv_s, gw_s = gvw_s[:, :k], gvw_s[:, k:]
+            if opt == "adagrad_row":
+                parts = [gv_s, gv_s.square().mean(dim=-1, keepdim=True),
+                         gw_s, gw_s.square()]                   # (N, k+3)
+            else:
+                parts = [gv_s, gv_s.square(), gw_s, gw_s.square()]  # 2k+2
+            packed = torch.cat(parts, dim=1)
+            if use_segsum:
+                acc = segsum.segment_rowsum(packed, plan.seg, budget)
+            else:
+                acc = E.accumulate_to_unique(
+                    packed.view(*plan.ranks.shape, -1), plan, budget)
+            E.scatter_set_unique(state.table, plan,
+                                 update_records(opt, sgd_cfg, rec_u, acc, k))
+            if cfg.use_bias:
+                w0_new, slot_w0, _ = sgd_solver._dense_scalar_update(
+                    opt, sgd_cfg.learning_rate, sgd_cfg, state.w0,
+                    state.slot_w0, None, g_w0, state.step)
+            else:
+                w0_new, slot_w0 = state.w0, state.slot_w0
+
+        new_state = dataclasses.replace(state, w0=w0_new, slot_w0=slot_w0,
+                                        step=state.step + 1)
+        return new_state, {"loss": data_loss.detach(),
+                           "scores": scores.detach(),
+                           "unique_count": plan.count,
+                           "unique_overflow": plan.overflow}
+
+    return train_step

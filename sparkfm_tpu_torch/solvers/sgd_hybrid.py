@@ -18,7 +18,7 @@ natural order, no scatter-add. One step is:
    slot order, then the per-run gradient sums (kernel B3,
    ``ops/segsum.py::fm_grad_segsum_factored``);
 4. the adagrad / adagrad_row / sgd update of the unique records, as torch
-   ops;
+   ops (``sgd_fused.update_records``);
 5. one write-back of the updated records (kernel B2,
    ``ops/rowio.py::scatter_set_rows``), IN PLACE on ``state.table``: the
    JAX step donates the table and returns a new one, the port overwrites
@@ -45,6 +45,7 @@ from sparkfm_tpu_torch.config import FMConfig, SGDConfig, Task
 from sparkfm_tpu_torch.data.batching import SparseBatch
 from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
+from sparkfm_tpu_torch.solvers import sgd_fused
 from sparkfm_tpu_torch.solvers.sgd_fused import FusedState
 
 
@@ -65,11 +66,13 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         raise ValueError("hybrid path does not support attribute-group "
                          "regularization yet; use update_path='fused' or "
                          "'dedup' (their loss gathers per-group lambdas)")
+    if not sgd_cfg.host_plan:
+        raise ValueError("update_path='hybrid' requires host_plan=True "
+                         "(the sorted backward consumes plan.svals/sex)")
     sgd_solver.check_supported(sgd_cfg)
     k = cfg.num_factors
     classification = cfg.task == Task.CLASSIFICATION
     lr = sgd_cfg.learning_rate
-    eps = sgd_cfg.adagrad_eps
 
     def train_step(state: FusedState, batch: SparseBatch):
         plan = batch.plan
@@ -83,11 +86,8 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         # ---- one big-table gather for the whole working set
         rec_u = rowio.gather_rows(state.table, plan.uids)       # (U, W)
         rec_u[valid:] = 0.0                                     # fill slots
-        v_u = rec_u[:, :k]
-        slot_v_u = rec_u[:, k:2 * k]
-        w_u = rec_u[:, 2 * k]
-        slot_w_u = rec_u[:, 2 * k + 1]
-        vw_u = torch.cat([v_u, w_u[:, None]], dim=1)            # (U, k+1)
+        vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]],
+                         dim=1)                                 # (U, k+1)
 
         # ---- natural-order forward
         vals = batch.vals
@@ -124,36 +124,18 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         acc = segsum.fm_grad_segsum_factored(
             vw_u, ex_srt, plan.svals, plan.seg, budget,
             2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg)
-        g_v_u, g_w_u = acc[:, :k], acc[:, k]
-        sq_v_u, sq_w_u = acc[:, k + 1:2 * k + 1], acc[:, 2 * k + 1]
+        g_v_u, g_w_u = acc[:, :k], acc[:, k:k + 1]
+        sq_v_u, sq_w_u = acc[:, k + 1:2 * k + 1], acc[:, 2 * k + 1:]
         if not cfg.use_linear:
             g_w_u = torch.zeros_like(g_w_u)
             sq_w_u = torch.zeros_like(sq_w_u)
 
-        # ---- update
+        # ---- update and write-back, in the fused step's layout
         if sgd_cfg.optimizer == "adagrad_row":
-            slot_row_new = slot_v_u[:, 0] + sq_v_u.mean(dim=-1)
-            v_new = v_u - lr * g_v_u * torch.rsqrt(
-                slot_row_new + eps)[:, None]
-            slot_v_new = torch.cat(
-                [slot_row_new[:, None], torch.zeros_like(slot_v_u[:, 1:])],
-                dim=1)
-            slot_w_new = slot_w_u + sq_w_u
-            w_new = w_u - lr * g_w_u * torch.rsqrt(slot_w_new + eps)
-        elif sgd_cfg.optimizer == "adagrad":
-            slot_v_new = slot_v_u + sq_v_u
-            v_new = v_u - lr * g_v_u * torch.rsqrt(slot_v_new + eps)
-            slot_w_new = slot_w_u + sq_w_u
-            w_new = w_u - lr * g_w_u * torch.rsqrt(slot_w_new + eps)
-        else:
-            slot_v_new, slot_w_new = slot_v_u, slot_w_u
-            v_new = v_u - lr * g_v_u
-            w_new = w_u - lr * g_w_u
-
-        pad = state.table.shape[1] - (2 * k + 2)
-        rec_new = torch.cat(
-            [v_new, slot_v_new, w_new[:, None], slot_w_new[:, None],
-             rec_u.new_zeros((budget, pad))], dim=1)
+            sq_v_u = sq_v_u.mean(dim=-1, keepdim=True)
+        rec_new = sgd_fused.update_records(
+            sgd_cfg.optimizer, sgd_cfg, rec_u,
+            torch.cat([g_v_u, sq_v_u, g_w_u, sq_w_u], dim=1), k)
         rowio.scatter_set_rows(state.table, plan.uids, rec_new)
 
         if cfg.use_bias:

@@ -1,6 +1,7 @@
 """Training loop: SGD epochs with per-epoch loss and evaluation. Port of
 ``sparkfm_tpu/training/trainer.py`` (``train_sgd``, ``evaluate``,
-``TrainResult``) for one device on the hybrid update path.
+``TrainResult``) for one device, on the update paths the port has:
+"hybrid", "fused" (host or device plans) and "sorted".
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sharded mesh path (``mesh``, ROADMAP A15), checkpointed training
@@ -23,7 +24,7 @@ from sparkfm_tpu_torch.data.batching import (SparseDataset, batch_iterator,
                                              prefetch)
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
-from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
+from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
 
 log = logging.getLogger("sparkfm_tpu_torch")
 
@@ -65,13 +66,18 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
               mesh=None,
               init_params: Optional[FMParams] = None, *,
               device) -> TrainResult:
-    """SGD training on ``device`` through the hybrid train step.
+    """SGD training on ``device`` through the train step of the update
+    path that ``solvers/sgd.py::resolve_update_path`` picks, as the JAX
+    trainer dispatches: "hybrid", "fused" or "sorted".
 
     ``init_params`` warm-starts from given parameters (moved to
     ``device``); otherwise V is drawn from ``generator`` (default: seeded
     from ``cfg.seed``). Batches are shuffled per epoch with the JAX
-    package's (seed, epoch) order and carry host ladder plans (or plans of
-    ``SGDConfig.unique_budget``) built in a background thread. Each
+    package's (seed, epoch) order, built in a background thread. The
+    hybrid path, and the fused path under ``host_plan=True``, get host
+    ladder plans (or plans of ``SGDConfig.unique_budget``) with them; the
+    sorted path and the fused path under ``host_plan=False`` build their
+    plans on the device. Each
     history record holds the epoch's mean ``train_loss``, its
     ``unique_overflow_steps`` and, every ``eval_every`` epochs and after
     the last, ``eval_*`` metrics of ``eval_ds``. ``hooks`` are called as
@@ -87,7 +93,7 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
             "checkpointed training is not ported yet (ROADMAP A5)")
     del checkpoint_every, resume
     sgd_solver.check_supported(sgd_cfg)
-    sgd_solver.resolve_update_path(cfg, sgd_cfg)
+    path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
     device = torch.device(device)
     if init_params is not None:
         if init_params.v.shape[0] != cfg.num_features:
@@ -97,10 +103,15 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         state = sgd_fused.fused_from_params(init_params, cfg, device=device)
     else:
         state = sgd_fused.init_fused_state(cfg, generator, device=device)
-    step_fn = sgd_hybrid.make_hybrid_train_step(cfg, sgd_cfg)
-    # unique_budget=0 -> the ladder: each plan sized to its batch's unique
-    # count rounded to a rung; the fill id is the table's extra last row
-    dedup_budget = sgd_cfg.unique_budget or "ladder"
+    step_fn = {"hybrid": sgd_hybrid.make_hybrid_train_step,
+               "fused": sgd_fused.make_fused_train_step,
+               "sorted": sgd_sorted.make_sorted_train_step}[path](cfg, sgd_cfg)
+    dedup_budget = None
+    if sgd_cfg.host_plan and path in ("fused", "hybrid"):
+        # unique_budget=0 -> the ladder: each plan sized to its batch's
+        # unique count rounded to a rung; the fill id is the table's extra
+        # last row
+        dedup_budget = sgd_cfg.unique_budget or "ladder"
 
     history: List[Dict[str, float]] = []
     n_examples = 0
@@ -108,7 +119,7 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     t0 = time.perf_counter()
     for epoch in range(sgd_cfg.epochs):
         losses = []
-        overflows = 0
+        flags = []          # overflow per step; device plans' on the card
         for batch in prefetch(batch_iterator(
                 train, sgd_cfg.batch_size, device=device,
                 shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed,
@@ -120,8 +131,10 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
                 float(aux["loss"])      # waits for the first step to end
                 warmup = time.perf_counter() - tw
             losses.append(aux["loss"])
-            overflows += int(bool(aux["unique_overflow"]))
+            flags.append(aux["unique_overflow"])
         n_examples += train.num_examples
+        overflows = int(torch.stack([torch.as_tensor(f, device=device)
+                                     for f in flags]).sum())
         rec = {"epoch": epoch,
                "train_loss": float(torch.stack(losses).mean()),
                "unique_overflow_steps": overflows}

@@ -4,8 +4,11 @@ warm-start tests, and to the JAX facade itself: ``FM(solver="als")``
 warm-started from the same numpy parameters gives the same model (rtol
 2e-4 / atol 2e-5, the ALS sweep parity of ``tests/test_torch_als.py``).
 
-The SGD cases pin ``update_path="hybrid"``: under "auto" the JAX package
-trains tables below 2^16 rows on its direct path, which is not ported.
+The SGD cases on small tables pin ``update_path="hybrid"``: under "auto"
+the JAX package trains tables below 2^16 rows on its direct path, which is
+not ported. ``FM(solver="sgd", feature_groups=...)`` on a 2^16-row table
+trains on the fused path under "auto", as the JAX facade does, and is
+held to it at the trainer tests' tolerance (rtol 2e-4, atol 2e-5).
 
 One divergence from the JAX facade, on purpose: a callable solver given
 ``init_params`` or a nonzero ``timeout`` raises ``ValueError``, where the
@@ -208,3 +211,38 @@ def test_fitted_model_fields_match_jax():
     assert [f.name for f in dataclasses.fields(FMModel)] == want
     assert FMModel(params=None, cfg=None).history == []
     assert FMModel(params=None, cfg=None).examples_per_sec == 0.0
+
+
+def test_sgd_feature_groups_train_on_the_fused_path_as_jax():
+    """Attribute-group L2 rules the hybrid path out, so "auto" picks the
+    fused path on a 2^16-row table; both facades, warm-started from the
+    same numpy parameters, fit the same model."""
+    from sparkfm_tpu_torch import SGDConfig
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    f = 1 << 16
+    kw = dict(num_examples=600, num_fields=5, num_buckets=f, seed=3)
+    pds, jds = synth.synth_ctr(**kw), jsynth.synth_ctr(**kw)
+    rng = np.random.default_rng(3)
+    w0 = np.float32(0.0)
+    w = rng.normal(0, 0.05, f).astype(np.float32)
+    v = rng.normal(0, 0.05, (f, 4)).astype(np.float32)
+    fm_kw = dict(num_factors=4, max_iter=2, solver="sgd", batch_size=128,
+                 learning_rate=0.1, reg_w=0.01, reg_v=0.01,
+                 feature_groups=tuple(i % 4 for i in range(f)),
+                 group_reg_w=(0.0, 0.01, 0.02, 0.05),
+                 group_reg_v=(0.05, 0.0, 0.01, 0.1))
+    got = FM(**fm_kw).fit(pds, eval_ds=pds, device="cpu",
+                          init_params=params_from_numpy(w0, w, v,
+                                                        device="cpu"))
+    assert psgd.resolve_update_path(got.cfg, SGDConfig()) == "fused"
+    want = sfm.FM(**fm_kw).fit(jds, eval_ds=jds, init_params=jfm.FMParams(
+        w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(v)))
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(got.params, name).numpy(),
+                                   np.asarray(getattr(want.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    for g, h in zip(got.history, want.history):
+        np.testing.assert_allclose(g["train_loss"], h["train_loss"],
+                                   rtol=1e-4)
+        np.testing.assert_allclose(g["eval_rmse"], h["eval_rmse"], rtol=1e-4)
+    assert len(got.history) == 2

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: the row gather, row write, factored backward
-and per-rank stream-sum kernels against their plain versions, and the
-scoring, SGD and ALS training paths on the card against the CPU.
+"""The port on a CUDA card: the row gather, row write, factored backward,
+per-slot backward, row-sum and per-rank stream-sum kernels against their
+plain versions, and the scoring, SGD (hybrid, fused and sorted) and ALS
+training paths on the card against the CPU.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -244,3 +245,113 @@ def test_train_als_on_card_matches_cpu(dev):
         np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
                                    getattr(on_cpu.params, name),
                                    rtol=1e-3, atol=1e-4, err_msg=name)
+
+
+def _rows_case(dev, n, w, kind, seed):
+    """Sorted ranks of a kind and (N, W) normal rows on the card."""
+    rng = np.random.default_rng(seed)
+    if kind == "runs":               # short runs, seg[0] > 0, gaps
+        seg = 3 + np.cumsum(rng.integers(0, 3, n) * (rng.random(n) < 0.4))
+    elif kind == "dense":            # step <= 1, what the plans emit
+        seg = np.cumsum(rng.random(n) < 0.3)
+    else:                            # "long": one run of 60% of the slots
+        incr = (rng.random(n) < 0.5).astype(np.int64)
+        incr[n // 5 + 1:n // 5 + 3 * n // 5] = 0
+        seg = np.cumsum(incr)
+    seg = torch.as_tensor(seg.astype(np.int32), device=dev)
+    g = torch.as_tensor(rng.normal(size=(n, w)).astype(np.float32),
+                        device=dev)
+    return g, seg, int(seg[-1]) + 4
+
+
+ROWS_CASES = [  # (n, W, kind): N not a multiple of the 256-slot chunk
+    (1, 1, "runs"), (1000, 3, "runs"), (3073, 66, "dense"),
+    (20000, 35, "long"), (5000, 130, "runs"), (4097, 354, "dense"),
+    (300001, 66, "long")]
+
+
+@pytest.mark.parametrize("squares", [False, True])
+@pytest.mark.parametrize("n,w,kind", ROWS_CASES)
+def test_rowsum_kernels_equal_plain_in_float64(dev, n, w, kind, squares):
+    """B5 (and B6 with the squares) against the plain version in float64:
+    max |a - b| / (1 + |b|) < 1e-4; repeated calls bitwise equal; ranks
+    without slots zero."""
+    g, seg, u = _rows_case(dev, n, w, kind, seed=n + w)
+    if squares:
+        fn, kernel = segsum.segment_rowsum_sq, segsum.ROWSUM_SQ
+        want = segsum.segment_rowsum_sq_reference(g.double(), seg, u)
+    else:
+        fn, kernel = segsum.segment_rowsum, segsum.ROWSUM
+        want = segsum.segment_rowsum_reference(g.double(), seg, u)
+    before = kernel.launches
+    got = fn(g, seg, u)
+    assert kernel.launches == before + 1
+    assert got.shape == want.shape
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
+    assert torch.equal(got, fn(g, seg, u))             # no atomics
+    empty = torch.ones(u, dtype=torch.bool, device=dev)
+    empty[seg.long()] = False
+    assert not got[empty].any()
+
+
+def test_rowsum_kernel_refuses_what_it_cannot_take(dev):
+    seg = torch.zeros((4,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="W"):
+        segsum.segment_rowsum(torch.zeros((4, 0), device=dev), seg, 2)
+
+
+@pytest.mark.parametrize("n,k,long_run", [
+    (1, 4, 0), (257, 32, 0), (5000, 33, 0), (20000, 32, 9000),
+    (3000, 128, 2999), (700, 1, 0)])
+def test_fm_grad_kernel_equals_plain_and_factored(dev, n, k, long_run):
+    """B4 from per-slot rows against its plain version in float64 (max
+    |a - b| / (1 + |b|) < 1e-4), bitwise repeatable, and within 1e-6 of
+    B3 on the unique rows those per-slot rows expand (both sum in the same
+    order from the same row values)."""
+    vw_u, ex, x, seg, u = _sorted_case(dev, n, k, long_run, seed=n + k + 1)
+    vw_srt = vw_u.index_select(0, seg.long())
+    want = segsum.fm_grad_segsum_reference(
+        vw_srt.double(), ex.double(), x.double(), seg, u, 3e-3, 7e-3)
+    before = segsum.FM_GRAD.launches
+    got = segsum.fm_grad_segsum(vw_srt, ex, x, seg, u, 3e-3, 7e-3)
+    assert segsum.FM_GRAD.launches == before + 1
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
+    assert torch.equal(got, segsum.fm_grad_segsum(vw_srt, ex, x, seg, u,
+                                                  3e-3, 7e-3))
+    factored = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, 3e-3,
+                                              7e-3)
+    assert float(((got - factored).abs() / (1 + factored.abs())).max()) \
+        < 1e-6
+
+
+@pytest.mark.parametrize("sgd_kw,kernels", [
+    (dict(update_path="fused", accumulate="segsum"),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
+    (dict(update_path="fused", host_plan=False),
+     (rowio.GATHER, rowio.SCATTER)),
+    (dict(update_path="sorted"),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
+])
+def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
+    """train_sgd on the fused and sorted paths on the card, one launch of
+    each kernel of the path per step, against the same run on the CPU."""
+    ds = psynth.synth_ctr(num_examples=2000, num_fields=8,
+                          num_buckets=1 << 17, seed=2)
+    cfg = FMConfig(num_features=1 << 17, num_factors=8,
+                   task=Task.CLASSIFICATION, reg_v=1e-4, seed=2)
+    sgd = SGDConfig(batch_size=256, learning_rate=0.1, epochs=2, **sgd_kw)
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+    counts = [k.launches for k in kernels]
+    on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [16] * len(
+        kernels)
+    on_cpu = train_sgd(cfg, sgd, ds, init_params=init, device="cpu")
+    np.testing.assert_allclose(
+        [h["train_loss"] for h in on_card.history],
+        [h["train_loss"] for h in on_cpu.history], rtol=1e-4)
+    np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
+                               on_cpu.params.v.numpy(), rtol=1e-4,
+                               atol=1e-6)

@@ -161,8 +161,8 @@ def test_only_the_batch_rows_change_and_fill_writes_agree(monkeypatch):
     (dict(feature_groups=(0,) * F), {}, ValueError),
     (dict(compute_dtype="bfloat16"), {}, ValueError),
     ({}, dict(steps_per_dispatch=2), NotImplementedError),
-    ({}, dict(host_plan=False), NotImplementedError),
-    ({}, dict(update_path="fused"), NotImplementedError),
+    ({}, dict(host_plan=False), ValueError),
+    ({}, dict(update_path="direct"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     _, _, pcfg, psgd = _configs("regression", "adagrad", **fm_kw)

@@ -1,6 +1,7 @@
-"""The port's train_sgd against the JAX package's
-(``update_path="hybrid"``), from the same initial parameters, on
-``synth_ctr`` with shuffled epochs and ladder plans.
+"""The port's train_sgd against the JAX package's (``update_path=
+"hybrid"``, and "fused" and "sorted"), from the same initial parameters,
+on ``synth_ctr`` with shuffled epochs and, where the path takes them,
+ladder plans.
 
 Tolerance rtol 1e-4 (atol 1e-6 on parameters): the two trainers run the
 same steps on the same batches, and float32 sums in another order compound
@@ -119,11 +120,52 @@ def test_hooks_see_every_epoch_and_the_live_state():
     assert steps == [2, 4, 6]                 # two batches of 256 an epoch
 
 
+@pytest.mark.parametrize("sgd_kw", [
+    dict(update_path="fused"),
+    dict(update_path="fused", accumulate="segsum"),
+    dict(update_path="fused", host_plan=False, optimizer="adagrad_row"),
+    dict(update_path="sorted"),
+])
+def test_fused_and_sorted_paths_match_jax(sgd_kw):
+    """train_sgd on the fused path (host ladder plans, or plans built in
+    the step) and on the sorted path, against the JAX trainer on the same
+    path: epoch losses, evals and final parameters."""
+    kw = dict(SYNTH, label_range=(0.0, 1.0))
+    train, held = dict(num_examples=700, seed=6, **kw), dict(
+        num_examples=200, seed=7, **kw)
+    cfg_kw = dict(num_features=F, num_factors=K, reg_w=1e-4, reg_v=1e-4,
+                  seed=5, task=JTask.CLASSIFICATION)
+    w0, w, v = _params(1)
+    sgd = dict(SGD, **sgd_kw)
+    jres = jtrainer.train_sgd(
+        JFMConfig(**cfg_kw), JSGDConfig(**sgd), jsynth.synth_ctr(**train),
+        eval_ds=jsynth.synth_ctr(**held),
+        init_params=JFMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                              v=jnp.asarray(v)))
+    pres = train_sgd(FMConfig(**dict(cfg_kw, task=Task.CLASSIFICATION)),
+                     SGDConfig(**sgd), psynth.synth_ctr(**train),
+                     eval_ds=psynth.synth_ctr(**held),
+                     init_params=params_from_numpy(w0, w, v, device="cpu"),
+                     device="cpu")
+    for g, h in zip(pres.history, jres.history):
+        assert g["unique_overflow_steps"] == h.get("unique_overflow_steps",
+                                                   0) == 0
+        for key in ("train_loss", "eval_logloss", "eval_auc"):
+            np.testing.assert_allclose(g[key], h[key], rtol=1e-4,
+                                       err_msg=key)
+    assert len(pres.history) == len(jres.history) == 2
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(pres.params, name).numpy(),
+                                   np.asarray(getattr(jres.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
 @pytest.mark.parametrize("kw,sgd_kw,match", [
     (dict(mesh=object()), {}, "A15"),
     (dict(checkpoint_dir="ckpt"), {}, "A5"),
     ({}, dict(steps_per_dispatch=2), "A3"),
     ({}, dict(update_path="dedup"), "A9"),
+    ({}, dict(update_path="direct"), "A9"),
 ])
 def test_unported_options_raise(kw, sgd_kw, match, tmp_path):
     ds = psynth.synth_ctr(num_examples=64, seed=5, **SYNTH)
@@ -147,6 +189,15 @@ def test_small_tables_raise_under_auto():
     res = train_sgd(cfg, SGDConfig(update_path="hybrid", **SGD), ds,
                     device="cpu")
     assert np.isfinite(res.history[-1]["train_loss"])
+
+
+def test_hybrid_needs_host_plans():
+    """As the JAX trainer: the hybrid path refuses host_plan=False."""
+    ds = psynth.synth_ctr(num_examples=64, seed=5, **SYNTH)
+    cfg = FMConfig(num_features=F, num_factors=K)
+    with pytest.raises(ValueError, match="host_plan"):
+        train_sgd(cfg, SGDConfig(**dict(SGD, update_path="hybrid",
+                                        host_plan=False)), ds, device="cpu")
 
 
 def test_sgd_config_matches_jax_field_for_field():
