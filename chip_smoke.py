@@ -27,10 +27,15 @@ the ``FM`` facade.
      the host plan alone at both batch shapes. The plans must come from
      the native builder (``native/dedup_plan.cpp``); the smoke fails if
      it did not build;
-  7. holds the row-write kernel against ``index_copy_`` (exact, every row
-     but the plan's fill row) on a (2^24+1, 68) fused-record table with
-     the uids of real bench-recipe ladder plans, at odd widths and on a
-     misaligned table, and the gather at the record's width;
+  7. holds the row-write kernel against its plain version (exact, every
+     row, the plan's fill row included: a run of equal ids writes its first
+     row) on a (2^24+1, 68) fused-record table with the uids of real
+     bench-recipe ladder plans and of a ``dedup_ids`` device plan (budget
+     2^18, ~40k uniques, a ~222k-slot fill tail), at odd widths and on a
+     misaligned table, and the gather at the record's width; times the
+     write beside ``index_copy_`` over each plan's distinct ids (at the
+     device plan also over all its slots) and the gather beside
+     ``index_select`` at both plan shapes;
   8. holds the factored-backward kernel against its plain version on a
      bench-recipe plan (N = 638,976 slots, one run of ~162k) and on a
      ``synth_ctr`` plan, at k = 32, 4 and 33 (f32 sums in another order:
@@ -53,9 +58,11 @@ the ``FM`` facade.
      and its ALS workspace, and holds the stream-sum kernel
      (``segment_colsums``) against its plain version in float64 (max |a -
      b| / (1 + |b|) < 1e-4) on the movie block's real ranks (25M slots, a
-     6.4M-slot head run) at S = 5 and 1, and at odd shapes; shows that
+     6.4M-slot head run) and the user block's at S = 5 and 1, on a seg
+     view 4 bytes short of a 16-byte bound, and at odd shapes; shows that
      its sums repeat exactly and, in a child process, that a rank out of
-     range traps;
+     range traps; times each block's call, pass 1 and pass 2, against its
+     bound;
  12. trains BASELINE config 2 with ALS: the structure flags must be
      column_pure / csc_uniform / slice_identity = True / True / (True,
      False); one sweep with the kernel and one with the float64 plain
@@ -66,9 +73,9 @@ the ``FM`` facade.
      after sweep 1 and again by sweep 3;
  13. fits ``FM(solver="als")`` on the card on ``synth_movielens`` and
      checks its eval RMSE;
- 14. profiles ALS: device time per stream-sum call against its plain
-     version, the device's busy share of one sweep with its top device
-     events, and the host time of the workspace build, part by part;
+ 14. profiles ALS: the device's busy share of one sweep with its top
+     device events and the stream sums' passes 1 and 2, and the host time
+     of the workspace build, part by part;
  15. holds the row-sum kernel B5 (``segment_rowsum``) against its plain
      version in float64 (max |a - b| / (1 + |b|) < 1e-4) on a bench-recipe
      plan (N = 638,976, a ~162k-slot head run) at W = 66 and 35 (the fused
@@ -96,14 +103,19 @@ non-zero and prints no result. Run from the repository root:
 
     python3 chip_smoke.py
 
-The line before the last is the kernels' JSON (``ms``/``plain_ms``: one
-call at the main path's shape, back to back under CUDA events, for the
-gather one plan's V+w serving gather, where the host's launch cost sets
-the pace; ``device_ms``/``plain_device_ms``: the device time of one call
-from torch.profiler; ``launches``: the count from the main paths' runs,
-serving and training; B4 and B6, which no path runs, count one call each
-at the main path's shapes, as their ``path`` field says), the last line
-the result.
+The line before the last is the kernels' JSON (``ms``/``plain_ms``/
+``library_ms``: one call at the main path's shape, back to back under CUDA
+events, for the gather one plan's V+w serving gather, where the host's
+launch cost sets the pace; ``device_ms``/``plain_device_ms``/
+``library_device_ms``: the device time of one call from torch.profiler;
+``library``: the one PyTorch call that computes the same function, where
+there is one (null times where there is none); ``bound_ms``/``bound_us``:
+the least time the card could take, from the bytes the call must move at
+3.35 TB/s and its float32 operations at 67 TFLOP/s, ``bound_by`` which,
+``share_of_bound`` = bound / device time; ``launches``: the count from the
+main paths' runs, serving and training; B4 and B6, which no path runs,
+count one call each at the main path's shapes, as their ``path`` field
+says), the last line the result.
 """
 
 import collections
@@ -158,19 +170,30 @@ def time_ms(fn, args, reps=20, windows=5):
     return best
 
 
-def device_us(fn):
+def device_us(fn, tries=3):
     """All device time (us) that torch.profiler records while ``fn`` runs:
     the sum over device-side events (kernels, copies) only, since a CPU
     op's entry repeats the device time of the kernels it launched. Also
-    the device events, sorted by time."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: -e.self_device_time_total)
-    return sum(e.self_device_time_total for e in events), events
+    the device events, sorted by time. A trace that records no device time
+    (seen now and then for short calls late in a run) is taken again, up
+    to ``tries`` traces; 0 if none saw any."""
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+        total = sum(e.self_device_time_total for e in events)
+        if total:
+            break
+    return total, events
+
+
+def pct(share):
+    """A share of the bound for printing."""
+    return "not measured" if share is None else f"{100 * share:.1f}%"
 
 
 TRAP_CHILD = """
@@ -271,6 +294,35 @@ def ptxas_summary(lib_path):
                            "spill bytes")
                 name = None
     return "; ".join(out)
+
+
+# NVIDIA H100 SXM's data sheet: HBM rate and float32 rate outside the
+# tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def bound(nbytes, ops, device_ms):
+    """A kernel's bound fields: the least time the card could take for the
+    call (the larger of the bytes it must move, each input read once and
+    each output written once, over the HBM rate, and its float32
+    operations over the float32 rate), which of the two sets it, and the
+    share of that bound the measured device time reaches."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    ms = 1e3 * max(t_bytes, t_ops)
+    return {"bound_ms": ms, "bound_us": 1e3 * ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes,
+            "share_of_bound": ms / device_ms if device_ms else None}
+
+
+def per_call_ms(fn, reps=5):
+    """Device ms of one call of ``fn`` by torch.profiler, over ``reps``
+    calls (``fn`` warmed up first); None if no trace saw device time."""
+    fn()
+    torch.cuda.synchronize()
+    us = device_us(lambda: [fn() for _ in range(reps)])[0]
+    return us / reps / 1e3 if us else None
 
 
 def max_rel_err(got, want):
@@ -376,7 +428,8 @@ def train_phases(dev, cfg, gen, rng, card):
     uids = [torch.as_tensor(p.uids[:rung], device=dev) for p in plans]
 
     # 7. the row write (and the gather at the record's width) against
-    # their plain versions on a full-size record table
+    # their plain versions on a full-size record table: every row, the
+    # fill row included (the write keeps the first row of a run of ids)
     table = torch.randn((BUCKETS + 1, width), generator=gen, device=dev)
     for u in uids:
         got = rowio.gather_rows(table, u)
@@ -386,8 +439,8 @@ def train_phases(dev, cfg, gen, rng, card):
         want = rowio.scatter_set_rows_reference(table.clone(), u, rows)
         if rowio.scatter_set_rows(table, u, rows) is not table:
             raise AssertionError("scatter_set_rows did not write in place")
-        if not torch.equal(table[:-1], want[:-1]):
-            raise AssertionError(f"row write kernel != index_copy_ at "
+        if not torch.equal(table, want):
+            raise AssertionError(f"row write kernel != plain at "
                                  f"{tuple(table.shape)}, U={rung}")
         del want
     odd = [(100003, 1, 1001), (100003, 33, 1001), (100003, 128, 1001)]
@@ -398,8 +451,7 @@ def train_phases(dev, cfg, gen, rng, card):
         ids[-n // 10:] = r - 1                     # repeated fill row
         new = torch.randn((n, w), generator=gen, device=dev)
         want = rowio.scatter_set_rows_reference(t.clone(), ids, new)
-        if not torch.equal(rowio.scatter_set_rows(t, ids, new)[:-1],
-                           want[:-1]):
+        if not torch.equal(rowio.scatter_set_rows(t, ids, new), want):
             raise AssertionError(f"row write kernel wrong at {(r, w, n)}")
     t = torch.randn(1000 * 4 + 1, device=dev, generator=gen)[1:].view(1000, 4)
     ids = torch.arange(999, -1, -3, dtype=torch.int32, device=dev)
@@ -407,15 +459,40 @@ def train_phases(dev, cfg, gen, rng, card):
     want = rowio.scatter_set_rows_reference(t.clone(), ids, new)
     if not torch.equal(rowio.scatter_set_rows(t, ids, new), want):
         raise AssertionError("row write kernel wrong on a misaligned table")
+    # a device plan: dedup_ids of a bench-recipe batch on the card, at the
+    # static budget the fused and sorted paths use (2^18 slots for ~40k
+    # uniques: a fill tail of ~222k slots), by the shipped route and both
+    dplan = E.dedup_ids(torch.as_tensor(zipf_ids(rng, BATCH), device=dev),
+                        cap, fill=BUCKETS)
+    dcount = int(dplan.count)
+    drows = torch.randn((cap, width), generator=gen, device=dev)
+    want = rowio.scatter_set_rows_reference(table.clone(), dplan.uids, drows)
+    t = table.clone()
+    rowio.scatter_set_rows(t, dplan.uids, drows)
+    if not torch.equal(t, want) or not torch.equal(t[BUCKETS],
+                                                   drows[dcount]):
+        raise AssertionError(f"row write != plain on a device plan "
+                             f"(U={cap}, {dcount} uniques)")
+    del t, want
     torch.cuda.synchronize()
-    print(f"check: row write kernel == index_copy_ (every row but the fill "
-          f"row) on the record table {tuple(table.shape)} with U={rung} (4 "
-          f"bench-recipe plans, counts {[int(p.count) for p in plans]}), at "
-          f"(R, W, U) {odd} and on a misaligned table; gather kernel == "
+    print(f"check: row write kernel == plain version (every row, the fill "
+          f"row included) on the record table {tuple(table.shape)} with "
+          f"U={rung} (4 bench-recipe ladder plans, counts "
+          f"{[int(p.count) for p in plans]}) and on a dedup_ids device plan "
+          f"(U={cap}, {dcount} uniques, fill tail {cap - dcount}), at (R, "
+          f"W, U) {odd} and on a misaligned table; gather kernel == "
           f"index_select at W={width}", flush=True)
     rows = [torch.randn((rung, width), generator=gen, device=dev)
             for _ in uids]
     wargs = list(zip(uids, rows))
+    # the one library call of the write's function: index_copy_ over each
+    # plan's distinct ids (the uniques and the fill row's first slot)
+    longs = [(u[:d].long(), r[:d]) for (u, r), d in zip(
+        wargs, [min(int(p.count) + 1, rung) for p in plans])]
+
+    def index_copy(u_long, r):
+        return table.index_copy_(0, u_long, r)
+
     times = {
         "gather": (time_ms(lambda u: rowio.gather_rows(table, u),
                            [(u,) for u in uids]),
@@ -424,16 +501,55 @@ def train_phases(dev, cfg, gen, rng, card):
         "write": (time_ms(lambda u, r: rowio.scatter_set_rows(table, u, r),
                           wargs),
                   time_ms(lambda u, r: rowio.scatter_set_rows_reference(
-                      table, u, r), wargs))}
+                      table, u, r), wargs),
+                  time_ms(index_copy, longs))}
     dev_us = {
         "gather": tuple(device_us(lambda: [g(table, u) for u in uids])[0]
                         / len(uids) for g in (
                             rowio.gather_rows, rowio.gather_rows_reference)),
-        "write": tuple(device_us(lambda: [w(table, u, r) for u, r in wargs])
-                       [0] / len(wargs) for w in (
-                           rowio.scatter_set_rows,
-                           rowio.scatter_set_rows_reference))}
-    del table, rows, wargs
+        "write": tuple(device_us(lambda: [w(table, *a) for a in args])[0]
+                       / len(args) for w, args in (
+                           (rowio.scatter_set_rows, wargs),
+                           (rowio.scatter_set_rows_reference, wargs),
+                           (lambda t, u, r: t.index_copy_(0, u, r), longs)))}
+    # everything at the device plan's shape; index_copy_ over all its
+    # slots writes the fill row ~222k times and leaves which of them lands
+    # unspecified, another function, timed for the record
+    dlong = dplan.uids.long()
+    dkeep = slice(0, min(dcount + 1, cap))
+    device_plan = {
+        "count": dcount, "budget": cap,
+        "write_device_ms": per_call_ms(
+            lambda: rowio.scatter_set_rows(table, dplan.uids, drows)),
+        "write_plain_device_ms": per_call_ms(
+            lambda: rowio.scatter_set_rows_reference(table, dplan.uids,
+                                                     drows)),
+        "write_library_device_ms": per_call_ms(
+            lambda: table.index_copy_(0, dlong[dkeep], drows[dkeep])),
+        "library": "index_copy_ over the plan's distinct ids",
+        "index_copy_all_slots_device_ms": per_call_ms(
+            lambda: table.index_copy_(0, dlong, drows)),
+        "write_ms": time_ms(lambda: rowio.scatter_set_rows(
+            table, dplan.uids, drows), [()]),
+        "gather_device_ms": per_call_ms(
+            lambda: rowio.gather_rows(table, dplan.uids)),
+        "gather_library_device_ms": per_call_ms(
+            lambda: table.index_select(0, dlong))}
+
+    def us(ms):
+        return "not measured" if ms is None else f"{ms * 1e3:.2f} us"
+    print(f"time: row write at a device plan (U={cap}, {dcount} uniques, "
+          f"W={width}): device {us(device_plan['write_device_ms'])} vs "
+          f"plain (keep-first + index_copy_) "
+          f"{us(device_plan['write_plain_device_ms'])}, index_copy_ over "
+          f"the plan's distinct ids "
+          f"{us(device_plan['write_library_device_ms'])} (over all {cap} "
+          f"slots, the fill id repeated: "
+          f"{us(device_plan['index_copy_all_slots_device_ms'])}); gather at "
+          f"that shape {us(device_plan['gather_device_ms'])} vs "
+          f"index_select {us(device_plan['gather_library_device_ms'])} "
+          f"(torch.profiler); {card}", flush=True)
+    del table, rows, wargs, longs, dplan, drows, dlong
     torch.cuda.empty_cache()
 
     # 8. the factored backward against its plain version: the main path's
@@ -497,13 +613,29 @@ def train_phases(dev, cfg, gen, rng, card):
         device_us(lambda: [f(*main_case, cv, cw) for _ in range(5)])[0] / 5
         for f in (segsum.fm_grad_segsum_factored,
                   segsum.fm_grad_segsum_factored_reference))
+    # what the calls must move: the ladder plans' ids, each distinct row
+    # once (the uniques and the fill row) read and written, for the write
+    # rows[r] read and table[ids[r]] written; B3 reads vw_u, ex, x and seg
+    # and writes (U, 2k+2), ~8 float32 operations per slot and column
+    distinct = np.mean([min(int(p.count) + 1, rung) for p in plans])
+    call_bytes = {"gather": rung * 4 + distinct * width * 4 + rung * width * 4,
+             "write": rung * 4 + 2 * distinct * width * 4,
+             "backward": sum(t.numel() * 4 for t in main_case[:4])
+             + main_case[4] * (2 * RANK + 2) * 4}
+    b3_ops = 8 * main_case[3].numel() * (RANK + 1)
     del main_case
-    for name, (ms, plain) in times.items():
+    for name, (ms, plain, *library) in times.items():
+        share = bound(call_bytes[name], 0, dev_us[name][0] / 1e3)
         print(f"time: {name} per call at the main path's shape (U={rung}, "
               f"W={width}, N={BATCH * SLOTS}): kernel {ms:.4f} ms, plain "
-              f"{plain:.4f} ms back to back (CUDA events, best of 5 "
-              f"windows of 20); device {dev_us[name][0]:.2f} us vs "
-              f"{dev_us[name][1]:.2f} us (torch.profiler); {card}",
+              f"{plain:.4f} ms"
+              + (f", library {library[0]:.4f} ms" if library else "")
+              + f" back to back (CUDA events, best of 5 windows of 20); "
+              f"device {dev_us[name][0]:.2f} us vs {dev_us[name][1]:.2f} us"
+              + (f", library {dev_us[name][2]:.2f} us" if library else "")
+              + f" (torch.profiler); bound {share['bound_us']:.2f} us "
+              f"({call_bytes[name] / 1e6:.2f} MB), "
+              f"{pct(share['share_of_bound'])} of it; {card}",
               flush=True)
 
     # 9. train BASELINE config 3 through train_sgd: the training path's run
@@ -604,14 +736,21 @@ def train_phases(dev, cfg, gen, rng, card):
           f"{wall * 1e3 / n:.3f} ms over {n} steps: {parts} (host_dedup and "
           f"plan_to_device lie inside 'batch'); {card}", flush=True)
 
+    dp_bytes = cap * 4 + 2 * min(dcount + 1, cap) * width * 4
     entries = [
         {"name": "scatter_set_rows", "route": "cuda",
          "source": "sparkfm_tpu_torch/csrc/rowio.cu",
          "replaces": "sparkfm_tpu/ops/pallas_rowio.py:74",
          "launches": launches["scatter_set_rows"], "max_abs_err": 0.0,
          "ms": times["write"][0], "plain_ms": times["write"][1],
+         "library_ms": times["write"][2],
+         "library": "index_copy_ over the plan's distinct ids",
          "device_ms": dev_us["write"][0] / 1e3,
-         "plain_device_ms": dev_us["write"][1] / 1e3},
+         "plain_device_ms": dev_us["write"][1] / 1e3,
+         "library_device_ms": dev_us["write"][2] / 1e3,
+         **bound(call_bytes["write"], 0, dev_us["write"][0] / 1e3),
+         "device_plan": {**device_plan, **bound(
+             dp_bytes, 0, device_plan["write_device_ms"])}},
         {"name": "fm_grad_segsum_factored", "route": "cuda",
          "source": "sparkfm_tpu_torch/csrc/segsum.cu",
          "replaces": "sparkfm_tpu/ops/pallas_segsum.py:613",
@@ -620,14 +759,26 @@ def train_phases(dev, cfg, gen, rng, card):
          "plain_f32_max_rel_err": main_plain_err,
          "err_against": "plain version in float64",
          "ms": times["backward"][0], "plain_ms": times["backward"][1],
-         "device_ms": dev_us["backward"][0] / 1e3,
-         "plain_device_ms": dev_us["backward"][1] / 1e3}]
+         "library_ms": None, "library": "none (the gradient is formed in "
+         "the kernel)", "device_ms": dev_us["backward"][0] / 1e3,
+         "plain_device_ms": dev_us["backward"][1] / 1e3,
+         "library_device_ms": None,
+         **bound(call_bytes["backward"], b3_ops,
+                 dev_us["backward"][0] / 1e3)}]
     gather_record = {
         "launches_training": launches["gather_rows"],
         "record_ms": times["gather"][0],
         "record_plain_ms": times["gather"][1],
         "record_device_ms": dev_us["gather"][0] / 1e3,
-        "record_plain_device_ms": dev_us["gather"][1] / 1e3}
+        "record_plain_device_ms": dev_us["gather"][1] / 1e3,
+        "record_bound": bound(call_bytes["gather"], 0,
+                              dev_us["gather"][0] / 1e3),
+        "device_plan_device_ms": device_plan["gather_device_ms"],
+        "device_plan_library_device_ms":
+            device_plan["gather_library_device_ms"],
+        "device_plan_bound": bound(
+            cap * 4 + (min(dcount + 1, cap) + cap) * width * 4, 0,
+            device_plan["gather_device_ms"])}
     return entries, gather_record
 
 
@@ -742,12 +893,22 @@ def als_phases(dev, gen, card):
         return float((got.double() - exact).abs().max()), err, plain_err
 
     seg_user, seg_movie = ws.col_rank[:ALS_N], ws.col_rank[ALS_N:]
+    # the CSC ranks from the user block's last slot on: a view 4 bytes
+    # short of a 16-byte bound, as the sweep's block slices are when N % 4
+    # != 0 (still sorted: every user rank is below every movie rank)
+    seg_odd = ws.col_rank[ALS_N - 1:2 * ALS_N - 1]
+    if seg_odd.data_ptr() % 16 == 0:
+        raise AssertionError("the offset seg slice is 16-byte aligned")
     streams = [torch.randn(ALS_N, generator=gen, device=dev)
                for _ in range(5)]
     main_abs, main_err, main_plain_err = hold(
         streams, seg_movie, n_ranks, f"movie block N={ALS_N} S=5")
     hold(streams[:1], seg_movie, n_ranks, "movie block S=1")
     hold(streams, seg_user, n_ranks, "user block S=5")
+    hold(streams[:1], seg_user, n_ranks, "user block S=1")
+    hold(streams, seg_odd, n_ranks,
+         f"seg at byte offset {seg_odd.data_ptr() % 16} past a 16-byte bound "
+         f"S=5")
     rng = np.random.default_rng(SEED + 3)
     for n, width, kind in ((1, 1, "runs"), (1000, 16, "runs"),
                            (3073, 5, "runs"), (1 << 20, 5, "one run"),
@@ -772,24 +933,45 @@ def als_phases(dev, gen, card):
           f"max |a-b|/(1+|b|) < 1e-4: {'; '.join(checked)}; sums repeat "
           f"exactly; ranks without slots are zero; out-of-range rank -> "
           f"{child.stdout.strip()}", flush=True)
+    # device time per call by kernel, pass 1 and pass 2, against the bound:
+    # S + 1 arrays of N read once, (U, S) written once, S adds per slot
+    def passes(fn):
+        """Device us per call of ``fn`` (5 calls): in all, pass 1, pass 2."""
+        total, events = device_us(lambda: [fn() for _ in range(5)])
+        by = {e.key: e.self_device_time_total / 5 for e in events}
+        return (total / 5,
+                sum(v for k, v in by.items() if "colsums_chunks" in k),
+                sum(v for k, v in by.items() if "colsums_crossing" in k))
+
+    def b7_bound(s, us):
+        return bound(4 * ((s + 1) * ALS_N + n_ranks * s), s * ALS_N,
+                     us / 1e3)
+
     args = (streams, seg_movie, n_ranks)
     ms = (time_ms(segsum.segment_colsums, [args], reps=10, windows=3),
           time_ms(segsum.segment_colsums_reference, [args], reps=10,
                   windows=3))
-    dev_us = tuple(device_us(lambda: [f(*args) for _ in range(5)])[0] / 5
-                   for f in (segsum.segment_colsums,
-                             segsum.segment_colsums_reference))
-    user_us = tuple(device_us(lambda: [f(streams, seg_user, n_ranks)
-                                       for _ in range(5)])[0] / 5
-                    for f in (segsum.segment_colsums,
-                              segsum.segment_colsums_reference))
-    print(f"time: stream sums per call, movie block (N={ALS_N}, S=5, head "
-          f"run {int(movie_counts.max())}): kernel {ms[0]:.4f} ms, plain "
-          f"{ms[1]:.4f} ms back to back (CUDA events, best of 3 windows of "
-          f"10); device {dev_us[0]:.2f} us vs {dev_us[1]:.2f} us; user "
-          f"block device {user_us[0]:.2f} us vs {user_us[1]:.2f} us "
-          f"(torch.profiler); kernel reads {6 * 4 * ALS_N / dev_us[0] / 1e3:.0f}"
-          f" GB/s of device time; {card}", flush=True)
+    blocks = {label: {s: passes(lambda: segsum.segment_colsums(
+        streams[:s], sg, n_ranks)) for s in (5, 1)}
+        for label, sg in (("movie", seg_movie), ("user", seg_user),
+                          ("offset", seg_odd))}
+    plain_us = tuple(
+        device_us(lambda: [segsum.segment_colsums_reference(
+            streams, sg, n_ranks) for _ in range(5)])[0] / 5
+        for sg in (seg_movie, seg_user))
+    lines = []
+    for label, by_s in blocks.items():
+        for s, (us, p1, p2) in by_s.items():
+            share = b7_bound(s, us)
+            lines.append(f"{label} S={s} {us:.2f} us (pass 1 {p1:.2f}, "
+                         f"pass 2 {p2:.2f}), bound {share['bound_us']:.2f} "
+                         f"us, {pct(share['share_of_bound'])}")
+    print(f"time: stream sums per call (N={ALS_N}, head run "
+          f"{int(movie_counts.max())}): kernel {ms[0]:.4f} ms, plain "
+          f"{ms[1]:.4f} ms back to back at the movie block S=5 (CUDA events, "
+          f"best of 3 windows of 10); device (torch.profiler): "
+          + "; ".join(lines) + f"; plain movie {plain_us[0]:.2f} us, user "
+          f"{plain_us[1]:.2f} us; {card}", flush=True)
     del streams, args
 
     # 12. one sweep with the kernel and one with the float64 plain version
@@ -911,9 +1093,17 @@ def als_phases(dev, gen, card):
     busy, events = device_us(lambda: sweep(p0))
     top = "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total:.0f}"
                     for e in events[:8])
+    sweep_b7 = {name: (sum(e.self_device_time_total for e in events
+                           if key in e.key),
+                       sum(e.count for e in events if key in e.key))
+                for name, key in (("pass 1", "colsums_chunks"),
+                                  ("pass 2", "colsums_crossing"))}
     print(f"profile: one ALS sweep: device busy {busy / 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}"
-          f"% idle); top device events (us): {top}; {card}", flush=True)
+          f"% idle); stream sums "
+          + ", ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
+                      for k, v in sweep_b7.items())
+          + f"; top device events (us): {top}; {card}", flush=True)
     build = host["build_workspace"]
     inner = ("sort_examples", "csc_view", "to_device")
     rest = build - sum(host[k] for k in inner)
@@ -931,8 +1121,19 @@ def als_phases(dev, gen, card):
             "max_abs_err": main_abs, "max_rel_err": main_err,
             "plain_f32_max_rel_err": main_plain_err,
             "err_against": "plain version in float64",
-            "ms": ms[0], "plain_ms": ms[1],
-            "device_ms": dev_us[0] / 1e3, "plain_device_ms": dev_us[1] / 1e3}
+            "ms": ms[0], "plain_ms": ms[1], "library_ms": None,
+            "library": "none (S separate streams summed per rank)",
+            "device_ms": blocks["movie"][5][0] / 1e3,
+            "plain_device_ms": plain_us[0] / 1e3, "library_device_ms": None,
+            **b7_bound(5, blocks["movie"][5][0]),
+            "device_us_by_block": {
+                f"{label} S={s}": {"all": t[0], "pass 1": t[1], "pass 2": t[2],
+                                   "share_of_bound": b7_bound(
+                                       s, t[0])["share_of_bound"]}
+                for label, by_s in blocks.items() for s, t in by_s.items()},
+            "plain_device_us_user": plain_us[1],
+            "sweep_device_ms": {k: v[0] / 1e3 for k, v in sweep_b7.items()},
+            "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}}
 
 
 SEGSUM_TRAP_CHILD = """
@@ -1225,16 +1426,48 @@ def segsum_phases(dev, cfg, gen, rng, card):
                               main["sq"]),
         "fm_grad_segsum": (segsum.fm_grad_segsum,
                            segsum.fm_grad_segsum_reference, main["b4"])}
+    # what each call must move and compute: its inputs read once, its
+    # (U, width) output written once; float32 adds (B5), adds and squares
+    # (B6), ~8 operations per slot and column (B4)
+    sq_g, b4_args = main["sq"][0], main["b4"]
+    cost = {"segment_rowsum": (4 * (g66.numel() + n + u * g66.shape[1]),
+                               g66.numel()),
+            "segment_rowsum_sq": (4 * (sq_g.numel() + n
+                                       + 2 * u * sq_g.shape[1]),
+                                  3 * sq_g.numel()),
+            "fm_grad_segsum": (4 * (sum(t.numel() for t in b4_args[:4])
+                                    + u * (2 * RANK + 2)),
+                               8 * n * (RANK + 1))}
+    # the one library call that computes B5's function: index_add_ of the
+    # rows into a zeroed (U, W)
+    lib_out = torch.zeros((u, g66.shape[1]), device=dev)
+    seg_l = seg.long()
+
+    def index_add():
+        return lib_out.index_add_(0, seg_l, g66)
     times = {}
     for name, (fn, plain, args) in timed.items():
         ms = (time_ms(fn, [args]), time_ms(plain, [args]))
         us = tuple(device_us(lambda f=f: [f(*args) for _ in range(5)])[0] / 5
                    for f in (fn, plain))
-        times[name] = ms + us
+        library = (None, None)
+        if name == "segment_rowsum":
+            lib_ms = per_call_ms(index_add)
+            library = (time_ms(index_add, [()]),
+                       1e3 * lib_ms if lib_ms else None)
+        times[name] = ms + us + library
+        share = bound(*cost[name], us[0] / 1e3)
         print(f"time: {name} per call (N={n}, U={u}, head run {head}): "
-              f"kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms back to back "
-              f"(CUDA events, best of 5 windows of 20); device {us[0]:.2f} us "
-              f"vs {us[1]:.2f} us (torch.profiler); {card}", flush=True)
+              f"kernel {ms[0]:.4f} ms, plain {ms[1]:.4f} ms"
+              + (f", index_add_ {library[0]:.4f} ms" if library[0] else "")
+              + f" back to back (CUDA events, best of 5 windows of 20); "
+              f"device {us[0]:.2f} us vs {us[1]:.2f} us"
+              + (f", index_add_ {library[1]:.2f} us" if library[1] else "")
+              + f" (torch.profiler); bound {share['bound_us']:.2f} us "
+              f"({cost[name][0] / 1e6:.2f} MB), "
+              f"{pct(share['share_of_bound'])} of it; {card}",
+              flush=True)
+    del lib_out, seg_l
     del g66, timed, main
     torch.cuda.empty_cache()
     for label, kw in (("hybrid", dict(update_path="hybrid")),
@@ -1260,27 +1493,32 @@ def segsum_phases(dev, cfg, gen, rng, card):
               f"device events (us): {top}; {card}", flush=True)
         del res
 
-    def entry(name, line, res, t, **extra):
+    def entry(name, line, res, t, library, **extra):
         return {"name": name, "route": "cuda",
                 "source": "sparkfm_tpu_torch/csrc/segsum.cu",
                 "replaces": f"sparkfm_tpu/ops/pallas_segsum.py:{line}",
                 **extra, "max_abs_err": res[0], "max_rel_err": res[1],
                 "plain_f32_max_rel_err": res[2],
                 "err_against": "plain version in float64",
-                "ms": t[0], "plain_ms": t[1], "device_ms": t[2] / 1e3,
-                "plain_device_ms": t[3] / 1e3}
+                "ms": t[0], "plain_ms": t[1], "library_ms": t[4],
+                "library": library, "device_ms": t[2] / 1e3 if t[2] else None,
+                "plain_device_ms": t[3] / 1e3 if t[3] else None,
+                "library_device_ms": t[5] / 1e3 if t[5] else None,
+                **bound(*cost[name], t[2] / 1e3)}
 
     no_path = ("none in either package; launches are one call at the main "
                "path's shapes (phase 18)")
+    in_kernel = "none (the gradient is formed in the kernel)"
     return [
         entry("fm_grad_segsum", 418, b4_res, times["fm_grad_segsum"],
-              launches=driven["fm_grad_segsum"], path=no_path),
+              in_kernel, launches=driven["fm_grad_segsum"], path=no_path),
         entry("segment_rowsum", 101, rowsum_main, times["segment_rowsum"],
-              launches=train_launches["fused (segsum)"],
+              "index_add_", launches=train_launches["fused (segsum)"],
               launches_sorted=train_launches["sorted"],
               path="train_sgd fused accumulate='segsum' (phase 16), sorted "
                    "(phase 17)"),
         entry("segment_rowsum_sq", 238, sq_res, times["segment_rowsum_sq"],
+              "none (the squares are formed in the kernel)",
               launches=driven["segment_rowsum_sq"], path=no_path)]
 
 
@@ -1502,36 +1740,37 @@ def main():
     for label, gather in (("kernel", rowio.gather_rows),
                           ("index_select", rowio.gather_rows_reference)):
         for tname, table in (("V", params.v), ("w", w_col)):
-            us, _ = device_us(lambda: [gather(table, u) for u in uids])
-            per_call[f"{label} {tname}"] = us / len(uids)
+            ms = per_call_ms(lambda: [gather(table, u) for u in uids],
+                             reps=1)
+            per_call[f"{label} {tname}"] = (1e3 * ms / len(uids) if ms
+                                            else None)
 
     def device_ms(label):
         """Device time of one plan's V+w gather, None if not measured."""
-        ms = (per_call[f"{label} V"] + per_call[f"{label} w"]) / 1e3
-        return ms or None
+        parts = (per_call[f"{label} V"], per_call[f"{label} w"])
+        return None if None in parts else sum(parts) / 1e3
 
-    if not any(per_call.values()):
-        print("profile: not measured (torch.profiler saw no device time)")
-    else:
-        v_bytes = rung * (RANK * 4 * 2 + 4)
-        print(f"profile: device us per gather call (U={rung}): "
-              + ", ".join(f"{k} {v:.2f}" for k, v in per_call.items())
-              + f"; kernel V moves {v_bytes / per_call['kernel V'] / 1e3:.0f}"
-              f" GB/s of device time; {card}", flush=True)
-        t0 = time.perf_counter()
-        busy, events = device_us(
-            lambda: (serve(), model.predict_dataset(ds, batch_size=BATCH)))
-        traced = time.perf_counter() - t0
-        wall = t2 - t0_serve
-        top = "; ".join(f"{e.key[:60]} x{e.count} "
-                        f"{e.self_device_time_total:.0f}" for e in events[:8])
-        n_ops = sum(e.count for e in events)
-        print(f"profile: serving run device busy {busy / 1e3:.3f} ms of "
-              f"{wall * 1e3:.3f} ms untraced wall "
-              f"({100 * (1 - busy / 1e6 / wall):.1f}% idle; traced wall "
-              f"{traced * 1e3:.3f} ms); {n_ops} device events for "
-              f"{chunks + 1} scoring calls; top device events (us): {top}",
-              flush=True)
+    v_bytes = rung * (RANK * 4 * 2 + 4)
+    kernel_v = per_call["kernel V"]
+    print(f"profile: device us per gather call (U={rung}): "
+          + ", ".join(f"{k} {v:.2f}" if v else f"{k} not measured"
+                      for k, v in per_call.items())
+          + (f"; kernel V moves {v_bytes / kernel_v / 1e3:.0f} GB/s of "
+             "device time" if kernel_v else "") + f"; {card}", flush=True)
+    t0 = time.perf_counter()
+    busy, events = device_us(
+        lambda: (serve(), model.predict_dataset(ds, batch_size=BATCH)))
+    traced = time.perf_counter() - t0
+    wall = t2 - t0_serve
+    top = "; ".join(f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total:.0f}" for e in events[:8])
+    n_ops = sum(e.count for e in events)
+    print(f"profile: serving run device busy {busy / 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms untraced wall "
+          f"({100 * (1 - busy / 1e6 / wall):.1f}% idle; traced wall "
+          f"{traced * 1e3:.3f} ms); {n_ops} device events for "
+          f"{chunks + 1} scoring calls; top device events (us): {top}",
+          flush=True)
 
     # the host side of the same run, phase by phase: the wall time of
     # each call to the plan builder, the plan's copy to the device and the
@@ -1577,15 +1816,23 @@ def main():
     segsum_entries = segsum_phases(dev, cfg, gen, rng, card)
 
     print(smi)
+    # one serving plan's V + w gather: ids twice, each distinct row (the
+    # uniques and the fill row) read once, U rows of 33 floats written
+    distinct = np.mean([min(int(p.count) + 1, rung) for p in plans])
+    pair_bytes = 2 * rung * 4 + (distinct + rung) * (RANK + 1) * 4
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
         "source": "sparkfm_tpu_torch/csrc/rowio.cu",
         "replaces": "sparkfm_tpu/ops/pallas_rowio.py:140",
         "launches": launches + gather_record["launches_training"],
         "launches_serving": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms,
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+        "library": "index_select (the plain version)",
         "device_ms": device_ms("kernel"),
-        "plain_device_ms": device_ms("index_select"), **gather_record},
+        "plain_device_ms": device_ms("index_select"),
+        "library_device_ms": device_ms("index_select"),
+        **bound(pair_bytes, 0, device_ms("kernel")),
+        "device_us_per_call": per_call, **gather_record},
         *train_entries, als_entry, *segsum_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,7 +10,8 @@
 // All cut the sorted stream into fixed chunks, one warp per chunk, write
 // runs that lie inside a chunk straight out, and sum the partial rows of
 // runs that cross chunks in a second pass, in a fixed order, without
-// atomics.
+// atomics. Every launcher takes the card's SM count from its caller, which
+// looks it up once per device.
 //
 // B3. Factored FM backward over id-sorted slots: per-run sums of the FM
 // gradient and of its square,
@@ -78,6 +79,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -297,15 +300,6 @@ void launch_crossing(const int32_t* seg, const float* partials, float* out,
                          stream>>>(seg, partials, out, n, width, num_chunks);
 }
 
-// The current card's SM count in *num_sms; returns the CUDA error.
-cudaError_t sm_count(int* num_sms) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(num_sms, cudaDevAttrMultiProcessorCount,
-                                device);
-}
-
 template <int KPL, int G, bool kSlotRows>
 void launch_chunks(const float* vw, const float* ex, const float* x,
                    const int32_t* seg, const float* coef, float* out,
@@ -321,12 +315,9 @@ template <bool kSlotRows>
 int launch_fm_grad(const float* vw, const float* ex, const float* x,
                    const int32_t* seg, const float* coef, float* out,
                    float* partials, int64_t n, int64_t num_segments,
-                   int64_t k, void* stream) {
+                   int64_t k, int num_sms, void* stream) {
   if (n <= 0) return 0;
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  int num_sms = 0;
-  cudaError_t err = sm_count(&num_sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + kChunk - 1) / kChunk;
   int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
@@ -352,7 +343,7 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
                                      num_segments, ki, num_chunks, b1, s);
       break;
   }
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_crossing(seg, partials, out, n, 2 * k + 2, num_chunks, num_sms, s);
   return static_cast<int>(cudaGetLastError());
@@ -490,13 +481,10 @@ void launch_rowsum_chunks(const float* g, const int32_t* seg, float* out,
 template <bool SQ>
 int launch_rowsum(const float* g, const int32_t* seg, float* out,
                   float* partials, int64_t n, int64_t num_segments, int64_t w,
-                  void* stream) {
+                  int num_sms, void* stream) {
   if (n <= 0) return 0;
   if (w < 1 || w > kMaxRowWidth)
     return static_cast<int>(cudaErrorInvalidValue);
-  int num_sms = 0;
-  cudaError_t err = sm_count(&num_sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + kChunk - 1) / kChunk;
   const int cols = w >= 128 ? 4 : static_cast<int>((w + 31) / 32);
@@ -524,7 +512,7 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
                                      w, num_chunks, grid, s);
       break;
   }
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_crossing(seg, partials, out, n, SQ ? 2 * w : w, num_chunks, num_sms,
                   s);
@@ -542,187 +530,434 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
 // _segsum_streams_kernel (called through _segment_colsums_pallas, public
 // segment_colsums): the ALS sweep's per-feature sums
 // (sparkfm_tpu_torch/solvers/als.py), S = 1 for a w block and S = 5 for a
-// (factor, block). The TPU kernel reduces each subtile with a one-hot
-// matrix product and carries a run's sum through its ordered grid.
+// (factor, block), 66 calls per sweep of BASELINE config 2. The TPU kernel
+// reduces each subtile with a one-hot matrix product and carries a run's
+// sum through its ordered grid.
 //
-// What bounds it: bytes, (S + 1) * 4 per slot read once (600 MB for the
-// movie block of BASELINE config 2: N = 25M, S = 5), against ~S adds per
-// slot. The streams are 1-D, so lanes own slots, not columns (B3's
-// lane-per-column layout would idle 27 of 32 lanes at S = 5): a warp loads
-// 32 consecutive slots of every stream with coalesced 128-byte reads, then
-// a segmented inclusive scan over the warp (five shuffle steps keyed on
-// seg: it is sorted, so lane l - d lies in lane l's run iff their ranks are
-// equal) leaves each run's sum on the run's last lane. A run still open at
-// the warp's last lane is carried in registers into the next 32 slots.
+// What bounds it: bytes, (S + 1) * 4 per slot read once (600 MB for a
+// block of BASELINE config 2: N = 25M, S = 5, a 179 us floor at 3.35 TB/s),
+// against ~S adds per slot. So the design keeps loads in flight and spends
+// few instructions per slot:
+//
+// * Pass 1 gives each chunk of kColChunk sorted slots a one-warp block. The
+//   chunk's tiles (as many slots as two buffers of S + 1 arrays fit in 40
+//   KB of shared memory) come in by 1-D bulk copies, one per stream plus
+//   seg on one mbarrier, double-buffered: lane 0 starts the copies of tile
+//   t + 1 before the warp waits for tile t.
+// * A tile is cut into steps of 32 V slots. Each lane owns V consecutive
+//   slots of a step (V / 4 16-byte shared-memory loads per array; V = 16
+//   for S <= 5, 8 for S <= 8, 4 above, as registers allow), sums its own
+//   runs in registers in slot order and writes a run that begins and ends
+//   inside its slots straight to out. Then ONE segmented inclusive scan
+//   over the warp (five shuffle
+//   steps keyed on the rank of each lane's last run: seg is sorted, so lane
+//   l - d holds part of that run iff its last rank is equal) joins the
+//   lanes' open runs; a lane whose first run ends inside its slots adds the
+//   scan value of the lane before it, when that lane's last run is the
+//   same, and a lane whose last run ends at its last slot writes that
+//   run's scan value. The run open after the step's last lane is carried
+//   in registers into the next step, where its sum so far is added once,
+//   to the run's sum in that step, when the run ends or goes on again (so
+//   the lanes' sums stay small and a chunk's carry takes one add per
+//   step); it is written when the next step starts with another rank, or
+//   at the chunk's end.
+// * Alignment. Bulk copies need 16-byte addresses, but seg arrives as a
+//   slice of the CSC ranks at offset b * N (solvers/als.py), 16-byte aligned
+//   only when N % 4 == 0. Each array's copy starts at the 16-byte boundary
+//   at or below the tile's first slot and reads kColPad more floats; the
+//   warp then reads that array at its offset past the boundary (scalar
+//   shared-memory loads when it is not 0). Tiles whose shifted copy could
+//   reach outside [0, N) (the first and the last ones) are read from
+//   device memory with scalar loads instead. Nothing reads an unaligned
+//   float4.
 //
 // Run skew: the head movie of the ML-25M-shape data holds a quarter of all
-// ratings, 6.4M slots of a 25M block. As in B3, pass 1 gives each warp a
-// fixed chunk (kColChunk = 1024 slots: 32 steps of 32); a run inside one
-// chunk is written straight to out, a run that crosses a chunk boundary
-// leaves one partial row per chunk it touches. The head run crosses ~6,100
-// chunks, so pass 2 spreads its partial rows over the block's 256 threads
-// (thread t sums rows t, t + 256, ...) and adds the threads' sums in a
-// fixed tree. No atomics: the sums repeat bit for bit.
+// ratings, 6.4M slots of a 25M block. As in B3, a run that crosses a chunk
+// boundary leaves one partial row per chunk it touches (a chunk's row 0:
+// its first run, begun in an earlier chunk; row 1: its last run, going on
+// into the next). Pass 2 gives each chunk a warp: if a run begins in chunk
+// c and crosses into c + 1, the warp finds the chunks it reaches from seg,
+// and when that is at most 33 partial rows (almost every crossing run) it
+// sums them over its lanes (lane l: rows l, then l + 32) and adds the lanes'
+// sums in a fixed butterfly. A longer run is left to the warp's whole block
+// of 256 threads, which takes such runs in warp order (one slot per warp),
+// sums rows t, t + 256, ... and adds the threads' sums
+// in a fixed tree over the S columns. No atomics: the sums repeat bit for
+// bit.
 //
 // Ranks with no slots are not written: the caller zero-fills out. seg must
 // be sorted; gaps between ranks are allowed (a block's slice of the CSC
 // view holds only that block's ranks). A rank outside [0, num_segments)
 // traps.
 
-constexpr int64_t kColChunk = 1024;    // sorted slots per pass-1 warp
+constexpr int64_t kColChunk = 4096;    // sorted slots per pass-1 block
+constexpr int kColPad = 4;             // floats a shifted bulk copy adds
+constexpr uint32_t kColSmem = 40 * 1024;  // pass 1's two buffers
 constexpr int kMaxStreams = 16;
-constexpr int kColThreads1 = 256;
-constexpr int kColWarps1 = kColThreads1 / 32;
-constexpr int kColThreads2 = 256;
+constexpr int kColThreads2 = 256;      // pass 2: a warp per chunk
+constexpr int kColWarps2 = kColThreads2 / 32;
 
 struct Streams {
   const float* p[kMaxStreams];
 };
 
-// SM: a power of two >= s, the streams held per lane.
-template <int SM>
-__global__ void __launch_bounds__(kColThreads1)
+// Pass 1's tile for s streams and V slots per lane: the largest power of
+// two from 2048 down to one step (32 V slots) whose two buffers of s + 1
+// arrays fit in kColSmem.
+int colsums_tile(int s, int v) {
+  int tile = 2048;
+  while (tile > 32 * v &&
+         2u * (s + 1) * (tile + kColPad) * 4 > kColSmem)
+    tile /= 2;
+  return tile;
+}
+
+// SM: s rounded up (1, 2, 4, 5, 8 or 16), the streams held per lane; V:
+// consecutive slots per lane, a multiple of 4.
+template <int SM, int V>
+__global__ void __launch_bounds__(32)
 colsums_chunks_kernel(Streams streams, int s,
                       const int32_t* __restrict__ seg,   // (N,) sorted
                       float* __restrict__ out,           // (U, s)
                       float* __restrict__ partials,      // (chunks, 2, s)
-                      int64_t n, int64_t num_segments, int64_t num_chunks) {
-  const int lane = threadIdx.x & 31;
-  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kColWarps1;
-  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kColWarps1 +
-                   (threadIdx.x >> 5);
-       c < num_chunks; c += num_warps) {
-    const int64_t s0 = c * kColChunk;
-    const int64_t s1 = s0 + kColChunk < n ? s0 + kColChunk : n;
-    const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
-    const int32_t after = s1 < n ? seg[s1] : -1;
-    int32_t carry_rank = -1;
-    float carry[SM];
+                      int64_t n, int64_t num_segments, int tile) {
+  extern __shared__ __align__(16) float smem[];  // [2][s + 1][tile + pad]
+  __shared__ __align__(8) uint64_t bar[2];
+  const int lane = threadIdx.x;
+  const int64_t c = blockIdx.x;
+  const int64_t s0 = c * kColChunk;
+  const int64_t s1 = s0 + kColChunk < n ? s0 + kColChunk : n;
+  const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
+  const int32_t after = s1 < n ? seg[s1] : -1;
+  const int stride = tile + kColPad;
+  // array a: seg (a == 0) or stream a - 1
+  auto array = [&](int a) -> const float* {
+    return a == 0 ? reinterpret_cast<const float*>(seg) : streams.p[a - 1];
+  };
+  // floats from the 16-byte boundary below an array's tile start to it;
+  // tiles start at multiples of 4 slots, so the same for every tile
+  auto shift = [&](int a) -> int {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(array(a)) >> 2 & 3);
+  };
+  // a tile read by bulk copies: the shifted copy stays inside [0, N)
+  auto in_smem = [&](int64_t i0) {
+    return i0 >= kColPad && i0 + tile + kColPad <= n;
+  };
+  // lane 0 starts the copies of the tile at slot i0 into buffer b
+  auto load = [&](int64_t i0, int b) {
+    uint32_t bytes = 0;
 #pragma unroll
-    for (int q = 0; q < SM; ++q) carry[q] = 0.f;
+    for (int a = 0; a <= SM; ++a)
+      if (a <= s) bytes += (tile + (shift(a) ? kColPad : 0)) * 4;
+    sfm::mbar_expect_bytes(&bar[b], bytes);
+#pragma unroll
+    for (int a = 0; a <= SM; ++a) {
+      if (a <= s) {
+        const int sh = shift(a);
+        sfm::bulk_load(smem + (b * (s + 1) + a) * stride, array(a) + i0 - sh,
+                       (tile + (sh ? kColPad : 0)) * 4, &bar[b]);
+      }
+    }
+  };
+  // the sums of the run `rank` to out[rank], or to this chunk's partial
+  // row 0 (the run began in an earlier chunk) or row 1 (it goes on)
+  auto write = [&](int32_t rank, const float* v, bool may_go_on) {
+    float* dst = rank == before                 ? partials + (2 * c) * s
+                 : may_go_on && rank == after ? partials + (2 * c + 1) * s
+                 : out + static_cast<int64_t>(rank) * s;
+#pragma unroll
+    for (int q = 0; q < SM; ++q)
+      if (q < s) dst[q] = v[q];
+  };
 
-    for (int64_t base = s0; base < s1; base += 32) {
-      const int cnt = static_cast<int>(s1 - base < 32 ? s1 - base : 32);
-      const bool more = base + 32 < s1;           // warp-uniform
-      const bool valid = lane < cnt;
-      const int64_t i = base + lane;
-      int32_t r = -1;                             // lanes past the end
-      float v[SM];
-      if (valid) {
-        r = seg[i];
-        if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
+  if (lane == 0) {
+    sfm::mbar_init(&bar[0], 1);
+    sfm::mbar_init(&bar[1], 1);
+    sfm::mbar_init_fence();
+  }
+  __syncwarp();
+  const int tiles = static_cast<int>((s1 - s0 + tile - 1) / tile);
+  if (lane == 0 && in_smem(s0)) load(s0, 0);
+  uint32_t parity = 0;                      // bit b: buffer b's phase
+  int32_t carry_rank = -1;                  // the run open after a step
+  float carry[SM];
+#pragma unroll
+  for (int q = 0; q < SM; ++q) carry[q] = 0.f;
+
+  for (int t = 0; t < tiles; ++t) {
+    const int b = t & 1;
+    const int64_t i0 = s0 + static_cast<int64_t>(t) * tile;
+    // buffer b ^ 1 was read by tile t - 1, which the warp has finished
+    if (lane == 0 && t + 1 < tiles && in_smem(i0 + tile))
+      load(i0 + tile, b ^ 1);
+    const bool from_smem = in_smem(i0);
+    if (from_smem) {
+      sfm::mbar_wait(&bar[b], parity >> b & 1u);
+      parity ^= 1u << b;
+    }
+    const float* buf = smem + b * (s + 1) * stride;
+    const int len = static_cast<int>(s1 - i0 < tile ? s1 - i0 : tile);
+    for (int j0 = 0; j0 < len; j0 += 32 * V) {
+      const int cnt = len - j0 < 32 * V ? len - j0 : 32 * V;
+      const int off = j0 + lane * V;        // the lane's first slot in tile
+      int lc = cnt - lane * V;              // the lane's slots
+      lc = lc < 0 ? 0 : lc > V ? V : lc;
+      int32_t r[V];
+      float v[V][SM];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        r[i] = -1;
+#pragma unroll
+        for (int q = 0; q < SM; ++q) v[i][q] = 0.f;
       }
+      if (from_smem) {                      // full tile: lc == V
 #pragma unroll
-      for (int q = 0; q < SM; ++q)
-        v[q] = (valid && q < s) ? streams.p[q][i] : 0.f;
-      // the run left open by the previous 32 slots continues at lane 0
-      if (lane == 0 && r == carry_rank) {
+        for (int a = 0; a <= SM; ++a) {
+          if (a > s) continue;
+          const int sh = shift(a);
+          const float* src = buf + a * stride + sh + off;
+          float x[V];
+          if (sh == 0) {
 #pragma unroll
-        for (int q = 0; q < SM; ++q) v[q] += carry[q];
-      }
-      // segmented inclusive scan: lane l ends with the sum of its run's
-      // slots up to l
+            for (int i = 0; i < V; i += 4) {
+              const float4 f = *reinterpret_cast<const float4*>(src + i);
+              x[i] = f.x; x[i + 1] = f.y; x[i + 2] = f.z; x[i + 3] = f.w;
+            }
+          } else {
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int32_t rd = __shfl_up_sync(kFull, r, d);
-        const bool same = lane >= d && rd == r;
+            for (int i = 0; i < V; ++i) x[i] = src[i];
+          }
 #pragma unroll
-        for (int q = 0; q < SM; ++q) {
-          if (q < s) {                            // warp-uniform
-            const float u = __shfl_up_sync(kFull, v[q], d);
-            if (same) v[q] += u;
+          for (int i = 0; i < V; ++i) {
+            if (a == 0) r[i] = __float_as_int(x[i]);
+            else v[i][a > 0 ? a - 1 : 0] = x[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          if (i < lc) {
+            const int64_t slot = i0 + off + i;
+            r[i] = seg[slot];
+#pragma unroll
+            for (int q = 0; q < SM; ++q)
+              if (q < s) v[i][q] = streams.p[q][slot];
           }
         }
       }
-      // the rank of the slot after this one: the next lane's, the next
-      // 32 slots' first, or the next chunk's first (-1 past the end)
-      const int32_t r_next = __shfl_down_sync(kFull, r, 1);
-      const bool last_lane = lane == cnt - 1;
-      const bool chunk_last = last_lane && !more;
-      int32_t following = r_next;
-      if (last_lane) following = more ? seg[i + 1] : after;
-      if (valid && (following != r || chunk_last)) {
-        // a run ends here, or at the chunk's end: out[r], or this chunk's
-        // partial row 0 (the run began in an earlier chunk) or 1 (it goes
-        // on into the next)
-        const bool head = r == before;
-        const bool tail = chunk_last && following == r;
-        float* dst = head   ? partials + (2 * c) * s
-                     : tail ? partials + (2 * c + 1) * s
-                            : out + static_cast<int64_t>(r) * s;
 #pragma unroll
-        for (int q = 0; q < SM; ++q)
-          if (q < s) dst[q] = v[q];
+      for (int i = 0; i < V; ++i)
+        if (i < lc && (r[i] < 0 || static_cast<int64_t>(r[i]) >= num_segments))
+          __trap();
+      // the carried run ended where this step starts: write it
+      const int32_t first = __shfl_sync(kFull, r[0], 0);
+      if (carry_rank >= 0 && first != carry_rank) {
+        if (lane == 0) write(carry_rank, carry, false);
+        carry_rank = -1;
       }
-      if (more) {             // cnt == 32; lane 31's run may go on
-        carry_rank = __shfl_sync(kFull, r, 31);
+      // the lane's runs in slot order: head = its first run's sum, acc =
+      // the run begun last inside its slots (once `closed`)
+      float head[SM], acc[SM];
 #pragma unroll
-        for (int q = 0; q < SM; ++q) carry[q] = __shfl_sync(kFull, v[q], 31);
+      for (int q = 0; q < SM; ++q) {
+        head[q] = v[0][q];
+        acc[q] = 0.f;
       }
+      bool closed = false;
+      int32_t key = lc > 0 ? r[0] : -1;     // the rank of its last run
+#pragma unroll
+      for (int i = 1; i < V; ++i) {
+        if (i >= lc) continue;
+        if (r[i] != r[i - 1]) {
+          if (closed) {                     // begun and ended in the lane
+            float* dst = out + static_cast<int64_t>(r[i - 1]) * s;
+#pragma unroll
+            for (int q = 0; q < SM; ++q)
+              if (q < s) dst[q] = acc[q];
+          }
+          closed = true;
+#pragma unroll
+          for (int q = 0; q < SM; ++q) acc[q] = v[i][q];
+        } else if (closed) {
+#pragma unroll
+          for (int q = 0; q < SM; ++q) acc[q] += v[i][q];
+        } else {
+#pragma unroll
+          for (int q = 0; q < SM; ++q) head[q] += v[i][q];
+        }
+        key = r[i];
+      }
+      // segmented inclusive scan of the lanes' last runs
+      float sc[SM];
+#pragma unroll
+      for (int q = 0; q < SM; ++q) sc[q] = closed ? acc[q] : head[q];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t kd = __shfl_up_sync(kFull, key, d);
+        const bool same = lane >= d && kd == key;
+#pragma unroll
+        for (int q = 0; q < SM; ++q) {
+          if (q < s) {                      // warp-uniform
+            const float u = __shfl_up_sync(kFull, sc[q], d);
+            if (same) sc[q] += u;
+          }
+        }
+      }
+      // a first run that ends inside the lane takes in the lane before's
+      const int32_t key_prev = __shfl_up_sync(kFull, key, 1);
+      const bool joins = closed && lane > 0 && key_prev == r[0];
+#pragma unroll
+      for (int q = 0; q < SM; ++q) {
+        if (q < s) {
+          const float u = __shfl_up_sync(kFull, sc[q], 1);
+          if (joins) head[q] = u + head[q];
+        }
+      }
+      // the carried run's earlier steps join it once, where it ends here
+      if (closed) {
+        if (r[0] == carry_rank) {
+#pragma unroll
+          for (int q = 0; q < SM; ++q) head[q] = carry[q] + head[q];
+        }
+        write(r[0], head, false);
+      }
+      // a run that ends at a lane's last slot, before the step's last lane
+      const int last = (cnt - 1) / V;
+      const int32_t next_first = __shfl_down_sync(kFull, r[0], 1);
+      if (lane < last && next_first != key) {
+        if (key == carry_rank) {
+#pragma unroll
+          for (int q = 0; q < SM; ++q) acc[q] = carry[q] + sc[q];
+          write(key, acc, false);
+        } else {
+          write(key, sc, false);
+        }
+      }
+      // the run open after the step's last lane goes on
+      const int32_t open_rank = __shfl_sync(kFull, key, last);
+      const bool goes_on = open_rank == carry_rank;
+#pragma unroll
+      for (int q = 0; q < SM; ++q) {
+        if (q < s) {
+          const float u = __shfl_sync(kFull, sc[q], last);
+          carry[q] = goes_on ? carry[q] + u : u;
+        }
+      }
+      carry_rank = open_rank;
     }
+    __syncwarp();                           // done with buffer b
   }
+  if (lane == 0 && carry_rank >= 0) write(carry_rank, carry, true);
 }
 
-// One block per chunk c. If a run crosses the end of chunk c and began in
-// it, sums that run's partial rows (chunk c's row 1, then row 0 of every
-// later chunk the run reaches) into out[r]: thread t sums rows t, t + 256,
-// ..., then the threads' sums are added in a fixed tree.
+// Row j of the partial rows of the run that begins in chunk c: chunk c's
+// row 1, then row 0 of chunk c + j.
+__device__ __forceinline__ const float* colsums_partial(
+    const float* partials, int64_t c, int64_t j, int s) {
+  return partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * s;
+}
+
+// Pass 2: block g takes chunks 8g .. 8g + 7, one warp each.
 __global__ void __launch_bounds__(kColThreads2)
 colsums_crossing_kernel(const int32_t* __restrict__ seg,
                         const float* __restrict__ partials,
                         float* __restrict__ out, int64_t n, int s,
                         int64_t num_chunks) {
   __shared__ float red[kMaxStreams][kColThreads2];
+  __shared__ int64_t long_runs[kColWarps2];   // warp w's long run, or -1
   const int t = threadIdx.x;
-  for (int64_t c = blockIdx.x; c < num_chunks; c += gridDim.x) {
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  for (int64_t g = blockIdx.x; g * kColWarps2 < num_chunks; g += gridDim.x) {
+    if (lane == 0) long_runs[warp] = -1;
+    const int64_t c = g * kColWarps2 + warp;
     const int64_t end = (c + 1) * kColChunk;      // first slot of chunk c+1
-    if (end >= n) continue;                       // the last chunk
-    const int32_t r = seg[end - 1];
-    if (seg[end] != r) continue;                  // no run crosses
-    if (c > 0 && seg[c * kColChunk - 1] == r) continue;  // began earlier
-    // The run goes on through chunks c+1 .. last: those whose first slot
-    // is in it, a prefix of the later chunks since seg is sorted.
-    int64_t last = c + 1;
-    for (int64_t probe = c + 2;; probe += kColThreads2) {
-      const int64_t cc = probe + t;
-      const int hit = cc < num_chunks && seg[cc * kColChunk] == r;
-      const int hits = __syncthreads_count(hit);
-      last += hits;
-      if (hits < kColThreads2) break;
+    int32_t r = -1;
+    bool begins = false;                          // a run begins in c, goes on
+    if (c < num_chunks && end < n) {
+      r = seg[end - 1];
+      begins = seg[end] == r && !(c > 0 && seg[c * kColChunk - 1] == r);
     }
-    float acc[kMaxStreams];
+    if (begins) {                                 // warp-uniform
+      // its rows: chunk c's row 1, chunk c + 1's row 0, and row 0 of the
+      // later chunks whose first slot is in it (a prefix: seg is sorted)
+      const int64_t cc = c + 2 + lane;
+      const unsigned hits = __ballot_sync(
+          kFull, cc < num_chunks && seg[cc * kColChunk] == r);
+      if (hits != kFull) {
+        const int64_t rows = 2 + __popc(hits);
+        float acc[kMaxStreams];
 #pragma unroll
-    for (int q = 0; q < kMaxStreams; ++q) acc[q] = 0.f;
-    for (int64_t j = t; j <= last - c; j += kColThreads2) {
-      const float* row = partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * s;
+        for (int q = 0; q < kMaxStreams; ++q) acc[q] = 0.f;
+        for (int64_t j = lane; j < rows; j += 32) {
+          const float* row = colsums_partial(partials, c, j, s);
 #pragma unroll
-      for (int q = 0; q < kMaxStreams; ++q)
-        if (q < s) acc[q] += row[q];
+          for (int q = 0; q < kMaxStreams; ++q)
+            if (q < s) acc[q] += row[q];
+        }
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+          for (int q = 0; q < kMaxStreams; ++q)
+            if (q < s) acc[q] += __shfl_xor_sync(kFull, acc[q], d);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int q = 0; q < kMaxStreams; ++q)
+            if (q < s) out[static_cast<int64_t>(r) * s + q] = acc[q];
+        }
+      } else if (lane == 0) {
+        long_runs[warp] = c;
+      }
     }
-#pragma unroll
-    for (int q = 0; q < kMaxStreams; ++q)
-      if (q < s) red[q][t] = acc[q];
     __syncthreads();
-    for (int half = kColThreads2 / 2; half > 0; half >>= 1) {
-      if (t < half) {
+    for (int i = 0; i < kColWarps2; ++i) {        // the block, run by run
+      const int64_t lc = long_runs[i];
+      if (lc < 0) continue;                       // block-uniform
+      const int32_t lr = seg[(lc + 1) * kColChunk - 1];
+      int64_t last = lc + 1;
+      for (int64_t probe = lc + 2;; probe += kColThreads2) {
+        const int64_t cc = probe + t;
+        const int hits = __syncthreads_count(
+            cc < num_chunks && seg[cc * kColChunk] == lr);
+        last += hits;
+        if (hits < kColThreads2) break;
+      }
+      float acc[kMaxStreams];
+#pragma unroll
+      for (int q = 0; q < kMaxStreams; ++q) acc[q] = 0.f;
+      for (int64_t j = t; j <= last - lc; j += kColThreads2) {
+        const float* row = colsums_partial(partials, lc, j, s);
 #pragma unroll
         for (int q = 0; q < kMaxStreams; ++q)
-          if (q < s) red[q][t] += red[q][t + half];
+          if (q < s) acc[q] += row[q];
       }
+#pragma unroll
+      for (int q = 0; q < kMaxStreams; ++q)
+        if (q < s) red[q][t] = acc[q];
       __syncthreads();
+      for (int half = kColThreads2 / 2; half > 0; half >>= 1) {
+        if (t < half)
+          for (int q = 0; q < s; ++q) red[q][t] += red[q][t + half];
+        __syncthreads();
+      }
+      if (t < s) out[static_cast<int64_t>(lr) * s + t] = red[t][0];
+      __syncthreads();                            // before red is reused
     }
-    if (t < s) out[static_cast<int64_t>(r) * s + t] = red[t][0];
-    __syncthreads();                              // before red is reused
+    __syncthreads();                              // before long_runs is reset
   }
 }
 
-template <int SM>
-void launch_colsums(const Streams& streams, int s, const int32_t* seg,
-                    float* out, float* partials, int64_t n,
-                    int64_t num_segments, int64_t num_chunks, unsigned blocks,
-                    cudaStream_t stream) {
-  colsums_chunks_kernel<SM><<<blocks, kColThreads1, 0, stream>>>(
-      streams, s, seg, out, partials, n, num_segments, num_chunks);
+template <int SM, int V>
+void launch_colsums_chunks(const Streams& streams, int s, const int32_t* seg,
+                           float* out, float* partials, int64_t n,
+                           int64_t num_segments, int64_t num_chunks,
+                           cudaStream_t stream) {
+  const int tile = colsums_tile(s, V);
+  const size_t smem = 2 * static_cast<size_t>(s + 1) * (tile + kColPad) * 4;
+  colsums_chunks_kernel<SM, V><<<static_cast<unsigned>(num_chunks), 32, smem,
+                                 stream>>>(streams, s, seg, out, partials, n,
+                                           num_segments, tile);
 }
 
 }  // namespace
@@ -746,17 +981,17 @@ int sfm_fm_grad_segsum_factored(const float* vw_u, const float* ex,
                                 const float* coef, float* out,
                                 float* partials, int64_t n,
                                 int64_t num_segments, int64_t k,
-                                void* stream) {
+                                int num_sms, void* stream) {
   return launch_fm_grad<false>(vw_u, ex, x, seg, coef, out, partials, n,
-                               num_segments, k, stream);
+                               num_segments, k, num_sms, stream);
 }
 
 int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
                        const int32_t* seg, const float* coef, float* out,
                        float* partials, int64_t n, int64_t num_segments,
-                       int64_t k, void* stream) {
+                       int64_t k, int num_sms, void* stream) {
   return launch_fm_grad<true>(vw_srt, ex, x, seg, coef, out, partials, n,
-                              num_segments, k, stream);
+                              num_segments, k, num_sms, stream);
 }
 
 // B5 and B6 launch both passes on `stream` and return cudaGetLastError().
@@ -766,16 +1001,16 @@ int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
 // alive until the stream has run the kernels.
 int sfm_segment_rowsum(const float* g, const int32_t* seg, float* out,
                        float* partials, int64_t n, int64_t num_segments,
-                       int64_t w, void* stream) {
+                       int64_t w, int num_sms, void* stream) {
   return launch_rowsum<false>(g, seg, out, partials, n, num_segments, w,
-                              stream);
+                              num_sms, stream);
 }
 
 int sfm_segment_rowsum_sq(const float* g, const int32_t* seg, float* out,
                           float* partials, int64_t n, int64_t num_segments,
-                          int64_t w, void* stream) {
+                          int64_t w, int num_sms, void* stream) {
   return launch_rowsum<true>(g, seg, out, partials, n, num_segments, w,
-                             stream);
+                             num_sms, stream);
 }
 
 // Number of partial rows (of s floats) that the caller allocates for
@@ -786,53 +1021,50 @@ int64_t sfm_colsums_partial_rows(int64_t n) {
 
 // Launches both passes of segment_colsums on `stream` and returns
 // cudaGetLastError() (0 on success). `stream_ptrs` is a host array of s
-// device pointers, each to N floats. The caller zero-fills `out`
-// (num_segments x s), allocates `partials` (sfm_colsums_partial_rows(n) x
-// s), checks shapes and types (1 <= s <= 16), and keeps the tensors alive
-// until the stream has run the kernels.
+// device pointers, each to N floats; `seg` and the streams may sit at any
+// 4-byte offset. The caller zero-fills `out` (num_segments x s), allocates
+// `partials` (sfm_colsums_partial_rows(n) x s), checks shapes and types
+// (1 <= s <= 16), and keeps the tensors alive until the stream has run the
+// kernels.
 int sfm_segment_colsums(const void* stream_ptrs, int64_t s,
                         const int32_t* seg, float* out, float* partials,
-                        int64_t n, int64_t num_segments, void* stream) {
+                        int64_t n, int64_t num_segments, int num_sms,
+                        void* stream) {
   if (n <= 0) return 0;
   if (s < 1 || s > kMaxStreams) return static_cast<int>(cudaErrorInvalidValue);
   Streams streams{};
   const float* const* ptrs = static_cast<const float* const*>(stream_ptrs);
   for (int q = 0; q < s; ++q) streams.p[q] = ptrs[q];
-  int num_sms = 0;
-  cudaError_t err = sm_count(&num_sms);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + kColChunk - 1) / kColChunk;
-  int64_t blocks = (num_chunks + kColWarps1 - 1) / kColWarps1;
-  const int64_t resident =
-      static_cast<int64_t>(num_sms) * (2048 / kColThreads1);
-  if (blocks > resident) blocks = resident;
-  const unsigned b1 = static_cast<unsigned>(blocks);
   const int si = static_cast<int>(s);
-  if (si <= 1) {
-    launch_colsums<1>(streams, si, seg, out, partials, n, num_segments,
-                      num_chunks, b1, st);
-  } else if (si <= 2) {
-    launch_colsums<2>(streams, si, seg, out, partials, n, num_segments,
-                      num_chunks, b1, st);
+  if (si == 1) {
+    launch_colsums_chunks<1, 16>(streams, si, seg, out, partials, n,
+                                 num_segments, num_chunks, st);
+  } else if (si == 2) {
+    launch_colsums_chunks<2, 16>(streams, si, seg, out, partials, n,
+                                 num_segments, num_chunks, st);
   } else if (si <= 4) {
-    launch_colsums<4>(streams, si, seg, out, partials, n, num_segments,
-                      num_chunks, b1, st);
+    launch_colsums_chunks<4, 16>(streams, si, seg, out, partials, n,
+                                 num_segments, num_chunks, st);
+  } else if (si == 5) {
+    launch_colsums_chunks<5, 16>(streams, si, seg, out, partials, n,
+                                 num_segments, num_chunks, st);
   } else if (si <= 8) {
-    launch_colsums<8>(streams, si, seg, out, partials, n, num_segments,
-                      num_chunks, b1, st);
+    launch_colsums_chunks<8, 8>(streams, si, seg, out, partials, n,
+                                num_segments, num_chunks, st);
   } else {
-    launch_colsums<16>(streams, si, seg, out, partials, n, num_segments,
-                       num_chunks, b1, st);
+    launch_colsums_chunks<16, 4>(streams, si, seg, out, partials, n,
+                                 num_segments, num_chunks, st);
   }
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_chunks > 1) {
-    int64_t blocks2 = num_chunks;
-    const int64_t cap = static_cast<int64_t>(num_sms) * 64;
-    if (blocks2 > cap) blocks2 = cap;
-    colsums_crossing_kernel<<<static_cast<unsigned>(blocks2), kColThreads2,
-                              0, st>>>(seg, partials, out, n, si, num_chunks);
+    int64_t blocks = (num_chunks + kColWarps2 - 1) / kColWarps2;
+    const int64_t cap = static_cast<int64_t>(num_sms) * (2048 / kColThreads2);
+    if (blocks > cap) blocks = cap;
+    colsums_crossing_kernel<<<static_cast<unsigned>(blocks), kColThreads2, 0,
+                              st>>>(seg, partials, out, n, si, num_chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,14 @@ and :func:`scatter_set_rows_reference`, which are also the oracles the
 kernels are held against on the card.
 
 Unlike the TPU kernels, any width W >= 1 and any number of ids U work: no
-128-lane rows and no padding of U to a tile.
+128-lane rows and no padding of U to a tile (the write takes W <= 2^24 on
+the card).
+
+The write keeps the first row of each run of equal ids: slot r writes only
+if r == 0 or ids[r] != ids[r - 1]. The ids are unique except for the
+plan's fill row, which the unused budget slots at the tail of the
+ascending uids repeat, so the fill row is written once, with the first of
+those slots' rows, on the card and on the CPU alike.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "rowio.cu")
+MAX_WRITE_WIDTH = 1 << 24  # scatter_set_rows' largest W on the card
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
 GATHER = CudaKernel("rowio", SOURCE, "sfm_gather_rows", _ARGS)
@@ -39,8 +47,11 @@ def gather_rows_reference(table: torch.Tensor,
 
 def scatter_set_rows_reference(table: torch.Tensor, ids: torch.Tensor,
                                rows: torch.Tensor) -> torch.Tensor:
-    """Plain version: ``table[ids] = rows`` in place by ``index_copy_``."""
-    return table.index_copy_(0, ids.long(), rows)
+    """Plain version: keep the first slot of each run of equal ids, then
+    ``table[ids] = rows`` in place by ``index_copy_``."""
+    keep = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    keep[1:] = ids[1:] != ids[:-1]
+    return table.index_copy_(0, ids[keep].long(), rows[keep])
 
 
 def _check(name: str, table: torch.Tensor, ids: torch.Tensor) -> None:
@@ -83,8 +94,10 @@ def scatter_set_rows(table: torch.Tensor, ids: torch.Tensor,
     the port overwrites the rows of the one it has.
 
     Ids must be unique except for a repeated fill row (the dedup plan's
-    unused budget slots), whose content is then unspecified, as in the
-    JAX package. CUDA tensors run the kernel (which traps on an id out of
+    unused budget slots, adjacent at the tail of the ascending uids). Slot
+    r writes only if r == 0 or ``ids[r] != ids[r - 1]``, so the fill row
+    gets the first of its slots' rows; the JAX package leaves it
+    unspecified. CUDA tensors run the kernel (which traps on an id out of
     range); CPU tensors run the plain version.
     """
     _check("scatter_set_rows", table, ids)
@@ -96,6 +109,9 @@ def scatter_set_rows(table: torch.Tensor, ids: torch.Tensor,
     if rows.device != table.device or not rows.is_contiguous():
         raise ValueError("scatter_set_rows takes contiguous rows on the "
                          f"table's device {table.device}")
+    if table.device.type == "cuda" and table.shape[1] > MAX_WRITE_WIDTH:
+        raise ValueError(f"the write kernel takes W <= {MAX_WRITE_WIDTH}, "
+                         f"got W={table.shape[1]}")
     if table.device.type == "cpu":
         return scatter_set_rows_reference(table, ids, rows)
     if ids.shape[0]:

@@ -305,7 +305,10 @@ def segment_colsums(streams, seg: torch.Tensor,
     over the sorted int32 ranks ``seg`` (N,): column j is stream j summed
     per rank, and ranks no slot has are zero. CUDA tensors run the kernel
     (which traps on a rank outside [0, U)); its sums are deterministic.
-    CPU tensors run the plain version."""
+    ``seg`` and the streams may be views at any element offset (the ALS
+    sweep passes ``col_rank[b*N:(b+1)*N]``): the kernel's bulk copies start
+    at the 16-byte boundary below each array and never read an unaligned
+    float4. CPU tensors run the plain version."""
     streams = list(streams)
     _check_colsums(streams, seg, num_segments)
     device = seg.device

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import glob
 import hashlib
 import os
 import shutil
@@ -39,11 +40,13 @@ class BuildError(RuntimeError):
 
 
 def build_shared_library(name: str, sources: Sequence[str], compiler: str,
-                         flags: Sequence[str], timeout: float = 600.0) -> str:
+                         flags: Sequence[str], timeout: float = 600.0,
+                         headers: Sequence[str] = ()) -> str:
     """Compile ``sources`` into ``BUILD_DIR/<name>-<hash>.so``; return the
-    path. Reuses an existing build of the same sources and flags."""
+    path. Reuses an existing build of the same sources, ``headers`` (files
+    the sources include) and flags."""
     digest = hashlib.sha256(" ".join([compiler, *flags]).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         with open(src, "rb") as f:
             digest.update(f.read())
     stem = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}")
@@ -87,9 +90,11 @@ class CudaKernel:
     """One kernel launcher of a CUDA source under ``csrc/``.
 
     The source's library is compiled with ``nvcc`` at first use (sources
-    sharing a library name share one build) and bound with ctypes. The
-    launcher is an ``extern "C"`` function taking ``argtypes`` and then
-    the stream, and returning a ``cudaError_t`` (0 on success).
+    sharing a library name share one build; the ``*.cuh`` headers beside
+    the source count as part of it) and bound with ctypes. The launcher is
+    an ``extern "C"`` function taking ``argtypes``, then the card's SM
+    count (looked up once per device) and the stream, and returning a
+    ``cudaError_t`` (0 on success).
     ``launches`` counts the calls of :meth:`launch`, one per launch of the
     kernel, and nowhere else.
     """
@@ -100,6 +105,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self._lib = None
         self._lock = threading.Lock()
+        self._num_sms = {}
         self.path = None
         self.launches = 0
 
@@ -108,12 +114,16 @@ class CudaKernel:
         ``BuildError`` when ``nvcc`` is missing or fails."""
         with self._lock:
             if self._lib is None:
+                headers = sorted(glob.glob(os.path.join(
+                    os.path.dirname(self.source), "*.cuh")))
                 path = build_shared_library(self.library, [self.source],
-                                            nvcc(), NVCC_FLAGS)
+                                            nvcc(), NVCC_FLAGS,
+                                            headers=headers)
                 lib = ctypes.CDLL(path)
                 fn = getattr(lib, self.symbol)
                 fn.restype = ctypes.c_int
-                fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+                fn.argtypes = [*self.argtypes, ctypes.c_int,
+                               ctypes.c_void_p]
                 lib.sfm_error_string.restype = ctypes.c_char_p
                 lib.sfm_error_string.argtypes = [ctypes.c_int]
                 self.path, self._lib = path, lib
@@ -123,9 +133,14 @@ class CudaKernel:
         """Launch on ``device``'s current stream; raises if the launch
         was refused. Arguments must already have been checked."""
         lib = self.build()
+        num_sms = self._num_sms.get(device.index)
+        if num_sms is None:
+            num_sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            self._num_sms[device.index] = num_sms
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, self.symbol)(*args, stream)
+            err = getattr(lib, self.symbol)(*args, num_sms, stream)
         if err != 0:
             raise RuntimeError(f"{self.symbol} kernel launch failed: "
                                + lib.sfm_error_string(err).decode())

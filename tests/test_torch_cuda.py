@@ -93,8 +93,8 @@ def test_microbatcher_on_card_runs_the_kernel(dev):
     (1000, 1, 777), (1000, 4, 1), (100003, 68, 40960), (5000, 33, 333),
     (5000, 128, 1025)])
 def test_scatter_kernel_equals_plain(dev, rows, width, n):
-    """Unique ids plus a repeated fill row (the last): every row but the
-    fill row must equal index_copy_'s."""
+    """Unique ids plus a repeated fill row (the last): every row, the fill
+    row included (its first slot's row), must equal the plain version's."""
     g = torch.Generator(device=dev).manual_seed(rows + width)
     table = torch.randn((rows, width), generator=g, device=dev)
     ids = torch.randperm(rows - 1, generator=g, device=dev)[:n].to(
@@ -105,7 +105,7 @@ def test_scatter_kernel_equals_plain(dev, rows, width, n):
     before = rowio.SCATTER.launches
     got = rowio.scatter_set_rows(table, ids, new)
     assert got is table and rowio.SCATTER.launches == before + 1
-    assert torch.equal(got[:-1], want[:-1])
+    assert torch.equal(got, want)
 
 
 def test_scatter_kernel_misaligned_table(dev):
@@ -114,6 +114,28 @@ def test_scatter_kernel_misaligned_table(dev):
     new = torch.randn((300, 4), device=dev)
     want = rowio.scatter_set_rows_reference(table.clone(), ids, new)
     assert torch.equal(rowio.scatter_set_rows(table, ids, new), want)
+
+
+@pytest.mark.parametrize("width", [68, 32, 33, 1])
+def test_scatter_kernel_on_a_device_plan(dev, width):
+    """B2 on a plan that dedup_ids builds on the card, with a long fill tail
+    (a 2^14-slot budget for <= 3000 uniques, as a device plan's 2^18 slots
+    hold ~40k): every row, the fill row included, equals the plain
+    version's."""
+    g = torch.Generator(device=dev).manual_seed(width)
+    num_rows = 100003
+    ids = torch.randint(0, 3000, (64, 39), generator=g, device=dev,
+                        dtype=torch.int32) * 31
+    plan = PE.dedup_ids(ids, 1 << 14, fill=num_rows - 1)
+    assert int(plan.count) < (1 << 13)
+    table = torch.randn((num_rows, width), generator=g, device=dev)
+    new = torch.randn((1 << 14, width), generator=g, device=dev)
+    want = rowio.scatter_set_rows_reference(table.clone(), plan.uids, new)
+    before = rowio.SCATTER.launches
+    got = rowio.scatter_set_rows(table, plan.uids, new)
+    assert rowio.SCATTER.launches == before + 1
+    assert got is table and torch.equal(got, want)
+    assert torch.equal(got[-1], new[int(plan.count)])
 
 
 def _sorted_case(dev, n, k, long_run, seed):
@@ -137,16 +159,19 @@ def _sorted_case(dev, n, k, long_run, seed):
     (3000, 128, 2999), (700, 1, 0)])
 def test_factored_kernel_equals_plain(dev, n, k, long_run):
     """Chunks of every kind: runs inside one chunk, runs crossing one and
-    many chunk boundaries, ranks beyond the last run. f32 sums in another
-    order: max |a - b| / (1 + |b|) < 1e-4."""
+    many chunk boundaries, ranks beyond the last run. Held to the plain
+    version in float64 at max |a - b| / (1 + |b|) < 1e-4: the f32 plain
+    version sums by atomics on the card, in an order that changes from run
+    to run, and is itself ~1e-4 off at the 2,999-slot run."""
     vw_u, ex, x, seg, u = _sorted_case(dev, n, k, long_run, seed=n + k)
     cv = torch.tensor(3e-3, device=dev)
-    want = segsum.fm_grad_segsum_factored_reference(vw_u, ex, x, seg, u,
-                                                    cv, 7e-3)
+    want = segsum.fm_grad_segsum_factored_reference(
+        vw_u.double(), ex.double(), x.double(), seg, u, cv.double(), 7e-3)
     before = segsum.FACTORED.launches
     got = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
     assert segsum.FACTORED.launches == before + 1
-    assert float(((got - want).abs() / (1 + want.abs())).max()) < 1e-4
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
     again = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
     assert torch.equal(got, again)                 # no atomics
 
@@ -179,33 +204,55 @@ def test_train_sgd_on_card_matches_cpu(dev):
 
 def _colsums_case(dev, n, s, kind, seed):
     rng = np.random.default_rng(seed)
-    if kind == "runs":               # short runs, seg[0] > 0, gaps
+    if kind in ("runs", "offset"):   # short runs, seg[0] > 0, gaps
         seg = 3 + np.cumsum(rng.integers(0, 3, n) * (rng.random(n) < 0.4))
     elif kind == "one_run":
         seg = np.full(n, 2)
     elif kind == "unique":
         seg = np.arange(n)
+    elif kind == "cross_one":        # runs of 3000 and 5000 slots
+        seg = np.repeat(np.arange(n), np.where(np.arange(n) % 2, 3000,
+                                               5000))[:n]
+    elif kind == "rows33":           # chunk 9's last 5 slots to chunk 41's
+        incr = (rng.random(n) < 0.3).astype(np.int64)  # end: 33 partial
+        a, b = 10 * 4096 - 5, 42 * 4096                # rows
+        incr[a], incr[a + 1:b], incr[b] = 1, 0, 1
+        seg = np.cumsum(incr)
     else:                            # "long": one run of 60% of the slots
         incr = (rng.random(n) < 0.5).astype(np.int64)
         incr[n // 5 + 1:n // 5 + 3 * n // 5] = 0
         seg = np.cumsum(incr)
     seg = seg.astype(np.int32)
     u = int(seg[-1]) + 4
-    streams = [torch.as_tensor(rng.normal(size=n).astype(np.float32),
-                               device=dev) for _ in range(s)]
-    return streams, torch.as_tensor(seg, device=dev), u
+    xs = [rng.normal(size=n).astype(np.float32) for _ in range(s)]
+    if kind != "offset":
+        return ([torch.as_tensor(x, device=dev) for x in xs],
+                torch.as_tensor(seg, device=dev), u)
+    # views 4 bytes (seg) and 8 or 0 bytes (streams) past 16-byte bounds,
+    # as the ALS sweep's slice col_rank[b*N:(b+1)*N] is when N % 4 != 0
+    seg_t = torch.as_tensor(np.r_[np.int32(0), seg], device=dev)[1:]
+    streams = [torch.as_tensor(np.r_[np.zeros(2 * (j % 2), np.float32), x],
+                               device=dev)[2 * (j % 2):]
+               for j, x in enumerate(xs)]
+    assert seg_t.data_ptr() % 16 == 4
+    return streams, seg_t, u
 
 
 @pytest.mark.parametrize("n,s,kind", [
     (1, 1, "runs"), (1000, 5, "runs"), (3073, 16, "runs"),
     (5000, 5, "one_run"), (4097, 3, "unique"), (300001, 5, "long"),
-    (300001, 1, "long")])
+    (300001, 1, "long"), (300001, 16, "long"), (100003, 5, "cross_one"),
+    (100003, 1, "cross_one"), (200003, 5, "rows33"), (150001, 5, "offset"),
+    (150001, 1, "offset"), (150001, 16, "offset")])
 def test_colsums_kernel_equals_plain_in_float64(dev, n, s, kind):
-    """Chunks of every kind: N not a multiple of the 1024-slot chunk,
-    seg[0] > 0, gaps, one run over all of N, all slots unique, a run across
-    ~180 chunks. Against the plain version in float64: max |a - b| / (1 +
-    |b|) < 1e-4; repeated calls are bitwise equal (no atomics); ranks
-    without slots are zero."""
+    """Chunks of every kind: N not a multiple of the 4096-slot chunk or of
+    pass 1's tile, seg[0] > 0, gaps, one run over all of N, all slots
+    unique, runs that cross one or two chunk boundaries, a run over 33
+    partial rows (the most a warp of pass 2 sums), a run across ~44 chunks
+    (summed by a block), and seg and streams as views off 16-byte bounds.
+    Against the plain version in float64: max |a - b| / (1 + |b|) < 1e-4;
+    repeated calls are bitwise equal (no atomics); ranks without slots are
+    zero."""
     streams, seg, u = _colsums_case(dev, n, s, kind, seed=n + s)
     want = segsum.segment_colsums_reference(
         [x.double() for x in streams], seg, u)

@@ -134,9 +134,10 @@ def _write_case(rows, width, n, seed, fill_tail):
 @pytest.mark.parametrize("width", [1, 4, 68, 128])
 @pytest.mark.parametrize("fill_tail", [0, 5])
 def test_scatter_matches_pallas_interpret(width, fill_tail):
-    """Exact equality on every row except the fill row (its content is
-    unspecified when repeated), against the Pallas writer in interpret
-    mode and against the JAX dispatcher."""
+    """Exact equality on every row except the fill row (the JAX package
+    leaves its content unspecified when repeated), against the Pallas
+    writer in interpret mode and against the JAX dispatcher; the port
+    writes the fill row once, with the first of its slots' rows."""
     table, ids, new = _write_case(300, width, 48, seed=width + fill_tail,
                                   fill_tail=fill_tail)
     want = np.asarray(PR.scatter_set_rows(
@@ -154,9 +155,38 @@ def test_scatter_matches_pallas_interpret(width, fill_tail):
     keep = slice(0, 299) if fill_tail else slice(None)
     np.testing.assert_array_equal(got.numpy()[keep], want[keep])
     np.testing.assert_array_equal(got.numpy()[keep], want_dispatch[keep])
-    if fill_tail:      # one of the fill row's writers won
-        assert any(np.array_equal(got.numpy()[299], r)
-                   for r in new[48 - fill_tail:])
+    if fill_tail:      # the first of the fill row's slots wrote it
+        np.testing.assert_array_equal(got.numpy()[299], new[48 - fill_tail])
+
+
+@pytest.mark.parametrize("width", [1, 68])
+def test_scatter_writes_the_first_row_of_each_run(width):
+    """Slot r writes only if r == 0 or ids[r] != ids[r - 1]: a device
+    plan's long fill tail (budget 2^18 for ~40k uniques, cut to scale
+    here) leaves the fill row equal to its first slot's row, and every
+    other row equals the JAX Pallas writer's and ``scatter_set_rows_xla``'s
+    on the same inputs."""
+    table, ids, new = _write_case(3000, width, 2048, seed=width,
+                                  fill_tail=1700)
+    ids[:2048 - 1700] = np.sort(ids[:2048 - 1700])    # ascending uids
+    ids[3] = ids[2]                                   # a repeat inside
+    got = rowio.scatter_set_rows(torch.from_numpy(table.copy()),
+                                 torch.from_numpy(ids),
+                                 torch.from_numpy(new)).numpy()
+    want = table.copy()
+    keep = np.r_[True, ids[1:] != ids[:-1]]
+    want[ids[keep]] = new[keep]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[2999], new[2048 - 1700])
+    np.testing.assert_array_equal(got[ids[2]], new[2])
+    for jax_out in (
+            PR.scatter_set_rows(jnp.asarray(table), jnp.asarray(ids),
+                                jnp.asarray(new), tile=16, interpret=True),
+            PR.scatter_set_rows_xla(jnp.asarray(table), jnp.asarray(ids),
+                                    jnp.asarray(new))):
+        rest = np.ones(3000, bool)
+        rest[[2999, ids[2]]] = False
+        np.testing.assert_array_equal(got[rest], np.asarray(jax_out)[rest])
 
 
 def test_scatter_reference_is_index_copy():

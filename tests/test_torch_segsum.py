@@ -272,3 +272,178 @@ def test_colsums_empty_stream_gives_zeros():
 def test_colsums_rejects_what_the_kernel_does_not_take(streams, seg, match):
     with pytest.raises(ValueError, match=match):
         segsum.segment_colsums(streams, seg, 5)
+
+
+# ---- B7's summation order on the card, emulated in float32 numpy
+
+def _colsums_card_order(streams, seg, u, chunk=4096):
+    """The card kernel's sums in its own float32 order (csrc/segsum.cu, B7):
+    pass 1 per chunk of ``chunk`` slots, steps of 32 lanes x V consecutive
+    slots (V = 16 for S <= 5, 8 for S <= 8, else 4); each lane sums its
+    runs in slot order (the run carried from the previous step joins once,
+    where it ends or goes on), a segmented
+    Hillis-Steele scan keyed on each lane's last rank joins the lanes' open
+    runs, a lane's first run that ends inside it takes the previous lane's
+    scan value, a run that ends at a lane's last slot is written from that
+    lane's scan value, the run open after a step is carried on; pass 2
+    sums a crossing run's partial rows over 32 lanes and a butterfly when
+    it spans at most 33 rows, else over 256 threads and a halving tree."""
+    x = np.stack(streams, axis=1).astype(np.float32)
+    n, s = x.shape
+    lane_slots = 16 if s <= 5 else 8 if s <= 8 else 4
+    zero = np.zeros(s, np.float32)
+    out = np.zeros((u, s), np.float32)
+    num_chunks = -(-n // chunk)
+    partials = np.zeros((2 * num_chunks, s), np.float32)
+    step = 32 * lane_slots
+    for c in range(num_chunks):
+        s0, s1 = c * chunk, min(n, (c + 1) * chunk)
+        before = seg[s0 - 1] if s0 > 0 else -1
+        after = seg[s1] if s1 < n else -1
+
+        def write(rank, vals, may_go_on, c=c, before=before, after=after):
+            if rank == before:
+                partials[2 * c] = vals
+            elif may_go_on and rank == after:
+                partials[2 * c + 1] = vals
+            else:
+                out[rank] = vals
+        carry_rank, carry = -1, zero
+        for b0 in range(s0, s1, step):
+            cnt = min(step, s1 - b0)
+            if carry_rank >= 0 and seg[b0] != carry_rank:
+                write(carry_rank, carry, False)
+                carry_rank = -1
+            keys, open_, closed, heads, firsts = [], [], [], [], []
+            for lane in range(32):
+                lc = min(max(cnt - lane * lane_slots, 0), lane_slots)
+                if lc == 0:
+                    keys.append(-1), open_.append(zero), closed.append(False)
+                    heads.append(zero), firsts.append(-1)
+                    continue
+                i0 = b0 + lane * lane_slots
+                r, v = seg[i0:i0 + lc], x[i0:i0 + lc]
+                head, acc, cl = v[0], zero, False
+                for i in range(1, lc):
+                    if r[i] != r[i - 1]:
+                        if cl:
+                            out[r[i - 1]] = acc
+                        cl, acc = True, v[i]
+                    elif cl:
+                        acc = acc + v[i]
+                    else:
+                        head = head + v[i]
+                keys.append(r[lc - 1]), open_.append(acc if cl else head)
+                closed.append(cl), heads.append(head), firsts.append(r[0])
+            sc = list(open_)
+            d = 1
+            while d < 32:
+                sc = [sc[l] + sc[l - d] if l >= d and keys[l - d] == keys[l]
+                      else sc[l] for l in range(32)]
+                d *= 2
+            for lane in range(32):
+                if closed[lane]:
+                    head = heads[lane]
+                    if lane > 0 and keys[lane - 1] == firsts[lane]:
+                        head = sc[lane - 1] + head
+                    if firsts[lane] == carry_rank:
+                        head = carry + head
+                    write(firsts[lane], head, False)
+            last = (cnt - 1) // lane_slots
+            for lane in range(last):       # a run ends at the lane's end
+                if keys[lane] != firsts[lane + 1]:
+                    write(keys[lane], carry + sc[lane]
+                          if keys[lane] == carry_rank else sc[lane], False)
+            carry = carry + sc[last] if keys[last] == carry_rank else sc[last]
+            carry_rank = keys[last]
+        write(carry_rank, carry, True)
+    for c in range(num_chunks - 1):
+        end = (c + 1) * chunk
+        r = seg[end - 1]
+        if seg[end] != r or (c > 0 and seg[c * chunk - 1] == r):
+            continue
+        last = c + 1
+        while last + 1 < num_chunks and seg[(last + 1) * chunk] == r:
+            last += 1
+        rows = [partials[2 * c + 1]] + [partials[2 * j]
+                                        for j in range(c + 1, last + 1)]
+        threads = 32 if len(rows) <= 33 else 256
+        acc = [zero] * threads
+        for j, row in enumerate(rows):
+            acc[j % threads] = acc[j % threads] + row
+        if threads == 32:
+            d = 16
+            while d:
+                acc = [acc[l] + acc[l ^ d] for l in range(32)]
+                d //= 2
+        else:
+            half = 128
+            while half:
+                acc = [acc[t] + acc[t + half] for t in range(half)] + \
+                    acc[half:]
+                half //= 2
+        out[r] = acc[0]
+    return out
+
+
+def _long_run_case(rng, n, s, head_share, chunk):
+    """Sorted ranks with gaps and one head run of ``head_share`` of the
+    slots (the ALS movie block's shape), runs that cross one chunk
+    boundary, and a run spanning exactly 33 partial rows."""
+    incr = rng.integers(0, 3, n) * (rng.random(n) < 0.05)
+    incr[0] = 0
+    start = n // 7
+    incr[start + 1:start + int(head_share * n)] = 0
+    seg = 2 + np.cumsum(incr)
+    c0 = -(-(start + int(head_share * n) + 5 * chunk) // chunk)
+    seg[c0 * chunk - 5:] = seg[c0 * chunk - 6] + 1     # begins before c0
+    seg[(c0 + 32) * chunk:] = seg[(c0 + 32) * chunk - 1] + 2
+    seg[(c0 + 32) * chunk + 3:] += 1
+    seg = seg.astype(np.int32)
+    return ([rng.normal(size=n).astype(np.float32) for _ in range(s)], seg,
+            int(seg[-1]) + 3)
+
+
+@pytest.mark.parametrize("s", [1, 5, 16])
+def test_colsums_card_order_holds_to_float64_and_jax(s):
+    """The card's B7 summation order (V-slot lane sums, warp scan, pass-2
+    order), emulated in float32 with a small chunk so the same code paths
+    run at a small N: a head run across 300 chunks, a run over exactly 33
+    partial rows (the warp's largest) and short crossing runs. This checks
+    the design's order, not the port's code: the emulation lives in this
+    file, and the kernel itself is held to float64 only on the card
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py``). Held to the
+    float64 sums at max |a - b| / (1 + |b|) < 1e-4, the card check's bound
+    (1e-6 to 8e-6 here), and to JAX ``segment_colsums(force="xla")`` at
+    rtol = atol = 1e-4: both are float32 sums of up to ~27k terms, taken in
+    different orders."""
+    chunk = 512
+    streams, seg, u = _long_run_case(np.random.default_rng(40 + s), 60_000,
+                                     s, 0.45, chunk)
+    got = _colsums_card_order(streams, seg, u, chunk=chunk)
+    exact = np.zeros((u, s))
+    for j, x in enumerate(streams):
+        np.add.at(exact[:, j], seg, x.astype(np.float64))
+    assert float((np.abs(got - exact) / (1 + np.abs(exact))).max()) < 1e-4
+    want = np.asarray(S.segment_colsums([jnp.asarray(x) for x in streams],
+                                        jnp.asarray(seg), u, force="xla"))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_colsums_unaligned_seg_slice_on_cpu():
+    """The ALS sweep passes seg as the slice col_rank[b*N:(b+1)*N], 16-byte
+    aligned only when N % 4 == 0; on the CPU the wrapper takes seg (and
+    streams) at any offset, and its sums hold to JAX
+    ``segment_colsums(force="xla")`` on the same values at 1e-5."""
+    streams, seg, u = _colsums_case(np.random.default_rng(10), 1001, 5,
+                                    "gaps")
+    view = torch.from_numpy(np.concatenate([seg[:3], seg]))[3:]
+    ts = [torch.from_numpy(np.concatenate([x[:1], x]))[1:] for x in streams]
+    assert view.storage_offset() % 4 != 0
+    assert all(t.storage_offset() % 4 != 0 for t in ts)
+    before = segsum.COLSUMS.launches
+    got = segsum.segment_colsums(ts, view, u)
+    assert segsum.COLSUMS.launches == before      # CPU: plain version
+    want = np.asarray(S.segment_colsums([jnp.asarray(x) for x in streams],
+                                        jnp.asarray(seg), u, force="xla"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
