@@ -9,19 +9,27 @@ of BASELINE config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank
 the ``FM`` facade.
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
-     one nvcc per source in parallel (``rowio.cu``: row gather and row
+     one nvcc per source in parallel (``rowio.cu``: row gathers and row
      write; ``segsum.cu``: the two backwards, row sums and per-rank stream
      sums), and prints ptxas's registers and spills per kernel;
-  2. holds the gather kernel against its plain version (``index_select``) on the
-     card, with exact equality (a gather is a copy), at the main path's
-     shapes and at odd widths, and times both with CUDA events;
+  2. holds the gathers against their plain versions on the card, with
+     exact equality (a gather is a copy): the serving path's two-table
+     gather ``[v | w]`` against two ``index_select``s and a ``cat``, and
+     the tile gather of V and of the w column against ``index_select``, at
+     the main path's shapes (ladder plans, U = 40,960, and a 2^18-slot
+     device plan), at W = 1, 32, 33, 68, 128 and on misaligned tables;
+     times the two-table gather against its plain version and against two
+     tile gathers with CUDA events;
   3. shows, in a child process, that an id out of range traps the kernel;
   4. checks scores on a small input against a float64 numpy reference;
   5. serves a few dozen requests through ``MicroBatcher`` and one
      16384-row batch through ``FMModel.predict_dataset``, with the launch
-     count set to 0 just before and read just after, and holds the
-     outputs against the same requests scored with the plain gather;
-  6. profiles where the time goes: device time per gather call, the
+     counts set to 0 just before and read just after (one two-table gather
+     per scoring chunk, no one-table gather), and holds the outputs
+     against the same requests scored with the plain gather;
+  6. profiles where the time goes: device time per gather call (the
+     two-table gather, its plain version, and V and w apart by the tile
+     gather and by ``index_select``), the
      device's busy share of the serving run, the host wall time of the
      run split into plan building, plan copy and the scoring call, and
      the host plan alone at both batch shapes. The plans must come from
@@ -40,6 +48,8 @@ the ``FM`` facade.
      bench-recipe plan (N = 638,976 slots, one run of ~162k) and on a
      ``synth_ctr`` plan, at k = 32, 4 and 33 (f32 sums in another order:
      max |a - b| / (1 + |b|) < 1e-4), and shows its sums repeat exactly;
+     on ranks with gaps and empty ranks at both ends, whose zero rows the
+     kernel writes; times it per call, and pass 1 and pass 2 apart;
   9. trains BASELINE config 3 with ``train_sgd`` (``synth_ctr`` of 20
      batches of 16384, 2 epochs, adagrad, lr 0.05), with the three
      kernels' launch counts set to 0 just before and read just after:
@@ -82,12 +92,13 @@ the ``FM`` facade.
      and sorted payloads) and 1, 3, 130, 354, with seg[0] > 0, with gaps
      and at N = 100,003; its sums repeat exactly, ranks without slots are
      zero, and an out-of-range rank traps in a child process;
- 16. trains BASELINE config 3 on the fused path with
-     ``accumulate="segsum"`` (``train_sgd``, as phase 9), the launch counts
-     set to 0 just before: B1 = B2 = B5 = steps, B3 = 0; runs 5 fused
-     steps against the plain versions as phase 9 does; runs 3 steps on
-     plans built on the card (``host_plan=False``) under both accumulate
-     modes (B5 launches 0 under "scatter");
+ 16. trains BASELINE config 3 on the fused path with the default
+     ``accumulate="auto"``, which sums by B5 on the card (``train_sgd``, as
+     phase 9), the launch counts set to 0 just before: B1 = B2 = B5 =
+     steps, B3 = 0; runs 5 fused steps against the plain versions as phase
+     9 does; runs 3 steps on plans built on the card (``host_plan=False``)
+     under each accumulate mode ("auto" and "segsum" launch B5 and give
+     the same table bit for bit, "scatter" launches none);
  17. the same on the sorted path: ``train_sgd(update_path="sorted")``
      (B1 = B2 = B5 = steps) and 5 steps against the plain versions;
  18. holds B6 (``segment_rowsum_sq``) and B4 (``fm_grad_segsum``) against
@@ -105,9 +116,13 @@ non-zero and prints no result. Run from the repository root:
 
 The line before the last is the kernels' JSON (``ms``/``plain_ms``/
 ``library_ms``: one call at the main path's shape, back to back under CUDA
-events, for the gather one plan's V+w serving gather, where the host's
-launch cost sets the pace; ``device_ms``/``plain_device_ms``/
-``library_device_ms``: the device time of one call from torch.profiler;
+events: for the gather the training record (W = 68), for the two-table
+gather one plan's serving V+w, where the host's launch cost sets the
+pace; ``device_ms``/``plain_device_ms``/
+``library_device_ms``: the device time of one call, from torch.profiler
+for B1-B3 and by CUDA events around calls queued behind a spin kernel for
+B4-B7, whose phases come late in the run, where profiler traces lose
+kernel records;
 ``library``: the one PyTorch call that computes the same function, where
 there is one (null times where there is none); ``bound_ms``/``bound_us``:
 the least time the card could take, from the bytes the call must move at
@@ -170,13 +185,36 @@ def time_ms(fn, args, reps=20, windows=5):
     return best
 
 
+def spun_ms(fn, reps=10, windows=3, spin=20_000_000):
+    """Device time of one call (ms): CUDA events around ``reps`` calls
+    queued behind a spin kernel of ``spin`` cycles (~10 ms), so the host
+    has queued them all before the first runs and its launch cost stays
+    off the clock; best of ``windows``. Unlike a torch.profiler trace it
+    cannot lose a kernel's record, which traces late in this run do."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
 def device_us(fn, tries=3):
     """All device time (us) that torch.profiler records while ``fn`` runs:
     the sum over device-side events (kernels, copies) only, since a CPU
     op's entry repeats the device time of the kernels it launched. Also
-    the device events, sorted by time. A trace that records no device time
-    (seen now and then for short calls late in a run) is taken again, up
-    to ``tries`` traces; 0 if none saw any."""
+    the device events, sorted by time. A trace can lose kernel records
+    (seen late in a run) but never adds any, so of ``tries`` traces the
+    one with the most device time is kept; 0 if none saw any."""
+    best = (0, [])
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -186,9 +224,9 @@ def device_us(fn, tries=3):
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: -e.self_device_time_total)
         total = sum(e.self_device_time_total for e in events)
-        if total:
-            break
-    return total, events
+        if total > best[0]:
+            best = (total, events)
+    return best
 
 
 def pct(share):
@@ -202,7 +240,7 @@ from sparkfm_tpu_torch.ops import rowio
 table = torch.zeros((10, 4), device="cuda")
 ids = torch.tensor([0, 10], dtype=torch.int32, device="cuda")
 try:
-    rowio.gather_rows(table, ids)
+    {call}
     torch.cuda.synchronize()
 except RuntimeError as e:
     if "unspecified launch failure" not in str(e):   # not the trap
@@ -211,6 +249,10 @@ except RuntimeError as e:
     sys.exit(3)
 print("no trap")
 """
+GATHER_TRAP_CALLS = {
+    "gather_rows": "rowio.gather_rows(table, ids)",
+    "gather_vw_rows": "rowio.gather_vw_rows(table, table[:, 0].contiguous(), "
+                      "ids)"}
 
 
 @contextlib.contextmanager
@@ -431,14 +473,20 @@ def train_phases(dev, cfg, gen, rng, card):
     # their plain versions on a full-size record table: every row, the
     # fill row included (the write keeps the first row of a run of ids)
     table = torch.randn((BUCKETS + 1, width), generator=gen, device=dev)
+    errs = {"gather": 0.0, "write": 0.0}
     for u in uids:
         got = rowio.gather_rows(table, u)
-        if not torch.equal(got, rowio.gather_rows_reference(table, u)):
+        ref = rowio.gather_rows_reference(table, u)
+        errs["gather"] = max(errs["gather"], float((got - ref).abs().max()))
+        if not torch.equal(got, ref):
             raise AssertionError(f"gather kernel wrong at W={width}")
         rows = torch.randn((rung, width), generator=gen, device=dev)
         want = rowio.scatter_set_rows_reference(table.clone(), u, rows)
         if rowio.scatter_set_rows(table, u, rows) is not table:
             raise AssertionError("scatter_set_rows did not write in place")
+        written = u.long()
+        errs["write"] = max(errs["write"], float(
+            (table[written] - want[written]).abs().max()))
         if not torch.equal(table, want):
             raise AssertionError(f"row write kernel != plain at "
                                  f"{tuple(table.shape)}, U={rung}")
@@ -604,6 +652,26 @@ def train_phases(dev, cfg, gen, rng, card):
           f"{'; '.join(checked)}; sums repeat exactly; longest run: "
           f"bench-recipe {runs['bench']} slots, synth_ctr "
           f"{runs['synth_ctr']}", flush=True)
+    # the kernel writes the rows of ranks without slots (before the first,
+    # in gaps, after the last) as zeros: the output is not filled first
+    gseg = main_case[3] + 3 + torch.cumsum(
+        (torch.rand(main_case[3].shape[0], generator=gen, device=dev)
+         < 0.05).int(), 0, dtype=torch.int32)
+    gu = int(gseg[-1]) + 5
+    gargs = (0.01 * torch.randn((gu, RANK + 1), generator=gen, device=dev),
+             *main_case[1:3], gseg, gu)
+    got = segsum.fm_grad_segsum_factored(*gargs, cv, cw)
+    gap_err = max_rel_err(got, plain64(*gargs, cv, cw))
+    empty = torch.ones(gu, dtype=torch.bool, device=dev)
+    empty[gseg.long()] = False
+    if not gap_err < 1e-4 or got[empty].any():
+        raise AssertionError(f"factored backward with gaps in seg: "
+                             f"{gap_err:.3g} from float64, or a rank "
+                             f"without slots is not zero")
+    print(f"check: factored backward with seg[0] = 3, gaps and 4 empty "
+          f"ranks at the end (U={gu}): {gap_err:.3g} from float64, "
+          f"{int(empty.sum())} ranks without slots zero", flush=True)
+    del gseg, gargs, got, empty
     times["backward"] = (
         time_ms(lambda: segsum.fm_grad_segsum_factored(*main_case, cv, cw),
                 [()]),
@@ -613,6 +681,19 @@ def train_phases(dev, cfg, gen, rng, card):
         device_us(lambda: [f(*main_case, cv, cw) for _ in range(5)])[0] / 5
         for f in (segsum.fm_grad_segsum_factored,
                   segsum.fm_grad_segsum_factored_reference))
+
+    # B3's passes apart: device us per call (5 calls), in all, pass 1 and
+    # pass 2
+    total, events = device_us(lambda: [segsum.fm_grad_segsum_factored(
+        *main_case, cv, cw) for _ in range(5)])
+    by = {e.key: e.self_device_time_total / 5 for e in events}
+    b3_passes = {"all": total / 5,
+                 "pass 1": sum(v for k, v in by.items() if "fm_grad" in k),
+                 "pass 2": sum(v for k, v in by.items() if "crossing" in k)}
+    print(f"time: factored backward at the main path's shape, device us "
+          f"per call (torch.profiler): {b3_passes['all']:.2f} (pass 1 "
+          f"{b3_passes['pass 1']:.2f}, pass 2 {b3_passes['pass 2']:.2f}); "
+          f"{card}", flush=True)
     # what the calls must move: the ladder plans' ids, each distinct row
     # once (the uniques and the fill row) read and written, for the write
     # rows[r] read and table[ids[r]] written; B3 reads vw_u, ex, x and seg
@@ -741,7 +822,8 @@ def train_phases(dev, cfg, gen, rng, card):
         {"name": "scatter_set_rows", "route": "cuda",
          "source": "sparkfm_tpu_torch/csrc/rowio.cu",
          "replaces": "sparkfm_tpu/ops/pallas_rowio.py:74",
-         "launches": launches["scatter_set_rows"], "max_abs_err": 0.0,
+         "launches": launches["scatter_set_rows"],
+         "max_abs_err": errs["write"],
          "ms": times["write"][0], "plain_ms": times["write"][1],
          "library_ms": times["write"][2],
          "library": "index_copy_ over the plan's distinct ids",
@@ -764,9 +846,12 @@ def train_phases(dev, cfg, gen, rng, card):
          "plain_device_ms": dev_us["backward"][1] / 1e3,
          "library_device_ms": None,
          **bound(call_bytes["backward"], b3_ops,
-                 dev_us["backward"][0] / 1e3)}]
+                 dev_us["backward"][0] / 1e3),
+         "pass1_device_ms": b3_passes["pass 1"] / 1e3,
+         "pass2_device_ms": b3_passes["pass 2"] / 1e3}]
     gather_record = {
         "launches_training": launches["gather_rows"],
+        "record_max_abs_err": errs["gather"],
         "record_ms": times["gather"][0],
         "record_plain_ms": times["gather"][1],
         "record_device_ms": dev_us["gather"][0] / 1e3,
@@ -936,10 +1021,12 @@ def als_phases(dev, gen, card):
     # device time per call by kernel, pass 1 and pass 2, against the bound:
     # S + 1 arrays of N read once, (U, S) written once, S adds per slot
     def passes(fn):
-        """Device us per call of ``fn`` (5 calls): in all, pass 1, pass 2."""
-        total, events = device_us(lambda: [fn() for _ in range(5)])
+        """Device us per call of ``fn``: in all (``spun_ms``), and pass 1
+        and pass 2 as a torch.profiler trace of 5 calls splits them."""
+        total = 1e3 * spun_ms(fn)
+        _, events = device_us(lambda: [fn() for _ in range(5)])
         by = {e.key: e.self_device_time_total / 5 for e in events}
-        return (total / 5,
+        return (total,
                 sum(v for k, v in by.items() if "colsums_chunks" in k),
                 sum(v for k, v in by.items() if "colsums_crossing" in k))
 
@@ -955,10 +1042,8 @@ def als_phases(dev, gen, card):
         streams[:s], sg, n_ranks)) for s in (5, 1)}
         for label, sg in (("movie", seg_movie), ("user", seg_user),
                           ("offset", seg_odd))}
-    plain_us = tuple(
-        device_us(lambda: [segsum.segment_colsums_reference(
-            streams, sg, n_ranks) for _ in range(5)])[0] / 5
-        for sg in (seg_movie, seg_user))
+    plain_us = tuple(1e3 * spun_ms(lambda sg=sg: segsum.segment_colsums_reference(
+        streams, sg, n_ranks), reps=2, windows=2) for sg in (seg_movie, seg_user))
     lines = []
     for label, by_s in blocks.items():
         for s, (us, p1, p2) in by_s.items():
@@ -969,7 +1054,8 @@ def als_phases(dev, gen, card):
     print(f"time: stream sums per call (N={ALS_N}, head run "
           f"{int(movie_counts.max())}): kernel {ms[0]:.4f} ms, plain "
           f"{ms[1]:.4f} ms back to back at the movie block S=5 (CUDA events, "
-          f"best of 3 windows of 10); device (torch.profiler): "
+          f"best of 3 windows of 10); device (CUDA events, the calls "
+          f"queued behind a spin kernel; passes split by torch.profiler): "
           + "; ".join(lines) + f"; plain movie {plain_us[0]:.2f} us, user "
           f"{plain_us[1]:.2f} us; {card}", flush=True)
     del streams, args
@@ -1316,19 +1402,20 @@ def segsum_phases(dev, cfg, gen, rng, card):
         return sgd_fused.init_fused_state(cfg, torch.Generator(
             device=dev).manual_seed(SEED + 2), device=dev)
 
-    train("fused (segsum)", update_path="fused", accumulate="segsum")
+    # accumulate="auto", the default: B5 on the card
+    train("fused (auto)", update_path="fused")
     fused_cfg = SGDConfig(batch_size=BATCH, learning_rate=0.05,
-                          update_path="fused", accumulate="segsum")
+                          update_path="fused")
     losses, moved = steps_against_plain(
         sgd_fused.make_fused_train_step(cfg, fused_cfg), init_state(),
         batches, plain_swaps, kernels.values(), "fused")
-    print(f"check: 5 fused (segsum) steps on bench-recipe batches, each from "
+    print(f"check: 5 fused (auto) steps on bench-recipe batches, each from "
           f"the same state with the kernels and with the plain versions: "
           f"losses {losses} equal (rtol 1e-5), tables equal (rtol 1e-4, "
           f"atol 1e-6), {moved} rows updated in all", flush=True)
     torch.cuda.empty_cache()
     device_runs = []
-    for accumulate in ("segsum", "scatter"):
+    for accumulate in ("auto", "segsum", "scatter"):
         step = sgd_fused.make_fused_train_step(cfg, dataclasses.replace(
             fused_cfg, host_plan=False, accumulate=accumulate))
         state = init_state()
@@ -1342,22 +1429,30 @@ def segsum_phases(dev, cfg, gen, rng, card):
         torch.cuda.synchronize()
         launches = {name: k.launches for name, k in kernels.items()}
         want = {"gather_rows": 3, "scatter_set_rows": 3,
-                "segment_rowsum": 3 if accumulate == "segsum" else 0,
+                "segment_rowsum": 0 if accumulate == "scatter" else 3,
                 "fm_grad_segsum_factored": 0}
         run_losses = [float(a["loss"]) for a in run]
         if launches != want or not np.all(np.isfinite(run_losses)) or any(
                 bool(a["unique_overflow"]) for a in run):
             raise AssertionError(f"device-plan fused steps ({accumulate}): "
                                  f"launches {launches}, losses {run_losses}")
+        # "auto" is B5 on the card: the same steps as "segsum", bit for bit
+        if accumulate == "auto":
+            first = state.table.clone()
+        elif accumulate == "segsum" and not torch.equal(first, state.table):
+            raise AssertionError("accumulate='auto' and 'segsum' differ on "
+                                 "the card")
         # the first step starts from the host-plan run's initial state
         np.testing.assert_allclose(run_losses[0], losses[0], rtol=1e-5)
         device_runs.append(f"{accumulate}: losses {run_losses}, uniques "
                            f"{[int(a['unique_count']) for a in run]} of a "
                            f"{cap}-slot budget, launches {launches}")
         del state
+    del first
     print(f"check: 3 fused steps on plans built on the card (host_plan=False)"
           f": {'; '.join(device_runs)}; first losses equal the host-plan "
-          f"step's (rtol 1e-5)", flush=True)
+          f"step's (rtol 1e-5); 'auto' and 'segsum' tables equal bit for "
+          f"bit", flush=True)
     torch.cuda.empty_cache()
 
     # 17. the sorted path: train_sgd, then 5 steps against the plain
@@ -1448,13 +1543,10 @@ def segsum_phases(dev, cfg, gen, rng, card):
     times = {}
     for name, (fn, plain, args) in timed.items():
         ms = (time_ms(fn, [args]), time_ms(plain, [args]))
-        us = tuple(device_us(lambda f=f: [f(*args) for _ in range(5)])[0] / 5
-                   for f in (fn, plain))
+        us = tuple(1e3 * spun_ms(lambda f=f: f(*args)) for f in (fn, plain))
         library = (None, None)
         if name == "segment_rowsum":
-            lib_ms = per_call_ms(index_add)
-            library = (time_ms(index_add, [()]),
-                       1e3 * lib_ms if lib_ms else None)
+            library = (time_ms(index_add, [()]), 1e3 * spun_ms(index_add))
         times[name] = ms + us + library
         share = bound(*cost[name], us[0] / 1e3)
         print(f"time: {name} per call (N={n}, U={u}, head run {head}): "
@@ -1463,7 +1555,8 @@ def segsum_phases(dev, cfg, gen, rng, card):
               + f" back to back (CUDA events, best of 5 windows of 20); "
               f"device {us[0]:.2f} us vs {us[1]:.2f} us"
               + (f", index_add_ {library[1]:.2f} us" if library[1] else "")
-              + f" (torch.profiler); bound {share['bound_us']:.2f} us "
+              + f" (CUDA events, the calls queued behind a spin kernel); "
+              f"bound {share['bound_us']:.2f} us "
               f"({cost[name][0] / 1e6:.2f} MB), "
               f"{pct(share['share_of_bound'])} of it; {card}",
               flush=True)
@@ -1471,10 +1564,8 @@ def segsum_phases(dev, cfg, gen, rng, card):
     del g66, timed, main
     torch.cuda.empty_cache()
     for label, kw in (("hybrid", dict(update_path="hybrid")),
-                      ("fused, host plans", dict(update_path="fused",
-                                                 accumulate="segsum")),
+                      ("fused, host plans", dict(update_path="fused")),
                       ("fused, device plans", dict(update_path="fused",
-                                                   accumulate="segsum",
                                                    host_plan=False)),
                       ("sorted", dict(update_path="sorted"))):
         one = SGDConfig(batch_size=BATCH, learning_rate=0.05, epochs=1, **kw)
@@ -1513,10 +1604,10 @@ def segsum_phases(dev, cfg, gen, rng, card):
         entry("fm_grad_segsum", 418, b4_res, times["fm_grad_segsum"],
               in_kernel, launches=driven["fm_grad_segsum"], path=no_path),
         entry("segment_rowsum", 101, rowsum_main, times["segment_rowsum"],
-              "index_add_", launches=train_launches["fused (segsum)"],
+              "index_add_", launches=train_launches["fused (auto)"],
               launches_sorted=train_launches["sorted"],
-              path="train_sgd fused accumulate='segsum' (phase 16), sorted "
-                   "(phase 17)"),
+              path="train_sgd fused, accumulate='auto' (B5 on the card, "
+                   "phase 16), sorted (phase 17)"),
         entry("segment_rowsum_sq", 238, sq_res, times["segment_rowsum_sq"],
               "none (the squares are formed in the kernel)",
               launches=driven["segment_rowsum_sq"], path=no_path)]
@@ -1575,8 +1666,10 @@ def main():
     params.w.normal_(0.0, 0.1, generator=gen)
     rng = np.random.default_rng(SEED)
 
-    # 2. kernel against plain gather: main-path shapes (V and the w
-    # column, by the uids of real ladder plans), then odd shapes
+    # 2. the gathers against their plain versions, exactly: the serving
+    # path's two-table gather [v | w] and the tile gather of V and of the w
+    # column by the uids of real ladder plans and of a 2^18-slot device
+    # plan, then odd widths (1, 32, 33, 68, ...) and misaligned tables
     cap = E.auto_budget(BATCH * SLOTS)
     plans = [E.host_dedup(zipf_ids(rng, BATCH), cap, fill=BUCKETS - 1)
              for _ in range(8)]
@@ -1585,65 +1678,90 @@ def main():
         raise AssertionError("a 16384-row zipf plan overflowed its cap")
     uids = [torch.as_tensor(p.uids[:rung], device=dev) for p in plans]
     w_col = params.w.view(-1, 1)
+    splan = E.dedup_ids(torch.as_tensor(zipf_ids(rng, BATCH), device=dev),
+                        cap, fill=BUCKETS - 1)
     max_err = 0.0
-    for u in uids:
+    for u in [*uids, splan.uids]:
+        got = rowio.gather_vw_rows(params.v, params.w, u)
+        ref = rowio.gather_vw_rows_reference(params.v, params.w, u)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"two-table gather != index_selects + cat "
+                                 f"at U={u.numel()}")
+        max_err = max(max_err, (got - ref).abs().max().item())
         for table in (params.v, w_col):
-            got = rowio.gather_rows(table, u)
-            ref = rowio.gather_rows_reference(table, u)
-            if not torch.equal(got, ref):
+            if not torch.equal(rowio.gather_rows(table, u),
+                               rowio.gather_rows_reference(table, u)):
                 raise AssertionError("gather kernel != index_select at "
                                      f"{tuple(table.shape)}, U={u.numel()}")
-            max_err = max(max_err, (got - ref).abs().max().item())
-    odd = [(100003, 1, 1001), (100003, 33, 1001), (100003, 128, 1001),
-           (7, 5, 3)]
+    odd = [(100003, w, 1001) for w in (1, 32, 33, 68, 128)] + [(7, 5, 3)]
     for rows, width, n in odd:
         table = torch.randn((rows, width), device=dev, generator=gen)
+        col = torch.randn((rows,), device=dev, generator=gen)
         ids = torch.as_tensor(rng.integers(0, rows, n, dtype=np.int32),
                               device=dev)
-        got = rowio.gather_rows(table, ids)
-        if not torch.equal(got, rowio.gather_rows_reference(table, ids)):
-            raise AssertionError(f"gather kernel wrong at {(rows, width, n)}")
-    # a 16-byte-misaligned table takes the kernel's scalar path
-    table = torch.randn(1000 * 4 + 1, device=dev, generator=gen)[1:].view(
-        1000, 4)
-    ids = torch.arange(999, -1, -1, dtype=torch.int32, device=dev)
-    if not torch.equal(rowio.gather_rows(table, ids),
-                       rowio.gather_rows_reference(table, ids)):
-        raise AssertionError("gather kernel wrong on a misaligned table")
+        if not (torch.equal(rowio.gather_rows(table, ids),
+                            rowio.gather_rows_reference(table, ids))
+                and torch.equal(rowio.gather_vw_rows(table, col, ids),
+                                rowio.gather_vw_rows_reference(table, col,
+                                                               ids))):
+            raise AssertionError(f"gather kernels wrong at {(rows, width, n)}")
+    # 16-byte-misaligned tables take the kernels' scalar route
+    for width in (1, 4, 32, 33, 68):
+        table = torch.randn(1000 * width + 1, device=dev,
+                            generator=gen)[1:].view(1000, width)
+        col = torch.randn(1001, device=dev, generator=gen)[1:]
+        ids = torch.arange(999, -1, -1, dtype=torch.int32, device=dev)
+        if not (torch.equal(rowio.gather_rows(table, ids),
+                            rowio.gather_rows_reference(table, ids))
+                and torch.equal(rowio.gather_vw_rows(table, col, ids),
+                                rowio.gather_vw_rows_reference(table, col,
+                                                               ids))):
+            raise AssertionError(f"gather kernels wrong on a misaligned "
+                                 f"table at W={width}")
     torch.cuda.synchronize()
-    print(f"check: gather kernel == index_select at V {tuple(params.v.shape)}"
-          f" and w {tuple(w_col.shape)} with U={rung} (8 zipf plans, counts "
-          f"{[int(p.count) for p in plans]}), at (R, W, U) {odd} and on a "
-          "misaligned table", flush=True)
+    print(f"check: two-table gather == index_selects + cat and tile gather "
+          f"== index_select at V {tuple(params.v.shape)} and w "
+          f"{tuple(w_col.shape)} with U={rung} (8 zipf plans, counts "
+          f"{[int(p.count) for p in plans]}) and U={cap} (a dedup_ids plan, "
+          f"{int(splan.count)} uniques), at (R, W, U) {odd} and on misaligned "
+          "tables at W = 1, 4, 32, 33, 68", flush=True)
 
     def pair(gather):
         def run(u):
             gather(params.v, u)
             gather(w_col, u)
         return run
+
+    def vw_kernel(u):
+        return rowio.gather_vw_rows(params.v, params.w, u)
+
+    def vw_plain(u):
+        return rowio.gather_vw_rows_reference(params.v, params.w, u)
     args = [(u,) for u in uids]
-    plain_ms = time_ms(pair(rowio.gather_rows_reference), args)
-    kernel_ms = time_ms(pair(rowio.gather_rows), args)
-    kernel_ms = min(kernel_ms, time_ms(pair(rowio.gather_rows), args))
-    plain_ms = min(plain_ms, time_ms(pair(rowio.gather_rows_reference), args))
-    v_ms = time_ms(lambda u: rowio.gather_rows(params.v, u), args)
-    v_plain_ms = time_ms(
-        lambda u: rowio.gather_rows_reference(params.v, u), args)
-    print(f"time: one plan's V+w gather (U={rung}): kernel {kernel_ms:.4f} "
-          f"ms, index_select {plain_ms:.4f} ms; V alone: kernel "
-          f"{v_ms:.4f} ms, index_select {v_plain_ms:.4f} ms; per call, back "
-          f"to back, CUDA events, best of 10 windows of 20; {card}",
-          flush=True)
+    kernel_ms = min(time_ms(vw_kernel, args), time_ms(vw_kernel, args))
+    plain_ms = min(time_ms(vw_plain, args), time_ms(vw_plain, args))
+    pair_ms = time_ms(pair(rowio.gather_rows), args)
+    pair_plain_ms = time_ms(pair(rowio.gather_rows_reference), args)
+    print(f"time: one plan's V+w gather (U={rung}): two-table kernel "
+          f"{kernel_ms:.4f} ms, plain (two index_selects + cat) "
+          f"{plain_ms:.4f} ms; as two tile gathers (V, then w) "
+          f"{pair_ms:.4f} ms, two index_selects {pair_plain_ms:.4f} ms; per "
+          f"call, back to back, CUDA events, best of 5 windows of 20; "
+          f"{card}", flush=True)
 
     # 3. an id out of range traps (in a child: a trap leaves the CUDA
     # context of its process unusable)
-    child = subprocess.run([sys.executable, "-c", TRAP_CHILD], cwd=root,
-                           capture_output=True, text=True, timeout=300)
-    if child.returncode != 3:
-        raise AssertionError("out-of-range id did not trap: rc "
-                             f"{child.returncode}\n{child.stdout}"
-                             f"{child.stderr[-2000:]}")
-    print(f"check: out-of-range id -> {child.stdout.strip()}", flush=True)
+    trapped = {}
+    for kname, call in GATHER_TRAP_CALLS.items():
+        child = subprocess.run(
+            [sys.executable, "-c", TRAP_CHILD.format(call=call)], cwd=root,
+            capture_output=True, text=True, timeout=300)
+        if child.returncode != 3:
+            raise AssertionError(f"{kname}: out-of-range id did not trap: rc "
+                                 f"{child.returncode}\n{child.stdout}"
+                                 f"{child.stderr[-2000:]}")
+        trapped[kname] = child.stdout.strip()
+    print(f"check: out-of-range id -> {trapped}", flush=True)
 
     # 4. small input against float64 numpy, on all three scoring paths
     for feats, plan_kind in ((1000, "direct"), (1 << 17, "device plan"),
@@ -1692,21 +1810,22 @@ def main():
     serve()                                    # warm-up, not counted
     model.predict_dataset(ds, batch_size=BATCH)
     torch.cuda.synchronize()
-    rowio.GATHER.launches = 0                  # the main path's run
+    rowio.GATHER.launches = rowio.GATHER_VW.launches = 0  # the main path
     t0_serve = time.perf_counter()
     outs = serve()
     t1 = time.perf_counter()
     preds = model.predict_dataset(ds, batch_size=BATCH)
     t2 = time.perf_counter()
-    launches = rowio.GATHER.launches
+    launches = rowio.GATHER_VW.launches
     if launches == 0:
         raise AssertionError("the serving path never launched the kernel")
-    # one chunk of at most 4096 per flush call, two gathers (V, w) each,
-    # plus two for the predict_dataset batch
+    # one chunk of at most 4096 per flush call, one two-table gather each,
+    # plus one for the predict_dataset batch; no one-table gather
     chunks = -(-n_req // MAX_BATCH)
-    if launches != 2 * chunks + 2:
-        raise AssertionError(f"{launches} launches, expected "
-                             f"{2 * chunks + 2}")
+    if launches != chunks + 1 or rowio.GATHER.launches:
+        raise AssertionError(f"{launches} two-table and "
+                             f"{rowio.GATHER.launches} one-table launches, "
+                             f"expected {chunks + 1} and 0")
 
     # the same requests scored with the plain gather, per slot
     def plain(ids, vals):
@@ -1737,26 +1856,22 @@ def main():
     # 6. where the time goes: device time per gather call, the device's
     # busy share of the serving run, the host plan's time per chunk
     per_call = {}
-    for label, gather in (("kernel", rowio.gather_rows),
-                          ("index_select", rowio.gather_rows_reference)):
-        for tname, table in (("V", params.v), ("w", w_col)):
-            ms = per_call_ms(lambda: [gather(table, u) for u in uids],
-                             reps=1)
-            per_call[f"{label} {tname}"] = (1e3 * ms / len(uids) if ms
-                                            else None)
-
-    def device_ms(label):
-        """Device time of one plan's V+w gather, None if not measured."""
-        parts = (per_call[f"{label} V"], per_call[f"{label} w"])
-        return None if None in parts else sum(parts) / 1e3
-
-    v_bytes = rung * (RANK * 4 * 2 + 4)
-    kernel_v = per_call["kernel V"]
+    for label, fn in (("two-table kernel V+w", vw_kernel),
+                      ("plain V+w (index_selects + cat)", vw_plain),
+                      ("tile kernel V", lambda u: rowio.gather_rows(
+                          params.v, u)),
+                      ("tile kernel w", lambda u: rowio.gather_rows(
+                          w_col, u)),
+                      ("index_select V", lambda u: rowio.gather_rows_reference(
+                          params.v, u)),
+                      ("index_select w", lambda u: rowio.gather_rows_reference(
+                          w_col, u))):
+        ms = per_call_ms(lambda: [fn(u) for u in uids], reps=1)
+        per_call[label] = 1e3 * ms / len(uids) if ms else None
+    vw_us = per_call["two-table kernel V+w"]
     print(f"profile: device us per gather call (U={rung}): "
           + ", ".join(f"{k} {v:.2f}" if v else f"{k} not measured"
-                      for k, v in per_call.items())
-          + (f"; kernel V moves {v_bytes / kernel_v / 1e3:.0f} GB/s of "
-             "device time" if kernel_v else "") + f"; {card}", flush=True)
+                      for k, v in per_call.items()) + f"; {card}", flush=True)
     t0 = time.perf_counter()
     busy, events = device_us(
         lambda: (serve(), model.predict_dataset(ds, batch_size=BATCH)))
@@ -1816,23 +1931,48 @@ def main():
     segsum_entries = segsum_phases(dev, cfg, gen, rng, card)
 
     print(smi)
-    # one serving plan's V + w gather: ids twice, each distinct row (the
-    # uniques and the fill row) read once, U rows of 33 floats written
+    # one serving plan's [v | w] gather: the ids, each distinct row of V
+    # and w (the uniques and the fill row) read once, U rows of 33 floats
+    # written
     distinct = np.mean([min(int(p.count) + 1, rung) for p in plans])
-    pair_bytes = 2 * rung * 4 + (distinct + rung) * (RANK + 1) * 4
+    vw_bytes = rung * 4 + (distinct + rung) * (RANK + 1) * 4
+    record = gather_record
+
+    def ms_or_none(us):
+        return None if us is None else us / 1e3
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda",
         "source": "sparkfm_tpu_torch/csrc/rowio.cu",
         "replaces": "sparkfm_tpu/ops/pallas_rowio.py:140",
-        "launches": launches + gather_record["launches_training"],
-        "launches_serving": launches, "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": plain_ms,
+        "launches": record["launches_training"],
+        "max_abs_err": record["record_max_abs_err"],
+        "path": "the SGD steps' record gather, W = 68 (phases 9, 16, 17)",
+        "ms": record["record_ms"], "plain_ms": record["record_plain_ms"],
+        "library_ms": record["record_plain_ms"],
         "library": "index_select (the plain version)",
-        "device_ms": device_ms("kernel"),
-        "plain_device_ms": device_ms("index_select"),
-        "library_device_ms": device_ms("index_select"),
-        **bound(pair_bytes, 0, device_ms("kernel")),
-        "device_us_per_call": per_call, **gather_record},
+        "device_ms": record["record_device_ms"],
+        "plain_device_ms": record["record_plain_device_ms"],
+        "library_device_ms": record["record_plain_device_ms"],
+        **record["record_bound"],
+        "device_plan_device_ms": record["device_plan_device_ms"],
+        "device_plan_library_device_ms":
+            record["device_plan_library_device_ms"],
+        "device_plan_bound": record["device_plan_bound"],
+        "serving_device_us_per_call": per_call,
+        "serving_two_launches_ms": pair_ms,
+        "serving_two_index_selects_ms": pair_plain_ms}, {
+        "name": "gather_vw_rows", "route": "cuda",
+        "source": "sparkfm_tpu_torch/csrc/rowio.cu",
+        "replaces": "sparkfm_tpu/ops/pallas_rowio.py:140",
+        "launches": launches, "max_abs_err": max_err,
+        "path": "serving: one launch per scoring chunk (phase 5)",
+        "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "library": "none (two index_selects and a cat: the plain version)",
+        "device_ms": ms_or_none(vw_us),
+        "plain_device_ms": ms_or_none(
+            per_call["plain V+w (index_selects + cat)"]),
+        "library_device_ms": None,
+        **bound(vw_bytes, 0, ms_or_none(vw_us))},
         *train_entries, als_entry, *segsum_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -116,20 +116,25 @@ class SGDConfig:
     path: adagrad / sgd). ``host_plan=False`` makes the fused step build
     its plans on the device (the hybrid path needs host plans and raises
     ``ValueError``). What else a field can select (the "direct" and
-    "dedup" paths, adam, momentum, several steps per dispatch) raises
-    ``NotImplementedError`` when a step or the trainer is built
-    (``solvers/sgd.py::check_supported``).
+    "dedup" paths, adam, momentum) raises ``NotImplementedError`` when a
+    step or the trainer is built (``solvers/sgd.py::check_supported``).
+    ``steps_per_dispatch`` groups only hybrid steps, as in the JAX
+    package; above 1 the hybrid path raises ``NotImplementedError``
+    (ROADMAP A3), and the fused and sorted paths run their steps one by
+    one.
 
     ``max_seconds``: wall-clock budget, checked at epoch boundaries (0 =
     none). ``unique_budget``: 0 sizes each batch's plan by the ladder
     (``ops/embedding.py::ladder_budget``), or by ``auto_budget`` where the
     step builds its own; a positive value pins one budget. ``accumulate``
-    selects the fused step's per-unique reduce: "auto"/"scatter" an
-    ``index_add_`` by rank, "segsum" the row-sum kernel B5 over id-sorted
-    runs. ``pallas_scatter`` and ``sparse_updates`` are TPU dispatch knobs
-    of the JAX package; the port accepts them and they have no effect
-    here (the write-back always runs the port's row-write kernel on the
-    card).
+    selects the fused step's per-unique reduce: "segsum" the row-sum
+    kernel B5 over id-sorted runs, whose sums repeat bit for bit;
+    "scatter" an ``index_add_`` by rank, whose atomic adds on the card do
+    not; "auto" B5 for CUDA tensors and ``index_add_`` for CPU tensors
+    (``solvers/sgd_fused.py::segsum_accumulate``). ``pallas_scatter`` and
+    ``sparse_updates`` are TPU dispatch knobs of the JAX package; the port
+    accepts them and they have no effect here (the write-back always runs
+    the port's row-write kernel on the card).
     """
 
     learning_rate: float = 0.05

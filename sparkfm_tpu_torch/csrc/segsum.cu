@@ -1,17 +1,18 @@
 // Segmented sums over sorted slots, five kernels in three families:
 //
 // * B3, the factored FM backward, and B4, the same backward from per-slot
-//   rows (fm_grad_chunks_kernel, then rows_crossing_kernel), below;
+//   rows (fm_grad_spans_kernel, then rows_crossing_kernel), below;
 // * B5, segment_rowsum, and B6, segment_rowsum_sq (rowsum_chunks_kernel,
 //   then rows_crossing_kernel), after them;
 // * B7, segment_colsums (colsums_chunks_kernel and
 //   colsums_crossing_kernel), last.
 //
-// All cut the sorted stream into fixed chunks, one warp per chunk, write
-// runs that lie inside a chunk straight out, and sum the partial rows of
-// runs that cross chunks in a second pass, in a fixed order, without
-// atomics. Every launcher takes the card's SM count from its caller, which
-// looks it up once per device.
+// All cut the sorted stream into chunks (B3/B4: equal spans, one per
+// warp; B5-B7: fixed chunks), write runs that lie inside a
+// chunk straight out, and sum the partial rows of runs that cross chunks
+// in a second pass, in a fixed order, without atomics. Every launcher
+// takes the card's SM count from its caller, which looks it up once per
+// device.
 //
 // B3. Factored FM backward over id-sorted slots: per-run sums of the FM
 // gradient and of its square,
@@ -31,50 +32,98 @@
 // order with a carry between steps and reduces each subtile with a one-hot
 // matrix product; it factors V_u out of the run sums so the (N, k+1)
 // per-slot row stream never exists. Here blocks run in no order, so the
-// design is different:
+// design is different.
 //
 // What bounds it: bytes. It reads ex_srt (N x (k+2) floats, 87 MB at the
-// main path's N = 638,976 and k = 32) once, plus x and seg, and does ~6k
-// flops per slot. Two things stand in the way of streaming that at HBM rate:
+// main path's N = 638,976 and k = 32) once, plus x, seg and the unique
+// rows, and writes (U, 2k+2): 108 MB, a 32 us floor at 3.35 TB/s, against
+// ~8 flops per slot and factor. What stands in the way of streaming it:
 //
+// * The run's row. Its rank is known only once seg[i] has arrived, and
+//   hashed zipf ids make most runs one or two slots long, so a design that
+//   loads vw_u[r] when the rank changes pays a dependent round trip on
+//   nearly every slot of the tail. Here every row is loaded ahead, by the
+//   slot: a warp walks its slots in steps of G (16 at k = 32), lane l
+//   owning factors l, l + 32, ...; the step's ranks and scalars (seg, x,
+//   ds, wt) were loaded by the step before, so the step first issues the
+//   loads of its G slots' example rows and of their rows vw_u[seg[i]]
+//   (repeats of a run's row hit L1), then the loads of the next step's
+//   ranks and scalars, then does its arithmetic. No slot waits on a load
+//   that starts only once its rank is known. The slots' scalar terms go
+//   through shared memory, one 16-byte broadcast read per slot, and a
+//   ballot marks where runs start, so the per-slot work is the arithmetic
+//   and one test of a warp-uniform bit.
+// * Issue work. A slot is two row loads and a few multiply-adds, so what
+//   a slot costs in instructions sets the pace: the row addresses come
+//   from the span's base pointers and 32-bit offsets, one wide
+//   multiply-add a load, and a full step loads without predicates. (With
+//   64-bit index arithmetic most of a slot's instructions were address
+//   arithmetic and the kernel spilled; pass 1 ran half again as long.)
+// * Filling the card. Pass 1 cuts the sorted stream into equal spans, one
+//   per warp, as many as the card holds at once (3 blocks of 256 threads
+//   per SM, the launch bound, which gives a thread 80 registers: at 4
+//   blocks and 64 registers the kernel spills and runs slower), so every
+//   warp has the same number of slots and one wave covers the stream: at
+//   the main path's shape 3,072 spans of 208 slots. (A second layout, 16
+//   lanes a slot and two spans a warp for k <= 32, ran pass 1 about as
+//   fast but doubled pass 2's partial rows: slower in all, on the H100;
+//   PERF.md keeps its times.)
 // * Run skew. Hashed zipf ids put a quarter of a batch's slots in one run
-//   (162,323 of 638,976 at the main path's recipe), so a warp per run would
-//   leave the card idle behind one warp. Pass 1 therefore cuts the sorted
-//   stream into fixed chunks of kChunk slots, one warp per chunk. A run
-//   that lies inside one chunk is summed by that warp and written to
-//   out[r] directly. A run that crosses a chunk boundary leaves one partial
-//   row per chunk it touches, in `partials` (two rows per chunk: its first
-//   run's, if that run began in an earlier chunk, and its last run's, if
-//   that run goes on into the next). Pass 2 runs one block per chunk; the
-//   block of the chunk where a crossing run begins sums that run's partials
-//   in a fixed order (warps over partial rows, then the warps' sums in warp
-//   order) and writes out[r]. No atomics: the sums are the same from run to
-//   run.
-// * Latency. Within a chunk a warp walks the slots in order; lane f owns
-//   factor f (and f + 32, ... for k > 32), lane 0 also owns w. The warp
-//   loads the scalars of G slots at once (lane j holds slot j's seg, x, ds,
-//   wt and hands them out by shuffle) and the G slots' rows of s before it
-//   uses them, so G loads per lane are in flight instead of one.
+//   (162,323 of 638,976 at the main path's recipe). A run that lies inside
+//   one span is summed by its warp and written to out[r] directly. A run
+//   that crosses a span boundary leaves one partial row per span it
+//   touches, in `partials` (two rows per span: its first run's, if that
+//   run began in an earlier span, and its last run's, if that run goes on
+//   into the next). Pass 2 (rows_crossing_kernel, below, shared with B4-B6)
+//   sums them.
 //
-// Numerics: the run's row (v, w) is constant within a run, so each lane
-// loads it once per run into registers and forms each slot's gradient
-// directly, in f32, and accumulates sum g and sum g^2. This is the exact
-// form of the JAX package's XLA branch, without the factored squared-sum
-// combine (sum t1^2 - 2 V sum t1 t2 + V^2 sum t2^2) that the JAX note
-// warns can cancel. Only the order of the f32 sums differs: sequential
-// within a chunk, then chunk by chunk.
+// Numerics: each lane forms each slot's gradient directly, in f32, from
+// the slot's row and accumulates sum g and sum g^2: the exact form of the
+// JAX package's XLA branch, without the factored squared-sum combine (sum
+// t1^2 - 2 V sum t1 t2 + V^2 sum t2^2) that the JAX note warns can cancel.
+// The order of the f32 sums: sequential in slot order within a span; a
+// crossing run's partial rows then in pass 2's order (below). No atomics:
+// the sums repeat bit for bit.
 //
-// A rank outside [0, num_segments) traps the kernel. seg must be sorted
-// (the plan's dense ranks are); k is at most 128.
+// What holds it, measured on the H100 (PERF.md): ~51% of the bound at the
+// main path's shape, pass 1 ~50 us and pass 2 ~14 us. Pass 1 is still
+// held by per-slot issue work rather than bytes; staging rows in shared
+// memory by bulk copies, a slab of a step's unique rows, and 8 to 16
+// slots a step did not beat it. B7's layout (lanes over slots, each
+// tile's example rows, values, ranks and unique rows by bulk copy,
+// double-buffered, four one-warp blocks an SM as shared memory allows)
+// was no faster in a prototype even before its run bookkeeping: with one
+// warp a scheduler, its arithmetic from shared memory did not hide behind
+// the copies. Pass 2 is set by the head run's ~800 partial rows, which
+// one block sums.
+//
+// A rank outside [0, num_segments) traps the kernel before its row is
+// read. seg must be sorted (the plan's dense ranks are); k is at most 128.
 //
 // B4. fm_grad_segsum: the same sums from per-slot rows, (v, w) =
 // vw_srt[i] for sorted slot i instead of the run's one row. Replaces
 // sparkfm_tpu/ops/pallas_segsum.py::_fm_grad_segsum_kernel (called through
 // _fm_grad_segsum_pallas, public fm_grad_segsum), which no path of the JAX
 // package runs on the TPU (its XLA form is B3's fallback there); here it
-// is B3's kernel with one template flag: each slot's row is loaded beside
-// its example pack, G slots ahead, so the (N, k+1) row stream adds 4(k+1)
-// bytes per slot to what B3 reads.
+// is B3's kernel with one template flag: the row of slot i is vw[i]
+// instead of vw[seg[i]], so the (N, k+1) row stream adds 4(k+1) bytes per
+// slot to what B3 reads.
+//
+// Pass 2 of B3-B6 (rows_crossing_kernel): B7's design for rows of any
+// width. A block of 32 warps takes 32 consecutive chunks (spans), a warp
+// each. If a run begins in chunk c and crosses into c + 1, the warp finds
+// the chunks it reaches from seg (a ballot over the next 32 chunks'
+// first slots); when that is at most 33 partial rows (almost every
+// crossing run) the warp sums them with lanes over columns, row by row in
+// order. A longer run is left to the warp's whole block, which takes such
+// runs in warp order (one slot per warp): warp w sums rows w, w + 32, ...
+// in order, lanes over columns, and warp 0 adds the 32 warps' sums in
+// warp order. No atomics. Pass 2 also writes the zero rows of the ranks no
+// slot has (a warp those before the runs that begin in its chunk, found by
+// comparing neighbouring ranks, and a slice of those past seg[n - 1]), so
+// the output is written once and not filled first (the same writes in
+// pass 1 slowed its loop by taking registers; here they cost ~2 us at the
+// main path's shape, against ~3.5 us for filling the output).
 
 #include <cstdint>
 
@@ -85,267 +134,458 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int64_t kChunk = 256;        // sorted slots per pass-1 work item
-constexpr int kThreads1 = 256;         // pass 1: 8 warps, one chunk each
+constexpr int64_t kChunk = 256;        // B5/B6: sorted slots per warp
+constexpr int kThreads1 = 256;         // pass 1: 8 warps a block
 constexpr int kWarps1 = kThreads1 / 32;
-constexpr int kThreads2 = 256;         // pass 2: 8 warps per crossing run
+constexpr int kBlocks1 = 3;            // B3/B4: resident blocks per SM
+constexpr int kThreads2 = 1024;        // pass 2: 32 chunks a block
 constexpr int kWarps2 = kThreads2 / 32;
 constexpr int kMaxK = 128;
-constexpr int kCols2 = 9;              // pass 2: columns per lane per tile
-constexpr int kTile2 = 32 * kCols2;    // pass 2: columns per tile
+constexpr int kCols2 = 3;              // pass 2, long runs: columns per lane
+constexpr int kTile2 = 32 * kCols2;    // pass 2, long runs: columns per tile
 
-// KPL factors per lane (k <= 32 * KPL); G slots loaded ahead per step.
-// kSlotRows: (v, w) is vw[i] of each sorted slot i (B4), else vw[rank] of
-// the run's rank (B3).
+// G, the slots a warp loads ahead per step, for KPL factors per lane:
+// 2 G KPL row values in registers, within the launch bound's 80 a
+// thread.
+constexpr int fm_grad_step(int kpl) {
+  return kpl == 1 ? 16 : kpl == 2 ? 8 : 4;
+}
+
+// B3/B4's span: n slots cut into as many equal spans, one per warp, as
+// the card holds at once (kBlocks1 blocks an SM), each a multiple of G
+// slots at width k.
+int64_t fm_grad_span(int64_t n, int64_t k, int num_sms) {
+  const int step = fm_grad_step(static_cast<int>((k + 31) / 32));
+  const int64_t warps = static_cast<int64_t>(num_sms) * kBlocks1 * kWarps1;
+  const int64_t span = ((n + warps - 1) / warps + step - 1) / step * step;
+  return span < step ? step : span;
+}
+
+// Pass 1 of B3 (kSlotRows false: the row of slot i is vw[seg[i]]) and B4
+// (true: vw[i]). A warp per span; KPL factors per lane (k <= 32 KPL); G
+// slots per step. A step:
+//   1. the loads of its G slots' example rows and rows (v, w), by the ranks
+//      the step before loaded, then of the next step's ranks and scalars;
+//   2. lane j < G forms slot j's scalar terms, ds x, x, cv a and g_w = ds x
+//      + cw w a, and puts them and the rank in the warp's shared-memory
+//      slot j; a ballot marks the slots that start a run;
+//   3. the warp adds the G slots in order, lanes over factors, each slot's
+//      terms one 16-byte broadcast read; a run's sums are written where the
+//      next run starts. Past the span's end the terms and rows are zero and
+//      add nothing.
+// Row addresses come from the span's base pointers and 32-bit offsets (one
+// wide multiply-add a load), and a full step loads without predicates: a
+// lane past k reads column k - 1, and its sums are never written.
 template <int KPL, int G, bool kSlotRows>
-__global__ void __launch_bounds__(kThreads1)
-fm_grad_chunks_kernel(const float* __restrict__ vw,     // (U or N, k+1)
-                      const float* __restrict__ ex,     // (N, k+2)
-                      const float* __restrict__ x,      // (N,)
-                      const int32_t* __restrict__ seg,  // (N,) sorted
-                      const float* __restrict__ coef,   // [cv, cw]
-                      float* __restrict__ out,          // (U, 2k+2)
-                      float* __restrict__ partials,     // (chunks, 2, 2k+2)
-                      int64_t n, int64_t num_segments, int k,
-                      int64_t num_chunks) {
+__global__ void __launch_bounds__(kThreads1, kBlocks1)
+fm_grad_spans_kernel(const float* __restrict__ vw,     // (U or N, k+1)
+                     const float* __restrict__ ex,     // (N, k+2)
+                     const float* __restrict__ x,      // (N,)
+                     const int32_t* __restrict__ seg,  // (N,) sorted
+                     const float* __restrict__ cv_p,   // () L2 coefficients
+                     const float* __restrict__ cw_p,   // ()
+                     float* __restrict__ out,          // (U, 2k+2)
+                     float* __restrict__ partials,     // (spans, 2, 2k+2)
+                     int64_t n, int64_t num_segments, int k, int64_t span,
+                     int64_t num_spans) {
+  static_assert(G <= 32, "a step's slots sit one per lane");
+  __shared__ float4 terms[kWarps1][G];  // per slot: ds x, x, cv a, g_w
+  __shared__ int32_t ranks[kWarps1][G];
   const int lane = threadIdx.x & 31;
-  const int64_t width = 2 * k + 2;
-  const int64_t ex_width = k + 2;
-  const float cv = coef[0];
-  const float cw = coef[1];
-  const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kWarps1;
-  for (int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps1 +
-                   (threadIdx.x >> 5);
-       c < num_chunks; c += num_warps) {
-    const int64_t s0 = c * kChunk;
-    const int64_t s1 = s0 + kChunk < n ? s0 + kChunk : n;
-    const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
-    const int32_t after = s1 < n ? seg[s1] : -1;
+  const int warp = threadIdx.x >> 5;
+  float4* const tw = terms[warp];
+  int32_t* const rw = ranks[warp];
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps1 + warp;
+  if (c >= num_spans) return;                        // warp-uniform
+  const int64_t s0 = c * span;
+  const int len = static_cast<int>(n - s0 < span ? n - s0 : span);
+  const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
+  const int32_t after = s0 + len < n ? seg[s0 + len] : -1;
+  const int width = 2 * k + 2;
+  const int ex_width = k + 2;
+  const int vw_width = k + 1;
+  const uint32_t ex_bytes = static_cast<uint32_t>(ex_width) * 4u;
+  const uint32_t vw_bytes = static_cast<uint32_t>(vw_width) * 4u;
+  const float cv = *cv_p;
+  const float cw = *cw_p;
+  const float* const ex_s = ex + s0 * ex_width;      // this span's slots
+  const float* const x_s = x + s0;
+  const int32_t* const seg_s = seg + s0;
+  const float* const vw_s = kSlotRows ? vw + s0 * vw_width : vw;
+  float* const head_row = partials + 2 * c * width;
+  float* const tail_row = head_row + width;
+  int fl[KPL];                                       // the lane's columns
+#pragma unroll
+  for (int q = 0; q < KPL; ++q) {
+    const int f = lane + 32 * q;
+    fl[q] = f < k ? f : k - 1;
+  }
 
-    int32_t rank = -1;
-    bool first_run = true;
-    float g[KPL], sq[KPL], v[KPL];
-    float gw = 0.f, sqw = 0.f, w = 0.f;
+  int32_t rank = -1;
+  bool first_run = true;
+  float g[KPL], sq[KPL];
+  float gw = 0.f, sqw = 0.f;
 #pragma unroll
-    for (int q = 0; q < KPL; ++q) g[q] = sq[q] = v[q] = 0.f;
+  for (int q = 0; q < KPL; ++q) g[q] = sq[q] = 0.f;
 
-    // Writes the sums of the run `rank` to out[rank], or to this chunk's
-    // partial row 0 (the run began in an earlier chunk) or 1 (it goes on
-    // into the next chunk).
-    auto flush = [&](bool last) {
-      const bool head = first_run && before == rank;
-      const bool tail = last && after == rank;
-      float* dst = head   ? partials + (2 * c) * width
-                   : tail ? partials + (2 * c + 1) * width
-                          : out + static_cast<int64_t>(rank) * width;
+  // Writes the sums of the run `rank` to out[rank], or to this span's
+  // partial row 0 (the run began in an earlier span) or 1 (it goes on
+  // into the next span).
+  auto flush = [&](bool last) {
+    const bool head = first_run && before == rank;
+    const bool tail = last && after == rank;
+    float* dst = head   ? head_row
+                 : tail ? tail_row
+                        : out + static_cast<int64_t>(rank) * width;
 #pragma unroll
-      for (int q = 0; q < KPL; ++q) {
-        const int f = lane + 32 * q;
-        if (f < k) {
-          dst[f] = g[q];
-          dst[k + 1 + f] = sq[q];
-        }
-      }
-      if (lane == 0) {
-        dst[k] = gw;
-        dst[2 * k + 1] = sqw;
-      }
-    };
-
-    for (int64_t base = s0; base < s1; base += G) {
-      const int cnt = static_cast<int>(s1 - base < G ? s1 - base : G);
-      int32_t my_seg = 0;
-      float my_x = 0.f, my_ds = 0.f, my_wt = 0.f, my_w = 0.f;
-      if (lane < cnt) {
-        const int64_t i = base + lane;
-        my_seg = seg[i];
-        my_x = x[i];
-        my_ds = ex[i * ex_width + k];
-        my_wt = ex[i * ex_width + k + 1];
-        if constexpr (kSlotRows) my_w = vw[i * (k + 1) + k];
-      }
-      float s[G][KPL];
-      float vs[kSlotRows ? G : 1][KPL];
-#pragma unroll
-      for (int t = 0; t < G; ++t) {
-#pragma unroll
-        for (int q = 0; q < KPL; ++q) {
-          const int f = lane + 32 * q;
-          const bool in = t < cnt && f < k;
-          s[t][q] = in ? ex[(base + t) * ex_width + f] : 0.f;
-          if constexpr (kSlotRows)
-            vs[t][q] = in ? vw[(base + t) * (k + 1) + f] : 0.f;
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < G; ++t) {
-        if (t >= cnt) break;                      // cnt is warp-uniform
-        const int32_t r = __shfl_sync(kFull, my_seg, t);
-        const float xi = __shfl_sync(kFull, my_x, t);
-        const float dsi = __shfl_sync(kFull, my_ds, t);
-        const float wti = __shfl_sync(kFull, my_wt, t);
-        if (r != rank) {
-          if (rank >= 0) {
-            flush(false);
-            first_run = false;
-          }
-          if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
-          rank = r;
-#pragma unroll
-          for (int q = 0; q < KPL; ++q) g[q] = sq[q] = 0.f;
-          gw = sqw = 0.f;
-          if constexpr (!kSlotRows) {
-            const float* row = vw + static_cast<int64_t>(r) * (k + 1);
-#pragma unroll
-            for (int q = 0; q < KPL; ++q) {
-              const int f = lane + 32 * q;
-              v[q] = f < k ? row[f] : 0.f;
-            }
-            w = row[k];
-          }
-        }
-        if constexpr (kSlotRows) {
-          w = __shfl_sync(kFull, my_w, t);
-#pragma unroll
-          for (int q = 0; q < KPL; ++q) v[q] = vs[t][q];
-        }
-        const float a = xi != 0.f ? wti : 0.f;
-        const float dsx = dsi * xi;
-        const float cva = cv * a;
-#pragma unroll
-        for (int q = 0; q < KPL; ++q) {
-          const float gv = dsx * (s[t][q] - v[q] * xi) + cva * v[q];
-          g[q] += gv;
-          sq[q] += gv * gv;
-        }
-        const float gwi = dsx + cw * w * a;
-        gw += gwi;
-        sqw += gwi * gwi;
+    for (int q = 0; q < KPL; ++q) {
+      const int f = lane + 32 * q;
+      if (f < k) {
+        dst[f] = g[q];
+        dst[k + 1 + f] = sq[q];
       }
     }
-    if (rank >= 0) flush(true);
+    if (lane == 0) {
+      dst[k] = gw;
+      dst[2 * k + 1] = sqw;
+    }
+  };
+
+  // lane j < G: the rank and scalars of slot o + j of the span (a rank out
+  // of range traps here, before its row is read)
+  int32_t my_seg = 0;
+  float my_x = 0.f, my_ds = 0.f, my_wt = 0.f;
+  auto load_scalars = [&](int o) {
+    const int i = o + lane;
+    my_seg = 0;
+    my_x = my_ds = my_wt = 0.f;
+    if (lane < G && i < len) {
+      my_seg = seg_s[i];
+      if (my_seg < 0 || static_cast<int64_t>(my_seg) >= num_segments)
+        __trap();
+      my_x = x_s[i];
+      const float* e = ex_s + static_cast<int64_t>(i) * ex_width + k;
+      my_ds = e[0];
+      my_wt = e[1];
+    }
+  };
+
+  load_scalars(0);
+  for (int off = 0; off < len; off += G) {           // warp-uniform
+    const int cnt = len - off < G ? len - off : G;
+    const int32_t cur_seg = my_seg;
+    const float cur_x = my_x, cur_ds = my_ds, cur_wt = my_wt;
+    // 1. this step's rows, all in flight, then the next step's scalars
+    float s[G][KPL], v[G][KPL];
+    if (cnt == G) {
+      const char* const ex_t =
+          reinterpret_cast<const char*>(ex_s + fl[0]) +
+          static_cast<uint64_t>(static_cast<uint32_t>(off)) * ex_bytes;
+      const char* const vw_t = reinterpret_cast<const char*>(
+          (kSlotRows ? vw_s + static_cast<int64_t>(off) * vw_width : vw) +
+          fl[0]);
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        const float* er = reinterpret_cast<const float*>(
+            ex_t + static_cast<uint64_t>(static_cast<uint32_t>(t)) * ex_bytes);
+        const uint32_t row =
+            kSlotRows ? static_cast<uint32_t>(t)
+                      : static_cast<uint32_t>(__shfl_sync(kFull, cur_seg, t));
+        const float* vr = reinterpret_cast<const float*>(
+            vw_t + static_cast<uint64_t>(row) * vw_bytes);
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          s[t][q] = __ldg(er + (fl[q] - fl[0]));
+          v[t][q] = __ldg(vr + (fl[q] - fl[0]));
+        }
+      }
+    } else {                                         // the last span's tail
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        const int32_t r = __shfl_sync(kFull, cur_seg, t);
+        const float* er = ex_s + static_cast<int64_t>(off + t) * ex_width;
+        const float* vr =
+            kSlotRows ? vw_s + static_cast<int64_t>(off + t) * vw_width
+                      : vw + static_cast<int64_t>(r) * vw_width;
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) {
+          s[t][q] = t < cnt ? __ldg(er + fl[q]) : 0.f;
+          v[t][q] = t < cnt ? __ldg(vr + fl[q]) : 0.f;
+        }
+      }
+    }
+    float my_w = 0.f;
+    if (lane < cnt)
+      my_w = kSlotRows ? vw_s[static_cast<int64_t>(off + lane) * vw_width + k]
+                       : vw[static_cast<int64_t>(cur_seg) * vw_width + k];
+    load_scalars(off + G);
+    // 2. slot j's terms, and the slots that start a run
+    const int32_t prev = __shfl_up_sync(kFull, cur_seg, 1);
+    const bool starts = lane < cnt && cur_seg != (lane == 0 ? rank : prev);
+    const unsigned bounds = __ballot_sync(kFull, starts);
+    __syncwarp();                           // the last step's reads are done
+    if (lane < G) {
+      const float a = cur_x != 0.f ? cur_wt : 0.f;
+      const float dsx = cur_ds * cur_x;
+      tw[lane] = make_float4(dsx, cur_x, cv * a, dsx + cw * my_w * a);
+      rw[lane] = cur_seg;
+    }
+    __syncwarp();
+    // 3. the slots in order
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      const float4 term = tw[t];
+      if (bounds >> t & 1u) {               // warp-uniform
+        if (rank >= 0) {
+          flush(false);
+          first_run = false;
+        }
+        rank = rw[t];
+#pragma unroll
+        for (int q = 0; q < KPL; ++q) g[q] = sq[q] = 0.f;
+        gw = sqw = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < KPL; ++q) {
+        const float gv =
+            term.x * (s[t][q] - v[t][q] * term.y) + term.z * v[t][q];
+        g[q] += gv;
+        sq[q] += gv * gv;
+      }
+      gw += term.w;
+      sqw += term.w * term.w;
+    }
+  }
+  if (rank >= 0) flush(true);
+}
+
+// Row j of the partial rows of the run that begins in chunk c: chunk c's
+// row 1, then row 0 of chunk c + j.
+__device__ __forceinline__ const float* crossing_row(const float* partials,
+                                                     int64_t c, int64_t j,
+                                                     int64_t width) {
+  return partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * width;
+}
+
+// Adds rows j0, j0 + stride, ... < j1 of the partial rows of the run that
+// begins in chunk c into acc, in that order, at columns col0 + lane + 32q
+// (q < kCols2), with kBatch rows' loads in flight at a time (the adds of
+// the zeros that pad a batch change nothing).
+template <int kBatch>
+__device__ __forceinline__ void add_rows(const float* partials, int64_t c,
+                                         int64_t j0, int64_t j1,
+                                         int64_t stride, int64_t width,
+                                         int64_t col0, int lane,
+                                         float (&acc)[kCols2]) {
+  for (int64_t j = j0; j < j1; j += kBatch * stride) {
+    float v[kBatch][kCols2];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int64_t jj = j + b * stride;
+#pragma unroll
+      for (int q = 0; q < kCols2; ++q) {
+        const int64_t col = col0 + lane + 32 * q;
+        v[b][q] = jj < j1 && col < width
+                      ? crossing_row(partials, c, jj, width)[col]
+                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+      for (int q = 0; q < kCols2; ++q) acc[q] += v[b][q];
+    }
   }
 }
 
-// Pass 2 of B3-B6. One block per chunk c. If a run crosses the end of
-// chunk c and began in it, sums that run's partial rows (chunk c's row 1,
-// then row 0 of every later chunk the run reaches) in a fixed order into
-// out[r], kTile2 columns at a time.
+// Writes the zero rows of the ranks that lie between seg[i - 1] and seg[i]
+// for the slots i in [i0, i1) (those before seg[0] when i0 is 0). A warp
+// takes 32 kScan slots a round, their loads issued together; a lane writes
+// a gap's rows alone, as gaps are rare (the plans' ranks are dense).
+constexpr int kScan = 8;
+__device__ __forceinline__ void zero_gaps(const int32_t* __restrict__ seg,
+                                          float* __restrict__ out,
+                                          int64_t i0, int64_t i1,
+                                          int64_t width, int lane) {
+  for (int64_t b = i0; b < i1; b += 32 * kScan) {         // warp-uniform
+    const int32_t prior = b > 0 ? seg[b - 1] : -1;
+    int32_t r[kScan];
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int64_t i = b + u * 32 + lane;
+      r[u] = i < i1 ? seg[i] : INT32_MIN;
+    }
+#pragma unroll
+    for (int u = 0; u < kScan; ++u) {
+      const int32_t up = __shfl_up_sync(kFull, r[u], 1);
+      const int32_t carry =
+          u > 0 ? __shfl_sync(kFull, r[u > 0 ? u - 1 : 0], 31) : prior;
+      const int32_t left = lane > 0 ? up : carry;
+      for (int64_t z = static_cast<int64_t>(left) + 1; z < r[u]; ++z)
+        for (int64_t col = 0; col < width; ++col) out[z * width + col] = 0.f;
+    }
+  }
+}
+
+// Pass 2 of B3-B6 over chunks of `chunk` slots: block g takes chunks
+// 32g .. 32g + 31, one warp each (the design is in the note above). It
+// also writes the zero rows of the ranks no slot has, so the caller need
+// not fill out: warp c those before the runs that begin in chunk c, and
+// every warp its slice of the ranks past seg[n - 1].
 __global__ void __launch_bounds__(kThreads2)
 rows_crossing_kernel(const int32_t* __restrict__ seg,
                      const float* __restrict__ partials,
-                     float* __restrict__ out, int64_t n, int64_t width,
+                     float* __restrict__ out, int64_t n,
+                     int64_t num_segments, int64_t width, int64_t chunk,
                      int64_t num_chunks) {
   __shared__ float sums[kWarps2][kTile2];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int64_t c = blockIdx.x; c < num_chunks; c += gridDim.x) {
-    const int64_t end = (c + 1) * kChunk;         // first slot of chunk c+1
-    if (end >= n) continue;                       // the last chunk
-    const int32_t r = seg[end - 1];
-    if (seg[end] != r) continue;                  // no run crosses
-    if (c > 0 && seg[c * kChunk - 1] == r) continue;  // began earlier
-    // The run goes on through chunks c+1 .. last: those whose first slot
-    // is in it. seg is sorted, so they are a prefix of the later chunks.
-    int64_t last = c + 1;
-    for (int64_t probe = c + 2;; probe += kThreads2) {
-      const int64_t cc = probe + threadIdx.x;
-      const int hit = cc < num_chunks && seg[cc * kChunk] == r;
-      const int hits = __syncthreads_count(hit);
-      last += hits;
-      if (hits < kThreads2) break;
+  __shared__ int64_t long_runs[kWarps2];      // warp w's long run, or -1
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  for (int64_t g = blockIdx.x; g * kWarps2 < num_chunks; g += gridDim.x) {
+    if (lane == 0) long_runs[warp] = -1;
+    const int64_t c = g * kWarps2 + warp;
+    if (c < num_chunks)                           // warp-uniform
+      zero_gaps(seg, out, c * chunk, (c + 1) * chunk < n ? (c + 1) * chunk : n,
+                width, lane);
+    const int64_t end = (c + 1) * chunk;          // first slot of chunk c+1
+    int32_t r = -1;
+    bool begins = false;                          // a run begins in c, goes on
+    if (c < num_chunks && end < n) {
+      r = seg[end - 1];
+      begins = seg[end] == r && !(c > 0 && seg[c * chunk - 1] == r);
     }
-    for (int64_t col0 = 0; col0 < width; col0 += kTile2) {
-      float acc[kCols2];
+    if (begins) {                                 // warp-uniform
+      // its rows: chunk c's row 1, chunk c + 1's row 0, and row 0 of the
+      // later chunks whose first slot is in it (a prefix: seg is sorted)
+      const int64_t cc = c + 2 + lane;
+      const unsigned hits = __ballot_sync(
+          kFull, cc < num_chunks && seg[cc * chunk] == r);
+      if (hits != kFull) {
+        const int64_t rows = 2 + __popc(hits);
+        float* dst = out + static_cast<int64_t>(r) * width;
+        for (int64_t col0 = 0; col0 < width; col0 += kTile2) {
+          float acc[kCols2] = {};
+          add_rows<8>(partials, c, 0, rows, 1, width, col0, lane, acc);
 #pragma unroll
-      for (int q = 0; q < kCols2; ++q) acc[q] = 0.f;
-#pragma unroll 4
-      for (int64_t j = warp; j <= last - c; j += kWarps2) {
-        const float* row =
-            partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * width + col0;
-#pragma unroll
-        for (int q = 0; q < kCols2; ++q) {
-          const int col = lane + 32 * q;
-          if (col0 + col < width) acc[q] += row[col];
+          for (int q = 0; q < kCols2; ++q) {
+            const int64_t col = col0 + lane + 32 * q;
+            if (col < width) dst[col] = acc[q];
+          }
         }
+      } else if (lane == 0) {
+        long_runs[warp] = c;
       }
-#pragma unroll
-      for (int q = 0; q < kCols2; ++q) {
-        const int col = lane + 32 * q;
-        if (col0 + col < width) sums[warp][col] = acc[q];
-      }
-      __syncthreads();
-      if (warp == 0) {
-        for (int col = lane; col < kTile2 && col0 + col < width; col += 32) {
-          float total = 0.f;
-#pragma unroll
-          for (int w = 0; w < kWarps2; ++w) total += sums[w][col];
-          out[static_cast<int64_t>(r) * width + col0 + col] = total;
-        }
-      }
-      __syncthreads();                            // before sums is reused
     }
+    __syncthreads();
+    for (int i = 0; i < kWarps2; ++i) {           // the block, run by run
+      const int64_t lc = long_runs[i];
+      if (lc < 0) continue;                       // block-uniform
+      const int32_t lr = seg[(lc + 1) * chunk - 1];
+      int64_t last = lc + 1;
+      for (int64_t probe = lc + 2;; probe += kThreads2) {
+        const int64_t cc = probe + t;
+        const int hits = __syncthreads_count(
+            cc < num_chunks && seg[cc * chunk] == lr);
+        last += hits;
+        if (hits < kThreads2) break;
+      }
+      for (int64_t col0 = 0; col0 < width; col0 += kTile2) {
+        float acc[kCols2] = {};
+        add_rows<12>(partials, lc, warp, last - lc + 1, kWarps2, width,
+                     col0, lane, acc);
+#pragma unroll
+        for (int q = 0; q < kCols2; ++q) sums[warp][lane + 32 * q] = acc[q];
+        __syncthreads();
+        if (warp == 0) {
+          for (int col = lane; col < kTile2 && col0 + col < width;
+               col += 32) {
+            float total = 0.f;
+#pragma unroll 8
+            for (int w = 0; w < kWarps2; ++w) total += sums[w][col];
+            out[static_cast<int64_t>(lr) * width + col0 + col] = total;
+          }
+        }
+        __syncthreads();                          // before sums is reused
+      }
+    }
+    __syncthreads();                              // before long_runs is reset
   }
+  // the ranks past the last slot's (pass 1 has trapped on one out of range)
+  const int64_t f0 = (static_cast<int64_t>(seg[n - 1]) + 1) * width;
+  const int64_t f1 = num_segments * width;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps2;
+  const int64_t per = f1 > f0 ? (f1 - f0 + warps - 1) / warps : 0;
+  const int64_t mine = f0 + (static_cast<int64_t>(blockIdx.x) * kWarps2 +
+                             warp) * per;
+  for (int64_t f = mine + lane; f < mine + per && f < f1; f += 32)
+    out[f] = 0.f;
 }
 
-// Launches pass 2 of B3-B6 over partial rows of `width` floats.
+// Launches pass 2 of B3-B6 over partial rows of `width` floats, two per
+// chunk of `chunk` slots; it runs for a single chunk too, for the zero rows.
 void launch_crossing(const int32_t* seg, const float* partials, float* out,
-                     int64_t n, int64_t width, int64_t num_chunks,
-                     int num_sms, cudaStream_t stream) {
-  if (num_chunks <= 1) return;
-  int64_t blocks = num_chunks;
-  const int64_t cap = static_cast<int64_t>(num_sms) * 64;
+                     int64_t n, int64_t num_segments, int64_t width,
+                     int64_t chunk, int64_t num_chunks, int num_sms,
+                     cudaStream_t stream) {
+  int64_t blocks = (num_chunks + kWarps2 - 1) / kWarps2;
+  const int64_t cap = static_cast<int64_t>(num_sms) * (2048 / kThreads2);
   if (blocks > cap) blocks = cap;
   rows_crossing_kernel<<<static_cast<unsigned>(blocks), kThreads2, 0,
-                         stream>>>(seg, partials, out, n, width, num_chunks);
+                         stream>>>(seg, partials, out, n, num_segments, width,
+                                   chunk, num_chunks);
 }
 
-template <int KPL, int G, bool kSlotRows>
-void launch_chunks(const float* vw, const float* ex, const float* x,
-                   const int32_t* seg, const float* coef, float* out,
-                   float* partials, int64_t n, int64_t num_segments, int k,
-                   int64_t num_chunks, unsigned blocks, cudaStream_t stream) {
-  fm_grad_chunks_kernel<KPL, G, kSlotRows><<<blocks, kThreads1, 0, stream>>>(
-      vw, ex, x, seg, coef, out, partials, n, num_segments, k, num_chunks);
+template <int KPL, bool kSlotRows>
+void launch_spans(const float* vw, const float* ex, const float* x,
+                  const int32_t* seg, const float* cv, const float* cw,
+                  float* out, float* partials, int64_t n,
+                  int64_t num_segments, int k, int64_t span,
+                  int64_t num_spans, cudaStream_t stream) {
+  const int64_t blocks = (num_spans + kWarps1 - 1) / kWarps1;
+  fm_grad_spans_kernel<KPL, fm_grad_step(KPL), kSlotRows>
+      <<<static_cast<unsigned>(blocks), kThreads1, 0, stream>>>(
+          vw, ex, x, seg, cv, cw, out, partials, n, num_segments, k, span,
+          num_spans);
 }
 
 // Both passes of B3 (kSlotRows false) or B4 (true); returns
 // cudaGetLastError().
 template <bool kSlotRows>
 int launch_fm_grad(const float* vw, const float* ex, const float* x,
-                   const int32_t* seg, const float* coef, float* out,
-                   float* partials, int64_t n, int64_t num_segments,
-                   int64_t k, int num_sms, void* stream) {
+                   const int32_t* seg, const float* cv, const float* cw,
+                   float* out, float* partials, int64_t n,
+                   int64_t num_segments, int64_t k, int num_sms,
+                   void* stream) {
   if (n <= 0) return 0;
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t num_chunks = (n + kChunk - 1) / kChunk;
-  int64_t blocks = (num_chunks + kWarps1 - 1) / kWarps1;
-  const int64_t resident = static_cast<int64_t>(num_sms) * (2048 / kThreads1);
-  if (blocks > resident) blocks = resident;
+  const int64_t span = fm_grad_span(n, k, num_sms);
+  const int64_t num_spans = (n + span - 1) / span;
   const int ki = static_cast<int>(k);
-  const unsigned b1 = static_cast<unsigned>(blocks);
   switch ((ki + 31) / 32) {
     case 1:
-      launch_chunks<1, 32, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
-                                      num_segments, ki, num_chunks, b1, s);
+      launch_spans<1, kSlotRows>(vw, ex, x, seg, cv, cw, out, partials, n,
+                                 num_segments, ki, span, num_spans, s);
       break;
     case 2:
-      launch_chunks<2, 16, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
-                                      num_segments, ki, num_chunks, b1, s);
+      launch_spans<2, kSlotRows>(vw, ex, x, seg, cv, cw, out, partials, n,
+                                 num_segments, ki, span, num_spans, s);
       break;
     case 3:
-      launch_chunks<3, 8, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
-                                     num_segments, ki, num_chunks, b1, s);
+      launch_spans<3, kSlotRows>(vw, ex, x, seg, cv, cw, out, partials, n,
+                                 num_segments, ki, span, num_spans, s);
       break;
     default:
-      launch_chunks<4, 8, kSlotRows>(vw, ex, x, seg, coef, out, partials, n,
-                                     num_segments, ki, num_chunks, b1, s);
+      launch_spans<4, kSlotRows>(vw, ex, x, seg, cv, cw, out, partials, n,
+                                 num_segments, ki, span, num_spans, s);
       break;
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_crossing(seg, partials, out, n, 2 * k + 2, num_chunks, num_sms, s);
+  launch_crossing(seg, partials, out, n, num_segments, 2 * k + 2, span,
+                  num_spans, num_sms, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -377,10 +617,10 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
 // 32 * C columns), so a warp reads each row of its tile with coalesced
 // 128-byte loads, G rows ahead; wider rows take more tiles, one per
 // blockIdx.y, so any W works (a later FFM slice packs 2 F k + 2 columns).
-// Run skew (one ~162k-slot run per zipf batch), the 256-slot chunks per
-// warp and pass 2 are B3's. Ranks with no slots are not written: the
-// caller zero-fills out. seg must be sorted; a rank outside
-// [0, num_segments) traps.
+// Run skew (one ~162k-slot run per zipf batch): fixed chunks of kChunk
+// slots, one warp each, two partial rows per chunk, and B3's pass 2, which
+// also writes the zero rows of ranks with no slots. seg must be sorted; a
+// rank outside [0, num_segments) traps.
 
 constexpr int64_t kMaxRowWidth = 1 << 16;
 
@@ -514,8 +754,8 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_crossing(seg, partials, out, n, SQ ? 2 * w : w, num_chunks, num_sms,
-                  s);
+  launch_crossing(seg, partials, out, n, num_segments, SQ ? 2 * w : w,
+                  kChunk, num_chunks, num_sms, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -964,41 +1204,55 @@ void launch_colsums_chunks(const Streams& streams, int s, const int32_t* seg,
 
 extern "C" {
 
-// Number of partial rows the caller of B3-B6 allocates for N sorted
+// Number of partial rows the caller of B3 or B4 allocates for N sorted
+// slots at width k on a card of num_sms SMs: two per span, each 2k+2
+// floats.
+int64_t sfm_fm_grad_partial_rows(int64_t n, int64_t k, int64_t num_sms) {
+  if (n <= 0) return 0;
+  const int64_t span = fm_grad_span(n, k, static_cast<int>(num_sms));
+  return 2 * ((n + span - 1) / span);
+}
+
+// Number of partial rows the caller of B5 or B6 allocates for N sorted
 // slots: two per chunk, each as wide as the output row.
 int64_t sfm_chunk_partial_rows(int64_t n) {
   return 2 * ((n + kChunk - 1) / kChunk);
 }
 
 // B3 and B4 launch both passes on `stream` and return cudaGetLastError()
-// (0 on success). The caller zero-fills `out` (num_segments x (2k+2)),
-// allocates `partials` (sfm_chunk_partial_rows(n) x (2k+2)), checks
-// shapes and types (1 <= k <= 128), and keeps the tensors alive until the
-// stream has run the kernels. B3 reads the unique rows vw_u (num_segments
-// x (k+1)), B4 the per-slot rows vw_srt (N x (k+1)).
+// (0 on success). They write every row of `out` (num_segments x (2k+2)),
+// zeros for the ranks no slot has, so the caller need not fill it; the
+// caller allocates `partials` (sfm_fm_grad_partial_rows rows of 2k+2
+// floats), passes the L2 coefficients cv and cw as one float each in
+// device memory, checks shapes and types (1 <= k <= 128), and keeps the
+// tensors alive until the stream has run the kernels. B3 reads the unique
+// rows vw_u (num_segments x (k+1)), B4 the per-slot rows vw_srt (N x
+// (k+1)).
 int sfm_fm_grad_segsum_factored(const float* vw_u, const float* ex,
                                 const float* x, const int32_t* seg,
-                                const float* coef, float* out,
-                                float* partials, int64_t n,
+                                const float* cv, const float* cw,
+                                float* out, float* partials, int64_t n,
                                 int64_t num_segments, int64_t k,
                                 int num_sms, void* stream) {
-  return launch_fm_grad<false>(vw_u, ex, x, seg, coef, out, partials, n,
+  return launch_fm_grad<false>(vw_u, ex, x, seg, cv, cw, out, partials, n,
                                num_segments, k, num_sms, stream);
 }
 
 int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
-                       const int32_t* seg, const float* coef, float* out,
-                       float* partials, int64_t n, int64_t num_segments,
-                       int64_t k, int num_sms, void* stream) {
-  return launch_fm_grad<true>(vw_srt, ex, x, seg, coef, out, partials, n,
+                       const int32_t* seg, const float* cv, const float* cw,
+                       float* out, float* partials, int64_t n,
+                       int64_t num_segments, int64_t k, int num_sms,
+                       void* stream) {
+  return launch_fm_grad<true>(vw_srt, ex, x, seg, cv, cw, out, partials, n,
                               num_segments, k, num_sms, stream);
 }
 
 // B5 and B6 launch both passes on `stream` and return cudaGetLastError().
-// The caller zero-fills `out` (num_segments x W for B5, x 2W for B6),
-// allocates `partials` (sfm_chunk_partial_rows(n) rows of the same
-// width), checks shapes and types (1 <= W <= 65536), and keeps the tensors
-// alive until the stream has run the kernels.
+// They write every row of `out` (num_segments x W for B5, x 2W for B6),
+// zeros for the ranks no slot has; the caller allocates `partials`
+// (sfm_chunk_partial_rows(n) rows of the same width), checks shapes and
+// types (1 <= W <= 65536), and keeps the tensors alive until the stream
+// has run the kernels.
 int sfm_segment_rowsum(const float* g, const int32_t* seg, float* out,
                        float* partials, int64_t n, int64_t num_segments,
                        int64_t w, int num_sms, void* stream) {

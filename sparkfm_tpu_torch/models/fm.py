@@ -1,10 +1,11 @@
 """FM model: parameters and batched prediction. Port of
 ``sparkfm_tpu/models/fm.py`` for plain FM.
 
-Big tables (F >= 2^16) score through a dedup plan: the row-gather kernel
-reads each unique row of V and w once (``ops/rowio.py``), and the rows are
-spread to the batch's slots from the small (U, K+1) matrix. Small tables
-gather per slot, through the same kernel.
+Big tables (F >= 2^16) score through a dedup plan: the two-table gather
+kernel reads each unique row of V and w once and writes the small (U, K+1)
+``[v | w]`` matrix in one launch (``ops/rowio.py::gather_vw_rows``), and
+the rows are spread to the batch's slots from it. Small tables gather per
+slot, through the same kernel.
 """
 
 from __future__ import annotations
@@ -45,7 +46,8 @@ def init_params(cfg: FMConfig, generator: Optional[torch.Generator] = None,
     Without a generator one is seeded from ``cfg.seed`` on that device
     (torch's random numbers differ from jax.random's for the same seed)."""
     if cfg.num_fields > 0:
-        raise NotImplementedError("field-aware FM is not ported yet")
+        raise NotImplementedError("field-aware FM is not ported yet "
+                                  "(ROADMAP A9)")
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -82,7 +84,8 @@ def scores(params: FMParams, cfg: FMConfig,
     ignored by plain FM.
     """
     if cfg.num_fields > 0:
-        raise NotImplementedError("field-aware FM scoring is not ported yet")
+        raise NotImplementedError("field-aware FM scoring is not ported yet "
+                                  "(ROADMAP A9)")
     cdt = getattr(torch, cfg.compute_dtype)
     if plan is None and cfg.num_features >= BIG_TABLE:
         budget = E.auto_budget(ids.numel())
@@ -92,9 +95,7 @@ def scores(params: FMParams, cfg: FMConfig,
         return I.fm_scores(params.w0, params.w, params.v, ids, vals,
                            use_bias=cfg.use_bias, use_linear=cfg.use_linear,
                            compute_dtype=cdt)
-    v_u = rowio.gather_rows(params.v, plan.uids)                # (U, K)
-    w_u = rowio.gather_rows(params.w.view(-1, 1), plan.uids)    # (U, 1)
-    vw_u = torch.cat([v_u, w_u], dim=1)
+    vw_u = rowio.gather_vw_rows(params.v, params.w, plan.uids)  # (U, K+1)
     vw_rows = vw_u.index_select(0, plan.ranks.reshape(-1)).view(
         *plan.ranks.shape, cfg.num_factors + 1)
     return I.fm_scores_from_gathered(

@@ -60,7 +60,7 @@ class SortedPlan(NamedTuple):
     """Slot-sorted lookup plan of the sorted SGD path
     (``solvers/sgd_sorted.py``): slots reordered by id, so per-unique
     reductions are sums over contiguous runs, with the values and example
-    indices carried through the sort; nothing returns to natural order.
+    indices carried through the sort.
 
     svals: (N,) f32 — slot values in sorted order.
     sex:   (N,) int32 — each sorted slot's example index.
@@ -68,6 +68,9 @@ class SortedPlan(NamedTuple):
            [0, budget).
     uids:  (U,) int32 — unique ids, ascending; unused slots hold ``fill``.
     count / overflow: as DedupBatch, 0-d tensors on the device.
+    order: (N,) int32 — each sorted slot's flat natural position (the
+           stable id-sort permutation; ``sex == order // L``), which puts
+           per-slot terms back in natural order without atomics.
     """
 
     svals: torch.Tensor
@@ -76,6 +79,7 @@ class SortedPlan(NamedTuple):
     uids: torch.Tensor
     count: torch.Tensor
     overflow: torch.Tensor
+    order: torch.Tensor
 
 
 def _sorted_runs(flat: torch.Tensor, budget: int, fill: int):
@@ -122,7 +126,8 @@ def sorted_plan(ids: torch.Tensor, vals: torch.Tensor, budget: int,
                                                       budget, fill)
     return SortedPlan(svals=vals.reshape(-1)[spos],
                       sex=(spos // ids.shape[1]).to(torch.int32), seg=seg_c,
-                      uids=uids, count=count, overflow=overflow)
+                      uids=uids, count=count, overflow=overflow,
+                      order=spos.to(torch.int32))
 
 
 def gather_unique(table: torch.Tensor, plan) -> torch.Tensor:
@@ -142,7 +147,9 @@ def spread(rows_u: torch.Tensor, plan: DedupBatch) -> torch.Tensor:
 def accumulate_to_unique(g_slots: torch.Tensor, plan: DedupBatch,
                          budget: int) -> torch.Tensor:
     """Per-slot gradients summed per unique row (the transpose of
-    :func:`spread`) by ``index_add_`` over the ranks."""
+    :func:`spread`) by ``index_add_`` over the ranks. On the card its
+    atomic adds land in an order that changes from run to run, so the sums
+    do not repeat bit for bit (:func:`accumulate_to_unique_sorted`'s do)."""
     flat = plan.ranks.reshape(-1)
     g2 = g_slots.reshape(flat.shape[0], *g_slots.shape[plan.ranks.dim():])
     out = torch.zeros((budget, *g2.shape[1:]), dtype=g2.dtype,
@@ -175,8 +182,9 @@ def accumulate_to_unique_sorted(g_slots: torch.Tensor, plan: DedupBatch,
 def scatter_set_unique(table: torch.Tensor, plan,
                        rows_u: torch.Tensor) -> torch.Tensor:
     """Write the updated unique rows back in place through the row-write
-    kernel B2. Unused budget slots point at the fill row, whose content is
-    then unspecified."""
+    kernel B2. Unused budget slots point at the fill row, which gets the
+    row of the first of them (B2 writes the first slot of a run of equal
+    ids, ``ops/rowio.py``)."""
     return rowio.scatter_set_rows(table, plan.uids, rows_u)
 
 

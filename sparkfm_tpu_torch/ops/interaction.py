@@ -46,11 +46,12 @@ def fm_scores(w0: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
               use_bias: bool = True, use_linear: bool = True,
               compute_dtype=torch.float32) -> torch.Tensor:
     """(B,) raw scores w0 + <w, x> + interaction, reading each slot's rows
-    of w (F,) and v (F, K) straight from the tables with the row-gather
-    kernel."""
+    of v (F, K) and w (F,) straight from the tables with the two-table
+    gather kernel."""
     flat = ids.reshape(-1).to(torch.int32)
-    v_rows = rowio.gather_rows(v, flat).view(*ids.shape, v.shape[1])
-    w_rows = rowio.gather_rows(w.view(-1, 1), flat).view(ids.shape)
+    k = v.shape[1]
+    vw_rows = rowio.gather_vw_rows(v, w, flat).view(*ids.shape, k + 1)
+    w_rows, v_rows = vw_rows[..., k], vw_rows[..., :k]
     return fm_scores_from_gathered(w0, w_rows, v_rows, vals,
                                    use_bias=use_bias, use_linear=use_linear,
                                    compute_dtype=compute_dtype)

@@ -3,17 +3,18 @@ rows[r]``: the unique-row read and write-back of the serving and training
 paths.
 
 Port of ``sparkfm_tpu/ops/pallas_rowio.py``: ``gather_rows`` /
-``gather_rows_pallas`` and ``scatter_set`` / ``scatter_set_rows``. Both
-kernels are CUDA C++ for Hopper (``csrc/rowio.cu``), compiled with
-``nvcc`` at first use and bound with ctypes. A CUDA tensor always goes to
-the kernel; if the kernel cannot be built, the call raises. Only tensors
-that lie on the CPU take the plain versions, :func:`gather_rows_reference`
-and :func:`scatter_set_rows_reference`, which are also the oracles the
-kernels are held against on the card.
+``gather_rows_pallas`` and ``scatter_set`` / ``scatter_set_rows``, plus
+:func:`gather_vw_rows`, the two-table form of the gather that serving
+uses: ``[v[ids] | w[ids]]`` in one launch, where the JAX package gathers
+V and w apart and concatenates. The kernels are CUDA C++ for Hopper
+(``csrc/rowio.cu``), compiled with ``nvcc`` at first use and bound with
+ctypes. A CUDA tensor always goes to the kernel; if the kernel cannot be
+built, the call raises. Only tensors that lie on the CPU take the plain
+versions (``*_reference``), which are also the oracles the kernels are
+held against on the card.
 
 Unlike the TPU kernels, any width W >= 1 and any number of ids U work: no
-128-lane rows and no padding of U to a tile (the write takes W <= 2^24 on
-the card).
+128-lane rows and no padding of U to a tile (W <= 2^24 on the card).
 
 The write keeps the first row of each run of equal ids: slot r writes only
 if r == 0 or ids[r] != ids[r - 1]. The ids are unique except for the
@@ -32,10 +33,12 @@ import torch
 from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "rowio.cu")
-MAX_WRITE_WIDTH = 1 << 24  # scatter_set_rows' largest W on the card
+MAX_WIDTH = 1 << 24        # the row kernels' largest W on the card
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
 GATHER = CudaKernel("rowio", SOURCE, "sfm_gather_rows", _ARGS)
+GATHER_VW = CudaKernel("rowio", SOURCE, "sfm_gather_vw_rows",
+                       [ctypes.c_void_p] + _ARGS)
 SCATTER = CudaKernel("rowio", SOURCE, "sfm_scatter_rows", _ARGS)
 
 
@@ -43,6 +46,15 @@ def gather_rows_reference(table: torch.Tensor,
                           ids: torch.Tensor) -> torch.Tensor:
     """Plain version: ``table[ids]`` by ``index_select``."""
     return table.index_select(0, ids.long())
+
+
+def gather_vw_rows_reference(v: torch.Tensor, w: torch.Tensor,
+                             ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the two-table gather: two ``index_select``s and a
+    ``cat``, as the JAX package forms ``vw_u``."""
+    ids_l = ids.long()
+    return torch.cat([v.index_select(0, ids_l),
+                      w.index_select(0, ids_l)[:, None]], dim=1)
 
 
 def scatter_set_rows_reference(table: torch.Tensor, ids: torch.Tensor,
@@ -58,6 +70,9 @@ def _check(name: str, table: torch.Tensor, ids: torch.Tensor) -> None:
     if table.dim() != 2 or table.dtype != torch.float32:
         raise ValueError(f"{name} takes a 2-D float32 table, got "
                          f"{tuple(table.shape)} {table.dtype}")
+    if table.device.type == "cuda" and table.shape[1] > MAX_WIDTH:
+        raise ValueError(f"the row kernels take W <= {MAX_WIDTH}, got "
+                         f"W={table.shape[1]}")
     if ids.dim() != 1 or ids.dtype != torch.int32:
         raise ValueError(f"{name} takes 1-D int32 ids, got "
                          f"{tuple(ids.shape)} {ids.dtype}")
@@ -86,6 +101,30 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gather_vw_rows(v: torch.Tensor, w: torch.Tensor,
+                   ids: torch.Tensor) -> torch.Tensor:
+    """(U, K+1) rows ``[v[ids] | w[ids]]`` for a (R, K) float32 table
+    ``v``, a (R,) float32 column ``w`` and (U,) int32 ids in [0, R): the
+    serving path's unique rows in one launch. CUDA tensors run the kernel
+    (which traps on an id out of range); CPU tensors run the plain
+    version."""
+    _check("gather_vw_rows", v, ids)
+    if (w.shape != (v.shape[0],) or w.dtype != torch.float32
+            or w.device != v.device or not w.is_contiguous()):
+        raise ValueError(f"gather_vw_rows takes a contiguous ({v.shape[0]},) "
+                         f"float32 w on {v.device}, got {tuple(w.shape)} "
+                         f"{w.dtype} on {w.device}")
+    if v.device.type == "cpu":
+        return gather_vw_rows_reference(v, w, ids)
+    out = torch.empty((ids.shape[0], v.shape[1] + 1), dtype=v.dtype,
+                      device=v.device)
+    if ids.shape[0] == 0:
+        return out
+    GATHER_VW.launch(v.device, v.data_ptr(), w.data_ptr(), ids.data_ptr(),
+                     out.data_ptr(), v.shape[0], v.shape[1], ids.shape[0])
+    return out
+
+
 def scatter_set_rows(table: torch.Tensor, ids: torch.Tensor,
                      rows: torch.Tensor) -> torch.Tensor:
     """Write ``rows[r]`` to ``table[ids[r]]`` IN PLACE and return
@@ -109,9 +148,6 @@ def scatter_set_rows(table: torch.Tensor, ids: torch.Tensor,
     if rows.device != table.device or not rows.is_contiguous():
         raise ValueError("scatter_set_rows takes contiguous rows on the "
                          f"table's device {table.device}")
-    if table.device.type == "cuda" and table.shape[1] > MAX_WRITE_WIDTH:
-        raise ValueError(f"the write kernel takes W <= {MAX_WRITE_WIDTH}, "
-                         f"got W={table.shape[1]}")
     if table.device.type == "cpu":
         return scatter_set_rows_reference(table, ids, rows)
     if ids.shape[0]:

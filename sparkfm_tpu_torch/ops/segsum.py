@@ -47,7 +47,7 @@ SOURCE = os.path.join(PACKAGE_DIR, "csrc", "segsum.cu")
 MAX_FACTORS = 128          # the backward kernels' largest k
 MAX_ROW_WIDTH = 1 << 16    # segment_rowsum's largest W on the card
 MAX_STREAMS = 16           # segment_colsums' largest S
-_FM_GRAD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3
+_FM_GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
 _ROWSUM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
 FACTORED = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum_factored",
                       _FM_GRAD_ARGS)
@@ -61,13 +61,16 @@ COLSUMS = CudaKernel(
     + [ctypes.c_int64] * 2)
 
 
-def _partials(kernel: CudaKernel, symbol: str, n: int, width: int,
-              device) -> torch.Tensor:
-    """The pass-1 partial rows a kernel needs for ``n`` sorted slots, as
-    the library's ``symbol(n)`` counts them, each ``width`` floats."""
+def _partials(kernel: CudaKernel, symbol: str, width: int, device,
+              *args) -> torch.Tensor:
+    """The pass-1 partial rows a kernel needs, as the library's
+    ``symbol(*args)`` counts them (integer arguments), each ``width``
+    floats."""
     count = getattr(kernel.build(), symbol)
-    count.restype, count.argtypes = ctypes.c_int64, [ctypes.c_int64]
-    return torch.empty((count(n), width), dtype=torch.float32, device=device)
+    count.restype = ctypes.c_int64
+    count.argtypes = [ctypes.c_int64] * len(args)
+    return torch.empty((count(*args), width), dtype=torch.float32,
+                       device=device)
 
 
 def fm_grad_segsum_reference(vw_srt: torch.Tensor, ex_srt: torch.Tensor,
@@ -133,22 +136,23 @@ def _check(name, vw, vw_name, rows, rows_name, ex_srt, x, seg) -> None:
 
 def _fm_grad(kernel: CudaKernel, vw, ex_srt, x, seg, num_segments, cv,
              cw) -> torch.Tensor:
-    """Launch B3 or B4 (``kernel``) on checked CUDA tensors."""
+    """Launch B3 or B4 (``kernel``) on checked CUDA tensors. The kernel
+    writes every row of the output, zeros for the ranks no slot has."""
     device = vw.device
     k = vw.shape[1] - 1
     n = seg.shape[0]
-    out = torch.zeros((num_segments, 2 * k + 2), dtype=torch.float32,
-                      device=device)
     if n == 0:
-        return out
-    coef = torch.stack([torch.as_tensor(c, dtype=torch.float32,
-                                        device=device).reshape(())
-                        for c in (cv, cw)])
-    partials = _partials(kernel, "sfm_chunk_partial_rows", n, 2 * k + 2,
-                         device)
+        return torch.zeros((num_segments, 2 * k + 2), dtype=torch.float32,
+                           device=device)
+    out = torch.empty((num_segments, 2 * k + 2), dtype=torch.float32,
+                      device=device)
+    cv_t, cw_t = (torch.as_tensor(c, dtype=torch.float32,
+                                  device=device).reshape(()) for c in (cv, cw))
+    partials = _partials(kernel, "sfm_fm_grad_partial_rows", 2 * k + 2,
+                         device, n, k, kernel.num_sms(device))
     kernel.launch(device, vw.data_ptr(), ex_srt.data_ptr(), x.data_ptr(),
-                  seg.data_ptr(), coef.data_ptr(), out.data_ptr(),
-                  partials.data_ptr(), n, num_segments, k)
+                  seg.data_ptr(), cv_t.data_ptr(), cw_t.data_ptr(),
+                  out.data_ptr(), partials.data_ptr(), n, num_segments, k)
     return out
 
 
@@ -224,14 +228,16 @@ def _check_rows(name, g, seg, num_segments) -> None:
 
 
 def _rowsum(kernel: CudaKernel, g, seg, num_segments, out_width):
-    """Launch B5 or B6 (``kernel``) on checked CUDA tensors."""
-    out = torch.zeros((num_segments, out_width), dtype=torch.float32,
-                      device=g.device)
+    """Launch B5 or B6 (``kernel``) on checked CUDA tensors. The kernels
+    write every row of the output, zeros for the ranks no slot has."""
     n = seg.shape[0]
     if n == 0:
-        return out
-    partials = _partials(kernel, "sfm_chunk_partial_rows", n, out_width,
-                         g.device)
+        return torch.zeros((num_segments, out_width), dtype=torch.float32,
+                           device=g.device)
+    out = torch.empty((num_segments, out_width), dtype=torch.float32,
+                      device=g.device)
+    partials = _partials(kernel, "sfm_chunk_partial_rows", out_width,
+                         g.device, n)
     kernel.launch(g.device, g.data_ptr(), seg.data_ptr(), out.data_ptr(),
                   partials.data_ptr(), n, num_segments, g.shape[1])
     return out
@@ -318,7 +324,7 @@ def segment_colsums(streams, seg: torch.Tensor,
     out = torch.zeros((num_segments, s), dtype=torch.float32, device=device)
     if n == 0:
         return out
-    partials = _partials(COLSUMS, "sfm_colsums_partial_rows", n, s, device)
+    partials = _partials(COLSUMS, "sfm_colsums_partial_rows", s, device, n)
     ptrs = (ctypes.c_void_p * s)(*[t.data_ptr() for t in streams])
     COLSUMS.launch(device, ctypes.cast(ptrs, ctypes.c_void_p), s,
                    seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,

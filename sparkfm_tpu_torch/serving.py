@@ -56,7 +56,8 @@ class MicroBatcher:
     def __init__(self, params: fm_model.FMParams, cfg, max_batch: int = 4096,
                  use_plans: Optional[bool] = None, model: str = "fm"):
         if model == "deepfm":
-            raise NotImplementedError("DeepFM serving is not ported yet")
+            raise NotImplementedError("DeepFM serving is not ported yet "
+                                      "(ROADMAP A7, with A12)")
         if model != "fm":
             raise ValueError(f"unknown model {model!r}")
         self.params = params

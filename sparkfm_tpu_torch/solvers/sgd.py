@@ -137,10 +137,18 @@ def check_supported(sgd_cfg: SGDConfig) -> None:
     honour yet, naming the ROADMAP item that brings each."""
     if sgd_cfg.update_path in ("direct", "dedup"):
         raise _unported_path(sgd_cfg.update_path)
-    if sgd_cfg.steps_per_dispatch > 1:
+
+
+def check_grouping(path: str, sgd_cfg: SGDConfig) -> None:
+    """``steps_per_dispatch``, read where the JAX trainer reads it: only
+    the hybrid path groups steps into one dispatch, and every other path
+    runs its steps one by one whatever the value. The port has no grouped
+    hybrid dispatch yet, so the hybrid path raises
+    ``NotImplementedError`` for a value above 1."""
+    if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1:
         raise NotImplementedError(
-            "steps_per_dispatch > 1 (CUDA-graph multi-step) is not ported "
-            "yet (ROADMAP A3)")
+            "steps_per_dispatch > 1 on the hybrid path (CUDA-graph "
+            "multi-step) is not ported yet (ROADMAP A3)")
 
 
 def trim_params(params: FMParams, num_features: int) -> FMParams:

@@ -25,10 +25,13 @@ The train step (:func:`make_fused_train_step`):
    (``solvers/sgd.py::_batch_loss_from_rows``) with respect to the bias
    and the per-slot rows;
 3. the per-unique reduce of ``[g_v | g_v² | g_w | g_w²]`` (adagrad_row:
-   ``[g_v | mean g_v² | g_w | g_w²]``): ``index_add_`` by the ranks under
-   ``accumulate="scatter"``/``"auto"``, or, under ``"segsum"``, the
-   gradients permuted into id-sorted order and summed over runs by kernel
-   B5 (``ops/segsum.py::segment_rowsum``);
+   ``[g_v | mean g_v² | g_w | g_w²]``): under ``accumulate="segsum"``, and
+   under ``"auto"`` for CUDA tensors, the gradients permuted into id-sorted
+   order and summed over runs by kernel B5
+   (``ops/segsum.py::segment_rowsum``), in a fixed order; under
+   ``"scatter"``, and under ``"auto"`` for CPU tensors (the JAX package's
+   choice, from a TPU measurement), ``index_add_`` by the ranks, whose
+   atomic adds on the card do not repeat bit for bit;
 4. the adagrad / adagrad_row / sgd update and one write-back of the
    records (kernel B2, ``ops/rowio.py::scatter_set_rows``), IN PLACE on
    ``state.table``;
@@ -202,6 +205,16 @@ def update_records(opt: str, sgd_cfg: SGDConfig, rec_u: torch.Tensor,
                       rec_u.new_zeros((rec_u.shape[0], pad))], dim=1)
 
 
+def segsum_accumulate(accumulate: str, device: torch.device) -> bool:
+    """Whether the fused step sums per unique row by kernel B5 over sorted
+    runs (True) or by ``index_add_`` (False): "segsum" always, "auto" for
+    CUDA tensors, where B5 is ~25x faster than ``index_add_`` at the main
+    path's shape and its sums repeat; "scatter", and "auto" for CPU
+    tensors, as the JAX package's "auto" does."""
+    return accumulate == "segsum" or (accumulate == "auto"
+                                      and device.type == "cuda")
+
+
 def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     """(FusedState, SparseBatch) -> (FusedState, aux), with aux holding
     ``loss`` and ``scores`` (tensors on the device) and the plan's
@@ -229,7 +242,6 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     sgd_solver.check_supported(sgd_cfg)
     k = v_lanes(cfg)
     opt = sgd_cfg.optimizer
-    use_segsum = sgd_cfg.accumulate == "segsum"
     reg_cpu = sgd_solver.reg_vectors(cfg)
     reg_on = {}                         # device -> the reg vectors there
 
@@ -242,9 +254,11 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
             budget = sgd_cfg.unique_budget or E.auto_budget(batch.ids.numel())
             plan = E.dedup_ids(batch.ids, budget,
                                fill=state.table.shape[0] - 1)
+        use_segsum = segsum_accumulate(sgd_cfg.accumulate, device)
         if use_segsum and plan.order is None:
             raise ValueError(
-                "accumulate='segsum' requires a plan with the id-sort "
+                f"accumulate={sgd_cfg.accumulate!r} on {device} sums by "
+                "sorted runs and requires a plan with the id-sort "
                 "permutation (plan.order/plan.seg); both dedup_ids and "
                 "host_dedup emit it - this plan was built without it")
         if reg_cpu is not None and device not in reg_on:

@@ -70,6 +70,7 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         raise ValueError("update_path='hybrid' requires host_plan=True "
                          "(the sorted backward consumes plan.svals/sex)")
     sgd_solver.check_supported(sgd_cfg)
+    sgd_solver.check_grouping("hybrid", sgd_cfg)
     k = cfg.num_factors
     classification = cfg.task == Task.CLASSIFICATION
     lr = sgd_cfg.learning_rate

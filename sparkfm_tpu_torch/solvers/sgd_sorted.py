@@ -11,8 +11,11 @@ stay in id-sorted order from then on. One step is:
    ``ops/rowio.py::gather_rows``), then the monotone expand of ``[v | w]``
    to the sorted slots by ``seg``;
 3. the slot terms ``[v·x (k) | Σ_k v²x² | w·x]`` summed into the small
-   (B, k+2) example space by ``index_add_``, and ``torch.autograd.grad``
-   of the per-example loss with respect to those sums and the bias;
+   (B, k+2) example space in a fixed order: written back to natural slot
+   order by the plan's permutation (every slot once, so no atomics) and
+   summed over each example's L slots, where the JAX package sums by
+   example index; then ``torch.autograd.grad`` of the per-example loss
+   with respect to those sums and the bias;
 4. the slot-space backward written out by hand (bilinear terms plus the
    per-appearance L2), packed as ``[g_v | g_v² | g_w | g_w²]`` (N, 2k+2)
    and summed over runs by kernel B5 (``ops/segsum.py::segment_rowsum``);
@@ -62,7 +65,7 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
     loss_fn = L.loss_for_task(cfg.task)
 
     def train_step(state: FusedState, batch):
-        b = batch.ids.shape[0]
+        b, l = batch.ids.shape
         budget = sgd_cfg.unique_budget or E.auto_budget(batch.ids.numel())
         with torch.no_grad():
             plan = E.sorted_plan(batch.ids, batch.vals, budget,
@@ -76,8 +79,8 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             c = v_s * x[:, None]                        # (N, k) v·x
             slot_feats = torch.cat([c, c.square().sum(1, keepdim=True),
                                     (w_s * x)[:, None]], dim=1)
-            agg = torch.zeros((b, k + 2), dtype=torch.float32,
-                              device=x.device).index_add_(0, ex, slot_feats)
+            agg = torch.empty_like(slot_feats).index_copy_(
+                0, plan.order.long(), slot_feats).view(b, l, k + 2).sum(1)
             weights = (None if batch.mask is None
                        else batch.mask.to(torch.float32))
             denom = (weights.sum().clamp(min=1.0) if weights is not None

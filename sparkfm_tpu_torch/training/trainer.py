@@ -5,8 +5,10 @@
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sharded mesh path (``mesh``, ROADMAP A15), checkpointed training
-(``checkpoint_dir``, ROADMAP A5) and several steps per dispatch
-(``SGDConfig.steps_per_dispatch``, ROADMAP A3).
+(``checkpoint_dir``, ROADMAP A5) and several hybrid steps per dispatch
+(``SGDConfig.steps_per_dispatch`` on the hybrid path, ROADMAP A3; the
+other paths run their steps one by one for any value, as the JAX trainer
+does).
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     del checkpoint_every, resume
     sgd_solver.check_supported(sgd_cfg)
     path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
+    sgd_solver.check_grouping(path, sgd_cfg)
     device = torch.device(device)
     if init_params is not None:
         if init_params.v.shape[0] != cfg.num_features:

@@ -129,15 +129,20 @@ class CudaKernel:
                 self.path, self._lib = path, lib
             return self._lib
 
-    def launch(self, device: torch.device, *args) -> None:
-        """Launch on ``device``'s current stream; raises if the launch
-        was refused. Arguments must already have been checked."""
-        lib = self.build()
+    def num_sms(self, device: torch.device) -> int:
+        """The SM count of ``device``, looked up once per device."""
         num_sms = self._num_sms.get(device.index)
         if num_sms is None:
             num_sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
             self._num_sms[device.index] = num_sms
+        return num_sms
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Launch on ``device``'s current stream; raises if the launch
+        was refused. Arguments must already have been checked."""
+        lib = self.build()
+        num_sms = self.num_sms(device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = getattr(lib, self.symbol)(*args, num_sms, stream)

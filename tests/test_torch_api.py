@@ -213,12 +213,11 @@ def test_fitted_model_fields_match_jax():
     assert FMModel(params=None, cfg=None).examples_per_sec == 0.0
 
 
-def test_sgd_feature_groups_train_on_the_fused_path_as_jax():
-    """Attribute-group L2 rules the hybrid path out, so "auto" picks the
-    fused path on a 2^16-row table; both facades, warm-started from the
-    same numpy parameters, fit the same model."""
-    from sparkfm_tpu_torch import SGDConfig
-    from sparkfm_tpu_torch.solvers import sgd as psgd
+def _groups_fit(**extra):
+    """Both facades, warm-started from the same numpy parameters, fit
+    with attribute-group L2 on a 2^16-row table (which rules the hybrid
+    path out, so "auto" picks the fused path); returns both models and
+    the port's fit again from the same start with ``extra`` options."""
     f = 1 << 16
     kw = dict(num_examples=600, num_fields=5, num_buckets=f, seed=3)
     pds, jds = synth.synth_ctr(**kw), jsynth.synth_ctr(**kw)
@@ -231,12 +230,26 @@ def test_sgd_feature_groups_train_on_the_fused_path_as_jax():
                  feature_groups=tuple(i % 4 for i in range(f)),
                  group_reg_w=(0.0, 0.01, 0.02, 0.05),
                  group_reg_v=(0.05, 0.0, 0.01, 0.1))
-    got = FM(**fm_kw).fit(pds, eval_ds=pds, device="cpu",
-                          init_params=params_from_numpy(w0, w, v,
-                                                        device="cpu"))
+
+    def port(**kw):
+        return FM(**fm_kw, **kw).fit(pds, eval_ds=pds, device="cpu",
+                                     init_params=params_from_numpy(
+                                         w0, w, v, device="cpu"))
+    got = port(**extra)
+    want = sfm.FM(**fm_kw, **extra).fit(
+        jds, eval_ds=jds, init_params=jfm.FMParams(
+            w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(v)))
+    return got, want, port
+
+
+def test_sgd_feature_groups_train_on_the_fused_path_as_jax():
+    """Attribute-group L2 rules the hybrid path out, so "auto" picks the
+    fused path on a 2^16-row table; both facades, warm-started from the
+    same numpy parameters, fit the same model."""
+    from sparkfm_tpu_torch import SGDConfig
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    got, want, _ = _groups_fit()
     assert psgd.resolve_update_path(got.cfg, SGDConfig()) == "fused"
-    want = sfm.FM(**fm_kw).fit(jds, eval_ds=jds, init_params=jfm.FMParams(
-        w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(v)))
     for name in ("w0", "w", "v"):
         np.testing.assert_allclose(getattr(got.params, name).numpy(),
                                    np.asarray(getattr(want.params, name)),
@@ -246,3 +259,19 @@ def test_sgd_feature_groups_train_on_the_fused_path_as_jax():
                                    rtol=1e-4)
         np.testing.assert_allclose(g["eval_rmse"], h["eval_rmse"], rtol=1e-4)
     assert len(got.history) == 2
+
+
+def test_sgd_steps_per_dispatch_trains_on_the_fused_path():
+    """FM(solver="sgd", steps_per_dispatch=2) on the fused path trains as
+    the JAX facade does (which groups hybrid steps only), and equals the
+    port's fit with steps_per_dispatch=1 bit for bit."""
+    got, want, port = _groups_fit(steps_per_dispatch=2)
+    single = port()
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(got.params, name),
+                           getattr(single.params, name)), name
+        np.testing.assert_allclose(getattr(got.params, name).numpy(),
+                                   np.asarray(getattr(want.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    assert [h["train_loss"] for h in got.history] == [
+        h["train_loss"] for h in single.history]

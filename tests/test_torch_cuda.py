@@ -1,7 +1,8 @@
-"""The port on a CUDA card: the row gather, row write, factored backward,
-per-slot backward, row-sum and per-rank stream-sum kernels against their
-plain versions, and the scoring, SGD (hybrid, fused and sorted) and ALS
-training paths on the card against the CPU.
+"""The port on a CUDA card: the row gathers (one table and two), row
+write, factored backward, per-slot backward, row-sum and per-rank
+stream-sum kernels against their plain versions, and the scoring, SGD
+(hybrid, fused and sorted) and ALS training paths on the card against the
+CPU.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -52,6 +53,48 @@ def test_gather_kernel_misaligned_table(dev):
                        rowio.gather_rows_reference(table, ids))
 
 
+@pytest.mark.parametrize("width", [1, 32, 33, 68])
+def test_gather_tiles_on_a_device_plan(dev, width):
+    """The tile gather at the widths the paths give it (w, V, [v | w],
+    the fused record) on a plan dedup_ids builds on the card: a 2^18-slot
+    budget whose ~253k-slot fill tail names one row, exact on every row;
+    then on a table off a 16-byte bound (scalar route)."""
+    g = torch.Generator(device=dev).manual_seed(width)
+    num_rows = 1 << 20
+    table = torch.randn((num_rows, width), generator=g, device=dev)
+    ids = torch.randint(0, num_rows - 1, (1024, 9), generator=g, device=dev,
+                        dtype=torch.int32)
+    plan = PE.dedup_ids(ids, 1 << 18, fill=num_rows - 1)
+    before = rowio.GATHER.launches
+    got = rowio.gather_rows(table, plan.uids)
+    assert rowio.GATHER.launches == before + 1
+    assert torch.equal(got, rowio.gather_rows_reference(table, plan.uids))
+    flat = torch.randn(4097 * width + 1, generator=g, device=dev)
+    off = flat[1:].view(4097, width)
+    sub = plan.uids[:5000] % 4097
+    assert torch.equal(rowio.gather_rows(off, sub),
+                       rowio.gather_rows_reference(off, sub))
+
+
+@pytest.mark.parametrize("rows,k,n", [(100003, 32, 40960), (5000, 5, 333),
+                                      (1000, 1, 1), (3000, 128, 1025),
+                                      (1 << 20, 32, 1 << 18)])
+def test_gather_vw_rows_kernel_equals_plain(dev, rows, k, n):
+    """The two-table gather [v[ids] | w[ids]] (serving's one launch per
+    chunk) against two index_selects and a cat: exact, a fill tail
+    included."""
+    g = torch.Generator(device=dev).manual_seed(rows + k)
+    v = torch.randn((rows, k), generator=g, device=dev)
+    w = torch.randn((rows,), generator=g, device=dev)
+    ids = torch.randint(0, rows, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[n - n // 5:] = rows - 1
+    before = rowio.GATHER_VW.launches
+    got = rowio.gather_vw_rows(v, w, ids)
+    assert rowio.GATHER_VW.launches == before + 1
+    assert torch.equal(got, rowio.gather_vw_rows_reference(v, w, ids))
+
+
 @pytest.mark.parametrize("feats,plan", [(100, "none"), (1 << 17, "none"),
                                         (1 << 17, "host")])
 def test_scores_on_card_match_cpu(dev, feats, plan):
@@ -82,9 +125,9 @@ def test_microbatcher_on_card_runs_the_kernel(dev):
     for n in (1, 300, 17):
         mb.submit(rng.integers(0, 1 << 17, (n, 39)).astype(np.int32),
                   np.ones((n, 39), np.float32))
-    before = rowio.GATHER.launches
+    before = rowio.GATHER_VW.launches
     out = mb.flush()
-    assert rowio.GATHER.launches - before == 2 * 2     # 2 chunks x (V, w)
+    assert rowio.GATHER_VW.launches - before == 2      # one per chunk
     assert [o.shape for o in out] == [(1,), (300,), (17,)]
     assert all(np.all((o > 0) & (o < 1)) for o in out)
 
@@ -174,6 +217,87 @@ def test_factored_kernel_equals_plain(dev, n, k, long_run):
         < 1e-4
     again = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
     assert torch.equal(got, again)                 # no atomics
+
+
+def _b3_case(dev, k, kind, seed):
+    """Sorted ranks of a kind, with (U, k+1) rows, an example pack and
+    values on the card: runs of one slot; short runs and runs of 3,000
+    slots (across one span or a few); one run of 60% of the slots (across
+    hundreds of spans); the main path's plan (a bench-recipe batch:
+    16384 x 39 zipf(1.3) ids hashed into 2^24, ~40k uniques, a ~162k-slot
+    head run); or ranks with gaps of up to 9 and 3 empty ranks first,
+    whose zero rows the kernel writes."""
+    rng = np.random.default_rng(seed)
+    if kind == "bench":
+        ids = ((rng.zipf(1.3, (16384, 39)).astype(np.int64) * 2654435761)
+               % (1 << 24)).astype(np.int32)
+        seg = PE.host_dedup(ids, 1 << 18, fill=1 << 24).seg
+    elif kind == "ones":
+        seg = np.arange(100003)
+    elif kind == "cross":
+        seg = np.repeat(np.arange(100), rng.integers(1, 3000, 100))
+        seg = np.concatenate([seg, seg[-1] + 1 + np.arange(5000)])
+    elif kind == "gaps":
+        seg = 3 + np.cumsum(rng.choice([0, 0, 0, 1, 2, 9], 200003))
+    else:                            # "long"
+        incr = (rng.random(300001) < 0.5).astype(np.int64)
+        incr[60000:240000] = 0
+        seg = np.cumsum(incr)
+    seg = seg.astype(np.int32)
+    n, u = seg.shape[0], int(seg[-1]) + 3
+    t = lambda a: torch.as_tensor(a, device=dev)
+    ex = rng.normal(size=(n, k + 2)).astype(np.float32)
+    ex[:, k + 1] = rng.random(n) < 0.9
+    return (t(0.1 * rng.normal(size=(u, k + 1)).astype(np.float32)), t(ex),
+            t(np.where(rng.random(n) < 0.2, 0.0,
+                       rng.normal(size=n)).astype(np.float32)), t(seg), u)
+
+
+def _magnitudes(vw_u, ex, x, seg, u, cv, cw):
+    """Per rank, in float64, the sums of |g_v|, |g_w|, g_v² and g_w²: the
+    scale of each output sum's float32 rounding."""
+    k = vw_u.shape[1] - 1
+    vw = vw_u.double().index_select(0, seg.long())
+    e, xx = ex.double(), x.double()
+    a = torch.where(xx != 0, e[:, k + 1], 0.0)
+    dsx = e[:, k] * xx
+    g = torch.cat([dsx[:, None] * (e[:, :k] - vw[:, :k] * xx[:, None])
+                   + (cv * a)[:, None] * vw[:, :k],
+                   (dsx + cw * vw[:, k] * a)[:, None]], dim=1)
+    return torch.zeros((u, 2 * k + 2), dtype=torch.float64,
+                       device=ex.device).index_add_(
+        0, seg.long(), torch.cat([g.abs(), g.square()], dim=1))
+
+
+@pytest.mark.parametrize("kind", ["ones", "cross", "long", "bench", "gaps"])
+@pytest.mark.parametrize("k", [4, 32, 33, 128])
+def test_factored_kernel_holds_to_float64(dev, k, kind):
+    """B3 on runs of one slot, runs across one span or a few, a run across
+    hundreds of spans (pass 2's block), the main path's plan and ranks
+    with gaps (the kernel writes the rows of ranks without slots): held to
+    the plain version in float64 at |a - b| <= 1e-4 (1 + |b|) + 1e-6 S,
+    with S the float64 sum of the terms' magnitudes. The second term is
+    the rounding a cancelling float32 sum may carry (~16 ulp of S): at k
+    = 128 a Σg_v of ~4 over 180k slots whose terms sum to ~1e5 in
+    magnitude is 1.9e-4 off in the plain version's sequential float32 sum
+    and 1.3e-4 in the kernel's order (tests/test_torch_segsum.py's
+    emulation of that order gives the same). Repeated calls are bitwise
+    equal (no atomics)."""
+    vw_u, ex, x, seg, u = _b3_case(dev, k, kind, seed=k)
+    cv = torch.tensor(3e-3, device=dev)
+    want = segsum.fm_grad_segsum_factored_reference(
+        vw_u.double(), ex.double(), x.double(), seg, u, 3e-3, 7e-3)
+    before = segsum.FACTORED.launches
+    got = segsum.fm_grad_segsum_factored(vw_u, ex, x, seg, u, cv, 7e-3)
+    assert segsum.FACTORED.launches == before + 1
+    bound = 1e-4 * (1 + want.abs()) + 1e-6 * _magnitudes(vw_u, ex, x, seg,
+                                                         u, 3e-3, 7e-3)
+    assert bool(((got.double() - want).abs() <= bound).all())
+    assert torch.equal(got, segsum.fm_grad_segsum_factored(
+        vw_u, ex, x, seg, u, cv, 7e-3))
+    empty = torch.ones(u, dtype=torch.bool, device=dev)
+    empty[seg.long()] = False
+    assert not got[empty].any()
 
 
 def test_train_sgd_on_card_matches_cpu(dev):
@@ -377,13 +501,21 @@ def test_fm_grad_kernel_equals_plain_and_factored(dev, n, k, long_run):
     (dict(update_path="fused", accumulate="segsum"),
      (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
     (dict(update_path="fused", host_plan=False),
-     (rowio.GATHER, rowio.SCATTER)),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
     (dict(update_path="sorted"),
      (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
 ])
 def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
     """train_sgd on the fused and sorted paths on the card, one launch of
-    each kernel of the path per step, against the same run on the CPU."""
+    each kernel of the path per step ("auto" on the card sums by B5), run
+    twice: the two card runs are equal bit for bit (no atomics on either
+    path), and they hold to the same run on the CPU, which sums by
+    index_add_ in slot order. Tolerance from float32 against float64:
+    each step's per-unique and per-example sums have up to 2,048 terms
+    (256 rows x 8 slots), so two float32 orders of one sum differ by up
+    to ~2,048 x 2^-24 ~ 1.2e-4 of its terms' magnitude; through 16
+    adagrad steps of lr 0.1 that stays within rtol 1e-4, atol 1e-5 on V
+    (card runs have read 1.18e-6 beside an entry near 0)."""
     ds = psynth.synth_ctr(num_examples=2000, num_fields=8,
                           num_buckets=1 << 17, seed=2)
     cfg = FMConfig(num_features=1 << 17, num_factors=8,
@@ -395,10 +527,16 @@ def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
     on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
     assert [k.launches - c for k, c in zip(kernels, counts)] == [16] * len(
         kernels)
+    again = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
+    assert [h["train_loss"] for h in again.history] == [
+        h["train_loss"] for h in on_card.history]
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(again.params, name),
+                           getattr(on_card.params, name)), name
     on_cpu = train_sgd(cfg, sgd, ds, init_params=init, device="cpu")
     np.testing.assert_allclose(
         [h["train_loss"] for h in on_card.history],
         [h["train_loss"] for h in on_cpu.history], rtol=1e-4)
     np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
                                on_cpu.params.v.numpy(), rtol=1e-4,
-                               atol=1e-6)
+                               atol=1e-5)

@@ -110,11 +110,45 @@ def test_interaction_forms_match_jax():
 
 
 def test_scoring_paths_never_launch_on_cpu():
-    before = rowio.GATHER.launches
+    kernels = (rowio.GATHER, rowio.GATHER_VW)
+    before = [k.launches for k in kernels]
     _, _, pcfg, pparams, rng = _both(1 << 16, 4, "regression", seed=5)
     ids, vals = _batch(rng, 1 << 16, rows=8)
     pfm.scores(pparams, pcfg, torch.from_numpy(ids), torch.from_numpy(vals))
-    assert rowio.GATHER.launches == before
+    assert [k.launches for k in kernels] == before
+
+
+@pytest.mark.parametrize("plan", ["host", "device"])
+def test_plan_scores_read_vw_u_as_jax_forms_it(plan):
+    """The plan path's (U, K+1) rows come from one two-table gather; the
+    JAX package forms the same rows by two gathers and a concatenate
+    (``sparkfm_tpu/models/fm.py``). The rows are equal exactly, and so are
+    the scores the port computes from either."""
+    F, K = 1 << 16, 8
+    jcfg, jparams, pcfg, pparams, rng = _both(F, K, "classification",
+                                              seed=11)
+    ids, vals = _batch(rng, F)
+    ids_t, vals_t = torch.from_numpy(ids), torch.from_numpy(vals)
+    if plan == "host":
+        hp = PE.host_dedup(ids, PE.auto_budget(ids.size), fill=F - 1)
+        pplan = PE.plan_to_device(hp._replace(
+            uids=hp.uids[:PE.ladder_budget(int(hp.count))]), "cpu")
+    else:
+        pplan = PE.dedup_ids(ids_t, PE.auto_budget(ids.size), fill=F - 1)
+    uids = jnp.asarray(pplan.uids.numpy())
+    jvw = np.array(jnp.concatenate(
+        [jparams.v.at[uids].get(indices_are_sorted=True,
+                                mode="promise_in_bounds"),
+         jparams.w.at[uids].get(indices_are_sorted=True,
+                                mode="promise_in_bounds")[:, None]], axis=1))
+    got = rowio.gather_vw_rows(pparams.v, pparams.w, pplan.uids)
+    np.testing.assert_array_equal(got.numpy(), jvw)
+    rows = torch.from_numpy(jvw)[pplan.ranks.reshape(-1).long()].view(
+        *ids.shape, K + 1)
+    want = PI.fm_scores_from_gathered(pparams.w0, rows[..., K],
+                                      rows[..., :K], vals_t)
+    assert torch.equal(pfm.scores(pparams, pcfg, ids_t, vals_t, plan=pplan),
+                       want)
 
 
 def test_l2_penalty_matches_jax():

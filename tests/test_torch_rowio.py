@@ -92,6 +92,57 @@ def test_cpu_out_of_range_id_raises():
                           torch.tensor([0, 4], dtype=torch.int32))
 
 
+def _vw_case(rows, k, n, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(rows, k)).astype(np.float32)
+    w = rng.normal(size=rows).astype(np.float32)
+    ids = rng.integers(0, rows, n).astype(np.int32)
+    ids[-min(n, 3):] = rows - 1              # a fill tail
+    return v, w, ids
+
+
+@pytest.mark.parametrize("rows,k,n", [(300, 32, 48), (50, 5, 23), (9, 1, 9),
+                                      (1000, 128, 33)])
+def test_gather_vw_rows_equals_two_jax_gathers_and_a_concatenate(rows, k,
+                                                                  n):
+    """The two-table gather's rows [v[ids] | w[ids]] are the JAX package's
+    vw_u (sparkfm_tpu/models/fm.py: two gathers, then a concatenate),
+    exactly; the CPU runs the plain version."""
+    v, w, ids = _vw_case(rows, k, n, seed=rows + k)
+    jv, jw, jids = jnp.asarray(v), jnp.asarray(w), jnp.asarray(ids)
+    want = np.asarray(jnp.concatenate([jv[jids], jw[jids][:, None]], axis=1))
+    before = rowio.GATHER_VW.launches
+    got = rowio.gather_vw_rows(torch.from_numpy(v), torch.from_numpy(w),
+                               torch.from_numpy(ids))
+    assert rowio.GATHER_VW.launches == before  # CPU: plain version
+    assert got.shape == (n, k + 1) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_gather_vw_rows_empty_ids():
+    got = rowio.gather_vw_rows(torch.zeros((4, 3)), torch.zeros(4),
+                               torch.zeros((0,), dtype=torch.int32))
+    assert got.shape == (0, 4)
+
+
+@pytest.mark.parametrize("w,match", [
+    (torch.zeros(5), r"\(4,\)"),
+    (torch.zeros(4, dtype=torch.float64), "float32"),
+    (torch.zeros(8)[::2], "contiguous"),
+    (torch.zeros(4, device="meta"), "on cpu"),
+])
+def test_gather_vw_rows_rejects_what_the_kernel_does_not_take(w, match):
+    with pytest.raises(ValueError, match=match):
+        rowio.gather_vw_rows(torch.zeros((4, 3)), w,
+                             torch.zeros((2,), dtype=torch.int32))
+
+
+def test_gather_vw_rows_cpu_out_of_range_id_raises():
+    with pytest.raises(IndexError):
+        rowio.gather_vw_rows(torch.zeros((4, 3)), torch.zeros(4),
+                             torch.tensor([0, 4], dtype=torch.int32))
+
+
 def _fresh(kernel):
     """An unbuilt copy of a module's kernel binding."""
     return CudaKernel(kernel.library, kernel.source, kernel.symbol,

@@ -171,6 +171,95 @@ def test_segsum_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     assert kernel.launches == 0 and kernel.path is None
 
 
+def _factored_card_order(vw_u, ex, x, seg, u, cv, cw, span):
+    """The card's B3 sums in its own float32 order (csrc/segsum.cu): pass
+    1 per span of ``span`` slots adds each run's slot gradients in slot
+    order and writes a run that crosses a span boundary as partial rows
+    (the span where it begins: its last run's; each later span it
+    reaches: its first run's); pass 2 adds a crossing run's partial rows
+    in order when there are at most 33, else 32 warps take rows w, w + 32,
+    ... in order and the warps' sums are added in warp order."""
+    f32 = np.float32
+    k = vw_u.shape[1] - 1
+    n = seg.shape[0]
+    v, w = vw_u[seg, :k], vw_u[seg, k]
+    a = np.where(x != 0, ex[:, k + 1], f32(0))
+    dsx = ex[:, k] * x
+    g = np.concatenate([dsx[:, None] * (ex[:, :k] - v * x[:, None])
+                        + (f32(cv) * a)[:, None] * v,
+                        (dsx + f32(cw) * w * a)[:, None]], axis=1)
+    terms = np.concatenate([g, g * g], axis=1).astype(f32)   # [g | g²]
+    out = np.zeros((u, 2 * k + 2), f32)
+    num = -(-n // span)
+    partials = np.zeros((2 * num, 2 * k + 2), f32)
+    for c in range(num):
+        s0, s1 = c * span, min(n, (c + 1) * span)
+        before = seg[s0 - 1] if s0 > 0 else -1
+        after = seg[s1] if s1 < n else -1
+        cuts = [s0, *(np.flatnonzero(seg[s0 + 1:s1] != seg[s0:s1 - 1])
+                      + s0 + 1), s1]
+        for i in range(len(cuts) - 1):
+            acc = np.zeros(2 * k + 2, f32)
+            for j in range(cuts[i], cuts[i + 1]):
+                acc = acc + terms[j]
+            r = seg[cuts[i]]
+            if i == 0 and r == before:
+                partials[2 * c] = acc
+            elif i == len(cuts) - 2 and r == after:
+                partials[2 * c + 1] = acc
+            else:
+                out[r] = acc
+    for c in range(num - 1):
+        end = (c + 1) * span
+        r = seg[end - 1]
+        if seg[end] != r or (c > 0 and seg[c * span - 1] == r):
+            continue
+        last = c + 1
+        while last + 1 < num and seg[(last + 1) * span] == r:
+            last += 1
+        rows = [partials[2 * c + 1]] + [partials[2 * j]
+                                        for j in range(c + 1, last + 1)]
+        warps = 1 if len(rows) <= 33 else 32
+        acc = [np.zeros(2 * k + 2, f32) for _ in range(warps)]
+        for j, row in enumerate(rows):
+            acc[j % warps] = acc[j % warps] + row
+        total = np.zeros(2 * k + 2, f32)
+        for part in acc:
+            total = total + part
+        out[r] = total
+    return out
+
+
+@pytest.mark.parametrize("k", [4, 32])
+def test_factored_card_order_holds_to_float64_and_jax(k):
+    """B3's summation order on the card (spans, then pass 2's order),
+    emulated in float32 with 16-slot spans so that every path of pass 2
+    runs at a small N: a 9,000-slot run across ~560 spans (the block's
+    path), runs across a few spans (the warp's) and a run over exactly 33
+    partial rows. This checks the design's order, not the port's code (the
+    kernel is held to float64 on the card, ``tests/test_torch_cuda.py``,
+    ``chip_smoke.py``). Held to the float64 sums at max |a - b| / (1 +
+    |b|) < 1e-4, the card check's bound, and to JAX
+    ``fm_grad_segsum_factored(force="xla")`` at rtol = atol = 1e-4: both
+    are float32 sums of up to 9,000 terms in different orders."""
+    span = 16
+    rng = np.random.default_rng(50 + k)
+    vw_u, ex, x, seg, u = _factored_case(rng, 20_000, k, long_run=9000)
+    seg = seg.copy()
+    start = 18_000 - 5                  # a run over exactly 33 partial rows
+    seg[start:] += 1
+    seg[start + 32 * span + 5:] += 1
+    u = int(seg[-1]) + 3
+    vw_u = rng.normal(size=(u, k + 1)).astype(np.float32)
+    got = _factored_card_order(vw_u, ex, x, seg, u, CV, CW, span)
+    exact = segsum.fm_grad_segsum_factored_reference(
+        *(torch.from_numpy(a).double() for a in (vw_u, ex, x)),
+        torch.from_numpy(seg), u, CV, CW).numpy()
+    assert float((np.abs(got - exact) / (1 + np.abs(exact))).max()) < 1e-4
+    np.testing.assert_allclose(got, _jax(vw_u, ex, x, seg, u, force="xla"),
+                               rtol=1e-4, atol=1e-4)
+
+
 def _colsums_case(rng, n, s, kind):
     """Sorted ranks of the given kind and ``s`` normal streams; the JAX
     Pallas kernel (interpret mode) needs dense ranks, step <= 1."""

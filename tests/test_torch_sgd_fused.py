@@ -197,14 +197,64 @@ def test_batch_loss_gathers_group_strengths():
     ({}, dict(optimizer="sgd", momentum=0.9), ValueError),
     ({}, dict(accumulate="tree"), ValueError),
     (dict(num_fields=2), {}, NotImplementedError),
-    ({}, dict(steps_per_dispatch=2), NotImplementedError),
     ({}, dict(update_path="dedup"), NotImplementedError),
+    ({}, dict(update_path="direct"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     _, _, pcfg, psgd_cfg = _configs("regression", fm_kw)
     with pytest.raises(exc):
         sgd_fused.make_fused_train_step(
             pcfg, dataclasses.replace(psgd_cfg, **sgd_kw))
+
+
+@pytest.mark.parametrize("accumulate", ["auto", "segsum"])
+def test_steps_per_dispatch_trains_one_step_at_a_time_as_jax(accumulate):
+    """steps_per_dispatch groups hybrid steps only; the JAX trainer runs
+    fused steps one by one whatever it says. A fused step built with 2
+    trains: bit for bit the step built with 1, and the JAX fused step
+    built with 2 at this file's tolerance."""
+    ids, vals, y, params = _data("classification", seed=4)
+    jcfg, jsgd, pcfg, psgd_cfg = _configs(
+        "classification", accumulate=accumulate, steps_per_dispatch=2)
+    jb = _batches("jax", ids, vals, y, host=True)
+    pb = _batches("torch", ids, vals, y, host=True)
+    jstep = jfused.make_fused_train_step(jcfg, jsgd)
+    jstate, pstate = _states(jcfg, pcfg, params)
+    _, single = _states(jcfg, pcfg, params)
+    pstep = sgd_fused.make_fused_train_step(pcfg, psgd_cfg)
+    one = sgd_fused.make_fused_train_step(
+        pcfg, dataclasses.replace(psgd_cfg, steps_per_dispatch=1))
+    for i in range(STEPS):
+        jstate, jaux = jstep(jstate, jb[i])
+        pstate, paux = pstep(pstate, pb[i])
+        single, saux = one(single, pb[i])
+        assert torch.equal(paux["loss"], saux["loss"])
+    assert torch.equal(pstate.table, single.table)
+    _assert_close(jstate, jaux, pstate, paux, 2e-4, 2e-5, 1e-4)
+
+
+def test_auto_accumulate_takes_scatter_on_cpu_and_b5_on_the_card(
+        monkeypatch):
+    """"auto" keeps the JAX choice (index_add_ by rank) for CPU tensors
+    and sums by B5 over sorted runs for CUDA tensors, whose sums repeat
+    and which is ~25x faster than index_add_ at the main path's shape;
+    "scatter" and "segsum" choose the same on both."""
+    cpu, card = torch.device("cpu"), torch.device("cuda", 0)
+    assert not sgd_fused.segsum_accumulate("auto", cpu)
+    assert sgd_fused.segsum_accumulate("auto", card)
+    for device in (cpu, card):
+        assert sgd_fused.segsum_accumulate("segsum", device)
+        assert not sgd_fused.segsum_accumulate("scatter", device)
+    # on the CPU, "auto" runs the scatter reduce and never the row sums
+    calls = []
+    monkeypatch.setattr(segsum, "segment_rowsum",
+                        lambda *a: calls.append("B5"))
+    ids, vals, y, params = _data("regression", seed=5)
+    jcfg, _, pcfg, psgd_cfg = _configs("regression", accumulate="auto")
+    batch = _batches("torch", ids, vals, y, host=True)[0]
+    _, pstate = _states(jcfg, pcfg, params)
+    _, aux = sgd_fused.make_fused_train_step(pcfg, psgd_cfg)(pstate, batch)
+    assert calls == [] and bool(torch.isfinite(aux["loss"]))
 
 
 def test_segsum_needs_the_sort_permutation():

@@ -152,6 +152,57 @@ def test_parity_no_linear_no_bias():
                 _batches(rng, 8, 4, 32, 3))
 
 
+def test_parity_with_steps_per_dispatch():
+    """steps_per_dispatch groups hybrid steps only, in both packages: a
+    sorted step built with 2 trains as the JAX sorted step built with 2,
+    at the parity tolerance."""
+    rng = np.random.default_rng(5)
+    _run_parity(dict(num_features=64, num_factors=4, reg_w=0.01, reg_v=0.02,
+                     reg0=0.1, seed=3),
+                dict(batch_size=16, learning_rate=0.1, optimizer="adagrad",
+                     unique_budget=128, steps_per_dispatch=2),
+                _batches(rng, 16, 5, 64, 4))
+
+
+def test_steps_per_dispatch_changes_nothing():
+    """A sorted step built with steps_per_dispatch=2 is the step built
+    with 1, bit for bit, over several steps."""
+    rng = np.random.default_rng(6)
+    cfg = FMConfig(num_features=64, num_factors=4, reg_v=0.02, seed=3)
+    states, steps = [], []
+    for spd in (1, 2):
+        states.append(sgd_fused.init_fused_state(
+            cfg, torch.Generator().manual_seed(1), device="cpu"))
+        steps.append(sgd_sorted.make_sorted_train_step(cfg, SGDConfig(
+            batch_size=16, learning_rate=0.1, unique_budget=128,
+            steps_per_dispatch=spd)))
+    for arrays in _batches(rng, 16, 5, 64, 4):
+        for i in range(2):
+            states[i], _ = steps[i](states[i], _torch_batch(*arrays))
+    assert torch.equal(states[0].table, states[1].table)
+    assert torch.equal(states[0].w0, states[1].w0)
+
+
+def test_example_sums_need_no_atomics():
+    """The slot terms reach the (B, k+2) example space through the plan's
+    permutation (every natural slot written once) and a sum over each
+    example's L slots: the sorted plan's order is the stable id sort, and
+    sex = order // L."""
+    rng = np.random.default_rng(7)
+    ids = rng.integers(0, 20, (6, 4)).astype(np.int32)
+    vals = rng.normal(size=(6, 4)).astype(np.float32)
+    plan = PE.sorted_plan(torch.from_numpy(ids), torch.from_numpy(vals), 32,
+                          fill=20)
+    order = plan.order.long()
+    assert plan.order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(24))
+    np.testing.assert_array_equal(ids.reshape(-1)[order.numpy()],
+                                  np.sort(ids.reshape(-1), kind="stable"))
+    assert torch.equal(plan.sex.long(), order // 4)
+    np.testing.assert_array_equal(plan.svals.numpy(),
+                                  vals.reshape(-1)[order.numpy()])
+
+
 def test_loss_decreases_end_to_end():
     """The sorted path alone on a learnable problem: the loss must drop
     below a fifth of its first value in 60 steps."""
@@ -178,7 +229,7 @@ def test_loss_decreases_end_to_end():
     (dict(num_fields=2), {}, ValueError),
     ({}, dict(optimizer="adagrad_row"), ValueError),
     ({}, dict(optimizer="sgd", momentum=0.9), ValueError),
-    ({}, dict(steps_per_dispatch=2), NotImplementedError),
+    ({}, dict(update_path="dedup"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     with pytest.raises(exc):

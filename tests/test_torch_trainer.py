@@ -125,6 +125,8 @@ def test_hooks_see_every_epoch_and_the_live_state():
     dict(update_path="fused", accumulate="segsum"),
     dict(update_path="fused", host_plan=False, optimizer="adagrad_row"),
     dict(update_path="sorted"),
+    dict(update_path="fused", steps_per_dispatch=2),
+    dict(update_path="sorted", steps_per_dispatch=3),
 ])
 def test_fused_and_sorted_paths_match_jax(sgd_kw):
     """train_sgd on the fused path (host ladder plans, or plans built in
@@ -158,6 +160,23 @@ def test_fused_and_sorted_paths_match_jax(sgd_kw):
         np.testing.assert_allclose(getattr(pres.params, name).numpy(),
                                    np.asarray(getattr(jres.params, name)),
                                    rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("path", ["fused", "sorted"])
+def test_steps_per_dispatch_runs_single_steps_off_the_hybrid_path(path):
+    """As the JAX trainer: only hybrid steps are grouped, so on the fused
+    and sorted paths steps_per_dispatch=2 trains exactly as 1 does."""
+    ds = psynth.synth_ctr(num_examples=700, seed=8, **SYNTH)
+    cfg = FMConfig(num_features=F, num_factors=K, reg_v=1e-4, seed=8)
+    runs = [train_sgd(cfg, SGDConfig(**dict(SGD, update_path=path,
+                                            steps_per_dispatch=spd)), ds,
+                      generator=torch.Generator().manual_seed(8),
+                      device="cpu") for spd in (1, 2)]
+    assert [h["train_loss"] for h in runs[0].history] == [
+        h["train_loss"] for h in runs[1].history]
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(runs[0].params, name),
+                           getattr(runs[1].params, name)), name
 
 
 @pytest.mark.parametrize("kw,sgd_kw,match", [
