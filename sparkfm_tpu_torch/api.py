@@ -120,6 +120,26 @@ class FMModel:
                    cfg=FMConfig.from_json(meta["cfg"]))
 
 
+def _detect_slot_major(train, num_fields: int) -> bool:
+    """True iff every example's slot l holds a field-l feature
+    (field_ids == arange(num_fields) in every row: the fixed-column
+    hashed-CTR layout of ``synth_ctr`` and the Avazu/Criteo loaders). One
+    host pass at fit time; when true the FFM interaction takes the
+    slot-major form (``ops/interaction.py::ffm_interaction_slot_major``),
+    the same math without the one-hot. Scoring checks given field_ids
+    again (``models/fm.py::scores``)."""
+    if num_fields <= 0:
+        return False
+    fids = getattr(train, "field_ids", None)
+    if fids is None:
+        return False
+    fids = np.asarray(fids)
+    if fids.ndim != 2 or fids.shape[1] != num_fields:
+        return False
+    return bool((fids == np.arange(num_fields,
+                                   dtype=fids.dtype)[None, :]).all())
+
+
 class FM:
     """The facade: configure once, then ``fit``. Port of
     ``sparkfm_tpu/api.py::FM`` for one device and a ``SparseDataset``::
@@ -129,11 +149,16 @@ class FM:
         rmse = model.compute_rmse(test)
 
     ``solver`` is "als" (slot-aligned blocks, ``solvers/als.py``), "sgd"
-    (``train_sgd``) or a callable ``(cfg, train, eval_ds, eval_every,
-    generator) -> TrainResult``, where ``generator`` is a
-    ``torch.Generator`` on the fit's device seeded with ``seed``.
-    ``timeout`` is a wall-clock budget in seconds, checked between epochs
-    (0 = none). The arguments are the JAX facade's.
+    (``train_sgd``, on the update path ``update_path`` names or "auto"
+    picks, with ``optimizer`` "adagrad", "adagrad_row", "sgd" or "adam")
+    or a callable ``(cfg, train, eval_ds, eval_every, generator) ->
+    TrainResult``, where ``generator`` is a ``torch.Generator`` on the
+    fit's device seeded with ``seed``. ``num_fields > 0`` fits a
+    field-aware FM on data with ``field_ids``; when every row's field_ids
+    are ``arange(num_fields)`` the config gets ``slot_major_fields``, as
+    the JAX facade's does. ``timeout`` is a wall-clock budget in seconds,
+    checked between epochs (0 = none). The arguments are the JAX
+    facade's.
 
     Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
     item: ``solver="mcmc"`` (A11), a ``mesh`` (A15), ``model="deepfm"``
@@ -224,6 +249,7 @@ class FM:
             reg0=self.reg0, reg_w=self.reg_w, reg_v=self.reg_v,
             init_stdev=self.init_stdev, init_mean=self.init_mean,
             seed=self.seed, num_fields=self.num_fields,
+            slot_major_fields=_detect_slot_major(train, self.num_fields),
             feature_groups=groups,
             group_reg_w=self.group_reg_w, group_reg_v=self.group_reg_v)
 

@@ -31,8 +31,9 @@ class FMConfig:
     ``init_mean`` / ``init_stdev`` / ``seed`` set the N(mean, stdev) init
     of V; ``reg0`` / ``reg_w`` / ``reg_v`` are per-group L2 strengths.
     ``num_fields > 0`` selects the field-aware model (FFM), and
-    ``slot_major_fields`` promises that slot l holds a feature of field l;
-    the port does not score FFM yet. ``feature_groups`` with
+    ``slot_major_fields`` promises that slot l holds a feature of field l
+    (the training steps then take the slot-major interaction and do not
+    read field_ids). ``feature_groups`` with
     ``group_reg_w`` / ``group_reg_v`` give per-attribute-group L2.
     """
 
@@ -108,20 +109,20 @@ class FMConfig:
 class SGDConfig:
     """SGD solver settings; same fields and defaults as the JAX package's.
 
-    The port trains on three update paths, all on the fused record
-    table: "hybrid" (``solvers/sgd_hybrid.py``), "fused"
-    (``solvers/sgd_fused.py``) and "sorted" (``solvers/sgd_sorted.py``);
-    ``update_path="auto"`` picks among them as the JAX package does.
-    Optimizers: adagrad / adagrad_row / sgd without momentum (the sorted
-    path: adagrad / sgd). ``host_plan=False`` makes the fused step build
-    its plans on the device (the hybrid path needs host plans and raises
-    ``ValueError``). What else a field can select (the "direct" and
-    "dedup" paths, adam, momentum) raises ``NotImplementedError`` when a
-    step or the trainer is built (``solvers/sgd.py::check_supported``).
-    ``steps_per_dispatch`` groups only hybrid steps, as in the JAX
-    package; above 1 the hybrid path raises ``NotImplementedError``
-    (ROADMAP A3), and the fused and sorted paths run their steps one by
-    one.
+    ``update_path``: "direct" and "dedup" (``solvers/sgd.py``, separate
+    tables), "hybrid" (``solvers/sgd_hybrid.py``), "fused"
+    (``solvers/sgd_fused.py``) and "sorted" (``solvers/sgd_sorted.py``) on
+    the fused record table; "auto" picks among them as the JAX package
+    does (``solvers/sgd.py::resolve_update_path``). Optimizers: adagrad /
+    sgd (with ``momentum``) / adam on "direct" and "dedup"; adagrad /
+    adagrad_row / sgd without momentum on "hybrid" and "fused"; adagrad /
+    sgd on "sorted"; a path given an optimizer it lacks raises the JAX
+    package's ``ValueError``. ``host_plan=False`` makes the dedup and
+    fused steps build their plans on the device (the hybrid path needs
+    host plans and raises ``ValueError``). ``steps_per_dispatch`` groups
+    only hybrid steps, as in the JAX package; above 1 the hybrid path
+    raises ``NotImplementedError`` (ROADMAP A3), and the other paths run
+    their steps one by one.
 
     ``max_seconds``: wall-clock budget, checked at epoch boundaries (0 =
     none). ``unique_budget``: 0 sizes each batch's plan by the ladder

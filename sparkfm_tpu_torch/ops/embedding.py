@@ -179,6 +179,23 @@ def accumulate_to_unique_sorted(g_slots: torch.Tensor, plan: DedupBatch,
     return out[:, 0] if scalar else out
 
 
+def accumulate_sq_to_unique_sorted(g_slots: torch.Tensor, plan: DedupBatch,
+                                   budget: int) -> torch.Tensor:
+    """(U, 2W) per-unique ``[Σg | Σg²]`` of the per-slot rows ``g_slots``
+    (ranks.shape + (W,), or (N, W)): the rows permuted into id-sorted
+    order (``plan.order``), then summed over contiguous runs
+    (``plan.seg``) by kernel B6 (``ops/segsum.py::segment_rowsum_sq``),
+    which forms the squares itself. The sums of the JAX package's four
+    scatter-adds of g and g² (``sparkfm_tpu/solvers/sgd.py:370-373``) up
+    to float summation order, in a fixed order, so they repeat bit for
+    bit on the card."""
+    if plan.order is None or plan.seg is None:
+        raise ValueError("the sorted accumulate needs plan.order/plan.seg")
+    n = plan.order.shape[0]
+    srt = g_slots.reshape(n, -1).index_select(0, plan.order.long())
+    return segsum.segment_rowsum_sq(srt, plan.seg, budget)
+
+
 def scatter_set_unique(table: torch.Tensor, plan,
                        rows_u: torch.Tensor) -> torch.Tensor:
     """Write the updated unique rows back in place through the row-write

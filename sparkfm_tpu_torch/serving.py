@@ -1,5 +1,6 @@
 """Serving: coalesce scoring requests into padded batches. Port of
-``sparkfm_tpu/serving.py`` for ``model="fm"``.
+``sparkfm_tpu/serving.py`` for ``model="fm"``, plain FM and FFM (whose
+requests carry ``field_ids``).
 
 A score call pays a fixed cost (launches, host-to-device copies, the copy
 back) whatever its batch size, so a server queues requests and scores them

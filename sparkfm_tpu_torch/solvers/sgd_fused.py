@@ -1,20 +1,24 @@
 """Fused-record SGD: all per-feature state in one row.
 
-Port of ``sparkfm_tpu/solvers/sgd_fused.py``: the state every SGD path of
-the port shares, and the fused train step (plain FM) that trains on it:
+Port of ``sparkfm_tpu/solvers/sgd_fused.py``: the state the hybrid, fused
+and sorted paths of the port share, and the fused train step (FM and FFM)
+that trains on it:
 
-    record[f] = [ v[f] (K) | slot_v[f] (K) | w[f] (1) | slot_w[f] (1) | pad ]
+    record[f] = [ v[f] (vk) | slot_v[f] (vk) | w[f] (1) | slot_w[f] (1) | pad ]
+
+with vk = K for plain FM and num_fields * K for FFM (V's flat row),
 
 one (F+1, W) float32 table, so a train step does ONE unique-row gather and
 ONE row write-back for parameters and optimizer state together. Row F is
 the dedup plan's fill row, garbage by contract.
 
-Record width: the JAX package pads 2K+2 up to a multiple of 128 floats,
+Record width: the JAX package pads 2vk+2 up to a multiple of 128 floats,
 the TPU's lane tile. The port pads it to a multiple of 4 floats only (68
-for K = 32, against 128), so every row is 16-byte aligned for the row
-kernels' float4 accesses (``csrc/rowio.cu``), the table takes about half
-the bytes (4.6 GB against 8.6 GB at 2^24 rows) and each gather and
-write-back moves about half as many. Tests compare ``table[:F, :2K+2]``.
+for K = 32, against 128; 356 for 22 fields at K = 8, against 384), so
+every row is 16-byte aligned for the row kernels' float4 accesses
+(``csrc/rowio.cu``), the table takes about half the bytes (4.6 GB against
+8.6 GB at 2^24 rows) and each gather and write-back moves about half as
+many. Tests compare ``table[:F, :2vk+2]``.
 
 The train step (:func:`make_fused_train_step`):
 
@@ -227,9 +231,6 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     lanes, kept in slot lane 0) and plain "sgd". The module doc lists the
     steps; the kernels are looked up through their modules at each call.
     """
-    if cfg.num_fields > 0:
-        raise NotImplementedError("the fused step's FFM record is not "
-                                  "ported yet (ROADMAP A9)")
     if sgd_cfg.optimizer not in ("adagrad", "adagrad_row", "sgd"):
         raise ValueError("fused path supports adagrad/adagrad_row/sgd; use "
                          "update_path='dedup' for adam/momentum")
@@ -239,7 +240,6 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         raise ValueError(
             f"unknown accumulate={sgd_cfg.accumulate!r}; expected "
             "'auto', 'scatter' or 'segsum'")
-    sgd_solver.check_supported(sgd_cfg)
     k = v_lanes(cfg)
     opt = sgd_cfg.optimizer
     reg_cpu = sgd_solver.reg_vectors(cfg)

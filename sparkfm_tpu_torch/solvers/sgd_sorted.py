@@ -60,7 +60,6 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
         raise ValueError("sorted path supports adagrad/sgd")
     if sgd_cfg.momentum > 0 and sgd_cfg.optimizer == "sgd":
         raise ValueError("sorted path: momentum not supported")
-    sgd_solver.check_supported(sgd_cfg)
     k = cfg.num_factors
     loss_fn = L.loss_for_task(cfg.task)
 

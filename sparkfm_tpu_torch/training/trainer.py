@@ -1,7 +1,9 @@
 """Training loop: SGD epochs with per-epoch loss and evaluation. Port of
 ``sparkfm_tpu/training/trainer.py`` (``train_sgd``, ``evaluate``,
-``TrainResult``) for one device, on the update paths the port has:
-"hybrid", "fused" (host or device plans) and "sorted".
+``TrainResult``) for one device, on every single-device update path of the
+JAX package: "direct" and "dedup" (separate tables,
+``solvers/sgd.py::make_train_step``), "hybrid", "fused" (host or device
+plans) and "sorted" (the fused record table).
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sharded mesh path (``mesh``, ROADMAP A15), checkpointed training
@@ -24,6 +26,7 @@ from sparkfm_tpu_torch.api import FMModel
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig
 from sparkfm_tpu_torch.data.batching import (SparseDataset, batch_iterator,
                                              prefetch)
+from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
@@ -35,8 +38,9 @@ def evaluate(params: FMParams, cfg: FMConfig, ds: SparseDataset,
              batch_size: int = 8192) -> Dict[str, float]:
     """Full-dataset metrics on the parameters' device. Regression: rmse,
     mae. Classification: logloss, accuracy, auc. Big plain-FM tables
-    score through host ladder plans, one unique-row gather per batch
-    (``FMModel.evaluate``)."""
+    score through host ladder plans, one unique-row gather per batch;
+    small tables and FFM gather per slot (``FMModel.evaluate``). The
+    parameters may carry the dedup path's extra fill row."""
     return FMModel(params=params, cfg=cfg).evaluate(ds, batch_size)
 
 
@@ -70,19 +74,22 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
               device) -> TrainResult:
     """SGD training on ``device`` through the train step of the update
     path that ``solvers/sgd.py::resolve_update_path`` picks, as the JAX
-    trainer dispatches: "hybrid", "fused" or "sorted".
+    trainer dispatches: "direct" or "dedup" on an ``SGDState`` (the dedup
+    tables padded by one fill row, trimmed off the result), "hybrid",
+    "fused" or "sorted" on a ``FusedState``.
 
-    ``init_params`` warm-starts from given parameters (moved to
-    ``device``); otherwise V is drawn from ``generator`` (default: seeded
+    ``init_params`` warm-starts from a copy of given parameters on
+    ``device``; otherwise V is drawn from ``generator`` (default: seeded
     from ``cfg.seed``). Batches are shuffled per epoch with the JAX
     package's (seed, epoch) order, built in a background thread. The
-    hybrid path, and the fused path under ``host_plan=True``, get host
-    ladder plans (or plans of ``SGDConfig.unique_budget``) with them; the
-    sorted path and the fused path under ``host_plan=False`` build their
-    plans on the device. Each
-    history record holds the epoch's mean ``train_loss``, its
-    ``unique_overflow_steps`` and, every ``eval_every`` epochs and after
-    the last, ``eval_*`` metrics of ``eval_ds``. ``hooks`` are called as
+    hybrid path, and the dedup and fused paths under ``host_plan=True``,
+    get host ladder plans (or plans of ``SGDConfig.unique_budget``) with
+    them; the direct and sorted paths, and the dedup and fused paths under
+    ``host_plan=False``, build their plans on the device. Each history
+    record holds the epoch's mean ``train_loss``, its
+    ``unique_overflow_steps`` on every path but "direct" (whose plans
+    cannot overflow) and, every ``eval_every`` epochs and after the last,
+    ``eval_*`` metrics of ``eval_ds``. ``hooks`` are called as
     ``hook(epoch, state, record)``. ``examples_per_sec`` leaves out the
     first step (kernel builds, warm-up), as the JAX trainer leaves out
     its compile.
@@ -94,23 +101,43 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         raise NotImplementedError(
             "checkpointed training is not ported yet (ROADMAP A5)")
     del checkpoint_every, resume
-    sgd_solver.check_supported(sgd_cfg)
     path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
     sgd_solver.check_grouping(path, sgd_cfg)
     device = torch.device(device)
-    if init_params is not None:
-        if init_params.v.shape[0] != cfg.num_features:
-            raise ValueError(
-                f"init_params table has {init_params.v.shape[0]} rows != "
-                f"num_features {cfg.num_features}")
-        state = sgd_fused.fused_from_params(init_params, cfg, device=device)
+    if init_params is not None and (init_params.v.shape[0]
+                                    != cfg.num_features):
+        raise ValueError(
+            f"init_params table has {init_params.v.shape[0]} rows != "
+            f"num_features {cfg.num_features}")
+    if path in ("hybrid", "fused", "sorted"):
+        if init_params is not None:
+            state = sgd_fused.fused_from_params(init_params, cfg,
+                                                device=device)
+        else:
+            state = sgd_fused.init_fused_state(cfg, generator, device=device)
+        step_fn = {"hybrid": sgd_hybrid.make_hybrid_train_step,
+                   "fused": sgd_fused.make_fused_train_step,
+                   "sorted": sgd_sorted.make_sorted_train_step}[path](
+                       cfg, sgd_cfg)
+
+        def get_params(s):
+            return sgd_fused.params_from_fused(s, cfg)
     else:
-        state = sgd_fused.init_fused_state(cfg, generator, device=device)
-    step_fn = {"hybrid": sgd_hybrid.make_hybrid_train_step,
-               "fused": sgd_fused.make_fused_train_step,
-               "sorted": sgd_sorted.make_sorted_train_step}[path](cfg, sgd_cfg)
+        step_fn = sgd_solver.make_train_step(cfg, sgd_cfg)
+        if init_params is not None:
+            params = FMParams(*(t.detach().to(device=device, copy=True)
+                                for t in (init_params.w0, init_params.w,
+                                          init_params.v)))
+        else:
+            params = fm_model.init_params(cfg, generator, device=device)
+        state = sgd_solver.init_state(params, optimizer=sgd_cfg.optimizer)
+        if path == "dedup":
+            state = sgd_solver.pad_state_for_dedup(state)
+
+        def get_params(s):
+            return s.params
     dedup_budget = None
-    if sgd_cfg.host_plan and path in ("fused", "hybrid"):
+    if sgd_cfg.host_plan and path in ("dedup", "fused", "hybrid"):
         # unique_budget=0 -> the ladder: each plan sized to its batch's
         # unique count rounded to a rung; the fill id is the table's extra
         # last row
@@ -134,22 +161,24 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
                 float(aux["loss"])      # waits for the first step to end
                 warmup = time.perf_counter() - tw
             losses.append(aux["loss"])
-            flags.append(aux["unique_overflow"])
+            if "unique_overflow" in aux:
+                flags.append(aux["unique_overflow"])
         n_examples += train.num_examples
-        overflows = int(torch.stack([torch.as_tensor(f, device=device)
-                                     for f in flags]).sum())
         rec = {"epoch": epoch,
-               "train_loss": float(torch.stack(losses).mean()),
-               "unique_overflow_steps": overflows}
-        if overflows:
-            log.warning(
-                "epoch %d: %d step(s) overflowed the unique-id budget "
-                "(updates aliased); raise SGDConfig.unique_budget",
-                epoch, overflows)
+               "train_loss": float(torch.stack(losses).mean())}
+        if flags:
+            overflows = int(torch.stack([torch.as_tensor(f, device=device)
+                                         for f in flags]).sum())
+            rec["unique_overflow_steps"] = overflows
+            if overflows:
+                log.warning(
+                    "epoch %d: %d step(s) overflowed the unique-id budget "
+                    "(updates aliased); raise SGDConfig.unique_budget",
+                    epoch, overflows)
         if eval_ds is not None and (epoch % eval_every == 0
                                     or epoch == sgd_cfg.epochs - 1):
             rec.update({f"eval_{k}": v for k, v in evaluate(
-                sgd_fused.params_from_fused(state, cfg), cfg, eval_ds,
+                get_params(state), cfg, eval_ds,
                 sgd_cfg.batch_size).items()})
         history.append(rec)
         log.info("epoch %d: %s", epoch,
@@ -162,7 +191,6 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
             break
     elapsed = time.perf_counter() - t0 - warmup
     return TrainResult(
-        params=sgd_solver.trim_params(sgd_fused.params_from_fused(state, cfg),
-                                      cfg.num_features),
+        params=sgd_solver.trim_params(get_params(state), cfg.num_features),
         history=history,
         examples_per_sec=n_examples / max(elapsed, 1e-9))

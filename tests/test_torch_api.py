@@ -4,11 +4,14 @@ warm-start tests, and to the JAX facade itself: ``FM(solver="als")``
 warm-started from the same numpy parameters gives the same model (rtol
 2e-4 / atol 2e-5, the ALS sweep parity of ``tests/test_torch_als.py``).
 
-The SGD cases on small tables pin ``update_path="hybrid"``: under "auto"
-the JAX package trains tables below 2^16 rows on its direct path, which is
-not ported. ``FM(solver="sgd", feature_groups=...)`` on a 2^16-row table
-trains on the fused path under "auto", as the JAX facade does, and is
-held to it at the trainer tests' tolerance (rtol 2e-4, atol 2e-5).
+Some SGD cases on small tables pin ``update_path="hybrid"``, which they
+were written for; under "auto" such tables train on the direct path, and
+``FM(solver="sgd")`` with no pinned path, and with adam, is held to the JAX
+facade (epoch losses rtol 1e-5, parameters rtol 1e-4, atol 1e-6).
+``FM(solver="sgd", feature_groups=...)`` on a 2^16-row table trains on the
+fused path under "auto", as the JAX facade does, and is held to it at the
+trainer tests' tolerance (rtol 2e-4, atol 2e-5). ``FM(num_fields=...)``
+is held to the JAX facade in ``tests/test_torch_ffm.py``.
 
 One divergence from the JAX facade, on purpose: a callable solver given
 ``init_params`` or a nonzero ``timeout`` raises ``ValueError``, where the
@@ -275,3 +278,38 @@ def test_sgd_steps_per_dispatch_trains_on_the_fused_path():
                                    rtol=2e-4, atol=2e-5, err_msg=name)
     assert [h["train_loss"] for h in got.history] == [
         h["train_loss"] for h in single.history]
+
+
+@pytest.mark.parametrize("optimizer,update_path,lr", [
+    ("adagrad", "auto", 0.1), ("adam", "auto", 0.01),
+    ("adam", "dedup", 0.01)])
+def test_sgd_facade_matches_jax_facade(ratings, optimizer, update_path, lr):
+    """FM(solver="sgd") on a 110-row MovieLens table with no pinned path
+    (the direct path) and with adam, and adam pinned to the dedup path,
+    against the JAX facade from the same numpy parameters: epoch losses,
+    evals and parameters."""
+    jratings = jsynth.synth_movielens(num_users=50, num_items=60,
+                                      num_examples=4000, seed=0)
+    rng = np.random.default_rng(5)
+    w0, w, v = (np.float32(3.0), rng.normal(0, 0.05, 110).astype(np.float32),
+                rng.normal(0, 0.05, (110, 4)).astype(np.float32))
+    kw = dict(num_factors=4, max_iter=3, solver="sgd", batch_size=512,
+              learning_rate=lr, reg_v=0.01, optimizer=optimizer,
+              update_path=update_path)
+    got = FM(**kw).fit(ratings, eval_ds=ratings, device="cpu",
+                       init_params=params_from_numpy(w0, w, v, device="cpu"))
+    want = sfm.FM(**kw).fit(jratings, eval_ds=jratings,
+                            init_params=jfm.FMParams(w0=jnp.asarray(w0),
+                                                     w=jnp.asarray(w),
+                                                     v=jnp.asarray(v)))
+    assert len(got.history) == len(want.history) == 3
+    for g, h in zip(got.history, want.history):
+        assert g.keys() == h.keys()
+        for key in ("train_loss", "eval_rmse", "eval_mae"):
+            np.testing.assert_allclose(g[key], h[key], rtol=1e-5,
+                                       err_msg=key)
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(got.params, name).numpy(),
+                                   np.asarray(getattr(want.params, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    assert got.params.v.shape == (110, 4)

@@ -34,7 +34,7 @@ def dev():
 
 @pytest.mark.parametrize("rows,width,n", [
     (1000, 1, 777), (1000, 4, 1), (100003, 32, 40960), (5000, 33, 333),
-    (5000, 128, 1025)])
+    (5000, 128, 1025), (20001, 356, 8192)])
 def test_gather_kernel_equals_plain(dev, rows, width, n):
     g = torch.Generator(device=dev).manual_seed(rows + width)
     table = torch.randn((rows, width), generator=g, device=dev)
@@ -78,7 +78,8 @@ def test_gather_tiles_on_a_device_plan(dev, width):
 
 @pytest.mark.parametrize("rows,k,n", [(100003, 32, 40960), (5000, 5, 333),
                                       (1000, 1, 1), (3000, 128, 1025),
-                                      (1 << 20, 32, 1 << 18)])
+                                      (1 << 20, 32, 1 << 18),
+                                      (20001, 176, 8192 * 22)])
 def test_gather_vw_rows_kernel_equals_plain(dev, rows, k, n):
     """The two-table gather [v[ids] | w[ids]] (serving's one launch per
     chunk) against two index_selects and a cat: exact, a fill tail
@@ -116,6 +117,32 @@ def test_scores_on_card_match_cpu(dev, feats, plan):
     np.testing.assert_allclose(outs[1], outs[0], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("slot_major", [False, True])
+def test_ffm_scores_on_card_match_cpu(dev, slot_major):
+    """FFM scoring (one two-table gather of the per-slot [v | w] rows) on
+    the card against the CPU, in the aggregated and slot-major forms."""
+    rng = np.random.default_rng(3)
+    nf, k, feats = 6, 4, 5000
+    cfg = FMConfig(num_features=feats, num_factors=k, num_fields=nf,
+                   slot_major_fields=slot_major, task=Task.CLASSIFICATION)
+    arrays = (np.float32(0.1), rng.normal(0, 0.5, feats).astype(np.float32),
+              rng.normal(0, 0.3, (feats, nf * k)).astype(np.float32))
+    ids = rng.integers(0, feats, (64, nf)).astype(np.int32)
+    vals = rng.normal(size=(64, nf)).astype(np.float32)
+    fids = (np.broadcast_to(np.arange(nf, dtype=np.int32), (64, nf))
+            if slot_major else rng.integers(0, nf, (64, nf)).astype(np.int32))
+    outs = []
+    for device in ("cpu", dev):
+        before = rowio.GATHER_VW.launches
+        outs.append(pfm.predict(
+            pfm.params_from_numpy(*arrays, device=device), cfg,
+            torch.as_tensor(ids, device=device),
+            torch.as_tensor(vals, device=device),
+            torch.as_tensor(np.array(fids), device=device)).cpu().numpy())
+        assert rowio.GATHER_VW.launches - before == (device != "cpu")
+    np.testing.assert_allclose(outs[1], outs[0], rtol=1e-5, atol=1e-5)
+
+
 def test_microbatcher_on_card_runs_the_kernel(dev):
     cfg = FMConfig(num_features=1 << 17, num_factors=8,
                    task=Task.CLASSIFICATION)
@@ -134,7 +161,7 @@ def test_microbatcher_on_card_runs_the_kernel(dev):
 
 @pytest.mark.parametrize("rows,width,n", [
     (1000, 1, 777), (1000, 4, 1), (100003, 68, 40960), (5000, 33, 333),
-    (5000, 128, 1025)])
+    (5000, 128, 1025), (20001, 356, 8192)])
 def test_scatter_kernel_equals_plain(dev, rows, width, n):
     """Unique ids plus a repeated fill row (the last): every row, the fill
     row included (its first slot's row), must equal the plain version's."""
@@ -438,7 +465,8 @@ def _rows_case(dev, n, w, kind, seed):
 ROWS_CASES = [  # (n, W, kind): N not a multiple of the 256-slot chunk
     (1, 1, "runs"), (1000, 3, "runs"), (3073, 66, "dense"),
     (20000, 35, "long"), (5000, 130, "runs"), (4097, 354, "dense"),
-    (300001, 66, "long")]
+    (300001, 66, "long"), (8192, 9, "dense"), (200003, 33, "long"),
+    (90001, 354, "long")]
 
 
 @pytest.mark.parametrize("squares", [False, True])
@@ -533,6 +561,87 @@ def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
     for name in ("w0", "w", "v"):
         assert torch.equal(getattr(again.params, name),
                            getattr(on_card.params, name)), name
+    on_cpu = train_sgd(cfg, sgd, ds, init_params=init, device="cpu")
+    np.testing.assert_allclose(
+        [h["train_loss"] for h in on_card.history],
+        [h["train_loss"] for h in on_cpu.history], rtol=1e-4)
+    np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
+                               on_cpu.params.v.numpy(), rtol=1e-4,
+                               atol=1e-5)
+
+
+def _movielens_like():
+    return psynth.synth_movielens(num_users=300, num_items=400,
+                                  num_examples=6000, seed=3)
+
+
+def _big_ctr():
+    return psynth.synth_ctr(num_examples=2000, num_fields=8,
+                            num_buckets=1 << 17, seed=4)
+
+
+PATH_RUNS = {  # name: (data, FMConfig extras, SGDConfig extras, launches/step)
+    "direct adagrad": (_movielens_like, dict(num_factors=8, reg_v=0.02),
+                       dict(learning_rate=0.1),
+                       {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM_SQ": 1}),
+    "direct adam": (_movielens_like, dict(num_factors=8, reg_v=0.02),
+                    dict(learning_rate=0.001, optimizer="adam"),
+                    {"GATHER_VW": 3, "SCATTER": 6, "ROWSUM": 1}),
+    "direct momentum": (_movielens_like, dict(num_factors=8, reg_v=0.02),
+                        dict(learning_rate=0.01, optimizer="sgd",
+                             momentum=0.9),
+                        {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM": 1}),
+    "dedup adam": (_big_ctr, dict(num_factors=8, reg_v=1e-4,
+                                  task=Task.CLASSIFICATION),
+                   dict(learning_rate=0.01, optimizer="adam"),
+                   {"GATHER_VW": 3, "SCATTER": 6, "ROWSUM_SQ": 1}),
+    "dedup momentum, device plans": (
+        _big_ctr, dict(num_factors=8, reg_v=1e-4, task=Task.CLASSIFICATION),
+        dict(learning_rate=0.01, optimizer="sgd", momentum=0.9,
+             host_plan=False),
+        {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM_SQ": 1}),
+    "fused FFM": (_big_ctr, dict(num_factors=4, num_fields=8, reg_v=1e-4,
+                                 slot_major_fields=True,
+                                 task=Task.CLASSIFICATION),
+                  dict(learning_rate=0.05),
+                  {"GATHER": 1, "SCATTER": 1, "ROWSUM": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(PATH_RUNS))
+def test_direct_dedup_and_ffm_train_sgd_on_card_match_cpu(dev, name):
+    """train_sgd on the direct path (BASELINE config 1's shape, tables
+    below 2^16 rows), the dedup path (adam, momentum) and FFM on the
+    fused path, on the card: the kernels' launches per step as the path
+    runs them (B1's two-table gather for [v | w], the slots and adam's
+    second moments; B2 once a table; B6 for [Σg | Σg²], or B5 for the
+    direct step's per-slot momentum and adam terms and the fused step's
+    record sums), two card runs equal bit for bit (no atomics), and the
+    card run against the CPU's at the fused test's tolerance (rtol 1e-4;
+    V at rtol 1e-4, atol 1e-5)."""
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    make, fm_kw, sgd_kw, per_step = PATH_RUNS[name]
+    ds = make()
+    cfg = FMConfig(num_features=ds.num_features, seed=3, **fm_kw)
+    sgd = SGDConfig(batch_size=512, epochs=2, **sgd_kw)
+    path = psgd.resolve_update_path(cfg, sgd)
+    assert path == name.split()[0]
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(3),
+                           device="cpu")
+    kernels = {"GATHER": rowio.GATHER, "GATHER_VW": rowio.GATHER_VW,
+               "SCATTER": rowio.SCATTER, "ROWSUM": segsum.ROWSUM,
+               "ROWSUM_SQ": segsum.ROWSUM_SQ}
+    counts = {k: kern.launches for k, kern in kernels.items()}
+    on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
+    steps = 2 * -(-ds.num_examples // 512)
+    assert {k: kern.launches - counts[k] for k, kern in kernels.items()} == {
+        k: steps * per_step.get(k, 0) for k in kernels}
+    again = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
+    assert [h["train_loss"] for h in again.history] == [
+        h["train_loss"] for h in on_card.history]
+    for pname in ("w0", "w", "v"):
+        assert torch.equal(getattr(again.params, pname),
+                           getattr(on_card.params, pname)), pname
     on_cpu = train_sgd(cfg, sgd, ds, init_params=init, device="cpu")
     np.testing.assert_allclose(
         [h["train_loss"] for h in on_card.history],

@@ -185,16 +185,20 @@ def test_init_params_distribution():
     assert not torch.equal(other.v, p.v)
 
 
-def test_field_aware_config_is_not_ported_yet():
+def test_field_aware_init_and_scores():
+    """FFM parameters are flat (F, num_fields * K); scoring them needs
+    field_ids unless the config is slot-major, as in the JAX package
+    (``tests/test_torch_ffm.py`` holds the scores to it)."""
     cfg = FMConfig(num_features=64, num_factors=2, num_fields=3)
-    with pytest.raises(NotImplementedError):
-        pfm.init_params(cfg, device="cpu")
-    params = pfm.params_from_numpy(np.float32(0), np.zeros(64, np.float32),
+    assert pfm.init_params(cfg, device="cpu").v.shape == (64, 6)
+    params = pfm.params_from_numpy(np.float32(0.5), np.zeros(64, np.float32),
                                    np.zeros((64, 6), np.float32),
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        pfm.scores(params, cfg, torch.zeros((1, 3), dtype=torch.int32),
-                   torch.ones((1, 3)))
+    ids, vals = torch.zeros((1, 3), dtype=torch.int32), torch.ones((1, 3))
+    with pytest.raises(ValueError, match="field_ids"):
+        pfm.scores(params, cfg, ids, vals)
+    s = pfm.scores(params, cfg.replace(slot_major_fields=True), ids, vals)
+    assert s.tolist() == [0.5]
 
 
 def test_losses_match_jax():

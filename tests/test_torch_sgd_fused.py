@@ -53,8 +53,8 @@ def _data(task: str, seed: int = 0):
 def _configs(task, fm_kw=None, **sgd_kw):
     kw = dict(num_features=F, num_factors=K, reg0=0.01, reg_w=0.02,
               reg_v=0.03, seed=7, **(fm_kw or {}))
-    skw = dict(batch_size=B, learning_rate=0.1, unique_budget=BUDGET,
-               update_path="fused", **sgd_kw)
+    skw = dict(dict(batch_size=B, learning_rate=0.1, unique_budget=BUDGET,
+                    update_path="fused"), **sgd_kw)
     return (JFMConfig(task=JTask(task), **kw), JSGDConfig(**skw),
             FMConfig(task=Task(task), **kw), SGDConfig(**skw))
 
@@ -196,15 +196,48 @@ def test_batch_loss_gathers_group_strengths():
     ({}, dict(optimizer="adam"), ValueError),
     ({}, dict(optimizer="sgd", momentum=0.9), ValueError),
     ({}, dict(accumulate="tree"), ValueError),
-    (dict(num_fields=2), {}, NotImplementedError),
-    ({}, dict(update_path="dedup"), NotImplementedError),
-    ({}, dict(update_path="direct"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     _, _, pcfg, psgd_cfg = _configs("regression", fm_kw)
     with pytest.raises(exc):
         sgd_fused.make_fused_train_step(
             pcfg, dataclasses.replace(psgd_cfg, **sgd_kw))
+
+
+@pytest.mark.parametrize("fm_kw,sgd_kw", [
+    (dict(num_fields=2), {}),
+    ({}, dict(update_path="dedup")),
+    ({}, dict(update_path="direct")),
+])
+def test_steps_where_jax_steps(fm_kw, sgd_kw):
+    """The JAX fused step takes an FFM record (vk = num_fields * K) and
+    does not read update_path: both packages build the step and, from one
+    table, take 3 steps that agree (losses rtol 1e-5, tables rtol 1e-4,
+    atol 1e-6)."""
+    ids, vals, y, (w0, w, _) = _data("regression", seed=5)
+    vk = K * max(1, fm_kw.get("num_fields", 0))
+    v = np.random.default_rng(5).normal(0, 0.1, (F, vk)).astype(np.float32)
+    fids = (np.arange(L, dtype=np.int32) % 2)[None, :].repeat(N, 0)
+    jcfg, jsgd, pcfg, psgd_cfg = _configs("regression", fm_kw, **sgd_kw)
+    plan_kw = dict(dedup_budget=BUDGET, dedup_fill=F)
+    jb = jbatching.batch_iterator(jbatching.SparseDataset(
+        ids=ids, vals=vals, y=y, num_features=F, field_ids=fids), B,
+        **plan_kw)
+    pb = pbatching.batch_iterator(pbatching.SparseDataset(
+        ids=ids, vals=vals, y=y, num_features=F, field_ids=fids), B,
+        device="cpu", **plan_kw)
+    jstep = jfused.make_fused_train_step(jcfg, jsgd)
+    pstep = sgd_fused.make_fused_train_step(pcfg, psgd_cfg)
+    jstate, pstate = _states(jcfg, pcfg, (w0, w, v))
+    for _, jbatch, pbatch in zip(range(3), jb, pb):
+        jstate, jaux = jstep(jstate, jbatch)
+        pstate, paux = pstep(pstate, pbatch)
+        np.testing.assert_allclose(float(paux["loss"]), float(jaux["loss"]),
+                                   rtol=1e-5)
+    used = 2 * vk + 2
+    np.testing.assert_allclose(pstate.table[:F, :used].numpy(),
+                               np.asarray(jstate.table)[:F, :used],
+                               rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("accumulate", ["auto", "segsum"])

@@ -162,13 +162,30 @@ def test_only_the_batch_rows_change_and_fill_writes_agree(monkeypatch):
     (dict(compute_dtype="bfloat16"), {}, ValueError),
     ({}, dict(steps_per_dispatch=2), NotImplementedError),
     ({}, dict(host_plan=False), ValueError),
-    ({}, dict(update_path="direct"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     _, _, pcfg, psgd = _configs("regression", "adagrad", **fm_kw)
     with pytest.raises(exc):
         sgd_hybrid.make_hybrid_train_step(
             pcfg, dataclasses.replace(psgd, **sgd_kw))
+
+
+def test_step_does_not_read_update_path():
+    """As the JAX hybrid step: update_path is the trainer's to read, so a
+    step built with another value trains exactly as one built with
+    "hybrid"."""
+    ids, vals, y, params = _data("regression", seed=3)
+    jcfg, _, pcfg, psgd = _configs("regression", "adagrad")
+    pds = pbatching.SparseDataset(ids=ids, vals=vals, y=y, num_features=F)
+    batch = next(pbatching.batch_iterator(pds, B, device="cpu",
+                                          dedup_budget=BUDGET, dedup_fill=F))
+    tables = []
+    for path in ("hybrid", "direct"):
+        _, pstate = _states(jcfg, pcfg, params)
+        step = sgd_hybrid.make_hybrid_train_step(
+            pcfg, dataclasses.replace(psgd, update_path=path))
+        tables.append(step(pstate, batch)[0].table)
+    assert torch.equal(*tables)
 
 
 def test_plan_without_sorted_payloads_raises():

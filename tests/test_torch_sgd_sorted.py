@@ -229,9 +229,26 @@ def test_loss_decreases_end_to_end():
     (dict(num_fields=2), {}, ValueError),
     ({}, dict(optimizer="adagrad_row"), ValueError),
     ({}, dict(optimizer="sgd", momentum=0.9), ValueError),
-    ({}, dict(update_path="dedup"), NotImplementedError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
     with pytest.raises(exc):
         sgd_sorted.make_sorted_train_step(
             FMConfig(num_features=64, **fm_kw), SGDConfig(**sgd_kw))
+
+
+def test_step_does_not_read_update_path():
+    """As the JAX sorted step: update_path is the trainer's to read, so a
+    step built with "dedup" trains exactly as one built with "sorted"."""
+    rng = np.random.default_rng(4)
+    cfg = FMConfig(num_features=64, num_factors=3)
+    ids = rng.integers(0, 64, (16, 5)).astype(np.int32)
+    batch = SparseBatch(ids=torch.from_numpy(ids), vals=torch.ones((16, 5)),
+                        y=torch.from_numpy(rng.normal(size=16).astype(
+                            np.float32)))
+    tables = []
+    for path in ("sorted", "dedup"):
+        state = sgd_fused.init_fused_state(cfg, device="cpu")
+        step = sgd_sorted.make_sorted_train_step(
+            cfg, SGDConfig(batch_size=16, update_path=path))
+        tables.append(step(state, batch)[0].table)
+    assert torch.equal(*tables)

@@ -1,7 +1,8 @@
 """The port's train_sgd against the JAX package's (``update_path=
-"hybrid"``, and "fused" and "sorted"), from the same initial parameters,
-on ``synth_ctr`` with shuffled epochs and, where the path takes them,
-ladder plans.
+"hybrid"``, "fused", "sorted", "direct" and "dedup"), from the same
+initial parameters, on ``synth_ctr`` with shuffled epochs and, where the
+path takes them, ladder plans; and BASELINE config 1's recipe at a small
+scale (the direct path under "auto").
 
 Tolerance rtol 1e-4 (atol 1e-6 on parameters): the two trainers run the
 same steps on the same batches, and float32 sums in another order compound
@@ -20,6 +21,7 @@ from sparkfm_tpu.config import SGDConfig as JSGDConfig
 from sparkfm_tpu.config import Task as JTask
 from sparkfm_tpu.data import synth as jsynth
 from sparkfm_tpu.models.fm import FMParams as JFMParams
+from sparkfm_tpu.solvers import sgd as jsgd
 from sparkfm_tpu.training import trainer as jtrainer
 from sparkfm_tpu_torch import FMConfig, SGDConfig, Task, evaluate, train_sgd
 from sparkfm_tpu_torch.config import SGDConfig as PSGDConfig
@@ -183,8 +185,6 @@ def test_steps_per_dispatch_runs_single_steps_off_the_hybrid_path(path):
     (dict(mesh=object()), {}, "A15"),
     (dict(checkpoint_dir="ckpt"), {}, "A5"),
     ({}, dict(steps_per_dispatch=2), "A3"),
-    ({}, dict(update_path="dedup"), "A9"),
-    ({}, dict(update_path="direct"), "A9"),
 ])
 def test_unported_options_raise(kw, sgd_kw, match, tmp_path):
     ds = psynth.synth_ctr(num_examples=64, seed=5, **SYNTH)
@@ -196,18 +196,126 @@ def test_unported_options_raise(kw, sgd_kw, match, tmp_path):
                   **kw)
 
 
-def test_small_tables_raise_under_auto():
-    """Under update_path='auto' the JAX package trains a table below 2^16
-    rows on its direct path, which is not ported; 'hybrid' pinned
-    trains it."""
-    ds = psynth.synth_ctr(num_examples=64, num_fields=4, num_buckets=1000,
-                          seed=6)
-    cfg = FMConfig(num_features=1000, num_factors=K)
-    with pytest.raises(NotImplementedError, match="direct"):
-        train_sgd(cfg, SGDConfig(**SGD), ds, device="cpu")
-    res = train_sgd(cfg, SGDConfig(update_path="hybrid", **SGD), ds,
-                    device="cpu")
-    assert np.isfinite(res.history[-1]["train_loss"])
+def test_small_tables_train_on_the_direct_path_under_auto():
+    """Under update_path='auto' a table below 2^16 rows trains on the
+    direct path, as in the JAX package: the same epoch losses and final
+    parameters as the JAX trainer's, and no unique_overflow_steps in the
+    history (the direct step's plans hold every id)."""
+    cfg_kw = dict(num_features=1000, num_factors=K, reg_v=1e-3, seed=6)
+    synth_kw = dict(num_examples=600, num_fields=4, num_buckets=1000,
+                    seed=6)
+    rng = np.random.default_rng(6)
+    w0, w, v = (np.float32(0.0), rng.normal(0, 0.05, 1000).astype(
+        np.float32), rng.normal(0, 0.05, (1000, K)).astype(np.float32))
+    jres = jtrainer.train_sgd(
+        JFMConfig(**cfg_kw), JSGDConfig(**SGD), jsynth.synth_ctr(**synth_kw),
+        init_params=JFMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                              v=jnp.asarray(v)))
+    pres = train_sgd(FMConfig(**cfg_kw), SGDConfig(**SGD),
+                     psynth.synth_ctr(**synth_kw),
+                     init_params=params_from_numpy(w0, w, v, device="cpu"),
+                     device="cpu")
+    for g, h in zip(pres.history, jres.history):
+        assert g.keys() == h.keys() == {"epoch", "train_loss"}
+        np.testing.assert_allclose(g["train_loss"], h["train_loss"],
+                                   rtol=1e-5)
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(pres.params, name).numpy(),
+                                   np.asarray(getattr(jres.params, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+def test_config1_recipe_matches_jax():
+    """BASELINE config 1's recipe (``benchmarks/run_config.py:30-58``) at
+    scale 0.08 (the recipe's own sqrt-per-axis cut: 267 users, 476 items,
+    8,000 ratings): 15 epochs of batch 4096 at lr 0.1, adagrad, eval every
+    14, from the same initial parameters in both packages. The direct
+    path under "auto"; epoch losses and eval RMSE/MAE at rtol 1e-5, the
+    parameters at rtol 1e-4, atol 1e-6, and the test RMSE below the
+    train-mean baseline the recipe prints."""
+    from sparkfm_tpu.data.split import split_by_random as jsplit
+    from sparkfm_tpu_torch.data.split import split_by_random as psplit
+    scale = 0.08
+    users, items = (int(round(n * scale ** 0.5)) for n in (943, 1682))
+    data_kw = dict(num_users=users, num_items=items,
+                   num_examples=int(100_000 * scale), seed=0)
+    jcoll = jsplit(jsynth.synth_movielens(**data_kw), 0.8, 0.2, seed=0)
+    pcoll = psplit(psynth.synth_movielens(**data_kw), 0.8, 0.2, seed=0)
+    f = users + items
+    cfg_kw = dict(num_features=f, num_factors=8, reg_v=0.02, seed=0)
+    sgd = dict(batch_size=4096, epochs=15, learning_rate=0.1)
+    rng = np.random.default_rng(0)
+    w0, w, v = (np.float32(0.0), np.zeros(f, np.float32),
+                rng.normal(0, 0.01, (f, 8)).astype(np.float32))
+    assert jsgd.resolve_update_path(JFMConfig(**cfg_kw),
+                                    JSGDConfig(**sgd)) == "direct"
+    jres = jtrainer.train_sgd(
+        JFMConfig(**cfg_kw), JSGDConfig(**sgd), jcoll.training,
+        eval_ds=jcoll.test, eval_every=14,
+        init_params=JFMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                              v=jnp.asarray(v)))
+    pres = train_sgd(FMConfig(**cfg_kw), SGDConfig(**sgd), pcoll.training,
+                     eval_ds=pcoll.test, eval_every=14,
+                     init_params=params_from_numpy(w0, w, v, device="cpu"),
+                     device="cpu")
+    assert len(pres.history) == len(jres.history) == 15
+    for g, h in zip(pres.history, jres.history):
+        assert g.keys() == h.keys()
+        for key in g:
+            np.testing.assert_allclose(g[key], h[key], rtol=1e-5,
+                                       err_msg=key)
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(pres.params, name).numpy(),
+                                   np.asarray(getattr(jres.params, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    mean_base = float(np.sqrt(np.mean(
+        (pcoll.test.y - float(np.mean(pcoll.training.y))) ** 2)))
+    assert pres.history[-1]["eval_rmse"] < mean_base
+
+
+@pytest.mark.parametrize("sgd_kw", [
+    dict(update_path="auto", optimizer="adam", learning_rate=0.01),
+    dict(update_path="dedup", optimizer="sgd", momentum=0.9,
+         learning_rate=0.01, host_plan=False),
+])
+def test_dedup_path_matches_jax(sgd_kw):
+    """adam (which "auto" sends to the dedup path on a 2^17-row table) and
+    momentum on device plans: train_sgd against the JAX trainer, epoch
+    losses, overflow counts, evals and the final parameters, trimmed of
+    the dedup fill row."""
+    kw = dict(SYNTH, label_range=(0.0, 1.0))
+    cfg_kw = dict(num_features=F, num_factors=K, reg_w=1e-4, reg_v=1e-4,
+                  seed=5, task=JTask.CLASSIFICATION)
+    w0, w, v = _params(2)
+    sgd = dict(SGD, **sgd_kw)
+    assert jsgd.resolve_update_path(JFMConfig(**cfg_kw),
+                                    JSGDConfig(**sgd)) == "dedup"
+    jres = jtrainer.train_sgd(
+        JFMConfig(**cfg_kw), JSGDConfig(**sgd),
+        jsynth.synth_ctr(num_examples=700, seed=6, **kw),
+        eval_ds=jsynth.synth_ctr(num_examples=200, seed=7, **kw),
+        init_params=JFMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                              v=jnp.asarray(v)))
+    pres = train_sgd(FMConfig(**dict(cfg_kw, task=Task.CLASSIFICATION)),
+                     SGDConfig(**sgd),
+                     psynth.synth_ctr(num_examples=700, seed=6, **kw),
+                     eval_ds=psynth.synth_ctr(num_examples=200, seed=7,
+                                              **kw),
+                     init_params=params_from_numpy(w0, w, v, device="cpu"),
+                     device="cpu")
+    for g, h in zip(pres.history, jres.history):
+        assert g.keys() == h.keys()
+        assert g["unique_overflow_steps"] == h["unique_overflow_steps"] == 0
+        for key in ("train_loss", "eval_logloss", "eval_auc"):
+            np.testing.assert_allclose(g[key], h[key], rtol=1e-5,
+                                       err_msg=key)
+    for name in ("w0", "w", "v"):
+        got = getattr(pres.params, name).numpy()
+        assert got.shape == np.shape(getattr(jres.params, name))
+        np.testing.assert_allclose(got,
+                                   np.asarray(getattr(jres.params, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    assert pres.params.v.shape == (F, K)
 
 
 def test_hybrid_needs_host_plans():
