@@ -12,8 +12,9 @@ BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving.
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
      one nvcc per source in parallel (``rowio.cu``: row gathers and row
-     write; ``segsum.cu``: the two backwards, row sums and per-rank stream
-     sums), and prints ptxas's registers and spills per kernel;
+     write; ``segsum.cu``: the two backwards, row sums (with squares) and
+     per-rank stream sums), and prints ptxas's registers and spills per
+     kernel;
   2. holds the gathers against their plain versions on the card, with
      exact equality (a gather is a copy): the serving path's two-table
      gather ``[v | w]`` against two ``index_select``s and a ``cat``, and
@@ -95,21 +96,26 @@ BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving.
      and at N = 100,003; its sums repeat exactly, ranks without slots are
      zero, and an out-of-range rank traps in a child process;
  16. trains BASELINE config 3 on the fused path with the default
-     ``accumulate="auto"``, which sums by B5 on the card (``train_sgd``, as
-     phase 9), the launch counts set to 0 just before: B1 = B2 = B5 =
-     steps, B3 = 0; runs 5 fused steps against the plain versions as phase
+     ``accumulate="auto"``, which sums by sorted runs on the card
+     (``train_sgd``, as phase 9), the launch counts set to 0 just before:
+     under adagrad B1 = B2 = B6 = steps (B6 sums ``[g_v | g_w]`` and forms
+     the squares, so no ``[g_v | g_v² | g_w | g_w²]`` pack is built), B5 =
+     B3 = 0; under adagrad_row B1 = B2 = B5 = steps (B5 sums its (N, k+3)
+     pack), B6 = 0; runs 5 fused steps against the plain versions as phase
      9 does; runs 3 steps on plans built on the card (``host_plan=False``)
-     under each accumulate mode ("auto" and "segsum" launch B5 and give
+     under each accumulate mode ("auto" and "segsum" launch B6 and give
      the same table bit for bit, "scatter" launches none);
  17. the same on the sorted path: ``train_sgd(update_path="sorted")``
-     (B1 = B2 = B5 = steps) and 5 steps against the plain versions;
+     (B1 = B2 = B6 = steps, B5 = 0) and 5 steps against the plain
+     versions;
  18. holds B6 (``segment_rowsum_sq``) and B4 (``fm_grad_segsum``) against
      their plain versions in float64 on phase 15's plan at k = 32, 4 and
      33, and B4 against B3 on the rows it expands (< 1e-6); sums repeat,
      out-of-range ranks trap; then profiles B4, B5 and B6 per call against
-     their plain versions, and one epoch of each SGD path (hybrid, fused
-     on host plans, fused on device plans, sorted): trained ex/s, the
-     device's busy share and its top events;
+     their plain versions, B6 also against the sequence it replaced on the
+     fused and sorted steps (squares, ``cat``, B5), and one epoch of each
+     SGD path (hybrid, fused on host plans, fused on device plans,
+     sorted): trained ex/s, the device's busy share and its top events;
  19. trains BASELINE config 1 (``benchmarks/run_config.py``'s recipe:
      ``synth_movielens(943, 1682, 100,000)``, split 0.8/0.2, rank 8,
      reg_v 0.02, 15 epochs of 4096 at lr 0.1, adagrad) with ``train_sgd``
@@ -128,13 +134,14 @@ BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving.
      against the plain versions; one profiled epoch each;
  21. BASELINE config 4 (``benchmarks/bench_configs.py::bench_ffm``: FFM,
      22 fields, rank 8, 2^22 buckets, slot-major, B = 8192, adagrad, lr
-     0.05) on the fused path with the record at W = 356: B5 at W = 354
-     against float64, B1 and B2 at W = 356 against their plain versions on
-     every row, 3 steps twice bit for bit, 5 steps against the plain
-     versions, one ``MicroBatcher`` flush with field_ids against the plain
-     per-slot path, the kernels timed at these shapes, and one profiled
-     epoch of ``train_sgd`` (20 steps: B1 = B2 = B5 = 20) with its peak
-     device memory.
+     0.05) on the fused path with the record at W = 356: B6 on its
+     ``[g_v | g_w]`` (W = 177) against float64, B1 and B2 at W = 356
+     against their plain versions on every row, 3 steps twice bit for bit,
+     5 steps against the plain versions, one ``MicroBatcher`` flush with
+     field_ids against the plain per-slot path, the kernels timed at these
+     shapes (B6 beside the squares, ``cat`` and B5 it replaced), and one
+     profiled epoch of ``train_sgd`` (20 steps: B1 = B2 = B6 = 20) with its
+     peak device memory.
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -156,8 +163,11 @@ the least time the card could take, from the bytes the call must move at
 3.35 TB/s and its float32 operations at 67 TFLOP/s, ``bound_by`` which,
 ``share_of_bound`` = bound / device time; ``launches``: the count from the
 main paths' runs, serving and training; B4, which no path runs, counts
-one call at the main path's shapes, as its ``path`` field says; B6's
-count is config 1's run), the last line the result. Entries named
+one call at the main path's shapes, as its ``path`` field says; B5's
+count is the fused adagrad_row run's, B6's the fused (auto) run's, with
+the sorted run's beside it; ``before_ms``/``before_device_ms`` on B6's
+fused, sorted and FFM entries: the squares, ``cat`` and B5 that B6
+replaced there), the last line the result. Entries named
 ``... (FFM record)``, ``... (direct, config 1)``, ``... (dedup, ...)``
 time the same kernels at the shapes of phases 19-21, with their launches
 from those runs.
@@ -1327,6 +1337,22 @@ def rowsum_sq64(g, seg, num_segments):
                                               num_segments).float()
 
 
+REPLACED_BY_B6 = ("the squares of [g_v | g_w], their cat into [g_v | g_v² | "
+                  "g_w | g_w²] and B5: the fused and sorted steps' sums "
+                  "before B6 took them")
+
+
+def replaced_by_b6(g, seg, num_segments):
+    """What B6 replaced on the fused and sorted steps, on B6's input
+    ``g`` = [g_v | g_w] (N, k+1): the squares, the (N, 2k+2) pack by
+    ``cat``, and B5 over it."""
+    from sparkfm_tpu_torch.ops import segsum
+    gv, gw = g[:, :-1], g[:, -1:]
+    return segsum.segment_rowsum(torch.cat([gv, gv.square(), gw,
+                                            gw.square()], 1), seg,
+                                 num_segments)
+
+
 def as64(a):
     return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
 
@@ -1416,17 +1442,22 @@ def segsum_phases(dev, cfg, gen, rng, card):
                                   dedup_budget="ladder", dedup_fill=BUCKETS))
     kernels = {"gather_rows": rowio.GATHER, "scatter_set_rows": rowio.SCATTER,
                "segment_rowsum": segsum.ROWSUM,
+               "segment_rowsum_sq": segsum.ROWSUM_SQ,
                "fm_grad_segsum_factored": segsum.FACTORED}
     plain_swaps = [(rowio, "gather_rows", rowio.gather_rows_reference),
                    (rowio, "scatter_set_rows",
                     rowio.scatter_set_rows_reference),
-                   (segsum, "segment_rowsum", rowsum64)]
+                   (segsum, "segment_rowsum", rowsum64),
+                   (segsum, "segment_rowsum_sq", rowsum_sq64)]
     steps = 2 * 20
     train_launches = {}
 
-    def train(label, **kw):
+    def train(label, sums="segment_rowsum_sq", optimizer="adagrad", **kw):
+        """train_sgd of config 3 for 2 epochs on a path whose per-unique
+        sums run ``sums``: B6 for adagrad's [g_v | g_w], B5 for
+        adagrad_row's pack."""
         sgd = SGDConfig(batch_size=BATCH, learning_rate=0.05,
-                        optimizer="adagrad", epochs=2, **kw)
+                        optimizer=optimizer, epochs=2, **kw)
         torch.cuda.synchronize()
         for k in kernels.values():
             k.launches = 0
@@ -1436,8 +1467,9 @@ def segsum_phases(dev, cfg, gen, rng, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: k.launches for name, k in kernels.items()}
-        want = dict.fromkeys(kernels, steps)
-        want["fm_grad_segsum_factored"] = 0
+        want = dict.fromkeys(kernels, 0)
+        want.update({"gather_rows": steps, "scatter_set_rows": steps,
+                     sums: steps})
         if launches != want:
             raise AssertionError(f"{label} training launches {launches}, "
                                  f"expected {want}")
@@ -1451,14 +1483,17 @@ def segsum_phases(dev, cfg, gen, rng, card):
               f"{BATCH}: epoch losses {losses}, {res.examples_per_sec:.0f} "
               f"ex/s (first step left out), {wall:.3f} s wall in all; "
               f"launches {launches}; {card}", flush=True)
-        train_launches[label] = launches["segment_rowsum"]
+        train_launches[label] = launches[sums]
 
     def init_state():
         return sgd_fused.init_fused_state(cfg, torch.Generator(
             device=dev).manual_seed(SEED + 2), device=dev)
 
-    # accumulate="auto", the default: B5 on the card
+    # accumulate="auto", the default: sorted sums on the card, B6 for
+    # adagrad (no [g_v | g_v² | g_w | g_w²] pack), B5 for adagrad_row's
     train("fused (auto)", update_path="fused")
+    train("fused (auto), adagrad_row", sums="segment_rowsum",
+          optimizer="adagrad_row", update_path="fused")
     fused_cfg = SGDConfig(batch_size=BATCH, learning_rate=0.05,
                           update_path="fused")
     losses, moved = steps_against_plain(
@@ -1483,15 +1518,15 @@ def segsum_phases(dev, cfg, gen, rng, card):
             run.append(aux)
         torch.cuda.synchronize()
         launches = {name: k.launches for name, k in kernels.items()}
-        want = {"gather_rows": 3, "scatter_set_rows": 3,
-                "segment_rowsum": 0 if accumulate == "scatter" else 3,
+        want = {"gather_rows": 3, "scatter_set_rows": 3, "segment_rowsum": 0,
+                "segment_rowsum_sq": 0 if accumulate == "scatter" else 3,
                 "fm_grad_segsum_factored": 0}
         run_losses = [float(a["loss"]) for a in run]
         if launches != want or not np.all(np.isfinite(run_losses)) or any(
                 bool(a["unique_overflow"]) for a in run):
             raise AssertionError(f"device-plan fused steps ({accumulate}): "
                                  f"launches {launches}, losses {run_losses}")
-        # "auto" is B5 on the card: the same steps as "segsum", bit for bit
+        # "auto" is B6 on the card: the same steps as "segsum", bit for bit
         if accumulate == "auto":
             first = state.table.clone()
         elif accumulate == "segsum" and not torch.equal(first, state.table):
@@ -1589,6 +1624,11 @@ def segsum_phases(dev, cfg, gen, rng, card):
 
     def index_add():
         return lib_out.index_add_(0, seg_l, g66)
+    # what B6 replaced on the fused and sorted steps: the squares of
+    # [g_v | g_w], their cat into [g_v | g_v² | g_w | g_w²] and B5
+    sq_args = main["sq"]
+    before_b6 = (time_ms(replaced_by_b6, [sq_args]),
+                 1e3 * spun_ms(lambda: replaced_by_b6(*sq_args)))
     times = {}
     for name, (fn, plain, args) in timed.items():
         ms = (time_ms(fn, [args]), time_ms(plain, [args]))
@@ -1609,8 +1649,13 @@ def segsum_phases(dev, cfg, gen, rng, card):
               f"({cost[name][0] / 1e6:.2f} MB), "
               f"{pct(share['share_of_bound'])} of it; {card}",
               flush=True)
+    print(f"time: the sequence B6 replaced on the fused and sorted steps "
+          f"(squares, cat, B5) at W=33 -> 66: {before_b6[0]:.4f} ms back to "
+          f"back; device {before_b6[1]:.2f} us, against B6's "
+          f"{times['segment_rowsum_sq'][2]:.2f} us (CUDA events, queued "
+          f"behind a spin kernel); {card}", flush=True)
     del lib_out, seg_l
-    del g66, timed, main
+    del g66, timed, main, sq_args
     torch.cuda.empty_cache()
     for label, kw in (("hybrid", dict(update_path="hybrid")),
                       ("fused, host plans", dict(update_path="fused")),
@@ -1653,13 +1698,18 @@ def segsum_phases(dev, cfg, gen, rng, card):
         entry("fm_grad_segsum", 418, b4_res, times["fm_grad_segsum"],
               in_kernel, launches=b4_launches, path=no_path),
         entry("segment_rowsum", 101, rowsum_main, times["segment_rowsum"],
-              "index_add_", launches=train_launches["fused (auto)"],
-              launches_sorted=train_launches["sorted"],
-              path="train_sgd fused, accumulate='auto' (B5 on the card, "
-                   "phase 16), sorted (phase 17)"),
+              "index_add_",
+              launches=train_launches["fused (auto), adagrad_row"],
+              path="train_sgd fused under adagrad_row, accumulate='auto' "
+                   "(phase 16), its (N, k+3) pack; timed at W = 66"),
         entry("segment_rowsum_sq", 238, sq_res, times["segment_rowsum_sq"],
               "none (the squares are formed in the kernel)",
-              launches=None, path="set by main from phase 19")]
+              launches=train_launches["fused (auto)"],
+              launches_sorted=train_launches["sorted"],
+              path="train_sgd fused, accumulate='auto' (phase 16), sorted "
+                   "(phase 17): [g_v | g_w] at W = 33",
+              before=REPLACED_BY_B6, before_ms=before_b6[0],
+              before_device_ms=before_b6[1] / 1e3)]
 
 
 # BASELINE config 1 (benchmarks/run_config.py:30-58: ML-100K shape) and
@@ -2100,9 +2150,11 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     plan4 = batches4[0].plan
     u4, seg4 = plan4.uids.shape[0], plan4.seg
     n4 = seg4.shape[0]
-    g354 = torch.randn((n4, used), generator=gen, device=dev)
-    res_b5 = hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
-                    (g354, seg4, u4), f"B5 W={used} N={n4} U={u4}", checked)
+    # the fused FFM step sums [g_v | g_w] (N, vk + 1) by B6
+    g177 = torch.randn((n4, vk + 1), generator=gen, device=dev)
+    res_b6 = hold64(segsum.segment_rowsum_sq,
+                    segsum.segment_rowsum_sq_reference, (g177, seg4, u4),
+                    f"B6 W={vk + 1} N={n4} U={u4}", checked)
     state4 = sgd_fused.init_fused_state(cfg4, torch.Generator(
         device=dev).manual_seed(SEED + 4), device=dev)
     if state4.table.shape != (FFM_BUCKETS + 1, width):
@@ -2121,7 +2173,7 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
         if not torch.equal(scratch, want_t):
             raise AssertionError(f"row write kernel != plain at W={width}")
         del want_t
-    print(f"check: config 4 FFM: B5 at W={used} against float64: "
+    print(f"check: config 4 FFM: B6 at W={vk + 1} against float64: "
           f"{checked[-1]}; gather and row write at W={width} on the "
           f"{tuple(state4.table.shape)} record table equal their plain "
           f"versions on every row (U={[b.plan.uids.shape[0] for b in batches4[:2]]})",
@@ -2191,13 +2243,11 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
           f"field-aggregated form (rtol 1e-5, atol 1e-6); {card}", flush=True)
     del params4, mb
     # the kernels at config 4's shapes, then one epoch of train_sgd: 20
-    # fused steps, B1 = B2 = B5 = steps
+    # fused steps, B1 = B2 = B6 = steps
     uids4 = plan4.uids
     distinct = min(int(plan4.count) + 1, u4)
     rows4 = torch.randn((u4, width), generator=gen, device=dev)
     keep = uids4[:distinct].long()
-    seg4_l = seg4.long()
-    lib_out = torch.zeros((u4, used), device=dev)
     t_gather = timed(f"B1 gather_rows per call, FFM record (U={u4}, "
                      f"W={width})", rowio.gather_rows,
                      rowio.gather_rows_reference, (state4.table, uids4),
@@ -2209,37 +2259,41 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
                     (scratch, uids4, rows4),
                     lambda: scratch.index_copy_(0, keep, rows4[:distinct]),
                     u4 * 4 + (u4 + distinct) * width * 4, 0)
-    t_b5 = timed(f"B5 segment_rowsum per call, FFM payload (N={n4}, "
-                 f"W={used}, U={u4})", segsum.segment_rowsum,
-                 segsum.segment_rowsum_reference, (g354, seg4, u4),
-                 lambda: lib_out.index_add_(0, seg4_l, g354),
-                 4 * (n4 * used + n4 + u4 * used), n4 * used)
-    del scratch, rows4, lib_out, g354, state4, batches4
+    before4 = (time_ms(replaced_by_b6, [(g177, seg4, u4)]),
+               spun_ms(lambda: replaced_by_b6(g177, seg4, u4)))
+    del scratch, rows4, state4, batches4
     torch.cuda.empty_cache()
     launches4 = profile_epoch("BASELINE config 4 FFM, fused", cfg4, sgd4, ds4)
     steps4 = -(-ds4.num_examples // FFM_BATCH)
     if launches4 != {"gather_rows": steps4, "scatter_set_rows": steps4,
-                     "segment_rowsum": steps4}:
+                     "segment_rowsum_sq": steps4}:
         raise AssertionError(f"config 4 launches {launches4}, expected "
-                             f"{steps4} of B1, B2 and B5")
+                             f"{steps4} of B1, B2 and B6")
     path4 = "train_sgd fused, BASELINE config 4 FFM (phase 21)"
     for name, line, src, t, err, lib in (
             ("gather_rows (FFM record)", "pallas_rowio.py:140", "rowio.cu",
              t_gather, 0.0, "index_select"),
             ("scatter_set_rows (FFM record)", "pallas_rowio.py:74",
              "rowio.cu", t_write, write_err,
-             "index_copy_ over the plan's distinct ids"),
-            ("segment_rowsum (FFM record)", "pallas_segsum.py:101",
-             "segsum.cu", t_b5, res_b5[0], "index_add_")):
+             "index_copy_ over the plan's distinct ids")):
         entries.append({
             "name": name, "route": "cuda",
             "source": f"sparkfm_tpu_torch/csrc/{src}",
             "replaces": f"sparkfm_tpu/ops/{line}",
             "launches": launches4[name.split()[0]], "path": path4,
             "max_abs_err": err, "library": lib, **t})
-    entries[-1].update(max_rel_err=res_b5[1], plain_f32_max_rel_err=res_b5[2],
-                       err_against="plain version in float64")
-    return entries, launches1["segment_rowsum_sq"]
+    entries.append(rowsum_sq_entry(
+        "FFM record", res_b6, (g177, seg4, u4),
+        launches4["segment_rowsum_sq"], path4))
+    entries[-1].update(before=REPLACED_BY_B6, before_ms=before4[0],
+                       before_device_ms=before4[1])
+    print(f"time: the sequence B6 replaced on the fused FFM step (squares, "
+          f"cat, B5) at W={vk + 1} -> {2 * (vk + 1)}: {before4[0]:.4f} ms "
+          f"back to back; device {1e3 * before4[1]:.2f} us, against B6's "
+          f"{1e3 * entries[-1]['device_ms']:.2f} us (CUDA events, queued "
+          f"behind a spin kernel); {card}", flush=True)
+    del g177
+    return entries
 
 
 def main():
@@ -2559,13 +2613,9 @@ def main():
     torch.cuda.empty_cache()
     segsum_entries = segsum_phases(dev, cfg, gen, rng, card)
     # 19-21. BASELINE configs 1 and 4, the dedup path under adam and
-    # momentum; B6's first production caller is config 1's direct step
+    # momentum
     torch.cuda.empty_cache()
-    ddf_entries, b6_launches = direct_dedup_ffm_phases(dev, cfg, gen, rng,
-                                                       card)
-    b6 = next(e for e in segsum_entries if e["name"] == "segment_rowsum_sq")
-    b6.update(launches=b6_launches, path="train_sgd direct, BASELINE "
-              "config 1 (phase 19); timed here at the phase-15 plan, W = 33")
+    ddf_entries = direct_dedup_ffm_phases(dev, cfg, gen, rng, card)
 
     print(smi)
     # one serving plan's [v | w] gather: the ids, each distinct row of V

@@ -18,12 +18,25 @@ seed, so every root sees the same data:
 - B3, the factored backward, and B4, the same from per-slot rows, at N =
   638,976 slots, k = 32 (a bench-recipe plan: 16384 x 39 zipf(1.3) ids
   hashed into 2^24): in all, pass 1 and pass 2;
-- B5 and B6, the row sums, at W = 66 and 33 on the same plan;
+- B5 and B6, the row sums, at W = 66 and 33 on the same plan, B6 at W =
+  9 on a plan of BASELINE config 1's direct step (4096 user-item pairs,
+  2,625 features) and B5 at W = 354 and B6 at W = 177 on a plan of config
+  4's fused FFM step (8192 x 22 ``synth_ctr`` ids in 2^22): in all, pass 1
+  and pass 2; where the root stages B6's rows in shared-memory tiles,
+  B6 also at tiles of 32, 44 and 96 KB;
 - B1, the gather: one serving chunk's V (W = 32) and w (W = 1) by two
   calls, and by the two-table form where the root has it, at U = 40,960;
   the fused record (W = 68) at U = 40,960 (each of these one call per
   plan over 8 bench-recipe plans, so the rows are not all in L2 from the
   call before) and at a device plan's 2^18 slots.
+
+With ``--paths`` each child instead trains one epoch (after a warm-up
+epoch) of BASELINE config 3 (2^24 buckets, rank 32, ``synth_ctr`` 16384 x
+20) on the fused path with device and with host plans and on the sorted
+path, and of config 4's FFM (22 fields, rank 8, 2^22 buckets, 8192 x 20)
+on the fused path, and prints each epoch's trained ex/s and wall time
+untraced, then its device busy time, the time in ``torch.cat``'s kernels
+and the top device events from a torch.profiler trace.
 
 The parent lines show how far the card drifts between turns; compare two
 roots only within one run. Needs one CUDA card; prints the card's
@@ -116,16 +129,51 @@ assert rel(got, want) < 1e-4, "B4"
 out["B4"] = split(device_us(lambda: segsum.fm_grad_segsum(
     vw_srt, ex, x, seg, u, cv, cv)), "fm_grad", "crossing")
 del vw_srt, want
-for name, fn, plain, w in (
-        ("B5", segsum.segment_rowsum, segsum.segment_rowsum_reference, 66),
-        ("B6", segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference,
-         33)):
-    g = torch.randn((n, w), generator=gen, device=dev)
+
+
+def rowsums(label, fn, plain, w, seg, u, sweep=False):
+    # B5 or B6 at width w on seg: checked against float64, then timed;
+    # where the root stages B6's rows in shared memory (segsum.TILE_BYTES),
+    # also at other tile sizes
+    g = torch.randn((seg.shape[0], w), generator=gen, device=dev)
     err = rel(fn(g, seg, u), plain(g.double(), seg, u))
-    assert err < 1e-4, (name, err)
-    out[name] = split(device_us(lambda: fn(g, seg, u)), "rowsum_chunks",
-                      "crossing") + [err]
-    del g
+    assert err < 1e-4, (label, err)
+    out[label] = split(device_us(lambda: fn(g, seg, u)), "rowsum",
+                       "crossing") + [err]
+    if sweep and hasattr(segsum, "TILE_BYTES"):
+        keep = segsum.TILE_BYTES
+        for tile in (32 << 10, 44 << 10, 96 << 10):
+            segsum.TILE_BYTES = tile
+            assert rel(fn(g, seg, u), plain(g.double(), seg, u)) < 1e-4
+            out[f"{label} tile {tile >> 10} KB"] = split(device_us(
+                lambda: fn(g, seg, u)), "rowsum", "crossing")
+        segsum.TILE_BYTES = keep
+
+
+rowsums("B5", segsum.segment_rowsum, segsum.segment_rowsum_reference, 66,
+        seg, u)
+rowsums("B6", segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference,
+        33, seg, u, sweep=True)
+# BASELINE config 1's direct step: 4096 (user, item) pairs of 2,625
+# features, a device plan with budget 2,625
+ids1 = np.stack([rng.integers(0, 943, 4096),
+                 943 + rng.integers(0, 1682, 4096)], 1).astype(np.int32)
+plan1 = E.dedup_ids(torch.as_tensor(ids1, device=dev), 2625, fill=2624)
+rowsums("B6 W=9", segsum.segment_rowsum_sq,
+        segsum.segment_rowsum_sq_reference, 9, plan1.seg, 2625)
+# BASELINE config 4's fused FFM step: 8192 x 22 field-hashed ids into
+# 2^22, a ladder plan
+from sparkfm_tpu_torch.data import synth
+ids4 = synth.synth_ctr(num_examples=8192, num_fields=22,
+                       num_buckets=1 << 22, seed=0).ids
+plan4 = E.host_dedup(ids4, E.auto_budget(ids4.size), fill=1 << 22)
+seg4 = torch.as_tensor(plan4.seg, device=dev)
+u4 = E.ladder_budget(int(plan4.count), cap=E.auto_budget(ids4.size))
+out["FFM plan"] = [seg4.shape[0], u4]
+rowsums("B5 W=354", segsum.segment_rowsum, segsum.segment_rowsum_reference,
+        354, seg4, u4)
+rowsums("B6 W=177", segsum.segment_rowsum_sq,
+        segsum.segment_rowsum_sq_reference, 177, seg4, u4, sweep=True)
 
 # B1 at the serving chunk, the record and a device plan, each call on
 # another plan's uids (8 plans), as the smoke times them; the tables have
@@ -166,12 +214,74 @@ out["B1 device plan"] = split(device_us(
 print(json.dumps({"root": ROOT, "n": n, "u": u, "us": out}))
 """
 
+PATHS = r"""
+import json, sys, time
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, ROOT)
+from sparkfm_tpu_torch import FMConfig, SGDConfig, Task, train_sgd
+from sparkfm_tpu_torch.data import synth
+
+dev = torch.device("cuda", 0)
+out = {}
+
+
+def epoch(label, cfg, sgd, ds):
+    # a warm-up epoch, an untraced one (wall, ex/s), then a traced one:
+    # device busy time, torch.cat's kernels and the top device events
+    train_sgd(cfg, sgd, ds, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_sgd(cfg, sgd, ds, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_sgd(cfg, sgd, ds, device=dev)
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ev)
+    cat = sum(e.self_device_time_total for e in ev if "CatArray" in e.key)
+    out[label] = {"ex_per_s": res.examples_per_sec, "wall_ms": 1e3 * wall,
+                  "busy_ms": busy / 1e3, "idle": 1 - busy / 1e6 / wall,
+                  "cat_ms": cat / 1e3,
+                  "top_us": [[e.key[:48], e.count,
+                              round(e.self_device_time_total)]
+                             for e in ev[:6]]}
+    torch.cuda.empty_cache()
+
+
+cfg3 = FMConfig(num_features=1 << 24, num_factors=32,
+                task=Task.CLASSIFICATION, reg_w=1e-6, reg_v=1e-6, seed=0)
+ds3 = synth.synth_ctr(num_examples=16384 * 20, num_fields=39,
+                      num_buckets=1 << 24, seed=0)
+for label, kw in (("fused, device plans", dict(host_plan=False)),
+                  ("fused, host plans", {}), ("sorted", {})):
+    path = "sorted" if label == "sorted" else "fused"
+    epoch(label, cfg3, SGDConfig(batch_size=16384, learning_rate=0.05,
+                                 epochs=1, update_path=path, **kw), ds3)
+del ds3
+cfg4 = FMConfig(num_features=1 << 22, num_factors=8, num_fields=22,
+                task=Task.CLASSIFICATION, reg_v=1e-6, seed=0,
+                slot_major_fields=True)
+ds4 = synth.synth_ctr(num_examples=8192 * 20, num_fields=22,
+                      num_buckets=1 << 22, seed=0)
+epoch("FFM, fused", cfg4, SGDConfig(batch_size=8192, learning_rate=0.05,
+                                    epochs=1), ds4)
+print(json.dumps({"root": ROOT, "epochs": out}))
+"""
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--order", default=None,
                     help="comma-separated indices into the roots, in turn")
+    ap.add_argument("--paths", action="store_true",
+                    help="profile one epoch of each SGD path instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -187,7 +297,8 @@ def main():
              else range(len(roots)))
     for i in order:
         child = subprocess.run(
-            [sys.executable, "-c", f"ROOT = {roots[i]!r}\n" + CHILD],
+            [sys.executable, "-c",
+             f"ROOT = {roots[i]!r}\n" + (PATHS if args.paths else CHILD)],
             capture_output=True, text=True, timeout=900)
         if child.returncode != 0:
             sys.exit(f"kernel_times: {roots[i]} failed:\n{child.stdout}"

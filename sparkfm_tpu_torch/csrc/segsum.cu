@@ -2,13 +2,14 @@
 //
 // * B3, the factored FM backward, and B4, the same backward from per-slot
 //   rows (fm_grad_spans_kernel, then rows_crossing_kernel), below;
-// * B5, segment_rowsum, and B6, segment_rowsum_sq (rowsum_chunks_kernel,
-//   then rows_crossing_kernel), after them;
+// * B5, segment_rowsum (rowsum_chunks_kernel), and B6, segment_rowsum_sq
+//   (rowsum_sq_tiles_kernel), each then rows_crossing_kernel, after them;
 // * B7, segment_colsums (colsums_chunks_kernel and
 //   colsums_crossing_kernel), last.
 //
 // All cut the sorted stream into chunks (B3/B4: equal spans, one per
-// warp; B5-B7: fixed chunks), write runs that lie inside a
+// warp; B5, B7: fixed chunks; B6: chunks that fall with N), write runs
+// that lie inside a
 // chunk straight out, and sum the partial rows of runs that cross chunks
 // in a second pass, in a fixed order, without atomics. Every launcher
 // takes the card's SM count from its caller, which looks it up once per
@@ -118,12 +119,13 @@
 // order. A longer run is left to the warp's whole block, which takes such
 // runs in warp order (one slot per warp): warp w sums rows w, w + 32, ...
 // in order, lanes over columns, and warp 0 adds the 32 warps' sums in
-// warp order. No atomics. Pass 2 also writes the zero rows of the ranks no
-// slot has (a warp those before the runs that begin in its chunk, found by
-// comparing neighbouring ranks, and a slice of those past seg[n - 1]), so
-// the output is written once and not filled first (the same writes in
-// pass 1 slowed its loop by taking registers; here they cost ~2 us at the
-// main path's shape, against ~3.5 us for filling the output).
+// warp order. No atomics. For B3-B5 pass 2 also writes the zero rows of
+// the ranks no slot has (a warp those before the runs that begin in its
+// chunk, found by comparing neighbouring ranks, and a slice of those past
+// seg[n - 1]), so the output is written once and not filled first (the
+// same writes in B3's pass 1 slowed its loop by taking registers; here
+// they cost ~2 us at the main path's shape, against ~3.5 us for filling
+// the output). B6's pass 1 writes them itself.
 
 #include <cstdint>
 
@@ -134,7 +136,7 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int64_t kChunk = 256;        // B5/B6: sorted slots per warp
+constexpr int64_t kChunk = 256;        // B5: sorted slots per warp
 constexpr int kThreads1 = 256;         // pass 1: 8 warps a block
 constexpr int kWarps1 = kThreads1 / 32;
 constexpr int kBlocks1 = 3;            // B3/B4: resident blocks per SM
@@ -428,16 +430,17 @@ __device__ __forceinline__ void zero_gaps(const int32_t* __restrict__ seg,
 }
 
 // Pass 2 of B3-B6 over chunks of `chunk` slots: block g takes chunks
-// 32g .. 32g + 31, one warp each (the design is in the note above). It
-// also writes the zero rows of the ranks no slot has, so the caller need
-// not fill out: warp c those before the runs that begin in chunk c, and
-// every warp its slice of the ranks past seg[n - 1].
+// 32g .. 32g + 31, one warp each (the design is in the note above). With
+// `zeros` it also writes the zero rows of the ranks no slot has, so the
+// caller need not fill out: warp c those before the runs that begin in
+// chunk c, and every warp its slice of the ranks past seg[n - 1] (B6
+// calls it without `zeros`: its pass 1 writes them).
 __global__ void __launch_bounds__(kThreads2)
 rows_crossing_kernel(const int32_t* __restrict__ seg,
                      const float* __restrict__ partials,
                      float* __restrict__ out, int64_t n,
                      int64_t num_segments, int64_t width, int64_t chunk,
-                     int64_t num_chunks) {
+                     int64_t num_chunks, bool zeros) {
   __shared__ float sums[kWarps2][kTile2];
   __shared__ int64_t long_runs[kWarps2];      // warp w's long run, or -1
   const int t = threadIdx.x;
@@ -446,7 +449,7 @@ rows_crossing_kernel(const int32_t* __restrict__ seg,
   for (int64_t g = blockIdx.x; g * kWarps2 < num_chunks; g += gridDim.x) {
     if (lane == 0) long_runs[warp] = -1;
     const int64_t c = g * kWarps2 + warp;
-    if (c < num_chunks)                           // warp-uniform
+    if (zeros && c < num_chunks)                  // warp-uniform
       zero_gaps(seg, out, c * chunk, (c + 1) * chunk < n ? (c + 1) * chunk : n,
                 width, lane);
     const int64_t end = (c + 1) * chunk;          // first slot of chunk c+1
@@ -512,6 +515,7 @@ rows_crossing_kernel(const int32_t* __restrict__ seg,
     }
     __syncthreads();                              // before long_runs is reset
   }
+  if (!zeros) return;
   // the ranks past the last slot's (pass 1 has trapped on one out of range)
   const int64_t f0 = (static_cast<int64_t>(seg[n - 1]) + 1) * width;
   const int64_t f1 = num_segments * width;
@@ -524,17 +528,19 @@ rows_crossing_kernel(const int32_t* __restrict__ seg,
 }
 
 // Launches pass 2 of B3-B6 over partial rows of `width` floats, two per
-// chunk of `chunk` slots; it runs for a single chunk too, for the zero rows.
+// chunk of `chunk` slots; with `zeros` it runs for a single chunk too, for
+// the zero rows.
 void launch_crossing(const int32_t* seg, const float* partials, float* out,
                      int64_t n, int64_t num_segments, int64_t width,
                      int64_t chunk, int64_t num_chunks, int num_sms,
-                     cudaStream_t stream) {
+                     bool zeros, cudaStream_t stream) {
+  if (!zeros && num_chunks < 2) return;
   int64_t blocks = (num_chunks + kWarps2 - 1) / kWarps2;
   const int64_t cap = static_cast<int64_t>(num_sms) * (2048 / kThreads2);
   if (blocks > cap) blocks = cap;
   rows_crossing_kernel<<<static_cast<unsigned>(blocks), kThreads2, 0,
                          stream>>>(seg, partials, out, n, num_segments, width,
-                                   chunk, num_chunks);
+                                   chunk, num_chunks, zeros);
 }
 
 template <int KPL, bool kSlotRows>
@@ -585,7 +591,7 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_crossing(seg, partials, out, n, num_segments, 2 * k + 2, span,
-                  num_spans, num_sms, s);
+                  num_spans, num_sms, true, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -596,19 +602,13 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
 //
 //   out[r] = sum of g[i] over the slots i with seg[i] == r      (U, W)
 //
-// and B6, segment_rowsum_sq, which also sums the squares, formed in the
-// kernel: out[r] = [ sum g[i] | sum g[i]^2 ]                    (U, 2W)
-//
 // B5 replaces sparkfm_tpu/ops/pallas_segsum.py::_segsum_kernel (called
 // through _segment_rowsum_pallas, public segment_rowsum): the per-unique
-// gradient sums of the fused step's accumulate="segsum" (W = 2k+2 = 66,
-// or k+3 = 35 under adagrad_row) and of the sorted step (W = 66), in
-// sparkfm_tpu_torch/solvers/sgd_fused.py and sgd_sorted.py. B6 replaces
-// _segsum_sq_kernel (through _segment_rowsum_sq_pallas, public
-// segment_rowsum_sq), which no path of the JAX package runs. The TPU
-// kernels reduce each tile with a one-hot matrix product on the MXU and
-// carry a run's sum through the ordered grid; B6's bf16x2 split is an MXU
-// device with no counterpart here (the sums are f32).
+// sums of the fused step's adagrad_row pack (W = k + 3 = 35) in
+// sparkfm_tpu_torch/solvers/sgd_fused.py and of the direct step's
+// per-slot momentum and adam terms (solvers/sgd.py). The TPU kernel
+// reduces each tile with a one-hot matrix product on the MXU and carries
+// a run's sum through the ordered grid.
 //
 // What bounds them: bytes. At the main path's N = 638,976 slots and W = 66
 // the kernel reads 169 MB of g and 2.6 MB of seg once and adds once per
@@ -624,18 +624,16 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
 
 constexpr int64_t kMaxRowWidth = 1 << 16;
 
-// C columns per lane (a tile of 32 * C), G rows loaded ahead per step; SQ
-// also sums the squares.
-template <int C, int G, bool SQ>
+// C columns per lane (a tile of 32 * C), G rows loaded ahead per step.
+template <int C, int G>
 __global__ void __launch_bounds__(kThreads1)
 rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
                      const int32_t* __restrict__ seg,   // (N,) sorted
-                     float* __restrict__ out,           // (U, w or 2w)
-                     float* __restrict__ partials,      // (chunks, 2, w or 2w)
+                     float* __restrict__ out,           // (U, w)
+                     float* __restrict__ partials,      // (chunks, 2, w)
                      int64_t n, int64_t num_segments, int64_t w,
                      int64_t num_chunks) {
   const int lane = threadIdx.x & 31;
-  const int64_t out_width = SQ ? 2 * w : w;
   const int64_t col0 = static_cast<int64_t>(blockIdx.y) * 32 * C;
   const int64_t num_warps = static_cast<int64_t>(gridDim.x) * kWarps1;
   for (int64_t c = static_cast<int64_t>(blockIdx.x) * kWarps1 +
@@ -648,9 +646,9 @@ rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
 
     int32_t rank = -1;
     bool first_run = true;
-    float acc[C], sq[C];
+    float acc[C];
 #pragma unroll
-    for (int q = 0; q < C; ++q) acc[q] = sq[q] = 0.f;
+    for (int q = 0; q < C; ++q) acc[q] = 0.f;
 
     // Writes the sums of the run `rank` to out[rank], or to this chunk's
     // partial row 0 (the run began in an earlier chunk) or 1 (it goes on
@@ -658,16 +656,13 @@ rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
     auto flush = [&](bool last) {
       const bool head = first_run && before == rank;
       const bool tail = last && after == rank;
-      float* dst = head   ? partials + (2 * c) * out_width
-                   : tail ? partials + (2 * c + 1) * out_width
-                          : out + static_cast<int64_t>(rank) * out_width;
+      float* dst = head   ? partials + (2 * c) * w
+                   : tail ? partials + (2 * c + 1) * w
+                          : out + static_cast<int64_t>(rank) * w;
 #pragma unroll
       for (int q = 0; q < C; ++q) {
         const int64_t col = col0 + lane + 32 * q;
-        if (col < w) {
-          dst[col] = acc[q];
-          if constexpr (SQ) dst[w + col] = sq[q];
-        }
+        if (col < w) dst[col] = acc[q];
       }
     };
 
@@ -695,30 +690,26 @@ rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
           if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
           rank = r;
 #pragma unroll
-          for (int q = 0; q < C; ++q) acc[q] = sq[q] = 0.f;
+          for (int q = 0; q < C; ++q) acc[q] = 0.f;
         }
 #pragma unroll
-        for (int q = 0; q < C; ++q) {
-          acc[q] += v[t][q];
-          if constexpr (SQ) sq[q] += v[t][q] * v[t][q];
-        }
+        for (int q = 0; q < C; ++q) acc[q] += v[t][q];
       }
     }
     if (rank >= 0) flush(true);
   }
 }
 
-template <int C, int G, bool SQ>
+template <int C, int G>
 void launch_rowsum_chunks(const float* g, const int32_t* seg, float* out,
                           float* partials, int64_t n, int64_t num_segments,
                           int64_t w, int64_t num_chunks, dim3 grid,
                           cudaStream_t stream) {
-  rowsum_chunks_kernel<C, G, SQ><<<grid, kThreads1, 0, stream>>>(
+  rowsum_chunks_kernel<C, G><<<grid, kThreads1, 0, stream>>>(
       g, seg, out, partials, n, num_segments, w, num_chunks);
 }
 
-// Both passes of B5 (SQ false) or B6 (true); returns cudaGetLastError().
-template <bool SQ>
+// Both passes of B5; returns cudaGetLastError().
 int launch_rowsum(const float* g, const int32_t* seg, float* out,
                   float* partials, int64_t n, int64_t num_segments, int64_t w,
                   int num_sms, void* stream) {
@@ -736,26 +727,320 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
   switch (cols) {
     case 1:
-      launch_rowsum_chunks<1, 32, SQ>(g, seg, out, partials, n, num_segments,
+      launch_rowsum_chunks<1, 32>(g, seg, out, partials, n, num_segments,
                                       w, num_chunks, grid, s);
       break;
     case 2:
-      launch_rowsum_chunks<2, 16, SQ>(g, seg, out, partials, n, num_segments,
+      launch_rowsum_chunks<2, 16>(g, seg, out, partials, n, num_segments,
                                       w, num_chunks, grid, s);
       break;
     case 3:
-      launch_rowsum_chunks<3, 8, SQ>(g, seg, out, partials, n, num_segments,
+      launch_rowsum_chunks<3, 8>(g, seg, out, partials, n, num_segments,
                                      w, num_chunks, grid, s);
       break;
     default:
-      launch_rowsum_chunks<4, 8, SQ>(g, seg, out, partials, n, num_segments,
+      launch_rowsum_chunks<4, 8>(g, seg, out, partials, n, num_segments,
                                      w, num_chunks, grid, s);
       break;
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_crossing(seg, partials, out, n, num_segments, SQ ? 2 * w : w,
-                  kChunk, num_chunks, num_sms, s);
+  launch_crossing(seg, partials, out, n, num_segments, w, kChunk,
+                  num_chunks, num_sms, true, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// B6, redesigned: segment_rowsum_sq by staged tiles (rowsum_sq_tiles_kernel,
+// then rows_crossing_kernel).
+//
+//   out[r] = [ sum g[i] | sum g[i]^2 ]  over the slots i with seg[i] == r
+//                                                                  (U, 2W)
+//
+// Replaces the TPU kernel sparkfm_tpu/ops/pallas_segsum.py::
+// _segsum_sq_kernel (called through _segment_rowsum_sq_pallas, public
+// segment_rowsum_sq), which no path of the JAX package runs on the TPU;
+// there the packs [g | g^2] are built in memory and summed by B5. Its
+// callers in the port: the direct and dedup steps' [v | w] gradients
+// (sparkfm_tpu_torch/ops/embedding.py::accumulate_sq_to_unique_sorted,
+// W = k + 1: 9 at BASELINE config 1, 33 at config 3's width) and, under
+// adagrad and sgd, the fused and sorted steps' [g_v | g_w] (W = vk + 1:
+// 33 at config 3, 177 for config 4's FFM record), so that the pack
+// [g_v | g_v^2 | g_w | g_w^2] never exists in memory.
+//
+// What bounds it: bytes. It reads g (N W floats) and seg once and writes
+// (U, 2W): 97.7 MB at the dedup and fused payload (N = 638,976, W = 33,
+// U = 40,960), a 29 us floor at 3.35 TB/s, against three float operations
+// per element. The chunked layout B5 keeps (lanes over columns, 256-slot
+// chunks a warp) loses at the shapes B6 is given: at W = 33 a warp's
+// second column tile has one busy lane and every 132-byte row is two
+// scattered requests; at W = 177 the second tile has 49 busy lanes of
+// 128 and re-reads seg; at N = 8,192 (config 1) 32 chunks give 32 warps
+// to 132 SMs. So:
+//
+// * A chunk is `chunk` consecutive sorted slots, one block each. Its rows
+//   are one contiguous span of g, which thread 0 stages into shared memory
+//   with one bulk copy (bulk_copy.cuh) of the span rounded out to 16-byte
+//   bounds, kept at its offset below the bound so the copy lands aligned
+//   (the first and last chunks, whose rounded copy could leave g, are
+//   loaded by the threads). The threads load the chunk's ranks meanwhile.
+//   Device-memory reads are whole lines whatever W is; three blocks an SM
+//   keep copies in flight while one reduces.
+// * The block's threads are `groups` row groups of min(W, kTileThreads)
+//   columns: thread (j, c) sums column c (and, for W > kTileThreads,
+//   c + kTileThreads, ...) over group j's `per` = chunk / groups rows, in
+//   slot order, from shared memory, and writes a run that begins and ends
+//   inside its rows straight to out[r]. So at W = 33 15 groups keep 495 of
+//   a block's 512 threads busy, at W = 9 56 groups 504.
+// * A run that crosses a group boundary leaves the group's first run
+//   (begun in an earlier group) and last run (going on) in shared memory;
+//   after one barrier, the thread of the group where such a run begins
+//   adds the later groups' parts in group order, and writes the run to
+//   out[r], or, when it goes on past the chunk, to the chunk's partial row
+//   1. Group 0's thread does the same for the chunk's first run when it
+//   began in an earlier chunk: partial row 0. With one group (wide rows)
+//   the group's first and last runs are the chunk's partial rows directly.
+// * The chunk size falls with N: the rows that fit in 64 KB of shared
+//   memory with their ranks, at most N over 4 chunks an SM, a multiple of
+//   `groups` (the caller's choice, ops/segsum.py::tile_layout), so
+//   config 1's 8,192 slots spread over 512 blocks.
+// * Pass 1 also writes the zero rows of the ranks no slot has (those
+//   between a slot's rank and the slot before's, found as the ranks are
+//   loaded and written a warp a gap while the copy lands, and a slice a
+//   block of those past the last slot's), so pass 2 (rows_crossing_kernel,
+//   above, called without `zeros`) only sums the partial rows of crossing
+//   runs. Left to pass 2, the zeros cost ~1.1 us at config 1's shape and
+//   ~2.5 us at W = 33 and 177 (PERF.md).
+//
+// Measured on the H100 (PERF.md): pass 1 moves ~2.3 TB/s, so at the dedup
+// and fused payload B6 takes ~52 us, ~56% of its bound. Tried and slower:
+// a persistent block a few chunks long with two stages (its prefetch one
+// chunk ahead left each block one copy's latency per chunk), the copy cut
+// into 16 or 32 bulk copies, and tiles of 32, 44 or 96 KB at W = 33.
+//
+// The order of the f32 sums, fixed: a run's slots in order within a group
+// (the squares each one fused multiply-add), then its groups' parts in
+// group order, then its chunks' partial rows in pass 2's order. No
+// atomics: the sums repeat bit for bit. seg must be sorted; gaps are
+// allowed; a rank outside [0, num_segments) traps the kernel where the
+// chunk's ranks are loaded, before its block writes a row (other blocks
+// may have written theirs).
+//
+// B5 keeps the chunked kernel above: on these tiles it was slower at the
+// fused FFM step's W = 354 and at W = 66 (PERF.md).
+
+constexpr int kTileThreads = 512;       // pass 1: most threads a block
+constexpr int kTileBlocks = 3;          // pass 1: blocks an SM (launch bound)
+constexpr size_t kTileMaxSmem = 200 * 1024;  // pass 1: a chunk's rows, ranks
+
+// Pass 1 of B6: block c sums chunk c, `chunk` slots in `groups`
+// row groups of `per` rows and `cols` = min(w, kTileThreads) columns. The
+// chunk's span of g starts `ph` floats past a 16-byte bound; the tile keeps
+// it at that offset, so the span rounded out to 16-byte bounds is one
+// aligned bulk copy. A chunk whose rounded copy would leave g (the first
+// and last ones) is loaded by the threads instead.
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
+                       const int32_t* __restrict__ seg, // (N,) sorted
+                       float* __restrict__ out,         // (U, 2w)
+                       float* __restrict__ partials,    // (chunks, 2, 2w)
+                       int64_t n, int64_t num_segments, int w, int chunk,
+                       int groups, int per, int cols, int tile_floats) {
+  extern __shared__ __align__(16) float tile_smem[];  // rows, then ranks
+  // the groups' first runs begun before them (sums, squares) and last runs
+  // going on after them (sums, squares), at [group * w + column]
+  __shared__ float ends[4][kTileThreads];
+  __shared__ __align__(8) uint64_t bar;
+  const int t = threadIdx.x;
+  const int64_t out_w = 2 * static_cast<int64_t>(w);
+  const int64_t c0 = blockIdx.x;
+  const int64_t s0 = c0 * chunk;
+  const int rows = static_cast<int>(n - s0 < chunk ? n - s0 : chunk);
+  const int32_t last_rank = seg[n - 1];   // for the zero rows past it
+
+  // tile[i] = g[s0 w + i]; ranks[i] = seg[s0 - 1 + i], -1 past the ends
+  const float* const src = g + s0 * w;
+  const int ph = static_cast<int>(reinterpret_cast<uintptr_t>(src) >> 2 & 3);
+  float* const tile = tile_smem + ph;
+  int32_t* const ranks = reinterpret_cast<int32_t*>(tile_smem + tile_floats);
+  const bool by_copy = s0 * w >= 4 && (s0 + rows) * w + 4 <= n * w;
+  if (t == 0 && by_copy) {
+    const uint32_t bytes = (ph + rows * w + 3) / 4 * 16;
+    sfm::mbar_init(&bar, 1);
+    sfm::mbar_init_fence();
+    sfm::mbar_expect_bytes(&bar, bytes);
+    sfm::bulk_load(tile_smem, src - ph, bytes, &bar);
+  }
+  if (!by_copy)
+    for (int i = t; i < rows * w; i += blockDim.x) tile[i] = src[i];
+  // the ranks, checked before any is used, and whether the chunk has a
+  // gap: a slot whose rank is more than one past the slot before's
+  bool gap = false;
+  for (int i = t; i < rows + 2; i += blockDim.x) {
+    const int64_t s = s0 - 1 + i;
+    int32_t r = -1;
+    if (s >= 0 && s < n) {
+      r = seg[s];
+      if (r < 0 || static_cast<int64_t>(r) >= num_segments) __trap();
+      if (i > 0 && i <= rows) gap |= r > (s > 0 ? seg[s - 1] : -1) + 1;
+    }
+    ranks[i] = r;
+  }
+  // while the copy lands, in a chunk with gaps (the plans' ranks have
+  // none): the zero rows of the ranks between each slot's and the slot
+  // before's (ranks[0] is -1 for the first chunk), a warp a slot, its
+  // lanes over the gap's floats, which are contiguous in out
+  if (__syncthreads_or(gap)) {
+    for (int i = 1 + (t >> 5); i <= rows; i += blockDim.x >> 5) {
+      const int64_t f1 = static_cast<int64_t>(ranks[i]) * out_w;
+      for (int64_t f = (ranks[i - 1] + 1) * out_w + (t & 31); f < f1;
+           f += 32)
+        out[f] = 0.f;
+    }
+  }
+  if (by_copy) sfm::mbar_wait(&bar, 0);
+
+  const int j = t / cols;                 // row group
+  const int cp = t - j * cols;            // column
+  const int r0 = j * per;
+  const int r1 = r0 + per < rows ? r0 + per : rows;
+  if (j < groups && r0 < r1) {
+    const int32_t before = ranks[r0];
+    const int32_t after = ranks[r1 + 1];
+    for (int c = cp; c < w; c += cols) {
+      int32_t rank = ranks[r0 + 1];
+      bool first = true;
+      float acc = 0.f, sq = 0.f;
+      // the run `rank`'s sums: to out[rank], or, for the group's first run
+      // begun before it or its last run going on, to shared memory (or,
+      // with one group, the chunk's partial row 0 or 1)
+      auto flush = [&](bool last) {
+        const bool begun = first && rank == before;
+        const bool going = last && rank == after;
+        if (groups > 1 && (begun || going)) {
+          ends[begun ? 0 : 2][j * w + c] = acc;
+          ends[begun ? 1 : 3][j * w + c] = sq;
+          return;
+        }
+        float* const dst = begun   ? partials + 2 * c0 * out_w
+                           : going ? partials + (2 * c0 + 1) * out_w
+                                   : out + static_cast<int64_t>(rank) * out_w;
+        dst[c] = acc;
+        dst[w + c] = sq;
+      };
+      const float* v = tile + r0 * w + c;
+#pragma unroll 4
+      for (int i = r0; i < r1; ++i, v += w) {
+        const int32_t r = ranks[i + 1];
+        if (r != rank) {
+          flush(false);
+          first = false;
+          rank = r;
+          acc = sq = 0.f;
+        }
+        acc += *v;
+        sq = fmaf(*v, *v, sq);
+      }
+      flush(true);
+    }
+  }
+  if (groups > 1) {                       // block-uniform
+    // runs that cross group boundaries, each by the thread of the group
+    // where it begins (w <= kTileThreads / 2 here, so c = cp); group m's
+    // first rank is ranks[m per + 1], its last ranks[end_of(m)]
+    __syncthreads();
+    const int active = (rows + per - 1) / per;   // groups with rows
+    auto end_of = [&](int m) {
+      return m * per + per < rows ? m * per + per : rows;
+    };
+    auto begun = [&](int m) { return ranks[m * per + 1] == ranks[m * per]; };
+    auto going = [&](int m) {
+      return ranks[end_of(m)] == ranks[end_of(m) + 1];
+    };
+    auto one_run = [&](int m) {
+      return ranks[m * per + 1] == ranks[end_of(m)];
+    };
+    auto passes_through = [&](int m) {   // one run, begun before, going on
+      return begun(m) && one_run(m) && going(m);
+    };
+    const int c = cp;
+    if (j < active && going(j) && !(begun(j) && one_run(j))) {
+      float acc = ends[2][j * w + c], sq = ends[3][j * w + c];
+      float* dst = out + static_cast<int64_t>(ranks[end_of(j)]) * out_w;
+      for (int m = j + 1;; ++m) {
+        if (m >= active) {                // it goes on past the chunk
+          dst = partials + (2 * c0 + 1) * out_w;
+          break;
+        }
+        acc += ends[0][m * w + c];
+        sq += ends[1][m * w + c];
+        if (!passes_through(m)) break;
+      }
+      dst[c] = acc;
+      dst[w + c] = sq;
+    }
+    if (j == 0 && begun(0)) {             // the chunk's first run
+      float acc = ends[0][c], sq = ends[1][c];
+      for (int m = 0; passes_through(m) && m + 1 < active; ++m) {
+        acc += ends[0][(m + 1) * w + c];
+        sq += ends[1][(m + 1) * w + c];
+      }
+      float* const dst = partials + 2 * c0 * out_w;
+      dst[c] = acc;
+      dst[w + c] = sq;
+    }
+  }
+  // the zero rows of the ranks past the last slot's, a slice a block
+  const int64_t f0 = (static_cast<int64_t>(last_rank) + 1) * out_w;
+  const int64_t f1 = num_segments * out_w;
+  const int64_t slice = f1 > f0 ? (f1 - f0 + gridDim.x - 1) / gridDim.x : 0;
+  const int64_t z0 = f0 + c0 * slice;
+  for (int64_t f = z0 + t; f < z0 + slice && f < f1; f += blockDim.x)
+    out[f] = 0.f;
+}
+
+// Both passes of B6; returns cudaGetLastError().
+int launch_rowsum_sq_tiles(const float* g, const int32_t* seg, float* out,
+                        float* partials, int64_t n, int64_t num_segments,
+                        int64_t w, int64_t chunk, int64_t groups, int num_sms,
+                        void* stream) {
+  if (n <= 0) return 0;
+  const int64_t cols = w < kTileThreads ? w : kTileThreads;
+  if (w < 1 || chunk < 1 || groups < 1 || groups > chunk ||
+      groups * cols > kTileThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the chunk's span rounded out to 16-byte bounds, then its ranks
+  const int64_t tile_floats = (chunk * w + 6 + 3) / 4 * 4;
+  const size_t smem = 4 * static_cast<size_t>(tile_floats + chunk + 2);
+  if (smem > kTileMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // past 48 KB with the static arrays, a block's shared memory needs the
+  // opt-in, set once a device to the most any launch asks
+  static bool opted_in[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!opted_in[device]) {
+    err = cudaFuncSetAttribute(rowsum_sq_tiles_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kTileMaxSmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[device] = true;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + chunk - 1) / chunk;
+  rowsum_sq_tiles_kernel<<<static_cast<unsigned>(num_chunks),
+                           static_cast<int>((groups * cols + 31) / 32 * 32),
+                           smem, s>>>(
+      g, seg, out, partials, n, num_segments, static_cast<int>(w),
+      static_cast<int>(chunk), static_cast<int>(groups),
+      static_cast<int>((chunk + groups - 1) / groups),
+      static_cast<int>(cols), static_cast<int>(tile_floats));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_crossing(seg, partials, out, n, num_segments, 2 * w, chunk,
+                  num_chunks, num_sms, false, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1213,8 +1498,8 @@ int64_t sfm_fm_grad_partial_rows(int64_t n, int64_t k, int64_t num_sms) {
   return 2 * ((n + span - 1) / span);
 }
 
-// Number of partial rows the caller of B5 or B6 allocates for N sorted
-// slots: two per chunk, each as wide as the output row.
+// Number of partial rows the caller of B5 allocates for N sorted slots:
+// two per chunk, each as wide as the output row.
 int64_t sfm_chunk_partial_rows(int64_t n) {
   return 2 * ((n + kChunk - 1) / kChunk);
 }
@@ -1249,22 +1534,27 @@ int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
 
 // B5 and B6 launch both passes on `stream` and return cudaGetLastError().
 // They write every row of `out` (num_segments x W for B5, x 2W for B6),
-// zeros for the ranks no slot has; the caller allocates `partials`
-// (sfm_chunk_partial_rows(n) rows of the same width), checks shapes and
-// types (1 <= W <= 65536), and keeps the tensors alive until the stream
-// has run the kernels.
+// zeros for the ranks no slot has; the caller checks shapes and types
+// (1 <= W <= 65536 for B5, <= 32768 for B6), allocates `partials` of the
+// output's width (B5: sfm_chunk_partial_rows(n) rows) and keeps the
+// tensors alive until the stream has run the kernels.
 int sfm_segment_rowsum(const float* g, const int32_t* seg, float* out,
                        float* partials, int64_t n, int64_t num_segments,
                        int64_t w, int num_sms, void* stream) {
-  return launch_rowsum<false>(g, seg, out, partials, n, num_segments, w,
-                              num_sms, stream);
+  return launch_rowsum(g, seg, out, partials, n, num_segments, w, num_sms,
+                       stream);
 }
 
+// B6 takes its layout from the caller: `chunk` sorted slots a block in
+// `groups` row groups (1 <= groups <= chunk, groups * min(W, 512) <= 512,
+// the chunk's rows and ranks within 200 KB); `partials` holds two rows of
+// 2W floats per chunk.
 int sfm_segment_rowsum_sq(const float* g, const int32_t* seg, float* out,
                           float* partials, int64_t n, int64_t num_segments,
-                          int64_t w, int num_sms, void* stream) {
-  return launch_rowsum<true>(g, seg, out, partials, n, num_segments, w,
-                             num_sms, stream);
+                          int64_t w, int64_t chunk, int64_t groups,
+                          int num_sms, void* stream) {
+  return launch_rowsum_sq_tiles(g, seg, out, partials, n, num_segments, w,
+                                chunk, groups, num_sms, stream);
 }
 
 // Number of partial rows (of s floats) that the caller allocates for

@@ -12,11 +12,13 @@ and only CPU tensors take the plain version (``*_reference``):
   rows ``vw_srt`` (N, k+1); its plain version
   :func:`fm_grad_segsum_reference` is exactly the JAX package's XLA branch
   and also B3's oracle;
-- :func:`segment_rowsum` (kernel B5), per-rank sums of (N, W) rows, the
-  fused step's ``accumulate="segsum"`` and the sorted step
-  (``solvers/sgd_fused.py``, ``solvers/sgd_sorted.py``);
+- :func:`segment_rowsum` (kernel B5), per-rank sums of (N, W) rows: the
+  fused step's adagrad_row pack and the direct step's per-slot momentum
+  and adam terms (``solvers/sgd_fused.py``, ``solvers/sgd.py``);
 - :func:`segment_rowsum_sq` (kernel B6), ``[Σg | Σg²]`` per rank with the
-  squares formed in the kernel;
+  squares formed in the kernel, at the layout :func:`tile_layout` picks:
+  the direct and dedup steps' ``[g_v | g_w]`` (``ops/embedding.py``) and,
+  under adagrad and sgd, the fused and sorted steps';
 - :func:`segment_colsums` (kernel B7) sums up to 16 one-dimensional
   streams per rank, for the ALS sweep (``solvers/als.py``).
 
@@ -46,7 +48,11 @@ from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "segsum.cu")
 MAX_FACTORS = 128          # the backward kernels' largest k
 MAX_ROW_WIDTH = 1 << 16    # segment_rowsum's largest W on the card
+MAX_SQ_WIDTH = 1 << 15     # segment_rowsum_sq's: a row fits the tile
 MAX_STREAMS = 16           # segment_colsums' largest S
+TILE_THREADS = 512         # B6: most threads a block
+TILE_BYTES = 64 << 10      # B6: a chunk's rows and ranks in shared memory
+CHUNKS_PER_SM = 4          # B6 at small N: chunks an SM at least
 _FM_GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
 _ROWSUM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
 FACTORED = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum_factored",
@@ -54,7 +60,7 @@ FACTORED = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum_factored",
 FM_GRAD = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum", _FM_GRAD_ARGS)
 ROWSUM = CudaKernel("segsum", SOURCE, "sfm_segment_rowsum", _ROWSUM_ARGS)
 ROWSUM_SQ = CudaKernel("segsum", SOURCE, "sfm_segment_rowsum_sq",
-                       _ROWSUM_ARGS)
+                       _ROWSUM_ARGS + [ctypes.c_int64] * 2)
 COLSUMS = CudaKernel(
     "segsum", SOURCE, "sfm_segment_colsums",
     [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
@@ -227,19 +233,18 @@ def _check_rows(name, g, seg, num_segments) -> None:
                          f"W={g.shape[1]}")
 
 
-def _rowsum(kernel: CudaKernel, g, seg, num_segments, out_width):
-    """Launch B5 or B6 (``kernel``) on checked CUDA tensors. The kernels
-    write every row of the output, zeros for the ranks no slot has."""
-    n = seg.shape[0]
+def _rowsum(g, seg, num_segments):
+    """Launch B5 on checked CUDA tensors. The kernel writes every row of
+    the output, zeros for the ranks no slot has."""
+    n, w = g.shape
     if n == 0:
-        return torch.zeros((num_segments, out_width), dtype=torch.float32,
+        return torch.zeros((num_segments, w), dtype=torch.float32,
                            device=g.device)
-    out = torch.empty((num_segments, out_width), dtype=torch.float32,
+    out = torch.empty((num_segments, w), dtype=torch.float32,
                       device=g.device)
-    partials = _partials(kernel, "sfm_chunk_partial_rows", out_width,
-                         g.device, n)
-    kernel.launch(g.device, g.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                  partials.data_ptr(), n, num_segments, g.shape[1])
+    partials = _partials(ROWSUM, "sfm_chunk_partial_rows", w, g.device, n)
+    ROWSUM.launch(g.device, g.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                  partials.data_ptr(), n, num_segments, w)
     return out
 
 
@@ -253,7 +258,44 @@ def segment_rowsum(g: torch.Tensor, seg: torch.Tensor,
     _check_rows("segment_rowsum", g, seg, num_segments)
     if g.device.type == "cpu":
         return segment_rowsum_reference(g, seg, num_segments)
-    return _rowsum(ROWSUM, g, seg, num_segments, g.shape[1])
+    return _rowsum(g, seg, num_segments)
+
+
+def tile_layout(n: int, w: int, num_sms: int) -> tuple:
+    """B6's layout of N sorted slots of W floats on a card of ``num_sms``
+    SMs (``csrc/segsum.cu``, rowsum_sq_tiles_kernel): ``(chunk, groups,
+    partial_rows)``, the slots a block stages in shared memory and sums
+    (one chunk each), the row groups its threads form and the pass-1
+    partial rows to allocate, two a chunk. A chunk holds the rows and
+    ranks that fit in TILE_BYTES, but no more than N over CHUNKS_PER_SM
+    chunks an SM, so a small N still spreads over the card; ``groups``
+    fills TILE_THREADS threads with groups of min(W, TILE_THREADS)
+    columns, and the chunk is a multiple of it."""
+    chunk = max(1, TILE_BYTES // (4 * (w + 1)))
+    chunk = min(chunk, max(1, -(-n // (CHUNKS_PER_SM * num_sms))))
+    groups = max(1, min(TILE_THREADS // min(w, TILE_THREADS), chunk))
+    chunk = chunk // groups * groups
+    return chunk, groups, 2 * -(-n // chunk)
+
+
+def _rowsum_sq(g, seg, num_segments):
+    """Launch B6 on checked CUDA tensors, at :func:`tile_layout`. The
+    kernel writes every row of the output, zeros for the ranks no slot
+    has."""
+    n, w = g.shape
+    if w > MAX_SQ_WIDTH:
+        raise ValueError(f"the kernel takes W <= {MAX_SQ_WIDTH}, got W={w}")
+    if n == 0:
+        return torch.zeros((num_segments, 2 * w), dtype=torch.float32,
+                           device=g.device)
+    chunk, groups, rows = tile_layout(n, w, ROWSUM_SQ.num_sms(g.device))
+    out = torch.empty((num_segments, 2 * w), dtype=torch.float32,
+                      device=g.device)
+    partials = torch.empty((rows, 2 * w), dtype=torch.float32,
+                           device=g.device)
+    ROWSUM_SQ.launch(g.device, g.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                     partials.data_ptr(), n, num_segments, w, chunk, groups)
+    return out
 
 
 def segment_rowsum_sq(g: torch.Tensor, seg: torch.Tensor, num_segments: int,
@@ -261,12 +303,13 @@ def segment_rowsum_sq(g: torch.Tensor, seg: torch.Tensor, num_segments: int,
     """(U, 2W) float32 ``[Σg | Σg²]`` per rank, the squares formed in the
     kernel, so ``[g | g²]`` never exists in memory. ``bf16x2`` (a TPU
     matrix-unit option) is accepted; the sums are float32 either way.
-    Otherwise as :func:`segment_rowsum`."""
+    CUDA tensors run the kernel for 1 <= W <= 32768 (a row must fit its
+    shared-memory tile). Otherwise as :func:`segment_rowsum`."""
     del bf16x2
     _check_rows("segment_rowsum_sq", g, seg, num_segments)
     if g.device.type == "cpu":
         return segment_rowsum_sq_reference(g, seg, num_segments)
-    return _rowsum(ROWSUM_SQ, g, seg, num_segments, 2 * g.shape[1])
+    return _rowsum_sq(g, seg, num_segments)
 
 
 def segment_colsums_reference(streams, seg: torch.Tensor,

@@ -28,14 +28,16 @@ The train step (:func:`make_fused_train_step`):
    ``torch.autograd.grad`` of the batch loss
    (``solvers/sgd.py::_batch_loss_from_rows``) with respect to the bias
    and the per-slot rows;
-3. the per-unique reduce of ``[g_v | g_v² | g_w | g_w²]`` (adagrad_row:
+3. the per-unique reduce of ``[g_v | g_w | g_v² | g_w²]`` (adagrad_row:
    ``[g_v | mean g_v² | g_w | g_w²]``): under ``accumulate="segsum"``, and
    under ``"auto"`` for CUDA tensors, the gradients permuted into id-sorted
-   order and summed over runs by kernel B5
-   (``ops/segsum.py::segment_rowsum``), in a fixed order; under
+   order and summed over runs in a fixed order, under adagrad and sgd by
+   kernel B6 (``ops/segsum.py::segment_rowsum_sq``: ``[g_v | g_w]`` in,
+   the squares formed in the kernel, so the pack never exists), under
+   adagrad_row by kernel B5 (``segment_rowsum``) on the pack; under
    ``"scatter"``, and under ``"auto"`` for CPU tensors (the JAX package's
-   choice, from a TPU measurement), ``index_add_`` by the ranks, whose
-   atomic adds on the card do not repeat bit for bit;
+   choice, from a TPU measurement), ``index_add_`` of the pack by the
+   ranks, whose atomic adds on the card do not repeat bit for bit;
 4. the adagrad / adagrad_row / sgd update and one write-back of the
    records (kernel B2, ``ops/rowio.py::scatter_set_rows``), IN PLACE on
    ``state.table``;
@@ -177,9 +179,11 @@ def valid_slots(count, budget: int, device) -> torch.Tensor:
 def update_records(opt: str, sgd_cfg: SGDConfig, rec_u: torch.Tensor,
                    acc: torch.Tensor, k: int) -> torch.Tensor:
     """The optimizer update of the unique records ``rec_u`` (U, W) from
-    the reduced ``acc``: ``[Σg_v | Σg_v² | Σg_w | Σg_w²]`` (U, 2k+2), or
-    under adagrad_row ``[Σg_v | Σ mean g_v² | Σg_w | Σg_w²]`` (U, k+3).
-    Returns the new (U, W) records, padding zero."""
+    the reduced ``acc``: ``[Σg_v | Σg_w | Σg_v² | Σg_w²]`` (U, 2k+2), the
+    order in which kernels B6 (``ops/segsum.py::segment_rowsum_sq`` of
+    ``[g_v | g_w]``) and B3 (``fm_grad_segsum_factored``) return it; under
+    adagrad_row ``[Σg_v | Σ mean g_v² | Σg_w | Σg_w²]`` (U, k+3). Returns
+    the new (U, W) records, padding zero."""
     lr, eps = sgd_cfg.learning_rate, sgd_cfg.adagrad_eps
     v_u, slot_v_u = rec_u[:, :k], rec_u[:, k:2 * k]
     w_u, slot_w_u = rec_u[:, 2 * k], rec_u[:, 2 * k + 1]
@@ -193,8 +197,8 @@ def update_records(opt: str, sgd_cfg: SGDConfig, rec_u: torch.Tensor,
         slot_w_new = slot_w_u + sq_w_u
         w_new = w_u - lr * g_w_u * torch.rsqrt(slot_w_new + eps)
     else:
-        g_v_u, sq_v_u = acc[:, :k], acc[:, k:2 * k]
-        g_w_u, sq_w_u = acc[:, 2 * k], acc[:, 2 * k + 1]
+        g_v_u, g_w_u = acc[:, :k], acc[:, k]
+        sq_v_u, sq_w_u = acc[:, k + 1:2 * k + 1], acc[:, 2 * k + 1]
         if opt == "adagrad":
             slot_v_new = slot_v_u + sq_v_u
             v_new = v_u - lr * g_v_u * torch.rsqrt(slot_v_new + eps)
@@ -210,11 +214,11 @@ def update_records(opt: str, sgd_cfg: SGDConfig, rec_u: torch.Tensor,
 
 
 def segsum_accumulate(accumulate: str, device: torch.device) -> bool:
-    """Whether the fused step sums per unique row by kernel B5 over sorted
-    runs (True) or by ``index_add_`` (False): "segsum" always, "auto" for
-    CUDA tensors, where B5 is ~25x faster than ``index_add_`` at the main
-    path's shape and its sums repeat; "scatter", and "auto" for CPU
-    tensors, as the JAX package's "auto" does."""
+    """Whether the fused step sums per unique row over sorted runs by
+    kernel B6 or B5 (True) or by ``index_add_`` (False): "segsum" always,
+    "auto" for CUDA tensors, where the sorted sums are ~25x faster than
+    ``index_add_`` at the main path's shape and repeat; "scatter", and
+    "auto" for CPU tensors, as the JAX package's "auto" does."""
     return accumulate == "segsum" or (accumulate == "auto"
                                       and device.type == "cuda")
 
@@ -286,17 +290,21 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                 gvw_s = torch.cat([gv_s, gw_s], 1).index_select(
                     0, plan.order.long())
                 gv_s, gw_s = gvw_s[:, :k], gvw_s[:, k:]
-            if opt == "adagrad_row":
-                parts = [gv_s, gv_s.square().mean(dim=-1, keepdim=True),
-                         gw_s, gw_s.square()]                   # (N, k+3)
+            if use_segsum and opt != "adagrad_row":
+                # B6 forms the squares, so the (N, 2k+2) pack is never built
+                acc = segsum.segment_rowsum_sq(gvw_s, plan.seg, budget)
             else:
-                parts = [gv_s, gv_s.square(), gw_s, gw_s.square()]  # 2k+2
-            packed = torch.cat(parts, dim=1)
-            if use_segsum:
-                acc = segsum.segment_rowsum(packed, plan.seg, budget)
-            else:
-                acc = E.accumulate_to_unique(
-                    packed.view(*plan.ranks.shape, -1), plan, budget)
+                if opt == "adagrad_row":
+                    parts = [gv_s, gv_s.square().mean(dim=-1, keepdim=True),
+                             gw_s, gw_s.square()]               # (N, k+3)
+                else:                                 # B6's column order
+                    parts = [gv_s, gw_s, gv_s.square(), gw_s.square()]
+                packed = torch.cat(parts, dim=1)
+                if use_segsum:
+                    acc = segsum.segment_rowsum(packed, plan.seg, budget)
+                else:
+                    acc = E.accumulate_to_unique(
+                        packed.view(*plan.ranks.shape, -1), plan, budget)
             E.scatter_set_unique(state.table, plan,
                                  update_records(opt, sgd_cfg, rec_u, acc, k))
             if cfg.use_bias:

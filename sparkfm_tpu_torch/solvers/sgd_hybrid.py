@@ -124,18 +124,16 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         acc = segsum.fm_grad_segsum_factored(
             vw_u, ex_srt, plan.svals, plan.seg, budget,
             2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg)
-        g_v_u, g_w_u = acc[:, :k], acc[:, k:k + 1]
-        sq_v_u, sq_w_u = acc[:, k + 1:2 * k + 1], acc[:, 2 * k + 1:]
         if not cfg.use_linear:
-            g_w_u = torch.zeros_like(g_w_u)
-            sq_w_u = torch.zeros_like(sq_w_u)
+            acc[:, [k, 2 * k + 1]] = 0.0                # Σg_w, Σg_w²
 
         # ---- update and write-back, in the fused step's layout
         if sgd_cfg.optimizer == "adagrad_row":
-            sq_v_u = sq_v_u.mean(dim=-1, keepdim=True)
-        rec_new = sgd_fused.update_records(
-            sgd_cfg.optimizer, sgd_cfg, rec_u,
-            torch.cat([g_v_u, sq_v_u, g_w_u, sq_w_u], dim=1), k)
+            acc = torch.cat([acc[:, :k],
+                             acc[:, k + 1:2 * k + 1].mean(-1, keepdim=True),
+                             acc[:, k:k + 1], acc[:, 2 * k + 1:]], dim=1)
+        rec_new = sgd_fused.update_records(sgd_cfg.optimizer, sgd_cfg, rec_u,
+                                           acc, k)
         rowio.scatter_set_rows(state.table, plan.uids, rec_new)
 
         if cfg.use_bias:

@@ -17,8 +17,9 @@ stay in id-sorted order from then on. One step is:
    example index; then ``torch.autograd.grad`` of the per-example loss
    with respect to those sums and the bias;
 4. the slot-space backward written out by hand (bilinear terms plus the
-   per-appearance L2), packed as ``[g_v | g_v² | g_w | g_w²]`` (N, 2k+2)
-   and summed over runs by kernel B5 (``ops/segsum.py::segment_rowsum``);
+   per-appearance L2) into one (N, k+1) ``[g_v | g_w]``, summed over runs
+   with its squares by kernel B6 (``ops/segsum.py::segment_rowsum_sq``),
+   which forms the squares itself;
 5. the adagrad / sgd update of ``solvers/sgd_fused.py`` and one
    write-back (kernel B2, ``ops/rowio.py::scatter_set_rows``), IN PLACE
    on ``state.table``;
@@ -104,14 +105,16 @@ def make_sorted_train_step(cfg: FMConfig, sgd_cfg: SGDConfig,
             active = (x != 0).to(torch.float32)
             if weights is not None:
                 active = active * weights.index_select(0, ex)
-            g_v = (g_slot[:, :k] * x[:, None]
-                   + g_slot[:, k:k + 1] * 2.0 * v_s * x.square()[:, None]
-                   + (2.0 * cfg.reg_v / denom) * v_s * active[:, None])
-            g_w = (g_slot[:, k + 1] * x
-                   + (2.0 * cfg.reg_w / denom) * w_s * active)
-            packed = torch.cat([g_v, g_v.square(), g_w[:, None],
-                                g_w.square()[:, None]], dim=1)  # (N, 2k+2)
-            acc = segsum.segment_rowsum(packed, plan.seg, budget)
+            # [g_v | g_w] (N, k+1), each written by its last op
+            gvw = torch.empty_like(vw_s)
+            torch.add(g_slot[:, :k] * x[:, None]
+                      + g_slot[:, k:k + 1] * 2.0 * v_s * x.square()[:, None],
+                      (2.0 * cfg.reg_v / denom) * v_s * active[:, None],
+                      out=gvw[:, :k])
+            torch.add(g_slot[:, k + 1] * x,
+                      (2.0 * cfg.reg_w / denom) * w_s * active,
+                      out=gvw[:, k])
+            acc = segsum.segment_rowsum_sq(gvw, plan.seg, budget)
             E.scatter_set_unique(state.table, plan, sgd_fused.update_records(
                 sgd_cfg.optimizer, sgd_cfg, rec_u, acc, k))
             if cfg.use_bias:

@@ -10,6 +10,10 @@ runs on a GPU machine without it, from the repository root:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +27,7 @@ from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import als as pals
 
 pytestmark = pytest.mark.cuda
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -466,7 +471,11 @@ ROWS_CASES = [  # (n, W, kind): N not a multiple of the 256-slot chunk
     (1, 1, "runs"), (1000, 3, "runs"), (3073, 66, "dense"),
     (20000, 35, "long"), (5000, 130, "runs"), (4097, 354, "dense"),
     (300001, 66, "long"), (8192, 9, "dense"), (200003, 33, "long"),
-    (90001, 354, "long")]
+    (90001, 354, "long"), (3001, 700, "runs"),
+    # B6's shapes on the paths: BASELINE config 1's direct step (above,
+    # N = 8,192, W = 9), the dedup, fused and sorted payloads at config 3
+    # and config 4's fused FFM step
+    (638976, 33, "long"), (180224, 177, "dense")]
 
 
 @pytest.mark.parametrize("squares", [False, True])
@@ -498,6 +507,33 @@ def test_rowsum_kernel_refuses_what_it_cannot_take(dev):
     seg = torch.zeros((4,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="W"):
         segsum.segment_rowsum(torch.zeros((4, 0), device=dev), seg, 2)
+    with pytest.raises(ValueError, match="W <= 32768"):
+        segsum.segment_rowsum_sq(torch.zeros((4, 32769), device=dev), seg, 2)
+
+
+def test_rowsum_sq_kernel_on_no_slots_gives_zeros(dev):
+    before = segsum.ROWSUM_SQ.launches
+    got = segsum.segment_rowsum_sq(torch.zeros((0, 9), device=dev),
+                                   torch.zeros((0,), dtype=torch.int32,
+                                               device=dev), 5)
+    assert got.shape == (5, 18) and not got.any()
+    assert segsum.ROWSUM_SQ.launches == before
+
+
+def test_rowsum_sq_kernel_traps_on_a_rank_out_of_range(dev):
+    """A rank outside [0, U) traps B6 where the chunk's ranks are loaded.
+    In a child process: a trap leaves its CUDA context unusable."""
+    code = ("import torch\n"
+            "from sparkfm_tpu_torch.ops import segsum\n"
+            "seg = torch.tensor([0, 1, 1, 5], dtype=torch.int32, "
+            "device='cuda')\n"
+            "segsum.segment_rowsum_sq(torch.ones((4, 3), device='cuda'), "
+            "seg, 5)\n"
+            "torch.cuda.synchronize()\n")
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=REPO)
+    assert child.returncode != 0
+    assert "unspecified launch failure" in child.stderr, child.stderr[-2000:]
 
 
 @pytest.mark.parametrize("n,k,long_run", [
@@ -525,17 +561,22 @@ def test_fm_grad_kernel_equals_plain_and_factored(dev, n, k, long_run):
         < 1e-6
 
 
-@pytest.mark.parametrize("sgd_kw,kernels", [
+@pytest.mark.parametrize("sgd_kw,kernels,idle", [
     (dict(update_path="fused", accumulate="segsum"),
-     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM_SQ), segsum.ROWSUM),
     (dict(update_path="fused", host_plan=False),
-     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM_SQ), segsum.ROWSUM),
+    (dict(update_path="fused", optimizer="adagrad_row"),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM), segsum.ROWSUM_SQ),
     (dict(update_path="sorted"),
-     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM)),
+     (rowio.GATHER, rowio.SCATTER, segsum.ROWSUM_SQ), segsum.ROWSUM),
 ])
-def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
+def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels,
+                                                      idle):
     """train_sgd on the fused and sorted paths on the card, one launch of
-    each kernel of the path per step ("auto" on the card sums by B5), run
+    each kernel of the path per step ("auto" on the card sums by sorted
+    runs: adagrad's [g_v | g_w] by B6, which forms the squares, and
+    adagrad_row's pack by B5; the other of the two is not launched), run
     twice: the two card runs are equal bit for bit (no atomics on either
     path), and they hold to the same run on the CPU, which sums by
     index_add_ in slot order. Tolerance from float32 against float64:
@@ -552,9 +593,11 @@ def test_fused_and_sorted_train_sgd_on_card_match_cpu(dev, sgd_kw, kernels):
     init = pfm.init_params(cfg, torch.Generator().manual_seed(2),
                            device="cpu")
     counts = [k.launches for k in kernels]
+    idle_count = idle.launches
     on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
     assert [k.launches - c for k, c in zip(kernels, counts)] == [16] * len(
         kernels)
+    assert idle.launches == idle_count
     again = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
     assert [h["train_loss"] for h in again.history] == [
         h["train_loss"] for h in on_card.history]
@@ -604,7 +647,7 @@ PATH_RUNS = {  # name: (data, FMConfig extras, SGDConfig extras, launches/step)
                                  slot_major_fields=True,
                                  task=Task.CLASSIFICATION),
                   dict(learning_rate=0.05),
-                  {"GATHER": 1, "SCATTER": 1, "ROWSUM": 1}),
+                  {"GATHER": 1, "SCATTER": 1, "ROWSUM_SQ": 1}),
 }
 
 
@@ -614,9 +657,10 @@ def test_direct_dedup_and_ffm_train_sgd_on_card_match_cpu(dev, name):
     below 2^16 rows), the dedup path (adam, momentum) and FFM on the
     fused path, on the card: the kernels' launches per step as the path
     runs them (B1's two-table gather for [v | w], the slots and adam's
-    second moments; B2 once a table; B6 for [Σg | Σg²], or B5 for the
-    direct step's per-slot momentum and adam terms and the fused step's
-    record sums), two card runs equal bit for bit (no atomics), and the
+    second moments; B2 once a table; B6 for [Σg | Σg²], the fused FFM
+    step's [g_v | g_w] included, or B5 for the direct step's per-slot
+    momentum and adam terms), two card runs equal bit for bit (no
+    atomics), and the
     card run against the CPU's at the fused test's tolerance (rtol 1e-4;
     V at rtol 1e-4, atol 1e-5)."""
     from sparkfm_tpu_torch.solvers import sgd as psgd

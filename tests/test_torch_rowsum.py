@@ -166,6 +166,28 @@ def test_accumulate_to_unique_sorted_matches_jax_and_scatter(payload):
         want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,w,num_sms,want", [
+    (8192, 9, 132, (16, 16, 1024)),       # BASELINE config 1: 512 chunks
+    (638976, 33, 132, (480, 15, 2664)),   # config 3's [g_v | g_w]: 64 KB
+    (180224, 177, 132, (92, 2, 3918)),    # config 4's FFM [g_v | g_w]
+    (3000, 700, 4, (23, 1, 262)),         # wide rows: one group a block
+    (4, 3, 132, (1, 1, 8)),
+])
+def test_tile_layout_rule(n, w, num_sms, want):
+    """B6's layout (kernel rowsum_sq_tiles_kernel): a chunk of rows and
+    ranks within TILE_BYTES, at most N over CHUNKS_PER_SM chunks an SM (so
+    config 1's 8,192 slots give ~4 blocks an SM, not 32 warps in all), a
+    multiple of its row groups, which fill at most TILE_THREADS threads;
+    the wrapper allocates two partial rows a chunk."""
+    chunk, groups, rows = segsum.tile_layout(n, w, num_sms)
+    assert (chunk, groups, rows) == want
+    assert rows == 2 * -(-n // chunk)
+    assert chunk == 1 or 4 * chunk * (w + 1) <= segsum.TILE_BYTES
+    assert chunk <= -(-n // (segsum.CHUNKS_PER_SM * num_sms))
+    assert chunk % groups == 0
+    assert groups * min(w, segsum.TILE_THREADS) <= segsum.TILE_THREADS
+
+
 def test_empty_streams_give_zeros():
     seg = torch.zeros((0,), dtype=torch.int32)
     assert not segsum.segment_rowsum(torch.zeros((0, 3)), seg, 4).any()

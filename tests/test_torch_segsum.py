@@ -209,25 +209,38 @@ def _factored_card_order(vw_u, ex, x, seg, u, cv, cw, span):
                 partials[2 * c + 1] = acc
             else:
                 out[r] = acc
+    _crossing_card_order(out, partials, seg, span)
+    return out
+
+
+def _crossing_card_order(out, partials, seg, chunk):
+    """Pass 2 of B3-B6 (rows_crossing_kernel) in float32: each run that
+    begins in a chunk and goes on into the next gets the sum of its
+    partial rows (the chunk's row 1, then row 0 of each later chunk it
+    reaches), added in order when there are at most 33, else by 32 warps
+    taking rows w, w + 32, ... in order, the warps' sums added in warp
+    order; written to ``out`` in place."""
+    f32 = np.float32
+    n, width = seg.shape[0], partials.shape[1]
+    num = -(-n // chunk)
     for c in range(num - 1):
-        end = (c + 1) * span
+        end = (c + 1) * chunk
         r = seg[end - 1]
-        if seg[end] != r or (c > 0 and seg[c * span - 1] == r):
+        if seg[end] != r or (c > 0 and seg[c * chunk - 1] == r):
             continue
         last = c + 1
-        while last + 1 < num and seg[(last + 1) * span] == r:
+        while last + 1 < num and seg[(last + 1) * chunk] == r:
             last += 1
         rows = [partials[2 * c + 1]] + [partials[2 * j]
                                         for j in range(c + 1, last + 1)]
         warps = 1 if len(rows) <= 33 else 32
-        acc = [np.zeros(2 * k + 2, f32) for _ in range(warps)]
+        acc = [np.zeros(width, f32) for _ in range(warps)]
         for j, row in enumerate(rows):
             acc[j % warps] = acc[j % warps] + row
-        total = np.zeros(2 * k + 2, f32)
+        total = np.zeros(width, f32)
         for part in acc:
             total = total + part
         out[r] = total
-    return out
 
 
 @pytest.mark.parametrize("k", [4, 32])
@@ -258,6 +271,140 @@ def test_factored_card_order_holds_to_float64_and_jax(k):
     assert float((np.abs(got - exact) / (1 + np.abs(exact))).max()) < 1e-4
     np.testing.assert_allclose(got, _jax(vw_u, ex, x, seg, u, force="xla"),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---- B6's summation order on the card, emulated in float32 numpy
+
+def _rowsum_sq_card_order(g, seg, u, chunk, groups):
+    """The card's B6 sums in its own float32 order (csrc/segsum.cu,
+    rowsum_sq_tiles_kernel): chunks of ``chunk`` slots, each cut into
+    ``groups`` row groups of ``per`` rows; within a group each run's rows
+    are added in slot order (the squares one rounding each, as the
+    kernel's fused multiply-add). A group's first run begun before it and
+    its last run going on after it are set aside; with one group they are
+    the chunk's partial rows 0 and 1, else the group where a run begins
+    adds the later groups' parts in group order and writes the run, or,
+    when it goes on past the chunk, the chunk's partial row 1; group 0
+    does the same for the chunk's first run begun in an earlier chunk:
+    partial row 0. Then pass 2 (:func:`_crossing_card_order`)."""
+    f32, f64 = np.float32, np.float64
+    n, w = g.shape
+    out = np.zeros((u, 2 * w), f32)        # pass 1 writes the zero rows
+    num = -(-n // chunk)
+    partials = np.zeros((2 * num, 2 * w), f32)
+    per = -(-chunk // groups)
+    for c in range(num):
+        s0 = c * chunk
+        rows = min(chunk, n - s0)
+        # ranks[i + 1]: slot s0 + i; -1 past either end of seg
+        ranks = np.concatenate([[seg[s0 - 1] if s0 > 0 else -1],
+                                seg[s0:s0 + rows],
+                                [seg[s0 + rows] if s0 + rows < n else -1]])
+        active = -(-rows // per)
+        ends = {}                          # (group, "begun"/"going") -> sums
+        for j in range(active):
+            r0, r1 = j * per, min(j * per + per, rows)
+            cuts = [r0, *(np.flatnonzero(ranks[r0 + 2:r1 + 1]
+                                         != ranks[r0 + 1:r1]) + r0 + 1), r1]
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                acc = np.zeros(w, f32)
+                sq = np.zeros(w, f32)
+                for i in range(a, b):
+                    v = g[s0 + i]
+                    acc = acc + v
+                    sq = (sq.astype(f64) + v.astype(f64) ** 2).astype(f32)
+                rank = ranks[a + 1]
+                begun = a == r0 and rank == ranks[r0]
+                going = b == r1 and rank == ranks[r1 + 1]
+                row = np.concatenate([acc, sq])
+                if groups > 1 and (begun or going):
+                    ends[j, "begun" if begun else "going"] = row
+                elif begun:
+                    partials[2 * c] = row
+                elif going:
+                    partials[2 * c + 1] = row
+                else:
+                    out[rank] = row
+        if groups == 1:
+            continue
+
+        def end_of(m):
+            return min(m * per + per, rows)
+
+        def passes_through(m):             # one run, begun before, going on
+            return (ranks[m * per + 1] == ranks[m * per]
+                    == ranks[end_of(m)] == ranks[end_of(m) + 1])
+        for j in range(active):
+            if (j, "going") in ends:
+                total = ends[j, "going"]
+                dst = out, ranks[end_of(j)]
+                for m in range(j + 1, active + 1):
+                    if m == active:        # it goes on past the chunk
+                        dst = partials, 2 * c + 1
+                        break
+                    total = total + ends[m, "begun"]
+                    if not passes_through(m):
+                        break
+                dst[0][dst[1]] = total
+        if (0, "begun") in ends:
+            total = ends[0, "begun"]
+            m = 0
+            while passes_through(m) and m + 1 < active:
+                m += 1
+                total = total + ends[m, "begun"]
+            partials[2 * c] = total
+    _crossing_card_order(out, partials, seg, chunk)
+    return out
+
+
+def _rows_sq_case(rng, n, w, kind):
+    """Sorted ranks of a kind and (N, W) normal rows: "dense" (step <= 1,
+    what the plans emit), "long" (dense with one run of 45% of the slots,
+    a zipf head id) or "gaps" (steps up to 3)."""
+    incr = rng.integers(0, 4 if kind == "gaps" else 2, n)
+    incr[0] = 0
+    if kind == "long":
+        incr[n // 4 + 1:n // 4 + 45 * n // 100] = 0
+    seg = np.cumsum(incr).astype(np.int32)
+    return rng.normal(size=(n, w)).astype(np.float32), seg, int(seg[-1]) + 3
+
+
+@pytest.mark.parametrize("n,w,kind,num_sms,forces", [
+    (8192, 9, "dense", 132, ("xla", "interpret")),   # BASELINE config 1
+    (20000, 33, "long", 132, ("xla", "interpret")),  # small chunks, 33+ rows
+    (20000, 33, "long", 4, ("xla",)),                # full 64 KB tiles
+    (3000, 177, "dense", 132, ("xla", "interpret")), # the FFM record's width
+    (3000, 300, "long", 4, ("xla",)),                # one group a block
+    (1500, 600, "dense", 4, ("xla",)),               # two column passes
+    (5000, 33, "gaps", 132, ("xla",)),               # ranks with no slots
+])
+def test_rowsum_sq_card_order_holds_to_float64_and_jax(n, w, kind, num_sms,
+                                                       forces):
+    """B6's summation order on the card at the layout the wrapper picks
+    (``segsum.tile_layout``; a card of 132 SMs, or 4 so that a small
+    N fills whole tiles), emulated in float32: every path of the combine
+    (runs across groups, through whole groups and past the chunk), one
+    group a block, pass 2's warp and block paths (the 45% runs cross ~100
+    to ~300 chunks) and zero rows between gapped ranks. This checks the
+    design's order, not the port's code (the kernel is held to float64 on
+    the card, ``tests/test_torch_cuda.py``, ``chip_smoke.py``). Held to
+    the float64 sums at max |a - b| / (1 + |b|) < 1e-4, the card check's
+    bound, and to JAX ``segment_rowsum_sq`` at rtol = atol = 1e-4: float32
+    sums of up to 9,000 terms in different orders (the Pallas kernel's
+    interpret mode needs dense ranks)."""
+    g, seg, u = _rows_sq_case(np.random.default_rng(n + w), n, w, kind)
+    chunk, groups, rows = segsum.tile_layout(n, w, num_sms)
+    assert rows == 2 * -(-n // chunk)
+    got = _rowsum_sq_card_order(g, seg, u, chunk, groups)
+    exact = segsum.segment_rowsum_sq_reference(
+        torch.from_numpy(g).double(), torch.from_numpy(seg), u).numpy()
+    assert float((np.abs(got - exact) / (1 + np.abs(exact))).max()) < 1e-4
+    for force in forces:
+        want = np.asarray(S.segment_rowsum_sq(
+            jnp.asarray(g), jnp.asarray(seg), u, tile=1024, subtile=256,
+            bf16x2=False, force=force))
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
+                                   err_msg=force)
 
 
 def _colsums_case(rng, n, s, kind):

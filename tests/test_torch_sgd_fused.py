@@ -124,8 +124,28 @@ CASES = [  # (task, optimizer, accumulate, host plans, FMConfig extras)
 ]
 
 
+def _count_calls(monkeypatch, module, *names):
+    """Count the calls of ``module.<name>`` for each name (the CPU runs
+    the kernels' plain versions, whose launch counts stay 0)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(module, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
 @pytest.mark.parametrize("task,opt,accumulate,host,fm_kw", CASES)
-def test_fused_step_matches_jax(task, opt, accumulate, host, fm_kw):
+def test_fused_step_matches_jax(task, opt, accumulate, host, fm_kw,
+                                monkeypatch):
+    """Also the route of the per-unique sums: on sorted runs adagrad and
+    sgd sum ``[g_v | g_w]`` by B6, which forms the squares, and
+    adagrad_row its (N, k+3) pack by B5; the scatter reduce neither."""
+    calls = _count_calls(monkeypatch, segsum, "segment_rowsum",
+                         "segment_rowsum_sq")
     ids, vals, y, params = _data(task)
     jcfg, jsgd, pcfg, psgd_cfg = _configs(task, fm_kw, optimizer=opt,
                                           accumulate=accumulate,
@@ -147,6 +167,10 @@ def test_fused_step_matches_jax(task, opt, accumulate, host, fm_kw):
             _assert_close(jstate, jaux, pstate, paux, 1e-5, 1e-6, 1e-5)
     _assert_close(jstate, jaux, pstate, paux, 2e-4, 2e-5, 1e-4)
     assert segsum.ROWSUM.launches == rowsum_before    # CPU: plain versions
+    sorted_runs = accumulate == "segsum"              # "auto": CPU scatter
+    b6 = STEPS if sorted_runs and opt != "adagrad_row" else 0
+    b5 = STEPS if sorted_runs and opt == "adagrad_row" else 0
+    assert calls == {"segment_rowsum": b5, "segment_rowsum_sq": b6}
 
 
 def test_device_plans_stay_on_the_device_side():

@@ -10,6 +10,8 @@ sort need not keep equal ids in slot order); steps at rtol 1e-4 on losses
 and scores and rtol 2e-4, atol 2e-5 on tables ``[:F, :2k+2]`` after the
 last step, the JAX test's own tolerance for this path."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,17 +99,28 @@ def _run_parity(fm_kw, sgd_kw, batches, task="regression"):
                                            kernel_mode="xla")
     pstep = sgd_sorted.make_sorted_train_step(pcfg, SGDConfig(**sgd_kw),
                                               kernel_mode="xla")
-    before = segsum.ROWSUM.launches
-    for arrays in batches:
-        jstate, jaux = jstep(jstate, _jax_batch(*arrays))
-        pstate, paux = pstep(pstate, _torch_batch(*arrays))
-        np.testing.assert_allclose(float(paux["loss"]), float(jaux["loss"]),
-                                   rtol=1e-4)
-        np.testing.assert_allclose(paux["scores"].numpy(),
-                                   np.asarray(jaux["scores"]), rtol=1e-4,
-                                   atol=1e-5)
-        assert int(paux["unique_count"]) == int(jaux["unique_count"])
-    assert segsum.ROWSUM.launches == before           # CPU: plain version
+    before = segsum.ROWSUM_SQ.launches
+    calls = []
+    b6 = segsum.segment_rowsum_sq
+
+    def counted(g, seg, u):
+        calls.append(tuple(g.shape))
+        return b6(g, seg, u)
+    # each step sums [g_v | g_w] (N, k+1) by B6, which forms the squares;
+    # B5 is not called (None would raise)
+    with mock.patch.object(segsum, "segment_rowsum_sq", counted), \
+            mock.patch.object(segsum, "segment_rowsum", None):
+        for arrays in batches:
+            jstate, jaux = jstep(jstate, _jax_batch(*arrays))
+            pstate, paux = pstep(pstate, _torch_batch(*arrays))
+            np.testing.assert_allclose(float(paux["loss"]),
+                                       float(jaux["loss"]), rtol=1e-4)
+            np.testing.assert_allclose(paux["scores"].numpy(),
+                                       np.asarray(jaux["scores"]), rtol=1e-4,
+                                       atol=1e-5)
+            assert int(paux["unique_count"]) == int(jaux["unique_count"])
+    assert calls == [(a[0].size, pcfg.num_factors + 1) for a in batches]
+    assert segsum.ROWSUM_SQ.launches == before        # CPU: plain version
     f, used = pcfg.num_features, 2 * pcfg.num_factors + 2
     np.testing.assert_allclose(pstate.table[:f, :used].numpy(),
                                np.asarray(jstate.table)[:f, :used],
