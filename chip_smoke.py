@@ -141,7 +141,30 @@ BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving.
      field_ids against the plain per-slot path, the kernels timed at these
      shapes (B6 beside the squares, ``cat`` and B5 it replaced), and one
      profiled epoch of ``train_sgd`` (20 steps: B1 = B2 = B6 = 20) with its
-     peak device memory.
+     peak device memory;
+ 22. grouped hybrid steps as CUDA graphs at BASELINE config 3's full
+     width, on phase 9's data: ``train_sgd`` with ``steps_per_dispatch``
+     = 1, 2 and 4 from one initial table must give the same tables and
+     histories bit for bit, B1 = B2 = B3 = steps (replays included), and
+     one graph per ladder rung that forms a full group (the rungs found
+     again from host plans); ``make_hybrid_multi_step`` on 5 bench-recipe
+     batches of one rung, captured then replayed, must equal 10 eager
+     steps bit for bit; per G, in this call: trained ex/s, the device's
+     busy and idle share of one epoch, its host-to-device copy time
+     (pageable at G = 1, pinned above) and the host wall per step by
+     ``utils/profiling.py::StepTimer`` on staged batches;
+ 23. ``make_fused_multi_step`` with G = 4 on device plans (B1, B6, B2)
+     and on host plans of one rung, captured then replayed, against 8
+     eager steps, bit for bit, with its launch counts, device busy and host
+     wall per step, single against graph; and, in a child process, an id
+     out of range inside a replayed graph must end it with the kernel's
+     trap;
+ 24. checkpointed training (``checkpoint_dir``) at 2^20 rows (cut from
+     2^24 to keep the run short), hybrid with G = 2: 2 epochs, then a new
+     ``train_sgd`` that resumes to 4 must equal 4 straight epochs bit for
+     bit; then one save and restore of config 3's fused state (2^24 x 68
+     float32, 4.56 GB; 2^22 rows if the disk lacks the room, said so) in a
+     scratch directory beside this script, timed as GB/s and removed.
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -2296,6 +2319,400 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     return entries
 
 
+GRAPH_TRAP_CHILD = """
+import sys, torch
+from sparkfm_tpu_torch import FMConfig, SGDConfig
+from sparkfm_tpu_torch.data.batching import SparseBatch
+from sparkfm_tpu_torch.solvers import sgd_fused
+dev = torch.device("cuda")
+cfg = FMConfig(num_features=1000, num_factors=4)
+multi = sgd_fused.make_fused_multi_step(
+    cfg, SGDConfig(batch_size=64, unique_budget=512))
+state = sgd_fused.init_fused_state(cfg, device=dev)
+gen = torch.Generator(device=dev).manual_seed(0)
+
+def stacked(bad):
+    ids = torch.randint(0, 1000, (2, 64, 6), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if bad:
+        ids[1, 5, 2] = 1050          # the table has 1001 rows
+    return SparseBatch(ids=ids, vals=torch.ones((2, 64, 6), device=dev),
+                       y=torch.ones((2, 64), device=dev))
+
+multi(state, stacked(False))         # runs eagerly, then is captured
+multi(state, stacked(False))         # a replay
+torch.cuda.synchronize()
+assert multi.captures == 1, multi.captures
+try:
+    multi(state, stacked(True))      # a replay that meets the bad id
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    if "unspecified launch failure" not in str(e):   # not the trap
+        raise
+    print("trapped:", str(e).splitlines()[0])
+    sys.exit(3)
+print("no trap")
+"""
+
+
+def expected_graphs(ds, batch, seed, epochs, group, fill):
+    """The ladder rungs on which the trainer's grouping forms a full group
+    of ``group`` consecutive batches in ``epochs`` shuffled epochs of
+    ``ds`` (its own host plans, built again here): the graphs a grouped
+    train_sgd must capture, one per rung."""
+    from sparkfm_tpu_torch.data.batching import batch_iterator
+    rungs = set()
+    for epoch in range(epochs):
+        run, last = 0, None
+        for b in batch_iterator(ds, batch, device="cpu", shuffle=True,
+                                seed=seed, epoch=epoch,
+                                dedup_budget="ladder", dedup_fill=fill):
+            rung = b.plan.uids.shape[0]
+            run = run + 1 if rung == last else 1
+            last = rung
+            if run == group:
+                rungs.add(rung)
+                run = 0
+    return rungs
+
+
+def graph_checkpoint_phases(dev, cfg, gen, rng, card, root):
+    """Phases 22-24: grouped hybrid steps as CUDA graphs at BASELINE
+    config 3's full width, the fused multi-step on device and host plans
+    (and a trap inside a replayed graph), checkpointed and resumed
+    training, and one full-size save and restore of config 3's state."""
+    import shutil
+    import tempfile
+    from sparkfm_tpu_torch import FMConfig, SGDConfig, train_sgd
+    from sparkfm_tpu_torch.data import synth
+    from sparkfm_tpu_torch.data.batching import (SparseDataset,
+                                                 batch_iterator)
+    from sparkfm_tpu_torch.ops import rowio, segsum
+    from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
+    from sparkfm_tpu_torch.utils import graphs, profiling
+    from sparkfm_tpu_torch.utils.checkpoint import Checkpointer
+
+    kernels = {"gather_rows": rowio.GATHER, "scatter_set_rows": rowio.SCATTER,
+               "fm_grad_segsum_factored": segsum.FACTORED,
+               "segment_rowsum_sq": segsum.ROWSUM_SQ}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+
+    def same_params(a, b):
+        return all(torch.equal(getattr(a.params, n), getattr(b.params, n))
+                   for n in ("w0", "w", "v"))
+
+    # 22. train_sgd with steps_per_dispatch 1, 2 and 4 from one initial
+    # table on phase 9's data: the same tables and histories bit for bit,
+    # one launch of B1, B2 and B3 a step (replays included), one graph
+    # per rung that forms a full group
+    ds = synth.synth_ctr(num_examples=BATCH * 20, num_fields=SLOTS,
+                         num_buckets=BUCKETS, seed=SEED)
+    steps = 2 * 20
+
+    def sgd_of(g, epochs=2):
+        return SGDConfig(batch_size=BATCH, learning_rate=0.05,
+                         optimizer="adagrad", epochs=epochs,
+                         steps_per_dispatch=g)
+    captured = []
+    graphs_capture = graphs.capture
+
+    def counting_capture(step, state, group, pool):
+        captured.append((group.batches[0]["plan.uids"].shape[0],
+                         len(group.batches)))
+        return graphs_capture(step, state, group, pool)
+    first = None
+    for g in (1, 2, 4):
+        captured.clear()
+        zero_counts()
+        with swapped([(graphs, "capture", counting_capture)]):
+            t0 = time.perf_counter()
+            res = train_sgd(cfg, sgd_of(g), ds, generator=torch.Generator(
+                device=dev).manual_seed(SEED), device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        want = {"gather_rows": steps, "scatter_set_rows": steps,
+                "fm_grad_segsum_factored": steps}
+        if launches != want:
+            raise AssertionError(f"G={g}: launches {launches}, expected "
+                                 f"{want}")
+        rungs = (expected_graphs(ds, BATCH, cfg.seed, 2, g, BUCKETS)
+                 if g > 1 else set())
+        if sorted(captured) != sorted((r, g) for r in rungs):
+            raise AssertionError(f"G={g}: graphs captured {captured}, "
+                                 f"expected one per rung {sorted(rungs)}")
+        if first is None:
+            first = res
+        elif not (same_params(res, first) and res.history == first.history):
+            raise AssertionError(f"G={g}: tables or histories differ from "
+                                 "G=1's")
+        print(f"train: grouped hybrid train_sgd, BASELINE config 3, G={g}: "
+              f"{steps} steps, {res.examples_per_sec:.0f} ex/s (first "
+              f"dispatch left out), {wall:.3f} s wall; launches {launches}; "
+              f"graphs captured {len(captured)} (rungs with a full group "
+              f"{sorted(rungs)}); tables and history "
+              f"{'the reference' if g == 1 else 'equal to G=1 bit for bit'}"
+              f"; {card}", flush=True)
+        del res
+    losses = [h["train_loss"] for h in first.history]
+    if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"grouped training losses {losses}")
+    del first
+    torch.cuda.empty_cache()
+
+    # make_hybrid_multi_step on 5 bench-recipe batches of one rung (the
+    # largest ladder rung of the five), twice (capture, then a replay),
+    # against 10 eager steps from the same state: exact
+    bds = SparseDataset(ids=np.concatenate([zipf_ids(rng, BATCH)
+                                            for _ in range(5)]),
+                        vals=np.ones((5 * BATCH, SLOTS), np.float32),
+                        y=rng.integers(0, 2, 5 * BATCH).astype(np.float32),
+                        num_features=BUCKETS)
+    rung = max(b.plan.uids.shape[0] for b in batch_iterator(
+        bds, BATCH, device="cpu", dedup_budget="ladder", dedup_fill=BUCKETS))
+    batches = list(batch_iterator(bds, BATCH, device=dev, dedup_budget=rung,
+                                  dedup_fill=BUCKETS))
+    sgd = sgd_of(5, 1)
+    step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
+    multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd)
+    stacked = sgd_hybrid.stack_batches(batches)
+
+    def fresh():
+        return sgd_fused.init_fused_state(cfg, torch.Generator(
+            device=dev).manual_seed(SEED + 3), device=dev)
+    eager, grouped = fresh(), fresh()
+    for turn in ("captured", "replayed"):
+        for b in batches:
+            eager, aux = step(eager, b)
+        zero_counts()
+        _, maux = multi(grouped, stacked)
+        launches = read_counts()
+        if launches != {"gather_rows": 5, "scatter_set_rows": 5,
+                        "fm_grad_segsum_factored": 5}:
+            raise AssertionError(f"multi-step ({turn}) launches {launches}")
+        for n in ("table", "w0", "slot_w0", "step"):
+            if not torch.equal(getattr(eager, n), getattr(grouped, n)):
+                raise AssertionError(f"multi-step ({turn}): {n} differs "
+                                     "from 5 eager steps")
+        if not torch.equal(maux["loss"], aux["loss"]):
+            raise AssertionError(f"multi-step ({turn}): loss differs")
+    print(f"check: make_hybrid_multi_step of 5 bench-recipe batches (N = "
+          f"{BATCH * SLOTS} slots, one rung U={rung}, uniques "
+          f"{[int(b.plan.count) for b in batches]}), captured then "
+          f"replayed, == 10 eager steps bit for bit (table, bias, slots, "
+          f"step, loss); launches 5 of B1, B2, B3 a call; graphs captured "
+          f"{multi.captures}", flush=True)
+    del eager, grouped, stacked
+    torch.cuda.empty_cache()
+
+    # where the time goes per G: ex/s, device busy and idle share, H2D
+    # device time and host wall per step by StepTimer, all in this call;
+    # the StepTimer runs on phase 9's batches staged with plans of one
+    # rung (their largest ladder rung)
+    one_rung = max(b.plan.uids.shape[0] for b in batch_iterator(
+        ds, BATCH, device="cpu", dedup_budget="ladder", dedup_fill=BUCKETS))
+    one = list(batch_iterator(ds, BATCH, device=dev, dedup_budget=one_rung,
+                              dedup_fill=BUCKETS))
+    for g in (1, 2, 4):
+        t0 = time.perf_counter()
+        res = train_sgd(cfg, sgd_of(g, 1), ds, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eps = res.examples_per_sec
+        del res
+        busy, events = device_us(lambda: train_sgd(cfg, sgd_of(g, 1), ds,
+                                                   device=dev), tries=2)
+        h2d = {e.key: e.self_device_time_total for e in events
+               if "HtoD" in e.key}
+        top = "; ".join(f"{e.key[:50]} x{e.count} "
+                        f"{e.self_device_time_total:.0f}" for e in events[:6])
+        # host wall per step of the step alone, on staged batches of one
+        # rung: dispatch only ("none") and to the end of its device work
+        # ("block")
+        state = fresh()
+        run = (step if g == 1 else multi)
+        groups = ([(b,) for b in one] if g == 1 else
+                  [sgd_hybrid.stack_batches(one[i:i + g])
+                   for i in range(0, len(one) - g + 1, g)])
+        timers = {}
+        for sync in ("none", "block"):
+            timer = profiling.StepTimer(sync=sync)
+            for item in groups:
+                torch.cuda.synchronize()
+                timer.start()
+                if g == 1:
+                    state, aux = run(state, item[0])
+                else:
+                    state, aux = run(state, item)
+                timer.stop(aux["loss"])
+            timers[sync] = timer.stats()["p50_ms"] / g
+        del state
+        print(f"profile: one-epoch grouped hybrid train_sgd, G={g} (20 "
+              f"steps, state init included): {eps:.0f} ex/s (first "
+              f"dispatch left out); device busy {busy / 1e3:.3f} ms of "
+              f"{wall * 1e3:.3f} ms untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}"
+              f"% idle); H2D device time {sum(h2d.values()) / 1e3:.3f} ms "
+              f"({', '.join(f'{k} {v / 1e3:.3f}' for k, v in h2d.items())})"
+              f"; host wall per step by StepTimer on staged batches "
+              f"(median of {len(groups)} dispatches / G): dispatch "
+              f"{timers['none']:.3f} ms, to the end of its device work "
+              f"{timers['block']:.3f} ms; top device events (us): {top}; "
+              f"{card}", flush=True)
+    del one, multi, batches
+    torch.cuda.empty_cache()
+
+    # 23. the fused multi-step, G = 4, on device plans (B1, B6, B2) and on
+    # host plans of one rung, against 4 eager steps: exact, captured then
+    # replayed; device busy and host wall per step, single against graph
+    fsgd = SGDConfig(batch_size=BATCH, learning_rate=0.05)
+    fbatches = list(batch_iterator(bds, BATCH, device=dev, dedup_budget=rung,
+                                   dedup_fill=BUCKETS))[:4]
+    for label, group in (("device plans", [dataclasses.replace(b, plan=None)
+                                           for b in fbatches]),
+                         ("host plans", fbatches)):
+        fstep = sgd_fused.make_fused_train_step(cfg, fsgd)
+        fmulti = sgd_fused.make_fused_multi_step(cfg, fsgd)
+        fstacked = sgd_hybrid.stack_batches(group)
+        eager, grouped = fresh(), fresh()
+        for turn in ("captured", "replayed"):
+            for b in group:
+                eager, aux = fstep(eager, b)
+            zero_counts()
+            _, maux = fmulti(grouped, fstacked)
+            launches = read_counts()
+            if launches != {"gather_rows": 4, "scatter_set_rows": 4,
+                            "segment_rowsum_sq": 4}:
+                raise AssertionError(f"fused multi-step, {label} ({turn}): "
+                                     f"launches {launches}")
+            for n in ("table", "w0", "slot_w0", "step"):
+                if not torch.equal(getattr(eager, n), getattr(grouped, n)):
+                    raise AssertionError(f"fused multi-step, {label} "
+                                         f"({turn}): {n} differs")
+            if not torch.equal(maux["loss"], aux["loss"]):
+                raise AssertionError(f"fused multi-step, {label}: loss")
+        single_us = device_us(lambda: [fstep(eager, b) for b in group],
+                              tries=2)[0] / 4
+        graph_us = device_us(lambda: fmulti(grouped, fstacked),
+                             tries=2)[0] / 4
+        walls = {}
+        for name, fn in (("single", lambda: [fstep(eager, b)
+                                             for b in group][-1]),
+                         ("graph", lambda: fmulti(grouped, fstacked))):
+            timer = profiling.StepTimer(sync="none")
+            for _ in range(5):
+                torch.cuda.synchronize()
+                timer.start()
+                fn()
+                timer.stop()
+            walls[name] = timer.stats()["p50_ms"] / 4
+        torch.cuda.synchronize()
+        print(f"check: make_fused_multi_step G=4 on {label} (budget "
+              f"{fstacked.plan.uids.shape[1] if fstacked.plan else 'auto'}"
+              f"), captured then replayed, == 8 eager steps bit for bit; "
+              f"launches 4 of B1, B6, B2 a call; graphs captured "
+              f"{fmulti.captures}; device busy per step single "
+              f"{single_us:.1f} us, graph {graph_us:.1f} us "
+              f"(torch.profiler); host wall per step (dispatch, median of "
+              f"5) single {walls['single']:.3f} ms, graph "
+              f"{walls['graph']:.3f} ms; {card}", flush=True)
+        del eager, grouped, fstacked
+        torch.cuda.empty_cache()
+    child = subprocess.run([sys.executable, "-c", GRAPH_TRAP_CHILD],
+                           cwd=root, capture_output=True, text=True,
+                           timeout=300)
+    if child.returncode != 3:
+        raise AssertionError(f"an out-of-range id in a replayed graph did "
+                             f"not trap: rc {child.returncode}\n"
+                             f"{child.stdout}{child.stderr[-2000:]}")
+    print(f"check: out-of-range id inside a replayed CUDA graph -> "
+          f"{child.stdout.strip()}", flush=True)
+    del bds, fbatches
+
+    # 24. checkpointed training at 2^20 rows (cut from 2^24 to keep the
+    # smoke short), hybrid with G = 2: 2 epochs into a checkpoint_dir,
+    # then a new call that resumes to 4, against 4 straight epochs
+    small = FMConfig(num_features=1 << 20, num_factors=RANK,
+                     task=cfg.task, reg_w=cfg.reg_w, reg_v=cfg.reg_v,
+                     seed=SEED)
+    cds = synth.synth_ctr(num_examples=BATCH * 8, num_fields=SLOTS,
+                          num_buckets=1 << 20, seed=SEED + 5)
+    scratch = tempfile.mkdtemp(prefix="_ckpt_smoke_", dir=root)
+    try:
+        def run(epochs, **kw):
+            return train_sgd(small, sgd_of(2, epochs), cds,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(SEED),
+                             device=dev, **kw)
+        straight = run(4)
+        ckdir = os.path.join(scratch, "train")
+        run(2, checkpoint_dir=ckdir)
+        t0 = time.perf_counter()
+        resumed = run(4, checkpoint_dir=ckdir)
+        resume_s = time.perf_counter() - t0
+        if not (same_params(resumed, straight)
+                and resumed.history == straight.history):
+            raise AssertionError("resumed run differs from the straight one")
+        print(f"check: checkpointed grouped hybrid training (2^20 x rank "
+              f"{RANK}, 8 steps of {BATCH} an epoch, G=2): 2 epochs into "
+              f"checkpoint_dir, then a new train_sgd resumed to 4 "
+              f"({resume_s:.3f} s) == 4 straight epochs bit for bit "
+              f"(parameters and history; losses "
+              f"{[round(h['train_loss'], 6) for h in resumed.history]}); "
+              f"steps kept {Checkpointer(ckdir).all_steps()}", flush=True)
+        del straight, resumed
+        torch.cuda.empty_cache()
+
+        # one save and restore of config 3's fused state, timed
+        rows_full = BUCKETS
+        need = (rows_full + 1) * sgd_fused.record_width(RANK) * 4
+        free = shutil.disk_usage(scratch).free
+        cut = ""
+        if free < 1.5 * need + (1 << 30):
+            rows_full = 1 << 22
+            cut = (f" (cut to 2^22 rows: {free / 1e9:.1f} GB free on the "
+                   f"disk, {need / 1e9:.2f} GB needed)")
+        big = FMConfig(num_features=rows_full, num_factors=RANK, seed=SEED)
+        state = sgd_fused.init_fused_state(big, gen, device=dev)
+        nbytes = sum(t.numel() * t.element_size() for t in (
+            state.table, state.w0, state.slot_w0, state.step))
+        with Checkpointer(os.path.join(scratch, "full")) as ck:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(0, state, extra={"epoch": 0})
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            restored, extra = ck.restore(template=state)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            on_disk = os.path.getsize(os.path.join(scratch, "full", "0",
+                                                   "state.pt"))
+        if not (torch.equal(restored.table, state.table)
+                and extra == {"epoch": 0}):
+            raise AssertionError("full-size restore differs")
+        print(f"time: checkpoint of config 3's fused state "
+              f"{tuple(state.table.shape)} f32, {nbytes / 1e9:.3f} GB "
+              f"({on_disk / 1e9:.3f} GB on disk){cut}: save {t2 - t0:.3f} "
+              f"s = {nbytes / (t2 - t0) / 1e9:.3f} GB/s (device-to-host "
+              f"copy {t1 - t0:.3f} s, {nbytes / (t1 - t0) / 1e9:.3f} GB/s; "
+              f"write {t2 - t1:.3f} s, {nbytes / (t2 - t1) / 1e9:.3f} "
+              f"GB/s); restore to the card {t3 - t2:.3f} s = "
+              f"{nbytes / (t3 - t2) / 1e9:.3f} GB/s; restored == saved; "
+              f"{card}", flush=True)
+        del state, restored
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2616,6 +3033,9 @@ def main():
     # momentum
     torch.cuda.empty_cache()
     ddf_entries = direct_dedup_ffm_phases(dev, cfg, gen, rng, card)
+    # 22-24. grouped steps as CUDA graphs, checkpointed training
+    torch.cuda.empty_cache()
+    graph_checkpoint_phases(dev, cfg, gen, rng, card, root)
 
     print(smi)
     # one serving plan's [v | w] gather: the ids, each distinct row of V

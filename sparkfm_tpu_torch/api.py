@@ -162,9 +162,8 @@ class FM:
 
     Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
     item: ``solver="mcmc"`` (A11), a ``mesh`` (A15), ``model="deepfm"``
-    (A12), relational input (A10: BS-ALS and relational SGD), a
-    ``checkpoint_dir`` (A5) and a fitted Vectorizer as ``feature_groups``
-    (A14).
+    (A12), relational input (A10: BS-ALS and relational SGD) and a fitted
+    Vectorizer as ``feature_groups`` (A14).
     """
 
     def __init__(self, num_factors: int = 8,
@@ -260,10 +259,12 @@ class FM:
         """Train on ``device`` and return the fitted model.
 
         ``init_params`` (an FMParams or a fitted FMModel) warm-starts the
-        "als" and "sgd" solvers. A callable solver takes neither
-        ``init_params`` nor a ``timeout``: it is given no way to honour
-        them, so ``fit`` raises ``ValueError`` where the JAX facade drops
-        both silently.
+        "als" and "sgd" solvers. ``checkpoint_dir`` checkpoints and
+        resumes the "sgd" solver's training (``train_sgd``). A callable
+        solver takes neither ``init_params`` nor a ``timeout``, and no
+        solver but "sgd" takes a ``checkpoint_dir``: they are given no way
+        to honour them, so ``fit`` raises ``ValueError`` where the JAX
+        facade drops them silently.
         """
         # imported here: training.trainer (and so solvers.als) imports
         # this module
@@ -280,9 +281,9 @@ class FM:
         if self.mesh is not None:
             raise NotImplementedError("mesh training is not ported yet "
                                       "(ROADMAP A15)")
-        if checkpoint_dir is not None:
-            raise NotImplementedError("checkpointed training is not ported "
-                                      "yet (ROADMAP A5)")
+        if checkpoint_dir is not None and self.solver != "sgd":
+            raise ValueError("checkpoint_dir checkpoints the 'sgd' solver "
+                             f"only, not {self.solver!r}")
         if isinstance(init_params, FMModel):
             init_params = init_params.params
         device = torch.device(device)
@@ -306,6 +307,7 @@ class FM:
                                 max_seconds=self.timeout)
             res = trainer.train_sgd(cfg, sgd_cfg, train, eval_ds,
                                     self.eval_every, generator,
+                                    checkpoint_dir=checkpoint_dir,
                                     init_params=init_params, device=device)
         elif self.solver == "als":
             als_cfg = ALSConfig(epochs=self.max_iter,

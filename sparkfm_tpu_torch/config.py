@@ -120,9 +120,9 @@ class SGDConfig:
     package's ``ValueError``. ``host_plan=False`` makes the dedup and
     fused steps build their plans on the device (the hybrid path needs
     host plans and raises ``ValueError``). ``steps_per_dispatch`` groups
-    only hybrid steps, as in the JAX package; above 1 the hybrid path
-    raises ``NotImplementedError`` (ROADMAP A3), and the other paths run
-    their steps one by one.
+    only hybrid steps, as in the JAX package: above 1 ``train_sgd`` runs
+    that many hybrid steps a dispatch (a CUDA graph on the card), and the
+    other paths run their steps one by one.
 
     ``max_seconds``: wall-clock budget, checked at epoch boundaries (0 =
     none). ``unique_budget``: 0 sizes each batch's plan by the ladder

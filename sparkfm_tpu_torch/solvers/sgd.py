@@ -243,18 +243,6 @@ def resolve_update_path(cfg: FMConfig, sgd_cfg: SGDConfig) -> str:
     return "dedup"
 
 
-def check_grouping(path: str, sgd_cfg: SGDConfig) -> None:
-    """``steps_per_dispatch``, read where the JAX trainer reads it: only
-    the hybrid path groups steps into one dispatch, and every other path
-    runs its steps one by one whatever the value. The port has no grouped
-    hybrid dispatch yet, so the hybrid path raises
-    ``NotImplementedError`` for a value above 1."""
-    if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 on the hybrid path (CUDA-graph "
-            "multi-step) is not ported yet (ROADMAP A3)")
-
-
 def trim_params(params: FMParams, num_features: int) -> FMParams:
     """Drop the dedup dummy row if present."""
     if params.w.shape[0] == num_features + 1:

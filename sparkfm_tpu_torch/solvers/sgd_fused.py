@@ -60,6 +60,7 @@ from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import embedding as E
 from sparkfm_tpu_torch.ops import segsum
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
+from sparkfm_tpu_torch.utils import graphs
 
 _INIT_CHUNK_BYTES = 1 << 28        # V drawn 256 MiB at a time
 
@@ -322,3 +323,18 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                            "unique_overflow": plan.overflow}
 
     return train_step
+
+
+def make_fused_multi_step(cfg: FMConfig,
+                          sgd_cfg: SGDConfig) -> graphs.MultiStep:
+    """G fused steps per call, the fused twin of
+    ``sgd_hybrid.make_hybrid_multi_step``: ``multi(state, stacked) ->
+    (state, aux)`` over batches stacked by ``sgd_hybrid.stack_batches``
+    (one plan shape: a ladder rung, or batches without plans, whose
+    device plans have a fixed budget), exactly the sequence of G single
+    steps. On the card one CUDA graph per input shape and G, captured
+    with ``torch.autograd.grad`` inside it after the shape's first group
+    ran eagerly (which also fills the step's per-device cache of the
+    group L2 vectors); on the CPU the steps one after another. As in the
+    JAX package, the trainer does not call it."""
+    return graphs.MultiStep(make_fused_train_step(cfg, sgd_cfg))

@@ -31,7 +31,13 @@ The step looks the three kernels up through their modules at each call
 
 It needs a host plan carrying ``order/seg/svals/sex``
 (``data/batching.py::batch_iterator`` with ``dedup_budget`` emits it),
-whose fill id is ``num_features``: the table's extra last row.
+whose fill id is ``num_features``: the table's extra last row. The plan's
+count may be a host number or a 0-d tensor on the device; the step reads
+no host value of the batch, so it can be captured in a CUDA graph.
+
+:func:`make_hybrid_multi_step` runs G steps per call over batches stacked
+by :func:`stack_batches` (``utils/graphs.py``: one CUDA graph per ladder
+rung on the card, a loop of eager steps on the CPU).
 """
 
 from __future__ import annotations
@@ -47,6 +53,8 @@ from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused
 from sparkfm_tpu_torch.solvers.sgd_fused import FusedState
+from sparkfm_tpu_torch.utils import graphs
+from sparkfm_tpu_torch.utils.graphs import stack_batches  # noqa: F401
 
 
 def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
@@ -69,7 +77,6 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     if not sgd_cfg.host_plan:
         raise ValueError("update_path='hybrid' requires host_plan=True "
                          "(the sorted backward consumes plan.svals/sex)")
-    sgd_solver.check_grouping("hybrid", sgd_cfg)
     k = cfg.num_factors
     classification = cfg.task == Task.CLASSIFICATION
     lr = sgd_cfg.learning_rate
@@ -81,11 +88,13 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                 "hybrid step requires a host dedup plan with svals/sex "
                 "(batch_iterator(..., dedup_budget=...) emits it)")
         budget = plan.uids.shape[0]
-        valid = min(int(plan.count), budget)
 
-        # ---- one big-table gather for the whole working set
+        # ---- one big-table gather for the whole working set, the fill
+        # slots zeroed by a mask (a host count would be baked into a
+        # captured graph)
         rec_u = rowio.gather_rows(state.table, plan.uids)       # (U, W)
-        rec_u[valid:] = 0.0                                     # fill slots
+        rec_u.masked_fill_(~sgd_fused.valid_slots(
+            plan.count, budget, rec_u.device)[:, None], 0.0)
         vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]],
                          dim=1)                                 # (U, k+1)
 
@@ -125,7 +134,7 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
             vw_u, ex_srt, plan.svals, plan.seg, budget,
             2.0 * cfg.reg_v / denom_reg, 2.0 * cfg.reg_w / denom_reg)
         if not cfg.use_linear:
-            acc[:, [k, 2 * k + 1]] = 0.0                # Σg_w, Σg_w²
+            acc[:, k::k + 1] = 0.0          # Σg_w, Σg_w²: columns k, 2k+1
 
         # ---- update and write-back, in the fused step's layout
         if sgd_cfg.optimizer == "adagrad_row":
@@ -151,3 +160,19 @@ def make_hybrid_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                            "unique_overflow": plan.overflow}
 
     return train_step
+
+
+def make_hybrid_multi_step(cfg: FMConfig, sgd_cfg: SGDConfig,
+                           group: int = 0) -> graphs.MultiStep:
+    """G hybrid steps per call, ``multi(state, stacked) -> (state, aux)``,
+    with ``stacked`` from :func:`stack_batches` (one ladder rung): exactly
+    the sequence of G single steps, as the JAX ``lax.scan``. On the card
+    the G steps run as one CUDA graph per rung and G, captured at the
+    rung's first group and replayed after (``utils/graphs.py``); on the
+    CPU one after another. The state's tensors are updated in place. aux:
+    the last step's ``loss``, ``loss_mean`` (float64) and
+    ``unique_overflow`` ORed over the group (a host bool). ``group`` is
+    documentary, as in the JAX package: G is the stacked batch's leading
+    dimension."""
+    del group
+    return graphs.MultiStep(make_hybrid_train_step(cfg, sgd_cfg))

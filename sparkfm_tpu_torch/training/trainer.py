@@ -3,14 +3,13 @@
 ``TrainResult``) for one device, on every single-device update path of the
 JAX package: "direct" and "dedup" (separate tables,
 ``solvers/sgd.py::make_train_step``), "hybrid", "fused" (host or device
-plans) and "sorted" (the fused record table).
+plans) and "sorted" (the fused record table); with several hybrid steps
+per dispatch (``SGDConfig.steps_per_dispatch``: CUDA graphs on the card,
+``utils/graphs.py``) and checkpointed, resumable training
+(``checkpoint_dir``, ``utils/checkpoint.py::Checkpointer``).
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
-sharded mesh path (``mesh``, ROADMAP A15), checkpointed training
-(``checkpoint_dir``, ROADMAP A5) and several hybrid steps per dispatch
-(``SGDConfig.steps_per_dispatch`` on the hybrid path, ROADMAP A3; the
-other paths run their steps one by one for any value, as the JAX trainer
-does).
+sharded mesh path (``mesh``, ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -30,8 +29,12 @@ from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
+from sparkfm_tpu_torch.utils import graphs
+from sparkfm_tpu_torch.utils.checkpoint import (Checkpointer, LayoutMismatch,
+                                                state_tensors)
 
 log = logging.getLogger("sparkfm_tpu_torch")
+PREFETCH_DEPTH = 2      # batches the background thread builds ahead
 
 
 def evaluate(params: FMParams, cfg: FMConfig, ds: SparseDataset,
@@ -86,23 +89,42 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     get host ladder plans (or plans of ``SGDConfig.unique_budget``) with
     them; the direct and sorted paths, and the dedup and fused paths under
     ``host_plan=False``, build their plans on the device. Each history
-    record holds the epoch's mean ``train_loss``, its
-    ``unique_overflow_steps`` on every path but "direct" (whose plans
+    record holds the epoch's mean ``train_loss`` (in float64),
+    its ``unique_overflow_steps`` on every path but "direct" (whose plans
     cannot overflow) and, every ``eval_every`` epochs and after the last,
     ``eval_*`` metrics of ``eval_ds``. ``hooks`` are called as
-    ``hook(epoch, state, record)``. ``examples_per_sec`` leaves out the
-    first step (kernel builds, warm-up), as the JAX trainer leaves out
-    its compile.
+    ``hook(epoch, state, record)``.
+
+    On the hybrid path ``SGDConfig.steps_per_dispatch`` = G > 1 groups
+    consecutive batches whose plans share a ladder rung and runs each
+    full group by ``sgd_hybrid.make_hybrid_multi_step``: on the card one
+    CUDA graph of G steps per rung, captured at the rung's first group,
+    fed from pinned buffers that the background thread fills
+    (``utils/graphs.py::PinnedStage``); tails and rung changes run single.
+    A group's ``loss_mean`` is logged once for each of its steps, as the
+    JAX trainer does. The steps are those of G = 1, so the tables and
+    histories equal G = 1's bit for bit (the epoch mean in float64: for G
+    a power of two, a group's mean logged G times sums exactly to its
+    steps' losses). The other paths run one step at a time for any G.
+
+    With ``checkpoint_dir`` the state is saved (``Checkpointer``) every
+    ``checkpoint_every`` epochs, after the last one and when
+    ``SGDConfig.max_seconds`` stops the run, with the epoch and the
+    history. With ``resume`` and a checkpoint there, training restores it
+    into the state's own tensors (before any graph is captured) and goes
+    on at the next epoch with the same (seed, epoch)-keyed batch order, so
+    a resumed run equals an uninterrupted one bit for bit. A checkpoint of
+    another state layout (another update path) raises ``ValueError``; a
+    missing or corrupt file raises as itself.
+
+    ``examples_per_sec`` leaves out the first dispatch (kernel builds,
+    warm-up, the first graph's capture), as the JAX trainer leaves out
+    its compile; a capture for a rung first met later is counted.
     """
     if mesh is not None:
         raise NotImplementedError(
             "the sharded mesh path is not ported yet (ROADMAP A15)")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpointed training is not ported yet (ROADMAP A5)")
-    del checkpoint_every, resume
     path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
-    sgd_solver.check_grouping(path, sgd_cfg)
     device = torch.device(device)
     if init_params is not None and (init_params.v.shape[0]
                                     != cfg.num_features):
@@ -136,60 +158,139 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
 
         def get_params(s):
             return s.params
+
+    history: List[Dict[str, float]] = []
+    start_epoch = 0
+    ckpt = None
+    if checkpoint_dir is not None:
+        ckpt = Checkpointer(checkpoint_dir)
+        if resume and ckpt.latest_step() is not None:
+            try:
+                saved, extra = ckpt.restore(template=state)
+            except LayoutMismatch as e:
+                raise ValueError(
+                    f"the checkpoint at {checkpoint_dir} holds another "
+                    f"state layout than the {path!r} update path's: it was "
+                    "probably written under another update_path. Pin "
+                    "SGDConfig.update_path to the path that wrote it, or "
+                    "start afresh with resume=False") from e
+            for dst, src in zip(state_tensors(state).values(),
+                                state_tensors(saved).values()):
+                dst.copy_(src)
+            del saved
+            start_epoch = int(extra.get("epoch", -1)) + 1
+            history = list(extra.get("history", []))
+            log.info("resumed from %s at epoch %d", checkpoint_dir,
+                     start_epoch)
+
     dedup_budget = None
     if sgd_cfg.host_plan and path in ("dedup", "fused", "hybrid"):
         # unique_budget=0 -> the ladder: each plan sized to its batch's
         # unique count rounded to a rung; the fill id is the table's extra
         # last row
         dedup_budget = sgd_cfg.unique_budget or "ladder"
+    group = (sgd_cfg.steps_per_dispatch
+             if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1 else 1)
+    stage = multi = None
+    if group > 1:
+        multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd_cfg)
+        stage = graphs.PinnedStage(group + PREFETCH_DEPTH + 2, device)
+        log.info("hybrid multi-step: %d steps a dispatch", group)
 
-    history: List[Dict[str, float]] = []
     n_examples = 0
-    warmup = 0.0
+    warmup = None       # seconds of the first dispatch
     t0 = time.perf_counter()
-    for epoch in range(sgd_cfg.epochs):
-        losses = []
-        flags = []          # overflow per step; device plans' on the card
-        for batch in prefetch(batch_iterator(
-                train, sgd_cfg.batch_size, device=device,
+    try:
+        for epoch in range(start_epoch, sgd_cfg.epochs):
+            losses = []     # per step, float64
+            flags = []      # overflow per step; device plans' on the card
+            buf: List[graphs.Staged] = []
+
+            def dispatch(run, n):
+                nonlocal warmup
+                tw = time.perf_counter() if warmup is None else None
+                aux = run()
+                if tw is not None:
+                    float(aux["loss"])  # waits for the dispatch to end
+                    warmup = time.perf_counter() - tw
+                if n == 1:
+                    losses.append(aux["loss"].double())
+                else:
+                    losses.extend([aux["loss_mean"]] * n)
+                return aux
+
+            def flush():
+                if len(buf) == group:
+                    dispatch(lambda: multi.run_staged(state, stage, buf),
+                             group)
+                else:
+                    for s in buf:
+                        dispatch(lambda: graphs.run_steps(
+                            step_fn, state, [stage.to_device(s)])[0], 1)
+                flags.extend(s.overflow for s in buf)
+                buf.clear()
+
+            batches = batch_iterator(
+                train, sgd_cfg.batch_size,
+                device=device if stage is None else "cpu",
                 shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed,
                 epoch=epoch, drop_remainder=False,
-                dedup_budget=dedup_budget, dedup_fill=cfg.num_features)):
-            tw = time.perf_counter() if epoch == 0 and not losses else None
-            state, aux = step_fn(state, batch)
-            if tw is not None:
-                float(aux["loss"])      # waits for the first step to end
-                warmup = time.perf_counter() - tw
-            losses.append(aux["loss"])
-            if "unique_overflow" in aux:
-                flags.append(aux["unique_overflow"])
-        n_examples += train.num_examples
-        rec = {"epoch": epoch,
-               "train_loss": float(torch.stack(losses).mean())}
-        if flags:
-            overflows = int(torch.stack([torch.as_tensor(f, device=device)
-                                         for f in flags]).sum())
-            rec["unique_overflow_steps"] = overflows
-            if overflows:
-                log.warning(
-                    "epoch %d: %d step(s) overflowed the unique-id budget "
-                    "(updates aliased); raise SGDConfig.unique_budget",
-                    epoch, overflows)
-        if eval_ds is not None and (epoch % eval_every == 0
-                                    or epoch == sgd_cfg.epochs - 1):
-            rec.update({f"eval_{k}": v for k, v in evaluate(
-                get_params(state), cfg, eval_ds,
-                sgd_cfg.batch_size).items()})
-        history.append(rec)
-        log.info("epoch %d: %s", epoch,
-                 " ".join(f"{k}={v:.5f}" for k, v in rec.items()
-                          if k != "epoch"))
-        if hooks:
-            for h in hooks:
-                h(epoch, state, rec)
-        if _time_budget_reached(t0, sgd_cfg.max_seconds, epoch):
-            break
-    elapsed = time.perf_counter() - t0 - warmup
+                dedup_budget=dedup_budget, dedup_fill=cfg.num_features)
+            if stage is not None:
+                batches = stage.fill(batches)
+            for batch in prefetch(batches, PREFETCH_DEPTH):
+                if stage is None:
+                    def single(b=batch):
+                        nonlocal state
+                        state, aux = step_fn(state, b)
+                        return aux
+                    aux = dispatch(single, 1)
+                    if "unique_overflow" in aux:
+                        flags.append(aux["unique_overflow"])
+                    continue
+                if buf and buf[-1].sig != batch.sig:
+                    flush()
+                buf.append(batch)
+                if len(buf) == group:
+                    flush()
+            if stage is not None:
+                flush()
+            n_examples += train.num_examples
+            rec = {"epoch": epoch,
+                   "train_loss": float(torch.stack(losses).mean())}
+            if flags:
+                overflows = int(torch.stack([
+                    torch.as_tensor(f, device=device) for f in flags]).sum())
+                rec["unique_overflow_steps"] = overflows
+                if overflows:
+                    log.warning(
+                        "epoch %d: %d step(s) overflowed the unique-id "
+                        "budget (updates aliased); raise "
+                        "SGDConfig.unique_budget", epoch, overflows)
+            if eval_ds is not None and (epoch % eval_every == 0
+                                        or epoch == sgd_cfg.epochs - 1):
+                rec.update({f"eval_{k}": v for k, v in evaluate(
+                    get_params(state), cfg, eval_ds,
+                    sgd_cfg.batch_size).items()})
+            history.append(rec)
+            log.info("epoch %d: %s", epoch,
+                     " ".join(f"{k}={v:.5f}" for k, v in rec.items()
+                              if k != "epoch"))
+            if hooks:
+                for h in hooks:
+                    h(epoch, state, rec)
+            stop = _time_budget_reached(t0, sgd_cfg.max_seconds, epoch)
+            if ckpt is not None and ((epoch + 1) % checkpoint_every == 0
+                                     or epoch == sgd_cfg.epochs - 1
+                                     or stop):
+                ckpt.save(epoch, state,
+                          extra={"epoch": epoch, "history": history})
+            if stop:
+                break
+    finally:
+        if ckpt is not None:
+            ckpt.close()
+    elapsed = time.perf_counter() - t0 - (warmup or 0.0)
     return TrainResult(
         params=sgd_solver.trim_params(get_params(state), cfg.num_features),
         history=history,

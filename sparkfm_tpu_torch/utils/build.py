@@ -11,7 +11,8 @@ compiler's output (for ``nvcc -Xptxas -v``: registers, shared memory and
 spills per kernel) is kept beside the library as ``<name>.log``.
 
 :class:`CudaKernel` binds one ``extern "C"`` launcher of a CUDA source
-under ``csrc/`` and counts its launches.
+under ``csrc/`` and counts its launches, those replayed in CUDA graphs
+included (:func:`launch_counts`, ``utils/graphs.py``).
 """
 
 from __future__ import annotations
@@ -86,6 +87,12 @@ def nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 class CudaKernel:
     """One kernel launcher of a CUDA source under ``csrc/``.
 
@@ -96,8 +103,14 @@ class CudaKernel:
     count (looked up once per device) and the stream, and returning a
     ``cudaError_t`` (0 on success).
     ``launches`` counts the calls of :meth:`launch`, one per launch of the
-    kernel, and nowhere else.
+    kernel, and nowhere else; a CUDA graph that captured launches adds
+    them back on each replay (``utils/graphs.py``), so the count stays
+    the number of times the kernel ran. Neither the build nor the SM
+    count lookup may happen while a stream captures: a step is run once
+    eagerly before it is captured.
     """
+
+    instances: list = []        # every kernel, for launch_counts()
 
     def __init__(self, library: str, source: str, symbol: str,
                  argtypes: Sequence):
@@ -108,12 +121,17 @@ class CudaKernel:
         self._num_sms = {}
         self.path = None
         self.launches = 0
+        CudaKernel.instances.append(self)
 
     def build(self) -> ctypes.CDLL:
         """Compile (or reuse) and load the library; raises
         ``BuildError`` when ``nvcc`` is missing or fails."""
         with self._lock:
             if self._lib is None:
+                if _capturing():
+                    raise RuntimeError(
+                        f"{self.symbol}: building inside a CUDA graph "
+                        "capture; run the step once before capturing it")
                 headers = sorted(glob.glob(os.path.join(
                     os.path.dirname(self.source), "*.cuh")))
                 path = build_shared_library(self.library, [self.source],
@@ -133,6 +151,10 @@ class CudaKernel:
         """The SM count of ``device``, looked up once per device."""
         num_sms = self._num_sms.get(device.index)
         if num_sms is None:
+            if _capturing():
+                raise RuntimeError(
+                    f"{self.symbol}: device properties read inside a CUDA "
+                    "graph capture; run the step once before capturing it")
             num_sms = torch.cuda.get_device_properties(
                 device).multi_processor_count
             self._num_sms[device.index] = num_sms
@@ -150,3 +172,8 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} kernel launch failed: "
                                + lib.sfm_error_string(err).decode())
         self.launches += 1
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, keyed by kernel."""
+    return {k: k.launches for k in CudaKernel.instances}

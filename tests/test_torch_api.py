@@ -13,10 +13,13 @@ fused path under "auto", as the JAX facade does, and is held to it at the
 trainer tests' tolerance (rtol 2e-4, atol 2e-5). ``FM(num_fields=...)``
 is held to the JAX facade in ``tests/test_torch_ffm.py``.
 
-One divergence from the JAX facade, on purpose: a callable solver given
-``init_params`` or a nonzero ``timeout`` raises ``ValueError``, where the
-JAX facade drops both silently (``sparkfm_tpu/api.py:524-525``).
+Two divergences from the JAX facade, on purpose: a callable solver given
+``init_params`` or a nonzero ``timeout``, and any solver but "sgd" given a
+``checkpoint_dir``, raise ``ValueError``, where the JAX facade drops them
+silently (``sparkfm_tpu/api.py:524-537``).
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,7 +131,6 @@ class _Relational:
     (dict(solver="mcmc"), {}, "A11"),
     (dict(mesh="4x1"), {}, "A15"),
     (dict(model="deepfm", solver="sgd"), {}, "A12"),
-    ({}, dict(checkpoint_dir="ckpt"), "A5"),
     ({}, dict(train=_Relational()), "A10"),
     (dict(feature_groups=type("Vectorizer", (), {"offsets": (0,)})()), {},
      "A14"),
@@ -138,6 +140,65 @@ def test_unported_options_raise(ratings, kw, fit_kw, match):
     train = fit_kw.pop("train", ratings)
     with pytest.raises(NotImplementedError, match=match):
         FM(max_iter=1, **kw).fit(train, device="cpu", **fit_kw)
+
+
+def test_fit_checkpoint_dir_resumes_as_the_jax_facade(tmp_path):
+    """FM(solver="sgd").fit(checkpoint_dir=...) as the JAX facade's:
+    2 epochs, then a fit to 4 epochs that resumes from the checkpoint.
+    The resumed port model equals a straight 4-epoch port fit bit for bit
+    and the JAX facade's resumed model at the SGD facade tolerance
+    (parameters rtol 1e-4, atol 1e-6; epoch losses rtol 1e-5)."""
+    kw = dict(num_users=30, num_items=40, num_examples=1500, seed=2)
+    jds, pds = jsynth.synth_movielens(**kw), synth.synth_movielens(**kw)
+    rng = np.random.default_rng(2)
+    f = pds.num_features
+    w0, w, v = (np.float32(0.0), rng.normal(0, 0.05, f).astype(np.float32),
+                rng.normal(0, 0.05, (f, 4)).astype(np.float32))
+    fm_kw = dict(num_factors=4, solver="sgd", learning_rate=0.1,
+                 batch_size=256, reg_v=0.01, seed=2)
+    jinit = jfm.FMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                         v=jnp.asarray(v))
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    sfm.FM(max_iter=2, **fm_kw).fit(jds, checkpoint_dir=jdir,
+                                    init_params=jinit)
+    jmodel = sfm.FM(max_iter=4, **fm_kw).fit(jds, checkpoint_dir=jdir,
+                                             init_params=jinit)
+
+    def port(max_iter, **fit_kw):
+        return FM(max_iter=max_iter, **fm_kw).fit(
+            pds, init_params=params_from_numpy(w0, w, v, device="cpu"),
+            device="cpu", **fit_kw)
+    first = port(2, checkpoint_dir=pdir)
+    assert len(first.history) == 2 and sorted(os.listdir(pdir)) == ["0",
+                                                                     "1"]
+    resumed = port(4, checkpoint_dir=pdir)
+    straight = port(4)
+    assert resumed.history == straight.history
+    assert [h["epoch"] for h in resumed.history] == [0, 1, 2, 3]
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(resumed.params, name),
+                           getattr(straight.params, name)), name
+        np.testing.assert_allclose(
+            getattr(resumed.params, name).numpy(),
+            np.asarray(getattr(jmodel.params, name)), rtol=1e-4, atol=1e-6,
+            err_msg=name)
+    for g, h in zip(resumed.history, jmodel.history):
+        np.testing.assert_allclose(g["train_loss"], h["train_loss"],
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("solver", ["als", "callable"])
+def test_checkpoint_dir_off_the_sgd_solver_raises(ratings, solver,
+                                                  tmp_path):
+    """The JAX facade drops checkpoint_dir silently for other solvers; the
+    port refuses it, as it refuses what a callable solver cannot
+    honour."""
+    if solver == "callable":
+        def solver(cfg, train, eval_ds, eval_every, generator):
+            raise AssertionError("not reached")
+    with pytest.raises(ValueError, match="checkpoint_dir"):
+        FM(max_iter=1, solver=solver).fit(
+            ratings, checkpoint_dir=str(tmp_path / "ck"), device="cpu")
 
 
 def test_timeout_knob_stops_training_early():

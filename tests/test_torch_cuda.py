@@ -1,8 +1,9 @@
 """The port on a CUDA card: the row gathers (one table and two), row
 write, factored backward, per-slot backward, row-sum and per-rank
-stream-sum kernels against their plain versions, and the scoring, SGD
+stream-sum kernels against their plain versions, the scoring, SGD
 (hybrid, fused and sorted) and ALS training paths on the card against the
-CPU.
+CPU, and the CUDA graphs of several steps (``utils/graphs.py``) and
+checkpointed training against eager steps and uninterrupted runs.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -10,6 +11,7 @@ runs on a GPU machine without it, from the repository root:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -21,10 +23,13 @@ import torch
 from sparkfm_tpu_torch import (ALSConfig, FMConfig, MicroBatcher,
                                SGDConfig, Task, train_als, train_sgd)
 from sparkfm_tpu_torch.data import synth as psynth
+from sparkfm_tpu_torch.data.batching import batch_iterator, prefetch
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
 from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import als as pals
+from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
+from sparkfm_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -693,3 +698,175 @@ def test_direct_dedup_and_ffm_train_sgd_on_card_match_cpu(dev, name):
     np.testing.assert_allclose(on_card.params.v.cpu().numpy(),
                                on_cpu.params.v.numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+def _ctr_batches(dev, n, seed, budget=None, f=1 << 16, rows=256, slots=8):
+    """n synth_ctr batches with host plans on ``dev``: ladder plans of one
+    rung (the largest of the n), or of ``budget`` slots; None drops the
+    plans (the fused step then builds them on the card)."""
+    ds = psynth.synth_ctr(num_examples=n * rows, num_fields=slots,
+                          num_buckets=f, seed=seed)
+    if budget is None:
+        ladder = list(batch_iterator(ds, rows, device="cpu",
+                                     dedup_budget="ladder", dedup_fill=f))
+        budget = max(int(b.plan.uids.shape[0]) for b in ladder)
+    out = list(batch_iterator(ds, rows, device=dev, dedup_budget=budget,
+                              dedup_fill=f))
+    return ds, out
+
+
+def _fused_state(cfg, dev, seed):
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(seed),
+                           device="cpu")
+    return sgd_fused.fused_from_params(init, cfg, device=dev)
+
+
+def _same_state(a, b):
+    for name in ("table", "w0", "slot_w0", "step"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("kind", ["hybrid", "fused host plans",
+                                  "fused device plans"])
+def test_multi_step_graph_equals_eager_steps(dev, kind):
+    """make_hybrid_multi_step / make_fused_multi_step on the card: three
+    groups of G = 4 (the first runs eagerly and is captured, the next two
+    replay the graph) give the state of 12 eager steps bit for bit, with
+    the same losses; one graph is captured; each kernel of the path counts
+    one launch per step, replays included."""
+    f = 1 << 16
+    cfg = FMConfig(num_features=f, num_factors=8, task=Task.CLASSIFICATION,
+                   reg_v=1e-4, seed=3)
+    sgd = SGDConfig(batch_size=256, learning_rate=0.1, unique_budget=0)
+    if kind == "hybrid":
+        make = sgd_hybrid.make_hybrid_multi_step
+        step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
+        kernels = (rowio.GATHER, segsum.FACTORED, rowio.SCATTER)
+    else:
+        make = sgd_fused.make_fused_multi_step
+        step = sgd_fused.make_fused_train_step(cfg, sgd)
+        kernels = (rowio.GATHER, segsum.ROWSUM_SQ, rowio.SCATTER)
+    _, batches = _ctr_batches(dev, 12, seed=4)
+    if kind == "fused device plans":
+        batches = [dataclasses.replace(b, plan=None) for b in batches]
+    eager = _fused_state(cfg, dev, 5)
+    eager_losses = []
+    for b in batches:
+        eager, aux = step(eager, b)
+        eager_losses.append(aux["loss"])
+    state = _fused_state(cfg, dev, 5)
+    multi = make(cfg, sgd)
+    counts = [k.launches for k in kernels]
+    losses = []
+    for g in range(3):
+        out, aux = multi(state, sgd_hybrid.stack_batches(
+            batches[4 * g:4 * g + 4]))
+        assert out is state
+        losses.append(aux["loss_mean"])
+        assert torch.equal(aux["loss"], eager_losses[4 * g + 3])
+    torch.cuda.synchronize()
+    assert multi.captures == 1
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [12] * 3
+    _same_state(state, eager)
+    want = torch.stack(eager_losses).double().view(3, 4).mean(1)
+    assert torch.equal(torch.stack(losses), want)
+
+
+def test_graph_replay_adds_captured_launches(dev):
+    """A capture counts nothing (it runs nothing); every replay adds the
+    launches the graph captured."""
+    cfg = FMConfig(num_features=1 << 16, num_factors=8, seed=3)
+    sgd = SGDConfig(batch_size=256, learning_rate=0.1)
+    _, batches = _ctr_batches(dev, 4, seed=6)
+    multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd)
+    state = _fused_state(cfg, dev, 6)
+    stacked = sgd_hybrid.stack_batches(batches[:2])
+    seen = []
+    for _ in range(3):
+        before = rowio.GATHER.launches
+        multi(state, stacked)
+        seen.append(rowio.GATHER.launches - before)
+    assert seen == [2, 2, 2]
+    (group,) = multi._groups.values()
+    assert group.launches == {rowio.GATHER: 2, rowio.SCATTER: 2,
+                              segsum.FACTORED: 2}
+
+
+def test_pinned_stage_reuse_across_three_groups(dev):
+    """The trainer's feed: a ring of G + 4 pinned slots carries 3 groups
+    (and a tail) through the prefetch thread into the graph's static
+    inputs. Each group equals its eager steps on the same batches bit for
+    bit, so no slot was rewritten before its copy had run."""
+    cfg = FMConfig(num_features=1 << 16, num_factors=8, seed=7)
+    sgd = SGDConfig(batch_size=256, learning_rate=0.1, unique_budget=4096)
+    ds, batches = _ctr_batches(dev, 13, seed=7, budget=4096)
+    stage = graphs.PinnedStage(2 + 4, dev)
+    assert stage._pin
+    multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd)
+    state = _fused_state(cfg, dev, 8)
+    host = batch_iterator(ds, 256, device="cpu", dedup_budget=4096,
+                          dedup_fill=1 << 16)
+    buf, groups = [], 0
+    for staged in prefetch(stage.fill(host)):
+        assert staged.fields["ids"].is_pinned()
+        buf.append(staged)
+        if len(buf) == 2:
+            multi.run_staged(state, stage, buf)
+            buf, groups = [], groups + 1
+    graphs.run_steps(multi.step, state, [stage.to_device(s) for s in buf])
+    assert groups == 6 and multi.captures == 1
+    eager = _fused_state(cfg, dev, 8)
+    step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
+    for b in batches:
+        eager, _ = step(eager, b)
+    _same_state(state, eager)
+
+
+@pytest.mark.parametrize("spd", [2, 4])
+def test_grouped_train_sgd_on_card_equals_single_steps(dev, spd):
+    """train_sgd(steps_per_dispatch=G) on the hybrid path on the card:
+    graphs per rung, the same tables and histories as G = 1 bit for bit,
+    one launch of B1, B2 and B3 per step."""
+    ds = psynth.synth_ctr(num_examples=2000, num_fields=8,
+                          num_buckets=1 << 17, seed=2)
+    cfg = FMConfig(num_features=1 << 17, num_factors=8,
+                   task=Task.CLASSIFICATION, reg_v=1e-4, seed=2)
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+    runs = []
+    kernels = (rowio.GATHER, rowio.SCATTER, segsum.FACTORED)
+    for g in (1, spd):
+        sgd = SGDConfig(batch_size=256, learning_rate=0.1, epochs=2,
+                        update_path="hybrid", steps_per_dispatch=g)
+        counts = [k.launches for k in kernels]
+        runs.append(train_sgd(cfg, sgd, ds, init_params=init, device=dev))
+        assert [k.launches - c for k, c in zip(kernels, counts)] == [16] * 3
+    one, grouped = runs
+    assert one.history == grouped.history
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(one.params, name),
+                           getattr(grouped.params, name)), name
+
+
+def test_resume_on_card_equals_uninterrupted_run(dev, tmp_path):
+    """Grouped hybrid training into a checkpoint_dir, resumed by a second
+    call: the same parameters and history as the straight run, bit for
+    bit."""
+    ds = psynth.synth_ctr(num_examples=1500, num_fields=8,
+                          num_buckets=1 << 17, seed=3)
+    cfg = FMConfig(num_features=1 << 17, num_factors=8,
+                   task=Task.CLASSIFICATION, reg_v=1e-4, seed=3)
+
+    def run(epochs, **kw):
+        sgd = SGDConfig(batch_size=256, learning_rate=0.1, epochs=epochs,
+                        update_path="hybrid", steps_per_dispatch=2)
+        return train_sgd(cfg, sgd, ds, generator=torch.Generator(
+            device=dev).manual_seed(3), device=dev, **kw)
+    straight = run(4)
+    ckdir = str(tmp_path / "ck")
+    run(2, checkpoint_dir=ckdir)
+    resumed = run(4, checkpoint_dir=ckdir)
+    assert resumed.history == straight.history
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(resumed.params, name),
+                           getattr(straight.params, name)), name

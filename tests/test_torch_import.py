@@ -135,3 +135,38 @@ def test_direct_dedup_and_ffm_train_with_jax_blocked():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "None 0"
+
+
+def test_grouped_and_checkpointed_training_with_jax_blocked(tmp_path):
+    """With jax blocked: the graph, checkpoint and profiling modules
+    import; train_sgd on the hybrid path with steps_per_dispatch=2 into a
+    checkpoint_dir, resumed to a third epoch, equals three straight
+    epochs; no kernel is built (CPU tensors)."""
+    r = _run_blocked(f"""
+        import torch
+        import sparkfm_tpu_torch as sft
+        from sparkfm_tpu_torch.data import synth
+        from sparkfm_tpu_torch.ops import rowio
+        from sparkfm_tpu_torch.utils import checkpoint, graphs, profiling
+        ds = synth.synth_ctr(num_examples=600, num_fields=5,
+                             num_buckets=1 << 16, seed=1)
+        cfg = sft.FMConfig(num_features=1 << 16, num_factors=4,
+                           task=sft.Task.CLASSIFICATION)
+        def run(epochs, **kw):
+            return sft.train_sgd(cfg, sft.SGDConfig(
+                batch_size=128, epochs=epochs, steps_per_dispatch=2,
+                update_path="hybrid"), ds, device="cpu", **kw)
+        timer = profiling.StepTimer(sync="fetch")
+        timer.start()
+        run(2, checkpoint_dir={str(tmp_path / "ck")!r})
+        res = run(3, checkpoint_dir={str(tmp_path / "ck")!r})
+        timer.stop(res.params.w0)
+        straight = run(3)
+        assert res.history == straight.history
+        assert torch.equal(res.params.v, straight.params.v)
+        assert sorted(timer.stats()) == ["mean_ms", "p50_ms", "p95_ms",
+                                         "steps"]
+        print(rowio.GATHER.path, rowio.GATHER.launches)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "None 0"

@@ -160,7 +160,6 @@ def test_only_the_batch_rows_change_and_fill_writes_agree(monkeypatch):
     ({}, dict(optimizer="sgd", momentum=0.9), ValueError),
     (dict(feature_groups=(0,) * F), {}, ValueError),
     (dict(compute_dtype="bfloat16"), {}, ValueError),
-    ({}, dict(steps_per_dispatch=2), NotImplementedError),
     ({}, dict(host_plan=False), ValueError),
 ])
 def test_restrictions_raise(fm_kw, sgd_kw, exc):
@@ -184,6 +183,24 @@ def test_step_does_not_read_update_path():
         _, pstate = _states(jcfg, pcfg, params)
         step = sgd_hybrid.make_hybrid_train_step(
             pcfg, dataclasses.replace(psgd, update_path=path))
+        tables.append(step(pstate, batch)[0].table)
+    assert torch.equal(*tables)
+
+
+def test_step_does_not_read_steps_per_dispatch():
+    """As the JAX hybrid step, which a lax.scan groups: a step built with
+    steps_per_dispatch=2 trains exactly as one built with 1 (grouping is
+    the trainer's and make_hybrid_multi_step's)."""
+    ids, vals, y, params = _data("classification", seed=4)
+    jcfg, _, pcfg, psgd = _configs("classification", "adagrad")
+    pds = pbatching.SparseDataset(ids=ids, vals=vals, y=y, num_features=F)
+    batch = next(pbatching.batch_iterator(pds, B, device="cpu",
+                                          dedup_budget=BUDGET, dedup_fill=F))
+    tables = []
+    for spd in (1, 2):
+        _, pstate = _states(jcfg, pcfg, params)
+        step = sgd_hybrid.make_hybrid_train_step(
+            pcfg, dataclasses.replace(psgd, steps_per_dispatch=spd))
         tables.append(step(pstate, batch)[0].table)
     assert torch.equal(*tables)
 

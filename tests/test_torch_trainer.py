@@ -183,17 +183,54 @@ def test_steps_per_dispatch_runs_single_steps_off_the_hybrid_path(path):
 
 @pytest.mark.parametrize("kw,sgd_kw,match", [
     (dict(mesh=object()), {}, "A15"),
-    (dict(checkpoint_dir="ckpt"), {}, "A5"),
-    ({}, dict(steps_per_dispatch=2), "A3"),
 ])
-def test_unported_options_raise(kw, sgd_kw, match, tmp_path):
+def test_unported_options_raise(kw, sgd_kw, match):
     ds = psynth.synth_ctr(num_examples=64, seed=5, **SYNTH)
     cfg = FMConfig(num_features=F, num_factors=K)
-    if "checkpoint_dir" in kw:
-        kw = dict(checkpoint_dir=str(tmp_path / "ckpt"))
     with pytest.raises(NotImplementedError, match=match):
         train_sgd(cfg, SGDConfig(**dict(SGD, **sgd_kw)), ds, device="cpu",
                   **kw)
+
+
+def test_hybrid_steps_per_dispatch_and_checkpoints_match_jax(tmp_path):
+    """What the JAX trainer does with steps_per_dispatch=2 on the hybrid
+    path and a checkpoint_dir: grouped, checkpointed and resumed after the
+    first epoch, the port's run matches the JAX trainer's grouped run from
+    the same parameters, and the port's own single-step run bit for
+    bit."""
+    w0, w, v = _params(3)
+    kw = dict(num_examples=900, seed=3, **SYNTH)
+    cfg_kw = dict(num_features=F, num_factors=K, reg_v=1e-4, seed=3,
+                  task="classification")
+    common = dict(SGD, update_path="hybrid")
+    jres = jtrainer.train_sgd(
+        JFMConfig(**dict(cfg_kw, task=JTask.CLASSIFICATION)),
+        JSGDConfig(steps_per_dispatch=2, **common), jsynth.synth_ctr(**kw),
+        init_params=JFMParams(w0=jnp.asarray(w0), w=jnp.asarray(w),
+                              v=jnp.asarray(v)))
+    pcfg = FMConfig(**dict(cfg_kw, task=Task.CLASSIFICATION))
+    pds = psynth.synth_ctr(**kw)
+
+    def port(spd, epochs, **run_kw):
+        return train_sgd(pcfg, SGDConfig(**dict(common, epochs=epochs,
+                                                steps_per_dispatch=spd)),
+                         pds, init_params=params_from_numpy(w0, w, v,
+                                                            device="cpu"),
+                         device="cpu", **run_kw)
+    ckdir = str(tmp_path / "ck")
+    port(2, 1, checkpoint_dir=ckdir)
+    resumed = port(2, 2, checkpoint_dir=ckdir)
+    single = port(1, 2)
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(resumed.params, name),
+                           getattr(single.params, name)), name
+        np.testing.assert_allclose(getattr(resumed.params, name).numpy(),
+                                   np.asarray(getattr(jres.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    assert resumed.history == single.history
+    for g, h in zip(resumed.history, jres.history):
+        np.testing.assert_allclose(g["train_loss"], h["train_loss"],
+                                   rtol=1e-5)
 
 
 def test_small_tables_train_on_the_direct_path_under_auto():
