@@ -7,8 +7,10 @@ of BASELINE config 3 (Criteo-shape logistic FM: 2^24 hashed buckets, rank
 32, 39 slots), then ALS training at the full size of BASELINE config 2
 (ML-25M-shape regression FM: 221,588 features, rank 32, 25M ratings) and
 the ``FM`` facade, then BASELINE config 1 (ML-100K shape) on the direct
-SGD path, the dedup path under adam and momentum at config 3's width, and
-BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving.
+SGD path, the dedup path under adam and momentum at config 3's width,
+BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving,
+grouped and checkpointed training, then BASELINE config 5 (Criteo-shape
+DeepFM) in training and serving, and the command line.
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
      one nvcc per source in parallel (``rowio.cu``: row gathers and row
@@ -192,12 +194,14 @@ the sorted run's beside it; ``before_ms``/``before_device_ms`` on B6's
 fused, sorted and FFM entries: the squares, ``cat`` and B5 that B6
 replaced there), the last line the result. Entries named
 ``... (FFM record)``, ``... (direct, config 1)``, ``... (dedup, ...)``
-time the same kernels at the shapes of phases 19-21, with their launches
-from those runs.
+time the same kernels at the shapes of phases 19-21, and ``... (config 5
+record)`` / ``(config 5 DeepFM)`` at phase 25's, with their launches from
+those runs.
 """
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1862,6 +1866,50 @@ def dedup_row_times(state, plan, timed):
     return out
 
 
+def timed_kernel(name, fn, plain, args, library, nbytes, ops, card):
+    """Back-to-back and device times of ``fn``, its plain version and the
+    library call (or None) on ``args``, and the bound."""
+    t = {"ms": time_ms(fn, [args]), "plain_ms": time_ms(plain, [args]),
+         "library_ms": library and time_ms(library, [()]),
+         "device_ms": spun_ms(lambda: fn(*args)),
+         "plain_device_ms": spun_ms(lambda: plain(*args)),
+         "library_device_ms": library and spun_ms(library)}
+    t.update(bound(nbytes, ops, t["device_ms"]))
+    print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.4f} ms"
+          + (f", library {t['library_ms']:.4f} ms" if library else "")
+          + f" back to back (CUDA events); device "
+          f"{1e3 * t['device_ms']:.2f} us vs "
+          f"{1e3 * t['plain_device_ms']:.2f} us"
+          + (f", library {1e3 * t['library_device_ms']:.2f} us"
+             if library else "")
+          + f" (CUDA events, queued behind a spin kernel); bound "
+          f"{t['bound_us']:.2f} us ({nbytes / 1e6:.2f} MB), "
+          f"{pct(t['share_of_bound'])} of it; {card}", flush=True)
+    return t
+
+
+def rowsum_sq_entry_of(label, res, payload, launches, path, card):
+    """B6's kernel entry at one path's payload (g, seg, U): its times and
+    bound, and its errors against float64 ``res`` (from :func:`hold64`)."""
+    from sparkfm_tpu_torch.ops import segsum
+    g, seg, u = payload
+    n, w = g.shape
+    t = timed_kernel(f"B6 segment_rowsum_sq per call, {label} (N={n}, "
+                     f"W={w} -> {2 * w}, U={u})", segsum.segment_rowsum_sq,
+                     segsum.segment_rowsum_sq_reference, (g, seg, u), None,
+                     4 * (n * w + n + 2 * u * w), 3 * n * w, card)
+    return {"name": f"segment_rowsum_sq ({label})", "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+            "replaces": "sparkfm_tpu/ops/pallas_segsum.py:238",
+            "launches": launches, "path": path,
+            "max_abs_err": res[0], "max_rel_err": res[1],
+            "plain_f32_max_rel_err": res[2],
+            "err_against": "plain version in float64",
+            "library": "none (the squares are formed in the kernel)",
+            **t}
+
+
 def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     """Phases 19-21: BASELINE config 1 on the direct path, the dedup path
     at BASELINE config 3's width under adam and under momentum, and
@@ -1930,44 +1978,11 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
               f"device events (us): {top}; {card}", flush=True)
         return launches
 
-    def timed(name, fn, plain, args, library, nbytes, ops):
-        """Back-to-back and device times of ``fn``, its plain version and
-        the library call (or None) on ``args``, and the bound."""
-        t = {"ms": time_ms(fn, [args]), "plain_ms": time_ms(plain, [args]),
-             "library_ms": library and time_ms(library, [()]),
-             "device_ms": spun_ms(lambda: fn(*args)),
-             "plain_device_ms": spun_ms(lambda: plain(*args)),
-             "library_device_ms": library and spun_ms(library)}
-        t.update(bound(nbytes, ops, t["device_ms"]))
-        print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
-              f"{t['plain_ms']:.4f} ms"
-              + (f", library {t['library_ms']:.4f} ms" if library else "")
-              + f" back to back (CUDA events); device "
-              f"{1e3 * t['device_ms']:.2f} us vs "
-              f"{1e3 * t['plain_device_ms']:.2f} us"
-              + (f", library {1e3 * t['library_device_ms']:.2f} us"
-                 if library else "")
-              + f" (CUDA events, queued behind a spin kernel); bound "
-              f"{t['bound_us']:.2f} us ({nbytes / 1e6:.2f} MB), "
-              f"{pct(t['share_of_bound'])} of it; {card}", flush=True)
-        return t
+    def timed(*args):
+        return timed_kernel(*args, card)
 
-    def rowsum_sq_entry(label, res, payload, launches, path):
-        g, seg, u = payload
-        n, w = g.shape
-        t = timed(f"B6 segment_rowsum_sq per call, {label} (N={n}, W={w} -> "
-                  f"{2 * w}, U={u})", segsum.segment_rowsum_sq,
-                  segsum.segment_rowsum_sq_reference, (g, seg, u), None,
-                  4 * (n * w + n + 2 * u * w), 3 * n * w)
-        return {"name": f"segment_rowsum_sq ({label})", "route": "cuda",
-                "source": "sparkfm_tpu_torch/csrc/segsum.cu",
-                "replaces": "sparkfm_tpu/ops/pallas_segsum.py:238",
-                "launches": launches, "path": path,
-                "max_abs_err": res[0], "max_rel_err": res[1],
-                "plain_f32_max_rel_err": res[2],
-                "err_against": "plain version in float64",
-                "library": "none (the squares are formed in the kernel)",
-                **t}
+    def rowsum_sq_entry(*args):
+        return rowsum_sq_entry_of(*args, card)
 
     entries = []
 
@@ -2713,6 +2728,483 @@ def graph_checkpoint_phases(dev, cfg, gen, rng, card, root):
     torch.cuda.empty_cache()
 
 
+CONFIG5_BUCKETS, CONFIG5_FIELDS, CONFIG5_RANK = 1 << 20, 39, 16
+CONFIG5_HIDDEN, CONFIG5_BATCH, CONFIG5_STEPS = (256, 128), 8192, 20
+
+
+def ctr_batch_ids(rng, rows):
+    """``benchmarks/bench_configs.py::_ctr_batches``'s field-major ids at
+    config 5's shape: zipf(1.3) hashed, each slot offset into its own
+    field's bucket range."""
+    raw = rng.zipf(1.3, size=(rows, CONFIG5_FIELDS)).astype(np.int64)
+    ids = ((raw * 2654435761) % CONFIG5_BUCKETS).astype(np.int32)
+    per = CONFIG5_BUCKETS // CONFIG5_FIELDS
+    return (ids % per) + per * np.arange(CONFIG5_FIELDS,
+                                         dtype=np.int32)[None, :]
+
+
+def clone_deepfm(state):
+    """A copy of a DeepFMState (fused or separate tables) on its device."""
+    return copy.deepcopy(state)
+
+
+def deepfm_tensors_equal(a, b):
+    from sparkfm_tpu_torch.utils.checkpoint import state_tensors
+    tb = state_tensors(b)
+    return all(torch.equal(t, tb[k]) for k, t in state_tensors(a).items())
+
+
+def deepfm_cli_phases(dev, gen, rng, card, root):
+    """Phases 25-27: BASELINE config 5 (Criteo-shape DeepFM) trained on
+    the fused path at full width, DeepFM serving and the facade, and the
+    command line on the card. Returns the kernels' JSON entries at config
+    5's shapes."""
+    import io
+    import shutil
+
+    from sparkfm_tpu_torch import FM, MicroBatcher, SGDConfig, Task, cli
+    from sparkfm_tpu_torch.api import DeepFMModel, load_model
+    from sparkfm_tpu_torch.config import FMConfig
+    from sparkfm_tpu_torch.data import libfm, synth
+    from sparkfm_tpu_torch.data.batching import (SparseDataset,
+                                                 batch_iterator)
+    from sparkfm_tpu_torch.models import deepfm as DF
+    from sparkfm_tpu_torch.ops import rowio, segsum
+    from sparkfm_tpu_torch.solvers import sgd_fused
+
+    kernels = {"gather_rows": rowio.GATHER, "gather_vw_rows": rowio.GATHER_VW,
+               "scatter_set_rows": rowio.SCATTER,
+               "segment_rowsum": segsum.ROWSUM,
+               "segment_rowsum_sq": segsum.ROWSUM_SQ,
+               "fm_grad_segsum_factored": segsum.FACTORED,
+               "segment_colsums": segsum.COLSUMS}
+    plain_swaps = [(rowio, "gather_rows", rowio.gather_rows_reference),
+                   (rowio, "gather_vw_rows", rowio.gather_vw_rows_reference),
+                   (rowio, "scatter_set_rows",
+                    rowio.scatter_set_rows_reference),
+                   (segsum, "segment_rowsum_sq", rowsum_sq64)]
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {n: k.launches for n, k in kernels.items() if k.launches}
+
+    # 25. BASELINE config 5: bench_deepfm's recipe at full width on the
+    # fused path, record W = 2 * 16 + 2 -> 36
+    cfg5 = DF.DeepFMConfig(fm=FMConfig(
+        num_features=CONFIG5_BUCKETS, num_factors=CONFIG5_RANK,
+        num_fields=CONFIG5_FIELDS, task=Task.CLASSIFICATION, reg_v=1e-6,
+        seed=SEED), hidden=CONFIG5_HIDDEN)
+    sgd5 = SGDConfig(batch_size=CONFIG5_BATCH, learning_rate=0.05,
+                     optimizer="adagrad", epochs=1)
+    if DF.resolve_deepfm_path(cfg5, sgd5) != "fused":
+        raise AssertionError("config 5 does not take the fused path")
+    n5 = CONFIG5_BATCH * CONFIG5_STEPS
+    ds5 = SparseDataset(ids=ctr_batch_ids(rng, n5),
+                        vals=np.ones((n5, CONFIG5_FIELDS), np.float32),
+                        y=rng.integers(0, 2, n5).astype(np.float32),
+                        num_features=CONFIG5_BUCKETS)
+    batches5 = list(batch_iterator(ds5, CONFIG5_BATCH, device=dev,
+                                   dedup_budget="ladder",
+                                   dedup_fill=CONFIG5_BUCKETS))[:5]
+    state5 = DF.init_fused_deepfm_state(cfg5, torch.Generator(
+        device=dev).manual_seed(SEED + 5), device=dev)
+    width = sgd_fused.record_width(CONFIG5_RANK)
+    used = 2 * CONFIG5_RANK + 2
+    if state5.fm.table.shape != (CONFIG5_BUCKETS + 1, width) or width != 36:
+        raise AssertionError(f"config 5 record {tuple(state5.fm.table.shape)}")
+    # B1 and B2 at W = 36, exact on every row; B6 on a step's own
+    # [g_v | g_w] (W = 17) against float64
+    scratch = state5.fm.table.clone()
+    write_err = 0.0
+    for b in batches5[:2]:
+        u = b.plan.uids
+        if not torch.equal(rowio.gather_rows(scratch, u),
+                           rowio.gather_rows_reference(scratch, u)):
+            raise AssertionError(f"gather kernel wrong at W={width}")
+        rows = torch.randn((u.shape[0], width), generator=gen, device=dev)
+        want_t = rowio.scatter_set_rows_reference(scratch.clone(), u, rows)
+        rowio.scatter_set_rows(scratch, u, rows)
+        write_err = max(write_err, float((scratch - want_t).abs().max()))
+        if not torch.equal(scratch, want_t):
+            raise AssertionError(f"row write kernel != plain at W={width}")
+        del want_t
+    step5 = DF.make_train_step(cfg5, sgd5)
+    payload, checked = [], []
+    with swapped([(segsum, "segment_rowsum_sq", capturing(
+            segsum.segment_rowsum_sq, payload))]):
+        step5(clone_deepfm(state5), batches5[0])
+    payload = tuple(payload)
+    res_b6 = hold64(segsum.segment_rowsum_sq,
+                    segsum.segment_rowsum_sq_reference, payload,
+                    f"B6 W={payload[0].shape[1]} N={payload[0].shape[0]} "
+                    f"U={payload[2]} (config 5)", checked)
+    print(f"check: config 5 DeepFM: gather and row write at W={width} on the "
+          f"{tuple(state5.fm.table.shape)} record table equal their plain "
+          f"versions on every row (U="
+          f"{[b.plan.uids.shape[0] for b in batches5[:2]]}); B6 on the "
+          f"step's [g_v | g_w] {tuple(payload[0].shape)} against float64: "
+          f"{checked[-1]}", flush=True)
+    # 3 steps twice from one state, bit for bit, with their launches
+    outs = []
+    for _ in range(2):
+        s5 = clone_deepfm(state5)
+        zero_counts()
+        for b in batches5[:3]:
+            step5(s5, b)
+        outs.append((s5, read_counts()))
+    if not deepfm_tensors_equal(outs[0][0], outs[1][0]):
+        raise AssertionError("config 5: two card runs of 3 steps differ")
+    if outs[0][1] != {"gather_rows": 3, "scatter_set_rows": 3,
+                      "segment_rowsum_sq": 3}:
+        raise AssertionError(f"config 5 launches in 3 steps {outs[0][1]}")
+    del outs
+    # 5 steps, each from one state with the kernels and with the plain
+    # versions (B6's in float64); tables [:F, :34] at rtol 1e-4, atol 1e-6
+    # with up to 64 entries a step within adagrad's rounding bound (as
+    # phase 21), the tower and the bias at rtol 1e-5
+    head5 = max(int(torch.unique_consecutive(
+        b.plan.seg, return_counts=True)[1].max()) for b in batches5)
+    flip_atol = sgd5.learning_rate * head5 * 2.0 ** -24
+    losses, excused = [], 0
+    s5 = clone_deepfm(state5)
+    for b in batches5:
+        plain_in = clone_deepfm(s5)
+        _, aux = step5(s5, b)
+        counts = [k.launches for k in kernels.values()]
+        with swapped(plain_swaps):
+            _, plain_aux = step5(plain_in, b)
+        if [k.launches for k in kernels.values()] != counts:
+            raise AssertionError("the plain config 5 step launched a kernel")
+        losses.append(float(aux["loss"]))
+        np.testing.assert_allclose(losses[-1], float(plain_aux["loss"]),
+                                   rtol=1e-5)
+        excused += assert_close_rows(
+            s5.fm.table[:CONFIG5_BUCKETS, :used],
+            plain_in.fm.table[:CONFIG5_BUCKETS, :used], 1e-4, 1e-6,
+            f"config 5 step {len(losses)} table", 64, flip_atol)
+        for name in ("mlp_w", "mlp_b", "smw", "smb"):
+            for a, p in zip(getattr(s5, name), getattr(plain_in, name)):
+                np.testing.assert_allclose(a.cpu().numpy(),
+                                           p.cpu().numpy(), rtol=1e-5,
+                                           atol=1e-7, err_msg=name)
+        np.testing.assert_allclose(float(s5.fm.w0), float(plain_in.fm.w0),
+                                   rtol=1e-5)
+        del plain_in
+    print(f"check: 3 fused config 5 steps twice from one state equal bit "
+          f"for bit, launches B1 = B2 = B6 = 3; 5 steps each from the same "
+          f"state with the kernels and with the plain versions: losses "
+          f"{losses} equal (rtol 1e-5), tables [:F, :{used}] equal (rtol "
+          f"1e-4, atol 1e-6; {excused} entries within lr x {head5}-slot run "
+          f"x 2^-24 = {flip_atol:.3g}), tower equal (rtol 1e-5)", flush=True)
+    # the kernels at config 5's shapes
+    plan5 = batches5[0].plan
+    u5 = plan5.uids.shape[0]
+    distinct = min(int(plan5.count) + 1, u5)
+    rows5 = torch.randn((u5, width), generator=gen, device=dev)
+    keep = plan5.uids[:distinct].long()
+    uids5 = plan5.uids
+    t_gather = timed_kernel(
+        f"B1 gather_rows per call, config 5 record (U={u5}, W={width})",
+        rowio.gather_rows, rowio.gather_rows_reference,
+        (state5.fm.table, uids5),
+        lambda: state5.fm.table.index_select(0, uids5.long()),
+        u5 * 4 + (distinct + u5) * width * 4, 0, card)
+    t_write = timed_kernel(
+        f"B2 scatter_set_rows per call, config 5 record (U={u5}, "
+        f"W={width})", rowio.scatter_set_rows,
+        rowio.scatter_set_rows_reference, (scratch, uids5, rows5),
+        lambda: scratch.index_copy_(0, keep, rows5[:distinct]),
+        u5 * 4 + (u5 + distinct) * width * 4, 0, card)
+    del scratch, rows5, s5, batches5
+    # one epoch of train_deepfm (20 steps of 8192, host ladder plans):
+    # launches counted, then traced
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    res5 = DF.train_deepfm(cfg5, sgd5, ds5, device=dev)
+    torch.cuda.synchronize()
+    wall5 = time.perf_counter() - t0
+    launches5 = read_counts()
+    peak5 = torch.cuda.max_memory_allocated(dev)
+    want = {"gather_rows": CONFIG5_STEPS, "scatter_set_rows": CONFIG5_STEPS,
+            "segment_rowsum_sq": CONFIG5_STEPS}
+    if launches5 != want:
+        raise AssertionError(f"config 5 epoch launches {launches5}, "
+                             f"expected {want}")
+    loss5 = res5.history[0]["train_loss"]
+    if not np.isfinite(loss5):
+        raise AssertionError(f"config 5 loss {loss5}")
+    eps5 = res5.examples_per_sec
+    params5 = res5.params
+    del res5
+    busy, events = device_us(lambda: DF.train_deepfm(cfg5, sgd5, ds5,
+                                                     device=dev), tries=2)
+    top = "; ".join(f"{e.key[:50]} x{e.count} "
+                    f"{e.self_device_time_total:.0f}" for e in events[:8])
+    print(f"profile: one-epoch train_deepfm, BASELINE config 5 fused "
+          f"({CONFIG5_STEPS} steps of {CONFIG5_BATCH}, state init included): "
+          f"{eps5:.0f} ex/s (first step left out); loss {loss5:.5f}; device "
+          f"busy {busy / 1e3:.3f} ms of {wall5 * 1e3:.3f} ms untraced wall "
+          f"({100 * (1 - busy / 1e6 / wall5):.1f}% idle); peak device "
+          f"memory {peak5 / 2**30:.2f} GiB; launches {launches5}; top device "
+          f"events (us): {top}; {card}", flush=True)
+    # the dedup path for 3 steps with its launches; each step runs again
+    # from the same state with the plain versions (B6's in float64) and the
+    # run goes on from the kernels' result, as the fused steps above (run
+    # freely, the exploding loss would amplify the f32 rounding of the
+    # sums, see steps_against_plain): losses at rtol 1e-5, tables and slots
+    # [:F] at rtol 1e-4, atol 1e-6 with up to 64 entries a step within
+    # adagrad's rounding bound, the tower and the bias at rtol 1e-5
+    sgd_d = dataclasses.replace(sgd5, update_path="dedup")
+    step_d = DF.make_train_step(cfg5, sgd_d)
+    state_d = DF.pad_deepfm_state_for_dedup(DF.init_state(DF.init_params(
+        cfg5, torch.Generator(device=dev).manual_seed(SEED + 6),
+        device=dev)))
+    batches_d = list(batch_iterator(ds5, CONFIG5_BATCH, device=dev,
+                                    dedup_budget="ladder",
+                                    dedup_fill=CONFIG5_BUCKETS))[:3]
+    head_d = max(int(torch.unique_consecutive(
+        b.plan.seg, return_counts=True)[1].max()) for b in batches_d)
+    flip_d = sgd_d.learning_rate * head_d * 2.0 ** -24
+    dedup_losses, plain_losses, excused_d, launched = [], [], 0, {}
+    for b in batches_d:
+        plain_d = clone_deepfm(state_d)
+        zero_counts()
+        dedup_losses.append(float(step_d(state_d, b)[1]["loss"]))
+        for n, c in read_counts().items():
+            launched[n] = launched.get(n, 0) + c
+        zero_counts()
+        with swapped(plain_swaps):
+            plain_losses.append(float(step_d(plain_d, b)[1]["loss"]))
+        if read_counts():
+            raise AssertionError("the plain config 5 dedup step launched a "
+                                 "kernel")
+        np.testing.assert_allclose(dedup_losses[-1], plain_losses[-1],
+                                   rtol=1e-5)
+        tables = [(n, getattr(state_d.fm.params, n), getattr(
+            plain_d.fm.params, n)) for n in ("v", "w")]
+        tables += [(n, getattr(state_d.fm, n), getattr(plain_d.fm, n))
+                   for n in ("slot_v", "slot_w")]
+        allow = 64
+        for n, got, want in tables:
+            e = assert_close_rows(
+                got[:CONFIG5_BUCKETS], want[:CONFIG5_BUCKETS], 1e-4, 1e-6,
+                f"config 5 dedup step {len(dedup_losses)} {n}", allow,
+                flip_d)
+            allow -= e
+            excused_d += e
+        for name in ("mlp_w", "mlp_b", "smw", "smb"):
+            for a, p in zip(getattr(state_d, name), getattr(plain_d, name)):
+                np.testing.assert_allclose(a.cpu().numpy(), p.cpu().numpy(),
+                                           rtol=1e-5, atol=1e-7,
+                                           err_msg=f"dedup {name}")
+        np.testing.assert_allclose(float(state_d.fm.params.w0),
+                                   float(plain_d.fm.params.w0), rtol=1e-5)
+        del plain_d
+    if launched != {"gather_vw_rows": 6, "scatter_set_rows": 12,
+                    "segment_rowsum_sq": 3}:
+        raise AssertionError(f"config 5 dedup launches {launched}")
+    print(f"train: config 5 dedup path, 3 steps: losses {dedup_losses}, "
+          f"launches {launched} (two-table gathers [v | w] and [slot_v | "
+          f"slot_w], 4 table writes, B6 a step); each step from the same "
+          f"state with the plain versions: losses {plain_losses} equal (rtol "
+          f"1e-5), v, w, slots [:F] equal (rtol 1e-4, atol 1e-6; "
+          f"{excused_d} entries within lr x {head_d}-slot run x 2^-24 = "
+          f"{flip_d:.3g}), tower and bias equal (rtol 1e-5)", flush=True)
+    del state_d, step_d, batches_d
+    path5 = "train_deepfm fused, BASELINE config 5 DeepFM (phase 25)"
+    entries = []
+    for name, line, t, err, lib in (
+            ("gather_rows (config 5 record)", "pallas_rowio.py:140",
+             t_gather, 0.0, "index_select"),
+            ("scatter_set_rows (config 5 record)", "pallas_rowio.py:74",
+             t_write, write_err,
+             "index_copy_ over the plan's distinct ids")):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/rowio.cu",
+            "replaces": f"sparkfm_tpu/ops/{line}",
+            "launches": launches5[name.split()[0]], "path": path5,
+            "max_abs_err": err, "library": lib, **t})
+    entries.append(rowsum_sq_entry_of(
+        "config 5 DeepFM", res_b6, payload,
+        launches5["segment_rowsum_sq"], path5, card))
+    del payload, state5
+    torch.cuda.empty_cache()
+
+    # 26. DeepFM serving at config 5's width: MicroBatcher with plans (one
+    # two-table gather of the chunk's unique [v | w] rows) and without
+    # (one of its slots' rows), against DeepFMModel.predict
+    sizes = [1] * 4 + list(rng.integers(2, 600, 24)) + [3000, 5000]
+    reqs = [ctr_batch_ids(rng, int(n)) for n in sizes]
+    model5 = DeepFMModel(params=params5, cfg=cfg5)
+    # the plain gather's predictions, which both flushes must equal
+    zero_counts()
+    with swapped(plain_swaps):
+        want_p = [model5.predict(ids, np.ones(ids.shape, np.float32))
+                  for ids in reqs]
+    if read_counts():
+        raise AssertionError("the plain DeepFM predict launched a kernel")
+    serve = {}
+    for use_plans in (True, None):
+        mb = MicroBatcher(params5, cfg5, max_batch=MAX_BATCH,
+                          use_plans=use_plans, model="deepfm")
+        for ids in reqs:
+            mb.submit(ids, np.ones(ids.shape, np.float32))
+        zero_counts()
+        t0 = time.perf_counter()
+        outs = mb.flush()
+        serve[bool(use_plans)] = (time.perf_counter() - t0, read_counts())
+        chunks = -(-sum(sizes) // MAX_BATCH)
+        if serve[bool(use_plans)][1] != {"gather_vw_rows": chunks}:
+            raise AssertionError(f"DeepFM flush (use_plans={use_plans}) "
+                                 f"launches {serve[bool(use_plans)][1]}, "
+                                 f"expected {chunks} two-table gathers")
+        for ids, got, want in zip(reqs, outs, want_p):
+            if got.shape != (ids.shape[0],) or not np.all(np.isfinite(got)):
+                raise AssertionError(f"bad DeepFM output {got.shape}")
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+    print(f"serve: config 5 DeepFM MicroBatcher, {len(reqs)} requests, "
+          f"{sum(sizes)} examples, {chunks} chunks: with plans "
+          f"{serve[True][0]:.4f} s ({sum(sizes) / serve[True][0]:.0f} ex/s), "
+          f"launches {serve[True][1]}; without {serve[False][0]:.4f} s "
+          f"({sum(sizes) / serve[False][0]:.0f} ex/s), launches "
+          f"{serve[False][1]}; both equal DeepFMModel.predict through the "
+          f"plain gather (rtol 1e-5); "
+          f"{card}", flush=True)
+    del params5, model5, want_p
+    # the facade: fit on a small synth_ctr, save, load by its tag
+    ctr = synth.synth_ctr(num_examples=16384, num_fields=16,
+                          num_buckets=1 << 18, seed=SEED)
+    model = FM(num_factors=8, num_fields=16, model="deepfm", solver="sgd",
+               max_iter=2, batch_size=4096, task="classification",
+               reg_v=1e-6).fit(ctr, eval_ds=ctr)
+    scratch_dir = os.path.join(root, f"_ckpt_smoke_deepfm_{os.getpid()}")
+    try:
+        model.save(os.path.join(scratch_dir, "model"))
+        back = load_model(os.path.join(scratch_dir, "model"))
+        if not (isinstance(back, DeepFMModel) and np.array_equal(
+                back.predict(ctr.ids, ctr.vals),
+                model.predict(ctr.ids, ctr.vals))):
+            raise AssertionError("DeepFM save -> load changed predictions")
+    finally:
+        shutil.rmtree(scratch_dir, ignore_errors=True)
+    print(f"train: FM(model='deepfm').fit on synth_ctr (16384 x 16, 2^18 "
+          f"buckets) on the card: history {model.history}; saved and loaded "
+          f"by its tag, predictions equal bit for bit", flush=True)
+    del model, back
+
+    # 27. the command line on the card, in this process, the launch counts
+    # set to 0 before each command and read after; then one subprocess
+    work = os.path.join(root, f"_ckpt_smoke_cli_{os.getpid()}")
+    os.makedirs(work)
+    ratings = os.path.join(root, "tests", "fixtures", "ml_fixture",
+                           "ratings.dat")
+    ml = os.path.join(work, "ml.libfm")
+    ctr_file = os.path.join(work, "ctr.libfm")
+    libfm.save_libfm(synth.synth_ctr(num_examples=20000, seed=0), ctr_file)
+    deep_dir = os.path.join(work, "D")
+    commands = [
+        ("vectorize", ["vectorize", "--input", ratings, "--schema",
+                       "identity,identity,target,ignored", "--output", ml],
+         ()),
+        ("train als", ["train", "--libfm", ml, "--solver", "als", "--iters",
+                       "3", "--split", "0.8,0.2"], ("segment_colsums",)),
+        ("train sgd", ["train", "--libfm", ml, "--solver", "sgd", "--iters",
+                       "3", "--split", "0.8,0.2", "--batch-size", "2048"],
+         ("gather_vw_rows", "scatter_set_rows")),
+        ("train deepfm", ["train", "--model", "deepfm", "--fields", "16",
+                          "--synth", "ctr", "--synth-examples", "20000",
+                          "--solver", "sgd", "--task", "classification",
+                          "--iters", "2", "--split", "0.8,0.2",
+                          "--save-model", deep_dir],
+         ("gather_rows", "scatter_set_rows", "segment_rowsum_sq")),
+        ("eval deepfm", ["eval", "--model", deep_dir, "--libfm", ctr_file],
+         ("gather_vw_rows",)),
+        ("predict deepfm", ["predict", "--model", deep_dir, "--libfm",
+                            ctr_file, "--output",
+                            os.path.join(work, "p.txt")],
+         ("gather_vw_rows",)),
+        ("movielens-demo", ["movielens-demo"], ("segment_colsums",)),
+    ]
+    cli_runs = {}
+    try:
+        for label, argv, need in commands:
+            out = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            result = json.loads(out.getvalue().strip().splitlines()[-1])
+            if rc != 0 or any(counts.get(k, 0) == 0 for k in need):
+                raise AssertionError(f"cli {label}: rc {rc}, launches "
+                                     f"{counts}, expected {need} > 0")
+            cli_runs[label] = (wall, counts, result)
+        for label, key in (("train als", "test_rmse"),
+                           ("train sgd", "test_rmse"),
+                           ("train deepfm", "test_auc"),
+                           ("movielens-demo", "test_rmse")):
+            got = cli_runs[label][2]
+            if not all(np.isfinite(v) for k, v in got.items()
+                       if k.startswith("test_")) or key not in got:
+                raise AssertionError(f"cli {label}: {got}, expected a "
+                                     f"finite {key}")
+        # eval and predict of the saved DeepFM held against the same
+        # model scored through the plain versions
+        plain_model = load_model(deep_dir, device=dev)
+        ctr_ds = libfm.load_libfm(
+            ctr_file, num_features=plain_model.cfg.fm.num_features)
+        zero_counts()
+        with swapped(plain_swaps):
+            want_pred = plain_model.predict_dataset(ctr_ds)
+            want_eval = plain_model.evaluate(ctr_ds)
+        if read_counts():
+            raise AssertionError("the plain DeepFM eval launched a kernel")
+        got_pred = np.loadtxt(os.path.join(work, "p.txt"))
+        if got_pred.shape != (20000,):
+            raise AssertionError("cli predict wrote the wrong row count")
+        # predict writes 6 significant digits, eval rounds to 6 places
+        np.testing.assert_allclose(got_pred, want_pred, rtol=1e-5, atol=1e-7)
+        got_eval = cli_runs["eval deepfm"][2]
+        if set(got_eval) != set(want_eval):
+            raise AssertionError(f"cli eval keys {sorted(got_eval)}")
+        for k, v in want_eval.items():
+            np.testing.assert_allclose(got_eval[k], v, rtol=0, atol=1e-6,
+                                       err_msg=f"cli eval {k}")
+        del plain_model, ctr_ds
+        child = subprocess.run(
+            [sys.executable, "-m", "sparkfm_tpu_torch", "train", "--synth",
+             "ctr", "--synth-examples", "20000", "--solver", "sgd",
+             "--task", "classification", "--iters", "1"], cwd=root,
+            capture_output=True, text=True, timeout=300)
+        if child.returncode != 0:
+            raise AssertionError(f"python -m sparkfm_tpu_torch train: rc "
+                                 f"{child.returncode}\n"
+                                 f"{child.stderr[-2000:]}")
+        child_out = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for label, (wall, counts, result) in cli_runs.items():
+        print(f"cli: {label}: {wall:.3f} s, launches {counts}, "
+              f"{json.dumps(result)}", flush=True)
+    print("check: cli eval and predict of the saved DeepFM equal the model "
+          "scored through the plain versions (metrics atol 1e-6, "
+          "predictions rtol 1e-5); train and demo metrics finite",
+          flush=True)
+    print(f"cli: python -m sparkfm_tpu_torch train --synth ctr (no --device: "
+          f"on the card by default) exited 0: {json.dumps(child_out)}; "
+          f"{card}", flush=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -3036,6 +3528,9 @@ def main():
     # 22-24. grouped steps as CUDA graphs, checkpointed training
     torch.cuda.empty_cache()
     graph_checkpoint_phases(dev, cfg, gen, rng, card, root)
+    # 25-27. BASELINE config 5 (DeepFM), DeepFM serving, the command line
+    torch.cuda.empty_cache()
+    deepfm_entries = deepfm_cli_phases(dev, gen, rng, card, root)
 
     print(smi)
     # one serving plan's [v | w] gather: the ids, each distinct row of V
@@ -3080,7 +3575,8 @@ def main():
             per_call["plain V+w (index_selects + cat)"]),
         "library_device_ms": None,
         **bound(vw_bytes, 0, ms_or_none(vw_us))},
-        *train_entries, als_entry, *segsum_entries, *ddf_entries]}))
+        *train_entries, als_entry, *segsum_entries, *ddf_entries,
+        *deepfm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -10,11 +10,15 @@ every update path (direct, dedup, hybrid, fused and sorted; adagrad,
 adagrad_row, sgd with momentum and adam where the path has them;
 ``SGDConfig``, ``train_sgd``, ``evaluate``) with the row-write, backward
 and row-sum kernels, single-device ALS training (``ALSConfig``,
-``train_als``) with the per-rank stream-sum kernel, and the ``FM`` facade
-over both solvers. The kernels are CUDA C++ under ``csrc/``.
+``train_als``) with the per-rank stream-sum kernel, DeepFM training and
+serving (``models/deepfm.py``, ``DeepFMModel``), the ``FM`` facade over
+them, the data pipeline (``data/``: libFM files, the Vectorizer, the
+public datasets' loaders) and the command line (``python -m
+sparkfm_tpu_torch``). The kernels are CUDA C++ under ``csrc/``. Entry
+points run on the card unless asked for the CPU (``utils/device.py``).
 """
 
-from sparkfm_tpu_torch.api import FM, FMModel
+from sparkfm_tpu_torch.api import FM, DeepFMModel, FMModel, load_model
 from sparkfm_tpu_torch.config import ALSConfig, FMConfig, SGDConfig, Task
 from sparkfm_tpu_torch.models.fm import (FMParams, init_params,
                                          params_from_numpy, predict, scores)
@@ -24,7 +28,8 @@ from sparkfm_tpu_torch.training.trainer import (TrainResult, evaluate,
                                                 train_sgd)
 
 __all__ = [
-    "FM", "FMModel", "ALSConfig", "FMConfig", "SGDConfig", "Task",
+    "FM", "FMModel", "DeepFMModel", "load_model", "ALSConfig", "FMConfig",
+    "SGDConfig", "Task",
     "FMParams", "init_params", "params_from_numpy", "predict", "scores",
     "MicroBatcher", "TrainResult", "evaluate", "train_als", "train_sgd",
 ]

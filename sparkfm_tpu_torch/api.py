@@ -1,10 +1,13 @@
 """The facade: ``FM``, configured once, whose ``fit`` runs a solver, and
-the fitted ``FMModel`` (predict, metrics, save and load). Port of
-``sparkfm_tpu/api.py`` for one device."""
+the fitted ``FMModel`` and ``DeepFMModel`` (predict, metrics, save and
+load; :func:`load_model` loads either by the tag its directory carries).
+Port of ``sparkfm_tpu/api.py`` for one device."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -12,14 +15,74 @@ import torch
 
 from sparkfm_tpu_torch.config import ALSConfig, FMConfig, SGDConfig, Task
 from sparkfm_tpu_torch.data.batching import SparseDataset, batch_iterator
+from sparkfm_tpu_torch.models import deepfm as deepfm_core
 from sparkfm_tpu_torch.models import fm as fm_core
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import metrics as M
 from sparkfm_tpu_torch.utils import checkpoint
+from sparkfm_tpu_torch.utils import device as device_util
+
+
+def _metrics(scores: np.ndarray, y: np.ndarray,
+             task: Task) -> Dict[str, float]:
+    """Regression: rmse, mae. Classification: logloss, accuracy, auc;
+    from raw scores (float32) and labels."""
+    if task == Task.REGRESSION:
+        return {"rmse": float(np.sqrt(np.mean(np.square(scores - y)))),
+                "mae": float(np.mean(np.abs(scores - y)))}
+    prob = torch.sigmoid(torch.from_numpy(scores).double()).numpy()
+    y01 = (y > 0).astype(np.float64)
+    p = np.clip(prob, 1e-7, 1 - 1e-7)
+    return {
+        "logloss": float(-np.mean(y01 * np.log(p)
+                                  + (1 - y01) * np.log1p(-p))),
+        "accuracy": float(np.mean((prob >= 0.5) == (y01 > 0.5))),
+        "auc": float(M.auc(torch.from_numpy(scores), torch.from_numpy(y))),
+    }
+
+
+def _predictions(scores: np.ndarray, task: Task) -> np.ndarray:
+    if task == Task.CLASSIFICATION:
+        return torch.sigmoid(torch.from_numpy(scores)).numpy()
+    return scores
+
+
+class _Metrics:
+    """The metric surface shared by :class:`FMModel` and
+    :class:`DeepFMModel`: each has ``_scores(ds, batch_size)`` (raw
+    scores of every example) and ``task``."""
+
+    def predict_dataset(self, ds: SparseDataset,
+                        batch_size: int = 8192) -> np.ndarray:
+        return _predictions(self._scores(ds, batch_size), self.task)
+
+    def evaluate(self, ds: SparseDataset,
+                 batch_size: int = 8192) -> Dict[str, float]:
+        """Regression: rmse, mae. Classification: logloss, accuracy,
+        auc."""
+        scores = self._scores(ds, batch_size)
+        return _metrics(scores, ds.y[:len(scores)], self.task)
+
+    def compute_rmse(self, ds: SparseDataset) -> float:
+        p = self.predict_dataset(ds)
+        return float(np.sqrt(np.mean(np.square(p - ds.y[:len(p)]))))
+
+    def compute_mae(self, ds: SparseDataset) -> float:
+        """True mean |error|."""
+        p = self.predict_dataset(ds)
+        return float(np.mean(np.abs(p - ds.y[:len(p)])))
+
+    def compute_accuracy(self, ds: SparseDataset) -> float:
+        p = self.predict_dataset(ds)
+        if self.task == Task.CLASSIFICATION:
+            pred_pos = p >= 0.5
+        else:
+            pred_pos = p > 0
+        return float(np.mean(pred_pos == (ds.y[:len(p)] > 0)))
 
 
 @dataclasses.dataclass
-class FMModel:
+class FMModel(_Metrics):
     """Parameters + config + metric helpers, and the training run's
     per-epoch ``history`` and ``examples_per_sec`` when ``FM.fit`` made
     it. Everything runs on the parameters' device."""
@@ -32,6 +95,10 @@ class FMModel:
     @property
     def device(self) -> torch.device:
         return self.params.device
+
+    @property
+    def task(self) -> Task:
+        return self.cfg.task
 
     def predict(self, ids, vals, field_ids=None) -> np.ndarray:
         """Predictions in output space: raw score (regression) or P(y=1)."""
@@ -65,59 +132,98 @@ class FMModel:
             outs.append(s[b.mask].cpu().numpy())
         return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
 
-    def predict_dataset(self, ds: SparseDataset,
-                        batch_size: int = 8192) -> np.ndarray:
-        s = self._scores(ds, batch_size)
-        if self.cfg.task == Task.CLASSIFICATION:
-            return torch.sigmoid(torch.from_numpy(s)).numpy()
-        return s
-
-    def evaluate(self, ds: SparseDataset,
-                 batch_size: int = 8192) -> Dict[str, float]:
-        """Regression: rmse, mae. Classification: logloss, accuracy, auc."""
-        scores = self._scores(ds, batch_size)
-        y = ds.y[:len(scores)]
-        if self.cfg.task == Task.REGRESSION:
-            return {"rmse": float(np.sqrt(np.mean(np.square(scores - y)))),
-                    "mae": float(np.mean(np.abs(scores - y)))}
-        prob = torch.sigmoid(torch.from_numpy(scores).double()).numpy()
-        y01 = (y > 0).astype(np.float64)
-        p = np.clip(prob, 1e-7, 1 - 1e-7)
-        return {
-            "logloss": float(-np.mean(y01 * np.log(p)
-                                      + (1 - y01) * np.log1p(-p))),
-            "accuracy": float(np.mean((prob >= 0.5) == (y01 > 0.5))),
-            "auc": float(M.auc(torch.from_numpy(scores),
-                               torch.from_numpy(y))),
-        }
-
-    def compute_rmse(self, ds: SparseDataset) -> float:
-        p = self.predict_dataset(ds)
-        return float(np.sqrt(np.mean(np.square(p - ds.y[:len(p)]))))
-
-    def compute_mae(self, ds: SparseDataset) -> float:
-        """True mean |error|."""
-        p = self.predict_dataset(ds)
-        return float(np.mean(np.abs(p - ds.y[:len(p)])))
-
-    def compute_accuracy(self, ds: SparseDataset) -> float:
-        p = self.predict_dataset(ds)
-        if self.cfg.task == Task.CLASSIFICATION:
-            pred_pos = p >= 0.5
-        else:
-            pred_pos = p > 0
-        return float(np.mean(pred_pos == (ds.y[:len(p)] > 0)))
-
     def save(self, directory: str) -> None:
         checkpoint.save(directory, self.params.state_dict(),
                         {"cfg": self.cfg.to_json()})
 
     @classmethod
-    def load(cls, directory: str, *, device) -> "FMModel":
-        state, meta = checkpoint.restore(directory, device)
+    def load(cls, directory: str, *,
+             device=device_util.DEFAULT) -> "FMModel":
+        """The model :meth:`save` wrote, on ``device`` (default: the
+        card; without one it raises). A DeepFM directory raises
+        ``ValueError`` (:func:`load_model` takes either)."""
+        state, meta = checkpoint.restore(directory,
+                                         device_util.resolve(device))
+        if meta.get("model", "fm") != "fm":
+            raise ValueError(f"{directory} holds a {meta['model']!r} model; "
+                             "load it with DeepFMModel.load or load_model")
         return cls(params=FMParams(w0=state["w0"], w=state["w"],
                                    v=state["v"]),
                    cfg=FMConfig.from_json(meta["cfg"]))
+
+
+@dataclasses.dataclass
+class DeepFMModel(_Metrics):
+    """A fitted DeepFM (``models/deepfm.py``): FM tables + MLP tower, the
+    same metric surface as :class:`FMModel`; predictions run both heads.
+    Everything runs on the parameters' device."""
+
+    params: deepfm_core.DeepFMParams
+    cfg: deepfm_core.DeepFMConfig
+    history: list = dataclasses.field(default_factory=list)
+    examples_per_sec: float = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.params.device
+
+    @property
+    def task(self) -> Task:
+        return self.cfg.fm.task
+
+    def predict(self, ids, vals, field_ids=None) -> np.ndarray:
+        """Predictions in output space: raw score (regression) or P(y=1).
+        ``field_ids`` are not read: DeepFM input is field-major."""
+        dev = self.device
+        return deepfm_core.predict(
+            self.params, self.cfg,
+            torch.as_tensor(ids, dtype=torch.int32, device=dev),
+            torch.as_tensor(vals, dtype=torch.float32,
+                            device=dev)).cpu().numpy()
+
+    def _scores(self, ds: SparseDataset, batch_size: int) -> np.ndarray:
+        outs = [deepfm_core.scores(self.params, self.cfg, b.ids,
+                                   b.vals)[b.mask].cpu().numpy()
+                for b in batch_iterator(ds, batch_size, device=self.device)]
+        return np.concatenate(outs) if outs else np.zeros((0,), np.float32)
+
+    def save(self, directory: str) -> None:
+        """The tables and tower with the config, tagged ``"model":
+        "deepfm"`` (the JAX package's tag)."""
+        checkpoint.save(directory, self.params.state_dict(),
+                        {"cfg": self.cfg.fm.to_json(),
+                         "hidden": list(self.cfg.hidden), "model": "deepfm"})
+
+    @classmethod
+    def load(cls, directory: str, *,
+             device=device_util.DEFAULT) -> "DeepFMModel":
+        """The model :meth:`save` wrote, on ``device`` (default: the
+        card; without one it raises)."""
+        state, meta = checkpoint.restore(directory,
+                                         device_util.resolve(device))
+        if meta.get("model") != "deepfm":
+            raise ValueError(f"{directory} holds no DeepFM model; load it "
+                             "with FMModel.load or load_model")
+        layers = len(meta["hidden"]) + 1
+        params = deepfm_core.DeepFMParams(
+            fm=FMParams(w0=state["fm.w0"], w=state["fm.w"],
+                        v=state["fm.v"]),
+            mlp_w=[state[f"mlp_w.{i}"] for i in range(layers)],
+            mlp_b=[state[f"mlp_b.{i}"] for i in range(layers)])
+        return cls(params=params, cfg=deepfm_core.DeepFMConfig(
+            fm=FMConfig.from_json(meta["cfg"]),
+            hidden=tuple(meta["hidden"])))
+
+
+def load_model(directory: str, *, device=device_util.DEFAULT):
+    """An ``FMModel`` or ``DeepFMModel``, by the tag ``save`` wrote. The
+    JAX CLI's ``predict`` and ``eval`` always call ``FMModel.load``,
+    which fails on a DeepFM directory with a ``KeyError``; the port's
+    CLI loads through this."""
+    with open(os.path.join(directory, checkpoint.META_FILE)) as f:
+        kind = json.load(f).get("model", "fm")
+    return (DeepFMModel if kind == "deepfm" else FMModel).load(
+        directory, device=device)
 
 
 def _detect_slot_major(train, num_fields: int) -> bool:
@@ -145,7 +251,7 @@ class FM:
     ``sparkfm_tpu/api.py::FM`` for one device and a ``SparseDataset``::
 
         model = FM(num_factors=8, max_iter=20, solver="als",
-                   reg_v=0.5).fit(train, eval_ds=test, device="cuda")
+                   reg_v=0.5).fit(train, eval_ds=test)   # on the card
         rmse = model.compute_rmse(test)
 
     ``solver`` is "als" (slot-aligned blocks, ``solvers/als.py``), "sgd"
@@ -156,14 +262,18 @@ class FM:
     fit's device seeded with ``seed``. ``num_fields > 0`` fits a
     field-aware FM on data with ``field_ids``; when every row's field_ids
     are ``arange(num_fields)`` the config gets ``slot_major_fields``, as
-    the JAX facade's does. ``timeout`` is a wall-clock budget in seconds,
-    checked between epochs (0 = none). The arguments are the JAX
-    facade's.
+    the JAX facade's does. ``model="deepfm"`` (with ``solver="sgd"`` and
+    ``num_fields`` = slots per example) fits a DeepFM with tower widths
+    ``hidden`` (``models/deepfm.py::train_deepfm``) and returns a
+    ``DeepFMModel``. ``feature_groups`` is a tuple of group ids or a
+    fitted ``Vectorizer`` (one group per source column,
+    ``data/vectorizer.py::feature_groups_of``). ``timeout`` is a
+    wall-clock budget in seconds, checked between epochs (0 = none). The
+    arguments are the JAX facade's.
 
     Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-    item: ``solver="mcmc"`` (A11), a ``mesh`` (A15), ``model="deepfm"``
-    (A12), relational input (A10: BS-ALS and relational SGD) and a fitted
-    Vectorizer as ``feature_groups`` (A14).
+    item: ``solver="mcmc"`` (A11), a ``mesh`` (A15) and relational input
+    (A10: BS-ALS and relational SGD).
     """
 
     def __init__(self, num_factors: int = 8,
@@ -223,9 +333,8 @@ class FM:
         if fg is None:
             return None
         if hasattr(fg, "offsets"):      # a fitted Vectorizer
-            raise NotImplementedError(
-                "feature groups from a Vectorizer need the data pipeline, "
-                "not ported yet (ROADMAP A14); pass a tuple of group ids")
+            from sparkfm_tpu_torch.data.vectorizer import feature_groups_of
+            return feature_groups_of(fg)
         if isinstance(fg, str):
             raise ValueError(
                 "feature_groups='auto' needs the fitted Vectorizer itself: "
@@ -255,16 +364,20 @@ class FM:
     def fit(self, train: SparseDataset,
             eval_ds: Optional[SparseDataset] = None,
             checkpoint_dir: Optional[str] = None,
-            init_params=None, *, device) -> FMModel:
-        """Train on ``device`` and return the fitted model.
+            init_params=None, *, device=device_util.DEFAULT):
+        """Train on ``device`` (default: the card; without one it raises)
+        and return the fitted ``FMModel``, or ``DeepFMModel`` under
+        ``model="deepfm"``.
 
         ``init_params`` (an FMParams or a fitted FMModel) warm-starts the
-        "als" and "sgd" solvers. ``checkpoint_dir`` checkpoints and
+        "als" and "sgd" solvers; DeepFM takes none (``ValueError``, as in
+        the JAX facade). ``checkpoint_dir`` checkpoints and
         resumes the "sgd" solver's training (``train_sgd``). A callable
         solver takes neither ``init_params`` nor a ``timeout``, and no
         solver but "sgd" takes a ``checkpoint_dir``: they are given no way
         to honour them, so ``fit`` raises ``ValueError`` where the JAX
-        facade drops them silently.
+        facade drops them silently. DeepFM honours ``update_path``, which
+        the JAX facade does not pass to its DeepFM trainer.
         """
         # imported here: training.trainer (and so solvers.als) imports
         # this module
@@ -275,9 +388,6 @@ class FM:
             raise NotImplementedError(
                 "relational datasets are not ported yet (ROADMAP A10: "
                 "BS-ALS and relational SGD)")
-        if self.model == "deepfm":
-            raise NotImplementedError("DeepFM is not ported yet (ROADMAP "
-                                      "A12)")
         if self.mesh is not None:
             raise NotImplementedError("mesh training is not ported yet "
                                       "(ROADMAP A15)")
@@ -286,9 +396,28 @@ class FM:
                              f"only, not {self.solver!r}")
         if isinstance(init_params, FMModel):
             init_params = init_params.params
-        device = torch.device(device)
+        device = device_util.resolve(device)
         cfg = self._cfg(train)
         generator = torch.Generator(device=device).manual_seed(self.seed)
+        if self.model == "deepfm":
+            if self.solver != "sgd":
+                raise ValueError("model='deepfm' requires solver='sgd'")
+            if init_params is not None:
+                raise ValueError("init_params warm start supports plain "
+                                 "FM on a SparseDataset")
+            dcfg = deepfm_core.DeepFMConfig(fm=cfg, hidden=self.hidden)
+            sgd_cfg = SGDConfig(learning_rate=self.learning_rate,
+                                optimizer=self.optimizer,
+                                batch_size=self.batch_size,
+                                epochs=self.max_iter,
+                                update_path=self.update_path,
+                                max_seconds=self.timeout)
+            res = deepfm_core.train_deepfm(
+                dcfg, sgd_cfg, train, eval_ds, self.eval_every, generator,
+                checkpoint_dir=checkpoint_dir, device=device)
+            return DeepFMModel(params=res.params, cfg=dcfg,
+                               history=res.history,
+                               examples_per_sec=res.examples_per_sec)
         if callable(self.solver):
             if init_params is not None or self.timeout:
                 raise ValueError(

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +54,36 @@ class SparseDataset:
             ids=self.ids[idx], vals=self.vals[idx], y=self.y[idx],
             num_features=self.num_features,
             field_ids=None if self.field_ids is None else self.field_ids[idx])
+
+
+def pack_examples(rows: Sequence[tuple], num_features: int,
+                  max_nnz: Optional[int] = None,
+                  field_of_feature: Optional[np.ndarray] = None
+                  ) -> SparseDataset:
+    """Pack (label, indices, values) triples into a SparseDataset.
+
+    Args:
+      rows: sequence of (y, ids_array, vals_array).
+      max_nnz: pad/truncate budget; default = max nnz over rows (lossless).
+      field_of_feature: optional (F,) feature->field map to emit field_ids.
+    """
+    n = len(rows)
+    if max_nnz is None:
+        max_nnz = max((len(r[1]) for r in rows), default=1)
+        max_nnz = max(max_nnz, 1)
+    ids = np.zeros((n, max_nnz), np.int32)
+    vals = np.zeros((n, max_nnz), np.float32)
+    y = np.zeros((n,), np.float32)
+    for i, (yi, idx, vls) in enumerate(rows):
+        k = min(len(idx), max_nnz)
+        ids[i, :k] = np.asarray(idx[:k], np.int32)
+        vals[i, :k] = np.asarray(vls[:k], np.float32)
+        y[i] = yi
+    fids = None
+    if field_of_feature is not None:
+        fids = field_of_feature[ids].astype(np.int32)
+    return SparseDataset(ids=ids, vals=vals, y=y, num_features=num_features,
+                         field_ids=fids)
 
 
 def batch_iterator(ds: SparseDataset, batch_size: int, *, device,

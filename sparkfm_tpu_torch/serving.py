@@ -1,6 +1,6 @@
 """Serving: coalesce scoring requests into padded batches. Port of
-``sparkfm_tpu/serving.py`` for ``model="fm"``, plain FM and FFM (whose
-requests carry ``field_ids``).
+``sparkfm_tpu/serving.py``: ``model="fm"`` for plain FM and FFM (whose
+requests carry ``field_ids``), ``model="deepfm"`` for DeepFM.
 
 A score call pays a fixed cost (launches, host-to-device copies, the copy
 back) whatever its batch size, so a server queues requests and scores them
@@ -9,9 +9,13 @@ around: ``submit`` queues requests on the host; ``flush`` scores the queue
 in chunks of at most ``max_batch`` examples, each padded to a power of two
 (a bounded ladder of shapes), and maps the results back per request.
 
-One deliberate difference from the JAX package: ``flush`` clears the queue
+Deliberate differences from the JAX package: ``flush`` clears the queue
 only after every chunk has scored, so an error leaves the queued requests
-in place instead of dropping them.
+in place instead of dropping them; a DeepFM batcher honours
+``use_plans=True`` (one two-table gather of each chunk's unique ``[v |
+w]`` rows, spread by the plan's ranks), which the JAX package accepts and
+ignores, and refuses ``field_ids`` (DeepFM input is field-major), which
+the JAX package ignores.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from sparkfm_tpu_torch.models import deepfm as deepfm_model
 from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.ops import embedding as E
 
@@ -38,12 +43,14 @@ class MicroBatcher:
     in task space: raw score for regression, P(y=1) for classification.
 
     Args:
-      params: FMParams, on the device that scores.
-      cfg: the matching FMConfig.
+      params: FMParams (DeepFMParams with ``model="deepfm"``), on the
+        device that scores.
+      cfg: the matching FMConfig (DeepFMConfig).
       max_batch: largest chunk; a longer queue flushes in several chunks.
       use_plans: build a host dedup plan per chunk (default: for plain-FM
-        tables of at least 2^16 rows).
-      model: "fm"; "deepfm" is not ported yet.
+        tables of at least 2^16 rows; off for DeepFM, as in the JAX
+        package).
+      model: "fm" or "deepfm".
 
     Usage::
 
@@ -54,19 +61,18 @@ class MicroBatcher:
         out[i], out[j]                    # per-request score arrays
     """
 
-    def __init__(self, params: fm_model.FMParams, cfg, max_batch: int = 4096,
+    def __init__(self, params, cfg, max_batch: int = 4096,
                  use_plans: Optional[bool] = None, model: str = "fm"):
-        if model == "deepfm":
-            raise NotImplementedError("DeepFM serving is not ported yet "
-                                      "(ROADMAP A7, with A12)")
-        if model != "fm":
+        if model not in ("fm", "deepfm"):
             raise ValueError(f"unknown model {model!r}")
         self.params = params
         self.cfg = cfg
+        self.model = model
+        self._base = cfg.fm if model == "deepfm" else cfg
         self.device = params.device
         self.max_batch = int(max_batch)
         if use_plans is None:
-            use_plans = (cfg.num_fields == 0
+            use_plans = (model == "fm" and cfg.num_fields == 0
                          and cfg.num_features >= fm_model.BIG_TABLE)
         self.use_plans = bool(use_plans)
         self._ids: List[np.ndarray] = []
@@ -82,6 +88,10 @@ class MicroBatcher:
         if ids.shape != vals.shape:
             raise ValueError(f"ids {ids.shape} != vals {vals.shape}")
         if field_ids is not None:
+            if self.model == "deepfm":
+                raise ValueError(
+                    "a DeepFM batcher takes no field_ids: its input is "
+                    "field-major, slot l holds field l")
             field_ids = np.atleast_2d(np.asarray(field_ids, np.int32))
         # Refuse mixing at submit time: a mixed queue could only fail at
         # flush, and every retry would fail again on the same queue.
@@ -116,7 +126,7 @@ class MicroBatcher:
             cap = E.auto_budget(chunk.size)
             # fill with the last row id, so the fill entries sort after
             # every real unique id
-            hp = E.host_dedup(chunk, cap, fill=self.cfg.num_features - 1)
+            hp = E.host_dedup(chunk, cap, fill=self._base.num_features - 1)
             if not hp.overflow:         # overflow -> exact scoring instead
                 rung = E.ladder_budget(int(hp.count), cap=cap)
                 plan = E.plan_to_device(
@@ -124,11 +134,17 @@ class MicroBatcher:
                                  count=hp.count, overflow=hp.overflow),
                     self.device)
         dev = self.device
-        out = fm_model.predict(
-            self.params, self.cfg, torch.as_tensor(chunk, device=dev),
-            torch.as_tensor(vchunk, device=dev),
-            None if fchunk is None else torch.as_tensor(fchunk, device=dev),
-            plan=plan)
+        ids_t = torch.as_tensor(chunk, device=dev)
+        vals_t = torch.as_tensor(vchunk, device=dev)
+        if self.model == "deepfm":
+            out = deepfm_model.predict(self.params, self.cfg, ids_t, vals_t,
+                                       plan=plan)
+        else:
+            out = fm_model.predict(
+                self.params, self.cfg, ids_t, vals_t,
+                None if fchunk is None else torch.as_tensor(fchunk,
+                                                            device=dev),
+                plan=plan)
         return out[:n].cpu().numpy()
 
     def flush(self) -> List[np.ndarray]:

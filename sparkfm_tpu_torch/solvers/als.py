@@ -68,6 +68,7 @@ from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import segsum
 from sparkfm_tpu_torch.training.trainer import TrainResult, evaluate
+from sparkfm_tpu_torch.utils import device as device_util
 
 
 @dataclasses.dataclass
@@ -408,8 +409,10 @@ def _check_hbm(ds: SparseDataset, cfg: FMConfig, device) -> None:
 def train_als(cfg: FMConfig, als_cfg: ALSConfig, train: SparseDataset,
               eval_ds: Optional[SparseDataset] = None, eval_every: int = 1,
               generator: Optional[torch.Generator] = None,
-              params: Optional[FMParams] = None, *, device) -> TrainResult:
-    """ALS training on ``device``: ``als_cfg.epochs`` compact sweeps.
+              params: Optional[FMParams] = None, *,
+              device=device_util.DEFAULT) -> TrainResult:
+    """ALS training on ``device`` (default: the card; without one it
+    raises, ``utils/device.py``): ``als_cfg.epochs`` compact sweeps.
 
     ``params`` warm-starts (copied to ``device``; the caller's tensors are
     not changed); otherwise V is drawn from ``generator`` (default: seeded
@@ -427,7 +430,7 @@ def train_als(cfg: FMConfig, als_cfg: ALSConfig, train: SparseDataset,
                          "unused, impl/FactorizationMachines.scala:12)")
     if cfg.num_fields > 0:
         raise ValueError("ALS supports plain FM (not FFM); use SGD for FFM")
-    device = torch.device(device)
+    device = device_util.resolve(device)
     if params is None:
         params = fm_model.init_params(cfg, generator, device=device)
     else:

@@ -29,6 +29,7 @@ from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
+from sparkfm_tpu_torch.utils import device as device_util
 from sparkfm_tpu_torch.utils import graphs
 from sparkfm_tpu_torch.utils.checkpoint import (Checkpointer, LayoutMismatch,
                                                 state_tensors)
@@ -74,8 +75,9 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
               resume: bool = True,
               mesh=None,
               init_params: Optional[FMParams] = None, *,
-              device) -> TrainResult:
-    """SGD training on ``device`` through the train step of the update
+              device=device_util.DEFAULT) -> TrainResult:
+    """SGD training on ``device`` (default: the card; without one it
+    raises, ``utils/device.py``) through the train step of the update
     path that ``solvers/sgd.py::resolve_update_path`` picks, as the JAX
     trainer dispatches: "direct" or "dedup" on an ``SGDState`` (the dedup
     tables padded by one fill row, trimmed off the result), "hybrid",
@@ -117,15 +119,16 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     another state layout (another update path) raises ``ValueError``; a
     missing or corrupt file raises as itself.
 
-    ``examples_per_sec`` leaves out the first dispatch (kernel builds,
-    warm-up, the first graph's capture), as the JAX trainer leaves out
-    its compile; a capture for a rung first met later is counted.
+    ``examples_per_sec`` leaves out the first dispatch, its time and its
+    examples (kernel builds, warm-up, the first graph's capture), as the
+    JAX trainer leaves out its compile; a capture for a rung first met
+    later is counted. The epoch loop is :func:`run_epochs`.
     """
     if mesh is not None:
         raise NotImplementedError(
             "the sharded mesh path is not ported yet (ROADMAP A15)")
     path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
-    device = torch.device(device)
+    device = device_util.resolve(device)
     if init_params is not None and (init_params.v.shape[0]
                                     != cfg.num_features):
         raise ValueError(
@@ -159,6 +162,110 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         def get_params(s):
             return s.params
 
+    dedup_budget = None
+    if sgd_cfg.host_plan and path in ("dedup", "fused", "hybrid"):
+        # unique_budget=0 -> the ladder: each plan sized to its batch's
+        # unique count rounded to a rung; the fill id is the table's extra
+        # last row
+        dedup_budget = sgd_cfg.unique_budget or "ladder"
+    group = (sgd_cfg.steps_per_dispatch
+             if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1 else 1)
+    stage = multi = None
+    if group > 1:
+        multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd_cfg)
+        stage = graphs.PinnedStage(group + PREFETCH_DEPTH + 2, device)
+        log.info("hybrid multi-step: %d steps a dispatch", group)
+
+    def run_epoch(state, epoch, dispatch):
+        flags = []      # overflow per step; device plans' on the card
+        buf: List[graphs.Staged] = []
+
+        def flush():
+            if len(buf) == group:
+                dispatch(lambda: multi.run_staged(state, stage, buf), group)
+            else:
+                for s in buf:
+                    dispatch(lambda: graphs.run_steps(
+                        step_fn, state, [stage.to_device(s)])[0], 1)
+            flags.extend(s.overflow for s in buf)
+            buf.clear()
+
+        batches = batch_iterator(
+            train, sgd_cfg.batch_size,
+            device=device if stage is None else "cpu",
+            shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed,
+            epoch=epoch, drop_remainder=False,
+            dedup_budget=dedup_budget, dedup_fill=cfg.num_features)
+        if stage is not None:
+            batches = stage.fill(batches)
+        for batch in prefetch(batches, PREFETCH_DEPTH):
+            if stage is None:
+                def single(b=batch):
+                    nonlocal state
+                    state, aux = step_fn(state, b)
+                    return aux
+                aux = dispatch(single, 1)
+                if "unique_overflow" in aux:
+                    flags.append(aux["unique_overflow"])
+                continue
+            if buf and buf[-1].sig != batch.sig:
+                flush()
+            buf.append(batch)
+            if len(buf) == group:
+                flush()
+        if stage is not None:
+            flush()
+        return state, flags
+
+    state, history, eps = run_epochs(
+        state, sgd_cfg, train.num_examples, run_epoch, path=path,
+        evaluate_state=None if eval_ds is None else (
+            lambda s: evaluate(get_params(s), cfg, eval_ds,
+                               sgd_cfg.batch_size)),
+        eval_every=eval_every, hooks=hooks, checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every, resume=resume)
+    return TrainResult(
+        params=sgd_solver.trim_params(get_params(state), cfg.num_features),
+        history=history, examples_per_sec=eps)
+
+
+def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
+               run_epoch: Callable, *, path: str,
+               evaluate_state: Optional[Callable] = None,
+               eval_every: int = 1, hooks: Optional[List[Callable]] = None,
+               checkpoint_dir: Optional[str] = None,
+               checkpoint_every: int = 1, resume: bool = True,
+               record_overflows: bool = True):
+    """The epoch loop that :func:`train_sgd` and
+    ``models/deepfm.py::train_deepfm`` share: resume, the epochs, their
+    history records and evals, the time budget, the checkpoints and the
+    examples-per-second count.
+
+    ``run_epoch(state, epoch, dispatch)`` runs one epoch's steps of
+    ``num_examples`` examples and returns ``(state, flags)``, ``flags``
+    the steps' plan overflow indicators (bools or 0-d tensors). It runs
+    each dispatch as ``dispatch(run, n)``: ``run()`` takes n steps and
+    returns their aux, whose ``loss`` (n = 1) or ``loss_mean`` (n > 1) is
+    logged once a step; ``dispatch`` returns the aux. A record holds the
+    epoch's mean ``train_loss`` (in float64), its
+    ``unique_overflow_steps`` when ``record_overflows`` and it has flags,
+    and, every ``eval_every`` epochs and after the last, ``eval_*``
+    metrics from ``evaluate_state(state)`` (None: no evals). ``hooks``
+    are called as ``hook(epoch, state, record)``.
+
+    With ``checkpoint_dir`` the state is saved every ``checkpoint_every``
+    epochs, after the last one and when ``SGDConfig.max_seconds`` stops
+    the run, with the epoch and the history. With ``resume`` and a
+    checkpoint there, it is restored into the state's own tensors and the
+    loop goes on at the next epoch; a checkpoint of another state layout
+    (another update ``path``) raises ``ValueError``, a missing or corrupt
+    file raises as itself.
+
+    ``examples_per_sec`` leaves out the first dispatch, its time and its
+    examples (kernel builds, warm-up, a first graph capture), as the JAX
+    trainer leaves out its compile; a run of one dispatch counts it.
+    Returns ``(state, history, examples_per_sec)``.
+    """
     history: List[Dict[str, float]] = []
     start_epoch = 0
     ckpt = None
@@ -183,28 +290,12 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
             log.info("resumed from %s at epoch %d", checkpoint_dir,
                      start_epoch)
 
-    dedup_budget = None
-    if sgd_cfg.host_plan and path in ("dedup", "fused", "hybrid"):
-        # unique_budget=0 -> the ladder: each plan sized to its batch's
-        # unique count rounded to a rung; the fill id is the table's extra
-        # last row
-        dedup_budget = sgd_cfg.unique_budget or "ladder"
-    group = (sgd_cfg.steps_per_dispatch
-             if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1 else 1)
-    stage = multi = None
-    if group > 1:
-        multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd_cfg)
-        stage = graphs.PinnedStage(group + PREFETCH_DEPTH + 2, device)
-        log.info("hybrid multi-step: %d steps a dispatch", group)
-
     n_examples = 0
-    warmup = None       # seconds of the first dispatch
+    warmup = None           # (seconds, examples) of the first dispatch
     t0 = time.perf_counter()
     try:
         for epoch in range(start_epoch, sgd_cfg.epochs):
             losses = []     # per step, float64
-            flags = []      # overflow per step; device plans' on the card
-            buf: List[graphs.Staged] = []
 
             def dispatch(run, n):
                 nonlocal warmup
@@ -212,66 +303,33 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
                 aux = run()
                 if tw is not None:
                     float(aux["loss"])  # waits for the dispatch to end
-                    warmup = time.perf_counter() - tw
+                    warmup = (time.perf_counter() - tw,
+                              min(n * sgd_cfg.batch_size, num_examples))
                 if n == 1:
                     losses.append(aux["loss"].double())
                 else:
                     losses.extend([aux["loss_mean"]] * n)
                 return aux
 
-            def flush():
-                if len(buf) == group:
-                    dispatch(lambda: multi.run_staged(state, stage, buf),
-                             group)
-                else:
-                    for s in buf:
-                        dispatch(lambda: graphs.run_steps(
-                            step_fn, state, [stage.to_device(s)])[0], 1)
-                flags.extend(s.overflow for s in buf)
-                buf.clear()
-
-            batches = batch_iterator(
-                train, sgd_cfg.batch_size,
-                device=device if stage is None else "cpu",
-                shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed,
-                epoch=epoch, drop_remainder=False,
-                dedup_budget=dedup_budget, dedup_fill=cfg.num_features)
-            if stage is not None:
-                batches = stage.fill(batches)
-            for batch in prefetch(batches, PREFETCH_DEPTH):
-                if stage is None:
-                    def single(b=batch):
-                        nonlocal state
-                        state, aux = step_fn(state, b)
-                        return aux
-                    aux = dispatch(single, 1)
-                    if "unique_overflow" in aux:
-                        flags.append(aux["unique_overflow"])
-                    continue
-                if buf and buf[-1].sig != batch.sig:
-                    flush()
-                buf.append(batch)
-                if len(buf) == group:
-                    flush()
-            if stage is not None:
-                flush()
-            n_examples += train.num_examples
+            state, flags = run_epoch(state, epoch, dispatch)
+            n_examples += num_examples
             rec = {"epoch": epoch,
                    "train_loss": float(torch.stack(losses).mean())}
-            if flags:
-                overflows = int(torch.stack([
-                    torch.as_tensor(f, device=device) for f in flags]).sum())
+            on = next((f.device for f in flags if torch.is_tensor(f)),
+                      None)
+            overflows = int(torch.stack([torch.as_tensor(f, device=on)
+                                         for f in flags]).sum()) if flags else 0
+            if flags and record_overflows:
                 rec["unique_overflow_steps"] = overflows
-                if overflows:
-                    log.warning(
-                        "epoch %d: %d step(s) overflowed the unique-id "
-                        "budget (updates aliased); raise "
-                        "SGDConfig.unique_budget", epoch, overflows)
-            if eval_ds is not None and (epoch % eval_every == 0
-                                        or epoch == sgd_cfg.epochs - 1):
-                rec.update({f"eval_{k}": v for k, v in evaluate(
-                    get_params(state), cfg, eval_ds,
-                    sgd_cfg.batch_size).items()})
+            if overflows:
+                log.warning(
+                    "epoch %d: %d step(s) overflowed the unique-id budget "
+                    "(updates aliased); raise SGDConfig.unique_budget",
+                    epoch, overflows)
+            if evaluate_state is not None and (
+                    epoch % eval_every == 0 or epoch == sgd_cfg.epochs - 1):
+                rec.update({f"eval_{k}": v
+                            for k, v in evaluate_state(state).items()})
             history.append(rec)
             log.info("epoch %d: %s", epoch,
                      " ".join(f"{k}={v:.5f}" for k, v in rec.items()
@@ -290,8 +348,8 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     finally:
         if ckpt is not None:
             ckpt.close()
-    elapsed = time.perf_counter() - t0 - (warmup or 0.0)
-    return TrainResult(
-        params=sgd_solver.trim_params(get_params(state), cfg.num_features),
-        history=history,
-        examples_per_sec=n_examples / max(elapsed, 1e-9))
+    elapsed = time.perf_counter() - t0
+    if warmup is not None and n_examples > warmup[1]:
+        elapsed -= warmup[0]
+        n_examples -= warmup[1]
+    return state, history, n_examples / max(elapsed, 1e-9)

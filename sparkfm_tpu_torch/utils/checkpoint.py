@@ -1,6 +1,7 @@
 """Checkpoints: a fitted model (:func:`save`, :func:`restore`, which
-``api.py::FMModel`` uses) and training state (:class:`Checkpointer`, which
-``training/trainer.py::train_sgd`` uses). Port of
+``api.py::FMModel`` and ``DeepFMModel`` use) and training state
+(:class:`Checkpointer`, which ``training/trainer.py::train_sgd`` and
+``models/deepfm.py::train_deepfm`` use). Port of
 ``sparkfm_tpu/utils/checkpoint.py``: the JAX package uses Orbax, the port
 ``torch.save`` of a dict of tensors with a JSON file beside it.
 """
@@ -16,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from sparkfm_tpu_torch.models.deepfm import DeepFMState
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers.sgd import SGDState
 from sparkfm_tpu_torch.solvers.sgd_fused import FusedState
@@ -25,6 +27,7 @@ META_FILE = "meta.json"
 STATE_FILE = "state.pt"
 EXTRA_FILE = "extra.json"
 _STATE_TYPES = {t.__name__: t for t in (FusedState, SGDState, FMParams)}
+_TOWER = ("mlp_w", "mlp_b", "smw", "smb")     # DeepFMState's tuples
 
 
 def save(directory: str, state: Dict[str, torch.Tensor], meta: dict) -> None:
@@ -53,12 +56,22 @@ class LayoutMismatch(ValueError):
 def state_tensors(state) -> Dict[str, torch.Tensor]:
     """A training state's tensors by name: the fields of a
     :class:`FusedState` or :class:`SGDState` (its parameters as
-    ``params.w0``, ``params.w``, ``params.v``) or of :class:`FMParams`."""
+    ``params.w0``, ``params.w``, ``params.v``), of :class:`FMParams`, or
+    of a ``DeepFMState`` (its FM state's as ``fm.<name>``, its tower as
+    ``mlp_w.<layer>``, ``mlp_b.<layer>``, ``smw.<layer>``,
+    ``smb.<layer>``)."""
     if isinstance(state, FMParams):
         return {"w0": state.w0, "w": state.w, "v": state.v}
+    if isinstance(state, DeepFMState):
+        out = {f"fm.{k}": t for k, t in state_tensors(state.fm).items()}
+        for name in _TOWER:
+            out.update((f"{name}.{i}", t)
+                       for i, t in enumerate(getattr(state, name)))
+        return out
     if not isinstance(state, (FusedState, SGDState)):
         raise TypeError(f"no checkpoint layout for {type(state).__name__}; "
-                        "expected FusedState, SGDState or FMParams")
+                        "expected FusedState, SGDState, FMParams or "
+                        "DeepFMState")
     out = {}
     for f in dataclasses.fields(state):
         value = getattr(state, f.name)
@@ -74,6 +87,13 @@ def _build(kind: str, tensors: Dict[str, torch.Tensor]):
     """The state of type ``kind`` from its :func:`state_tensors`."""
     if kind == "FMParams":
         return FMParams(tensors["w0"], tensors["w"], tensors["v"])
+    if kind == "DeepFMState":
+        fm = {k[3:]: t for k, t in tensors.items() if k.startswith("fm.")}
+        tower = {name: tuple(tensors[f"{name}.{i}"] for i in range(sum(
+            k.startswith(name + ".") for k in tensors))) for name in _TOWER}
+        return DeepFMState(
+            fm=_build("FusedState" if "table" in fm else "SGDState", fm),
+            **tower)
     if kind == "SGDState":
         tensors = dict(tensors)
         params = FMParams(*(tensors.pop(f"params.{k}")
@@ -107,8 +127,8 @@ class Checkpointer:
 
     def save(self, step: int, state: Any,
              extra: Optional[Dict[str, Any]] = None) -> None:
-        """Save ``state`` (FusedState, SGDState or FMParams) and a small
-        JSON ``extra`` dict as ``step``."""
+        """Save ``state`` (FusedState, SGDState, FMParams or
+        DeepFMState) and a small JSON ``extra`` dict as ``step``."""
         host = {k: t.detach().to("cpu", copy=True)
                 for k, t in state_tensors(state).items()}
         payload = {"kind": type(state).__name__, "tensors": host}

@@ -130,16 +130,53 @@ class _Relational:
 @pytest.mark.parametrize("kw,fit_kw,match", [
     (dict(solver="mcmc"), {}, "A11"),
     (dict(mesh="4x1"), {}, "A15"),
-    (dict(model="deepfm", solver="sgd"), {}, "A12"),
     ({}, dict(train=_Relational()), "A10"),
-    (dict(feature_groups=type("Vectorizer", (), {"offsets": (0,)})()), {},
-     "A14"),
 ])
 def test_unported_options_raise(ratings, kw, fit_kw, match):
     fit_kw = dict(fit_kw)
     train = fit_kw.pop("train", ratings)
     with pytest.raises(NotImplementedError, match=match):
         FM(max_iter=1, **kw).fit(train, device="cpu", **fit_kw)
+
+
+@pytest.mark.parametrize("solver", ["als", "sgd"])
+def test_vectorizer_feature_groups_match_jax(solver):
+    """FM(feature_groups=<fitted Vectorizer>) gives one L2 group per source
+    column, as the JAX facade's (``feature_groups_of``); the fit warm-started
+    from the same weights equals the JAX facade's (parameters at rtol 2e-4,
+    atol 2e-5, the ALS sweep parity above). DeepFM through the facade is
+    held in ``tests/test_torch_deepfm.py``."""
+    from sparkfm_tpu.data import schema as jschema
+    from sparkfm_tpu.data import vectorizer as jvec
+    from sparkfm_tpu_torch.data import schema as pschema
+    from sparkfm_tpu_torch.data import vectorizer as pvec
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "ml_fixture",
+                        "ratings.dat")
+    rows = list(pschema.read_delimited(path, "::"))[:3000]
+
+    def schema(mod):
+        return [mod.Identity("u"), mod.Identity("i"), mod.Target("y"),
+                mod.Ignored("t")]
+    jv, pv = jvec.Vectorizer(schema(jschema)), pvec.Vectorizer(
+        schema(pschema))
+    jds, pds = jv.fit_transform(rows), pv.fit_transform(rows)
+    f = pds.num_features
+    rng = np.random.default_rng(4)
+    w0, w, v = (np.float32(3.0), rng.normal(0, 0.05, f).astype(np.float32),
+                rng.normal(0, 0.05, (f, 4)).astype(np.float32))
+    kw = dict(num_factors=4, solver=solver, max_iter=2, learning_rate=0.1,
+              batch_size=512, reg_w=0.1, group_reg_v=(0.3, 0.8))
+    want = sfm.FM(feature_groups=jv, **kw).fit(jds, init_params=jfm.FMParams(
+        w0=jnp.asarray(w0), w=jnp.asarray(w), v=jnp.asarray(v)))
+    got = FM(feature_groups=pv, **kw).fit(
+        pds, init_params=params_from_numpy(w0, w, v, device="cpu"),
+        device="cpu")
+    assert got.cfg.feature_groups == want.cfg.feature_groups
+    assert set(got.cfg.feature_groups) == {0, 1}
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(got.params, name).numpy(),
+                                   np.asarray(getattr(want.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
 
 
 def test_fit_checkpoint_dir_resumes_as_the_jax_facade(tmp_path):

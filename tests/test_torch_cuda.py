@@ -870,3 +870,142 @@ def test_resume_on_card_equals_uninterrupted_run(dev, tmp_path):
     for name in ("w0", "w", "v"):
         assert torch.equal(getattr(resumed.params, name),
                            getattr(straight.params, name)), name
+
+
+# -- DeepFM, its serving and the CLI on the card ---------------------------
+
+def _deepfm_weights(cfg, seed=0):
+    rng = np.random.default_rng(seed)
+    f, k = cfg.fm.num_features, cfg.fm.num_factors
+    dims = (cfg.tower_in,) + tuple(cfg.hidden) + (1,)
+    return (np.float32(0.05), rng.normal(0, 0.1, f).astype(np.float32),
+            rng.normal(0, 0.05, (f, k)).astype(np.float32),
+            [rng.normal(0, np.sqrt(2 / a), (a, b)).astype(np.float32)
+             for a, b in zip(dims[:-1], dims[1:])],
+            [rng.normal(0, 0.05, b).astype(np.float32) for b in dims[1:]])
+
+
+def _deepfm_state(path, cfg, wts, device):
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    params = PDF.deepfm_params_from_numpy(*wts, device=device)
+    if path == "fused":
+        fused = sgd_fused.fused_from_params(
+            params.fm, cfg.fm.replace(num_fields=0), device=device)
+        return PDF._tower_state(fused, params.mlp_w, params.mlp_b)
+    state = PDF.init_state(params)
+    return PDF.pad_deepfm_state_for_dedup(state) if path == "dedup" else state
+
+
+DEEPFM_RUNS = {  # path, SGDConfig extras, launches a step
+    "fused": ({}, {"GATHER": 1, "SCATTER": 1, "ROWSUM_SQ": 1}),
+    "dedup": ({}, {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM_SQ": 1}),
+    "direct": ({}, {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM_SQ": 1}),
+    "direct momentum": (dict(optimizer="sgd", momentum=0.9),
+                        {"GATHER_VW": 2, "SCATTER": 4, "ROWSUM": 1}),
+}
+
+
+@pytest.mark.parametrize("name", list(DEEPFM_RUNS))
+def test_deepfm_steps_on_card_match_cpu(dev, name):
+    """3 DeepFM steps of each path on the card from one state: the
+    kernels' launches per step (B1 the record or two-table gathers, B2 a
+    write per table, B6 the [g_v | g_w] sums, B5 the direct momentum
+    terms), two card runs equal bit for bit, and the card against the CPU
+    (losses rtol 1e-5; tables, slots and the tower, whose matmuls stay in
+    full float32 on the card, rtol 1e-4, atol 1e-6)."""
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    from sparkfm_tpu_torch.utils.checkpoint import state_tensors
+    assert not torch.backends.cuda.matmul.allow_tf32
+    path = name.split()[0]
+    sgd_kw, per_step = DEEPFM_RUNS[name]
+    feats = 1 << 17 if path == "fused" else 5000
+    cfg = PDF.DeepFMConfig(fm=FMConfig(
+        num_features=feats, num_factors=16, num_fields=8, reg_v=1e-4,
+        task=Task.CLASSIFICATION), hidden=(64, 32))
+    sgd = SGDConfig(batch_size=256, learning_rate=0.02, update_path=path,
+                    **sgd_kw)
+    ds = psynth.synth_ctr(num_examples=3 * 256, num_fields=8,
+                          num_buckets=feats, seed=5)
+    wts = _deepfm_weights(cfg)
+    kernels = {"GATHER": rowio.GATHER, "GATHER_VW": rowio.GATHER_VW,
+               "SCATTER": rowio.SCATTER, "ROWSUM": segsum.ROWSUM,
+               "ROWSUM_SQ": segsum.ROWSUM_SQ}
+    plan_kw = ({} if path == "direct"
+               else dict(dedup_budget="ladder", dedup_fill=feats))
+    runs = []
+    for device in (dev, dev, "cpu"):
+        state = _deepfm_state(path, cfg, wts, device)
+        step = PDF.make_train_step(cfg, sgd)
+        counts = {k: kern.launches for k, kern in kernels.items()}
+        losses = [float(step(state, b)[1]["loss"]) for b in batch_iterator(
+            ds, 256, device=device, **plan_kw)]
+        if device != "cpu":
+            assert {k: kern.launches - counts[k]
+                    for k, kern in kernels.items()} == {
+                k: 3 * per_step.get(k, 0) for k in kernels}
+        runs.append((losses, {k: t.cpu() for k, t in
+                              state_tensors(state).items()}))
+    (l1, t1), (l2, t2), (lc, tc) = runs
+    assert l1 == l2
+    for k in t1:
+        assert torch.equal(t1[k], t2[k]), k
+    np.testing.assert_allclose(l1, lc, rtol=1e-5)
+    for k in t1:
+        a, b = t1[k], tc[k]
+        if k == "fm.table":
+            a, b = a[:feats, :34], b[:feats, :34]
+        elif a.dim() and a.shape[0] == feats + 1:
+            a, b = a[:feats], b[:feats]
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_deepfm_serving_on_card(dev):
+    """MicroBatcher(model="deepfm") on the card: one two-table gather per
+    chunk, of its unique rows with use_plans and of its slots' rows by
+    default; both equal DeepFMModel.predict on the CPU (rtol 1e-5, atol
+    1e-6)."""
+    from sparkfm_tpu_torch.api import DeepFMModel
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    cfg = PDF.DeepFMConfig(fm=FMConfig(
+        num_features=1 << 17, num_factors=16, num_fields=8,
+        task=Task.CLASSIFICATION), hidden=(64, 32))
+    wts = _deepfm_weights(cfg, seed=2)
+    ds = psynth.synth_ctr(num_examples=700, num_fields=8,
+                          num_buckets=1 << 17, seed=2)
+    want = DeepFMModel(PDF.deepfm_params_from_numpy(*wts, device="cpu"),
+                       cfg).predict(ds.ids, ds.vals)
+    params = PDF.deepfm_params_from_numpy(*wts, device=dev)
+    for use_plans in (True, None):
+        mb = MicroBatcher(params, cfg, max_batch=256, use_plans=use_plans,
+                          model="deepfm")
+        for a, b in ((0, 1), (1, 300), (300, 700)):
+            mb.submit(ds.ids[a:b], ds.vals[a:b])
+        before = rowio.GATHER_VW.launches
+        out = np.concatenate(mb.flush())
+        assert rowio.GATHER_VW.launches - before == 3      # one a chunk
+        np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("argv,kernels", [
+    (["--solver", "sgd", "--synth", "ctr"], ("GATHER", "SCATTER")),
+    (["--solver", "sgd", "--synth", "ctr", "--model", "deepfm",
+      "--fields", "16", "--task", "classification"],
+     ("GATHER", "SCATTER", "ROWSUM_SQ")),
+    (["--solver", "als", "--synth", "movielens"], ("COLSUMS",)),
+])
+def test_cli_train_on_card(dev, capsys, argv, kernels):
+    """cli.main train with no --device runs on the card: its kernels
+    launch and it prints its JSON."""
+    import json
+
+    from sparkfm_tpu_torch import cli as pcli
+    kerns = {"GATHER": rowio.GATHER, "SCATTER": rowio.SCATTER,
+             "ROWSUM_SQ": segsum.ROWSUM_SQ, "COLSUMS": segsum.COLSUMS}
+    before = {k: kerns[k].launches for k in kernels}
+    assert pcli.main(["train", "--synth-examples", "4000", "--iters", "2",
+                      "--batch-size", "1024", "--split", "0.8,0.2",
+                      *argv]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["train_examples"] == 3200 and out["examples_per_sec"] > 0
+    assert all(kerns[k].launches > before[k] for k in kernels)

@@ -170,3 +170,39 @@ def test_grouped_and_checkpointed_training_with_jax_blocked(tmp_path):
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "None 0"
+
+
+def test_data_cli_and_deepfm_import_with_jax_blocked():
+    """The data pipeline, the CLI, DeepFM and its serving import with jax
+    blocked, load no module of the JAX package, build no kernel, and a
+    DeepFM fits, saves, loads by its tag and serves on the CPU."""
+    r = _run_blocked("""
+        import os, tempfile
+        import sparkfm_tpu_torch.__main__
+        from sparkfm_tpu_torch import cli
+        from sparkfm_tpu_torch.api import DeepFMModel, FM, load_model
+        from sparkfm_tpu_torch.data import (datasets, libfm, native_io,
+                                            schema, vectorizer, verify)
+        from sparkfm_tpu_torch.data.batching import pack_examples
+        from sparkfm_tpu_torch.data.synth import synth_ctr
+        from sparkfm_tpu_torch.models import deepfm
+        from sparkfm_tpu_torch.ops import rowio
+        from sparkfm_tpu_torch.serving import MicroBatcher
+        ds = synth_ctr(num_examples=256, num_fields=4, num_buckets=1 << 16)
+        m = FM(num_factors=2, num_fields=4, model="deepfm", solver="sgd",
+               hidden=(4,), max_iter=1, batch_size=128,
+               task="classification").fit(ds, device="cpu")
+        d = tempfile.mkdtemp()
+        m.save(d)
+        back = load_model(d, device="cpu")
+        mb = MicroBatcher(back.params, back.cfg, model="deepfm",
+                          use_plans=True)
+        mb.submit(ds.ids[:3], ds.vals[:3])
+        assert isinstance(back, DeepFMModel)
+        assert (mb.flush()[0] == back.predict(ds.ids[:3], ds.vals[:3])).all()
+        bad = sorted(m for m in sys.modules
+                     if m == "sparkfm_tpu" or m.startswith("sparkfm_tpu."))
+        print(bad, rowio.GATHER_VW.path, rowio.GATHER_VW.launches)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] None 0"

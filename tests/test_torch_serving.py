@@ -15,6 +15,7 @@ from sparkfm_tpu.models import fm as jfm
 from sparkfm_tpu.ops import embedding as JE
 from sparkfm_tpu_torch import serving as pserving
 from sparkfm_tpu_torch.config import FMConfig, Task
+from sparkfm_tpu_torch.models import deepfm as pdeepfm
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
 
@@ -154,8 +155,17 @@ def test_failed_flush_keeps_the_queue(monkeypatch):
 
 
 def test_deepfm_and_unknown_models_raise():
+    """An unknown model raises; a DeepFM batcher (ported since DeepFM
+    serving, ``tests/test_torch_deepfm.py``) raises on field_ids, which
+    the JAX package's ignores: DeepFM input is field-major."""
     _, (mod, params, cfg), _ = _both(64, 2, "regression", seed=5)
-    with pytest.raises(NotImplementedError):
-        mod.MicroBatcher(params, cfg, model="deepfm")
     with pytest.raises(ValueError):
         mod.MicroBatcher(params, cfg, model="ffm")
+    dcfg = pdeepfm.DeepFMConfig(fm=FMConfig(num_features=64, num_factors=2,
+                                            num_fields=3), hidden=(4,))
+    mb = mod.MicroBatcher(pdeepfm.init_params(dcfg, device="cpu"), dcfg,
+                          model="deepfm")
+    ids = np.array([[1, 20, 40]], np.int32)
+    with pytest.raises(ValueError, match="field-major"):
+        mb.submit(ids, np.ones((1, 3), np.float32), np.arange(3)[None])
+    assert mb.pending == 0

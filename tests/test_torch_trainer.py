@@ -112,6 +112,31 @@ def test_max_seconds_stops_at_an_epoch_boundary():
     assert [h["epoch"] for h in res.history] == seen == [0]
 
 
+@pytest.mark.parametrize("steps,want", [(4, 6 / 1.5), (1, 2 / 1.0)])
+def test_examples_per_sec_leaves_out_the_first_dispatch(monkeypatch, steps,
+                                                        want):
+    """The first dispatch's time and its examples leave the count
+    together (a run of one dispatch keeps it), on a clock that the steps
+    move: 1 s for the first step, 0.5 s for each after it."""
+    from sparkfm_tpu_torch.training import trainer
+
+    clock = [0.0]
+    monkeypatch.setattr(trainer.time, "perf_counter", lambda: clock[0])
+
+    def run_epoch(state, epoch, dispatch):
+        for i in range(steps):
+            def run(i=i):
+                clock[0] += 1.0 if i == 0 else 0.5
+                return {"loss": torch.tensor(1.0)}
+            dispatch(run, 1)
+        return state, []
+
+    _, history, eps = trainer.run_epochs(
+        None, PSGDConfig(batch_size=2, epochs=1), 2 * steps, run_epoch,
+        path="direct")
+    assert eps == pytest.approx(want) and history[0]["train_loss"] == 1.0
+
+
 def test_hooks_see_every_epoch_and_the_live_state():
     ds = psynth.synth_ctr(num_examples=300, seed=4, **SYNTH)
     cfg = FMConfig(num_features=F, num_factors=K, seed=4)
