@@ -10,7 +10,8 @@ the ``FM`` facade, then BASELINE config 1 (ML-100K shape) on the direct
 SGD path, the dedup path under adam and momentum at config 3's width,
 BASELINE config 4 (Avazu-shape FFM) on the fused path and in serving,
 grouped and checkpointed training, then BASELINE config 5 (Criteo-shape
-DeepFM) in training and serving, and the command line.
+DeepFM) in training and serving, and the command line; after the ALS
+phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
 
   1. builds every kernel library from ``sparkfm_tpu_torch/csrc/`` at once,
      one nvcc per source in parallel (``rowio.cu``: row gathers and row
@@ -166,7 +167,32 @@ DeepFM) in training and serving, and the command line.
      ``train_sgd`` that resumes to 4 must equal 4 straight epochs bit for
      bit; then one save and restore of config 3's fused state (2^24 x 68
      float32, 4.56 GB; 2^22 rows if the disk lacks the room, said so) in a
-     scratch directory beside this script, timed as GB/s and removed.
+     scratch directory beside this script, timed as GB/s and removed;
+ 25-27. BASELINE config 5 (DeepFM) trained and served, and the command
+     line (``deepfm_cli_phases``);
+ 28. (run after phase 14, on phase 11's data and workspace) MCMC at
+     BASELINE config 2: one sweep with the stream sums and one with their
+     float64 plain version from one state under one recorded draw source
+     (the hyperparameters equal, the parameters as in phase 12), alpha
+     within 1% of its conditional mean, two sweeps from one seed bit for
+     bit; ``train_mcmc`` 3 sweeps with burn-in 1 and a 2^20-example
+     posterior mean, B7's launches counted by S (66 a sweep);
+ 29. relational SGD at config 2's width: phase 11's ratings with a users
+     table in ML-1M's users.dat schema (gender, age, occupation one-hot,
+     162,541 rows and the null row, from the seed; F = 221,618), 128 steps
+     of 16,384 by ``train_sgd_relational`` on "direct" and under "auto"
+     (which takes "dedup"), 2 B1, 4 B2 and 1 B6 launches a step; composed
+     scores equal to the materialized batch's; 5 steps against the plain
+     versions;
+ 30. BS-ALS on all 25M examples of phase 29's data, 3 sweeps: the host
+     ``_prep`` timed apart, B7's launches by S, peak device memory beside
+     the materialized workspace's bytes; one sweep against its float64
+     plain version; on 2^21 examples against ``train_als`` on
+     ``materialize()`` with the same blocks (parameters after one sweep,
+     the eval RMSE after 3 within 1e-3). B7 at these paths' shapes (S = 1,
+     2, 4) and the relational step's B1, B2 and B6 are held against
+     float64 or exactly and timed beside ``torch.segment_reduce`` (B7) or
+     ``index_copy_`` (B2).
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -210,6 +236,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -990,9 +1017,73 @@ def colsums64(streams, seg, num_segments):
         [s.double() for s in streams], seg, num_segments).float()
 
 
+def hold_colsums(streams, seg, u, label, checked):
+    """B7 against its plain version in float64 on the same streams (max
+    |a - b| / (1 + |b|) < 1e-4), its sums repeated bit for bit and ranks
+    without slots zero; returns (max abs error, max rel error, the f32
+    plain version's rel error)."""
+    from sparkfm_tpu_torch.ops import segsum
+    exact = segsum.segment_colsums_reference([x.double() for x in streams],
+                                             seg, u)
+    got = segsum.segment_colsums(streams, seg, u)
+    err = max_rel_err(got, exact)
+    plain_err = max_rel_err(
+        segsum.segment_colsums_reference(streams, seg, u), exact)
+    if not err < 1e-4:
+        raise AssertionError(f"stream-sum kernel off at {label}: {err:.3g} "
+                             f"from the float64 sums (plain f32 "
+                             f"{plain_err:.3g})")
+    if not torch.equal(got, segsum.segment_colsums(streams, seg, u)):
+        raise AssertionError(f"stream sums do not repeat at {label}")
+    empty = torch.ones(u, dtype=torch.bool, device=seg.device)
+    empty[seg.long()] = False
+    if got[empty].any():
+        raise AssertionError(f"a rank without slots is not zero at {label}")
+    checked.append(f"{label}: kernel {err:.3g}, plain f32 {plain_err:.3g}")
+    return float((got.double() - exact).abs().max()), err, plain_err
+
+
+def segment_reduce_call(streams, seg, u):
+    """B7's library yardstick: one ``torch.segment_reduce`` over the
+    stacked streams, with the per-rank lengths counted beforehand."""
+    lengths = torch.bincount(seg.long(), minlength=u)
+
+    def call():
+        return torch.segment_reduce(torch.stack(streams, 1), "sum",
+                                    lengths=lengths)
+    return call
+
+
+def colsums_entry(label, streams, seg, u, launches, path, checked, card):
+    """B7's kernel entry at one path's shape: held against float64, timed
+    beside its plain version and ``torch.segment_reduce`` (2 windows of 2
+    calls: on a block with the 6.4M-rating run it takes ~0.2-0.6 s a
+    call), with its bound (S + 1 arrays of N read, (U, S) written, S adds
+    a slot)."""
+    from sparkfm_tpu_torch.ops import segsum
+    res = hold_colsums(streams, seg, u, label, checked)
+    s, n = len(streams), seg.shape[0]
+    library = segment_reduce_call(streams, seg, u)
+    library_err = max_rel_err(library(), segsum.segment_colsums_reference(
+        [x.double() for x in streams], seg, u))
+    t = timed_kernel(f"B7 segment_colsums per call, {label} (N={n}, S={s}, "
+                     f"U={u})", segsum.segment_colsums,
+                     segsum.segment_colsums_reference, (streams, seg, u),
+                     library, 4 * ((s + 1) * n + u * s), s * n, card,
+                     library_reps=2)
+    return {"name": f"segment_colsums ({label})", "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+            "replaces": "sparkfm_tpu/ops/pallas_segsum.py:808",
+            "launches": launches, "path": path, "max_abs_err": res[0],
+            "max_rel_err": res[1], "plain_f32_max_rel_err": res[2],
+            "err_against": "plain version in float64",
+            "library": "torch.segment_reduce(stack(streams, 1), 'sum', "
+                       "lengths)", "library_max_rel_err": library_err, **t}
+
+
 def als_phases(dev, gen, card):
     """Phases 11-14, the ALS path; returns the stream-sum kernel's JSON
-    entry."""
+    entry, and the data and workspace for phases 28-30 (``ctx``)."""
     from sparkfm_tpu_torch import FM, ALSConfig, FMConfig, train_als
     from sparkfm_tpu_torch.data import split, synth
     from sparkfm_tpu_torch.models import fm as fm_model
@@ -1040,25 +1131,7 @@ def als_phases(dev, gen, card):
     checked = []
 
     def hold(streams, seg, u, label):
-        exact = segsum.segment_colsums_reference(
-            [x.double() for x in streams], seg, u)
-        got = segsum.segment_colsums(streams, seg, u)
-        err = max_rel_err(got, exact)
-        plain_err = max_rel_err(
-            segsum.segment_colsums_reference(streams, seg, u), exact)
-        if not err < 1e-4:
-            raise AssertionError(f"stream-sum kernel off at {label}: {err:.3g}"
-                                 f" from the float64 sums (plain f32 "
-                                 f"{plain_err:.3g})")
-        if not torch.equal(got, segsum.segment_colsums(streams, seg, u)):
-            raise AssertionError(f"stream sums do not repeat at {label}")
-        empty = torch.ones(u, dtype=torch.bool, device=dev)
-        empty[seg.long()] = False
-        if got[empty].any():
-            raise AssertionError(f"a rank without slots is not zero at "
-                                 f"{label}")
-        checked.append(f"{label}: kernel {err:.3g}, plain f32 {plain_err:.3g}")
-        return float((got.double() - exact).abs().max()), err, plain_err
+        return hold_colsums(streams, seg, u, label, checked)
 
     seg_user, seg_movie = ws.col_rank[:ALS_N], ws.col_rank[ALS_N:]
     # the CSC ranks from the user block's last slot on: a view 4 bytes
@@ -1118,9 +1191,12 @@ def als_phases(dev, gen, card):
                      us / 1e3)
 
     args = (streams, seg_movie, n_ranks)
+    library = segment_reduce_call(*args)
     ms = (time_ms(segsum.segment_colsums, [args], reps=10, windows=3),
           time_ms(segsum.segment_colsums_reference, [args], reps=10,
-                  windows=3))
+                  windows=3),
+          time_ms(library, [()], reps=2, windows=2))
+    library_us = 1e3 * spun_ms(library, reps=2, windows=2)
     blocks = {label: {s: passes(lambda: segsum.segment_colsums(
         streams[:s], sg, n_ranks)) for s in (5, 1)}
         for label, sg in (("movie", seg_movie), ("user", seg_user),
@@ -1136,12 +1212,14 @@ def als_phases(dev, gen, card):
                          f"us, {pct(share['share_of_bound'])}")
     print(f"time: stream sums per call (N={ALS_N}, head run "
           f"{int(movie_counts.max())}): kernel {ms[0]:.4f} ms, plain "
-          f"{ms[1]:.4f} ms back to back at the movie block S=5 (CUDA events, "
+          f"{ms[1]:.4f} ms, torch.segment_reduce {ms[2]:.4f} ms back to "
+          f"back at the movie block S=5 (CUDA events, "
           f"best of 3 windows of 10); device (CUDA events, the calls "
           f"queued behind a spin kernel; passes split by torch.profiler): "
           + "; ".join(lines) + f"; plain movie {plain_us[0]:.2f} us, user "
-          f"{plain_us[1]:.2f} us; {card}", flush=True)
-    del streams, args
+          f"{plain_us[1]:.2f} us; segment_reduce movie {library_us:.2f} us; "
+          f"{card}", flush=True)
+    del streams, args, library
 
     # 12. one sweep with the kernel and one with the float64 plain version
     # swapped in, from the same parameters
@@ -1290,10 +1368,12 @@ def als_phases(dev, gen, card):
             "max_abs_err": main_abs, "max_rel_err": main_err,
             "plain_f32_max_rel_err": main_plain_err,
             "err_against": "plain version in float64",
-            "ms": ms[0], "plain_ms": ms[1], "library_ms": None,
-            "library": "none (S separate streams summed per rank)",
+            "ms": ms[0], "plain_ms": ms[1], "library_ms": ms[2],
+            "library": "torch.segment_reduce(stack(streams, 1), 'sum', "
+                       "lengths)",
             "device_ms": blocks["movie"][5][0] / 1e3,
-            "plain_device_ms": plain_us[0] / 1e3, "library_device_ms": None,
+            "plain_device_ms": plain_us[0] / 1e3,
+            "library_device_ms": library_us / 1e3,
             **b7_bound(5, blocks["movie"][5][0]),
             "device_us_by_block": {
                 f"{label} S={s}": {"all": t[0], "pass 1": t[1], "pass 2": t[2],
@@ -1302,7 +1382,528 @@ def als_phases(dev, gen, card):
                 for label, by_s in blocks.items() for s, t in by_s.items()},
             "plain_device_us_user": plain_us[1],
             "sweep_device_ms": {k: v[0] / 1e3 for k, v in sweep_b7.items()},
-            "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}}
+            "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}}, dict(
+        ds=ds, ws=ws, nb=nb, cfg=cfg, feature_blocks=als_cfg.feature_blocks,
+        flags=dict(column_pure=cpure, csc_uniform=uniform,
+                   slice_identity=ident))
+
+
+USERS_FIELDS = (2, 7, 21)   # ML-1M users.dat: gender, age, occupation
+REL_BATCH, REL_STEPS = 16384, 128
+MCMC_EVAL = 1 << 20         # examples scored for MCMC's posterior mean
+
+
+class RecordedDraws:
+    """A draw source that keeps every draw of ``draws``; ``replay()`` gives
+    a source that hands the same tensors out again, in order."""
+
+    def __init__(self, draws):
+        self.draws, self.log = draws, []
+
+    def normal(self, shape):
+        self.log.append(self.draws.normal(shape))
+        return self.log[-1]
+
+    def gamma(self, shape_param):
+        self.log.append(self.draws.gamma(shape_param))
+        return self.log[-1]
+
+    def replay(self):
+        it = iter(self.log)
+
+        class Replay:
+            def normal(self, shape):
+                return next(it)
+
+            def gamma(self, shape_param):
+                return next(it)
+        return Replay()
+
+
+def params_agree(got, want, start, label, w_tol=(1e-3, 1e-4),
+                 v_tol=(1e-3, 1e-4), w0_rtol=1e-6, ids=None):
+    """Phase 12's rule between two runs from ``start``: w and V within
+    their (rtol, atol) but for den > 0 guard flips (an entry left at its
+    start value on one side only), at most 1e-4 of V's entries; w0 at
+    ``w0_rtol``. With ``ids`` (the (N, L) host ids of the data), an entry
+    of a feature that shares an example with a flipped feature is excused
+    too (the flip moved that example's residual). Returns (flips, entries
+    excused as neighbours)."""
+    masks = {}
+    for name, (rtol, atol) in (("w", w_tol), ("v", v_tol)):
+        a, b, a0 = (getattr(p, name) for p in (got, want, start))
+        bad = (a - b).abs() > atol + rtol * b.abs()
+        masks[name] = (bad, bad & ((a == a0) ^ (b == a0)))
+    flips = sum(int(flip.sum()) for _, flip in masks.values())
+    if flips > 1e-4 * start.v.numel():
+        raise AssertionError(f"{label}: {flips} guard flips")
+    near = torch.zeros(start.w.shape[0], dtype=torch.bool,
+                       device=start.w.device)
+    if ids is not None and flips:
+        flipped = (masks["w"][1] | masks["v"][1].any(1)).cpu().numpy()
+        rows = flipped[ids].any(1)
+        near[torch.as_tensor(np.unique(ids[rows]), device=near.device)] = True
+    neighbours = 0
+    for name, (bad, flip) in masks.items():
+        miss = bad & ~flip
+        excused = miss & (near if miss.dim() == 1 else near[:, None])
+        if (miss & ~excused).any():
+            raise AssertionError(f"{label} {name}: "
+                                 f"{int((miss & ~excused).sum())} entries "
+                                 "differ beyond tolerance")
+        neighbours += int(excused.sum())
+    np.testing.assert_allclose(float(got.w0), float(want.w0), rtol=w0_rtol)
+    return flips, neighbours
+
+
+def profile_sweep(label, run, card):
+    """One synchronized untraced run of ``run`` and one traced: device
+    busy against the untraced wall, the stream sums' device time and the
+    top device events."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, events = device_us(run, tries=1)
+    b7 = sum(e.self_device_time_total for e in events if "colsums" in e.key)
+    top = "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total:.0f}"
+                    for e in events[:6])
+    print(f"profile: {label}: device busy {busy / 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms untraced wall "
+          f"({100 * (1 - busy / 1e6 / wall):.1f}% idle); stream sums "
+          f"{b7 / 1e3:.3f} ms; top device events (us): {top}; {card}",
+          flush=True)
+
+
+def users_relation(ds):
+    """Phase 29's block-structure data: the main block is phase 11's (user,
+    movie) ratings; a users table in ML-1M's users.dat schema as
+    ``load_movielens_relational`` reads it (gender, age and occupation one
+    hot, three nonzeros a row) for every user plus the null row, drawn
+    from the seed, keyed by each rating's user."""
+    from sparkfm_tpu_torch.data import relational as R
+    rng = np.random.default_rng(SEED)
+    starts = np.cumsum((0,) + USERS_FIELDS[:-1])
+    demo = np.stack([s + rng.integers(0, k, ALS_USERS)
+                     for s, k in zip(starts, USERS_FIELDS)], axis=1)
+    ids = np.concatenate([demo, np.zeros((1, 3))]).astype(np.int32)
+    vals = np.concatenate([np.ones((ALS_USERS, 3)),
+                           np.zeros((1, 3))]).astype(np.float32)
+    offset = ALS_USERS + ALS_MOVIES
+    return R.RelationalDataset(
+        main_ids=ds.ids, main_vals=ds.vals, y=ds.y, keys=ds.ids[:, :1],
+        tables=(R.RelationTable(ids=ids, vals=vals, offset=offset),),
+        num_features=offset + sum(USERS_FIELDS))
+
+
+def mcmc_relational_phases(dev, card, ctx):
+    """Phases 28-30 on phase 11's data and workspace: MCMC at BASELINE
+    config 2, relational SGD and BS-ALS at its width with a users table.
+    Their random tensors come from a generator of their own, so the
+    phases after them see the same streams as before these ran. Returns
+    the kernels' JSON entries at these paths' shapes."""
+    from sparkfm_tpu_torch import (ALSConfig, FMConfig, MCMCConfig,
+                                   SGDConfig, train_als)
+    from sparkfm_tpu_torch.data import relational as R
+    from sparkfm_tpu_torch.models import fm as fm_model
+    from sparkfm_tpu_torch.ops import rowio, segsum
+    from sparkfm_tpu_torch.solvers import als as A
+    from sparkfm_tpu_torch.solvers import als_bs, mcmc
+    from sparkfm_tpu_torch.solvers import sgd as sgd_solver
+    from sparkfm_tpu_torch.training import trainer
+
+    t_phases = time.perf_counter()
+    ds, ws, nb, cfg = ctx["ds"], ctx["ws"], ctx["nb"], ctx["cfg"]
+    flags = ctx["flags"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    n_ranks = int(ws.present.shape[0])
+    n = ds.num_examples
+    kernel_colsums = segsum.segment_colsums
+    entries, checked = [], []
+    by_s = collections.Counter()
+    kept = {}
+
+    def counting(*keep_segs):
+        """B7 with its calls counted by S; the first call of each S over
+        each of ``keep_segs`` kept, by (S, seg), with copies of its
+        streams."""
+        ptrs = {seg.data_ptr(): seg for seg in keep_segs}
+
+        def call(streams, seg, u):
+            s = len(streams)
+            by_s[s] += 1
+            key = (s, seg.data_ptr())
+            if key[1] in ptrs and key not in kept:
+                kept[key] = ([x.clone() for x in streams], seg, u)
+            return kernel_colsums(streams, seg, u)
+        return call
+
+    # 28. MCMC at BASELINE config 2: one sweep with B7 and one with its
+    # float64 plain version, from one state under one recorded draw source
+    p0 = fm_model.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    state0 = mcmc.init_mcmc_state(p0)
+
+    def sweep(draws):
+        return mcmc.mcmc_sweep(state0, ws, draws, nb, cfg.num_features,
+                               **flags)
+
+    seg_movie = ws.col_rank[n:]
+    rec = RecordedDraws(mcmc.TorchDraws(torch.Generator(
+        device=dev).manual_seed(SEED + 28)))
+    with swapped([(segsum, "segment_colsums", counting(seg_movie))]):
+        s_kernel = sweep(rec)
+    count = segsum.COLSUMS.launches
+    with swapped([(segsum, "segment_colsums", colsums64)]):
+        s_plain = sweep(rec.replay())
+    if segsum.COLSUMS.launches != count:
+        raise AssertionError("the plain MCMC sweep launched the kernel")
+    for name in ("alpha", "lam_w", "mu_w", "lam_v", "mu_v"):
+        if not torch.equal(getattr(s_kernel, name), getattr(s_plain, name)):
+            raise AssertionError(f"MCMC {name} differs between the sweeps")
+    flips, _ = params_agree(s_kernel.params, s_plain.params, p0,
+                            "MCMC sweep")
+    # alpha against its conditional mean, from the sweep's residuals
+    w_c = p0.w.index_select(0, ws.present)
+    v_t = p0.v.index_select(0, ws.present).t().contiguous()
+    score, _ = A.compact_forward(ws, p0.w0, w_c, v_t)
+    sse = float((score - ws.y).double().square().sum())
+    alpha_mean = (1.0 + 0.5 * n) / (1.0 + 0.5 * sse)
+    alpha = float(s_kernel.alpha)
+    if not (np.isfinite(alpha) and abs(alpha - alpha_mean) < 0.01
+            * alpha_mean):
+        raise AssertionError(f"MCMC alpha {alpha}, conditional mean "
+                             f"{alpha_mean}")
+    del s_plain, rec, score, v_t, w_c
+    # two sweeps from one seed: bit for bit; their time is the sweep's
+    runs, sweep_s = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(sweep(mcmc.TorchDraws(torch.Generator(
+            device=dev).manual_seed(SEED + 7))))
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+    for name in ("w0", "w", "v"):
+        if not torch.equal(getattr(runs[0].params, name),
+                           getattr(runs[1].params, name)):
+            raise AssertionError(f"two MCMC sweeps from one seed differ in "
+                                 f"{name}")
+    del runs
+    profile_sweep("one MCMC sweep", lambda: sweep(mcmc.TorchDraws(
+        torch.Generator(device=dev).manual_seed(SEED + 7))), card)
+    print(f"check: MCMC sweep at BASELINE config 2 ({n} ratings, "
+          f"{cfg.num_features} features, rank {RANK}, {nb} slot blocks), "
+          f"with the kernel vs with the float64 plain version from one state "
+          f"under one recorded draw source: hyperparameters equal, w and V "
+          f"at rtol 1e-3, atol 1e-4 but for {flips} guard flips; alpha "
+          f"{alpha:.6g} within 1% of its conditional mean {alpha_mean:.6g}; "
+          f"two sweeps from one seed equal bit for bit", flush=True)
+    # train_mcmc: 3 sweeps, burn-in 1, the posterior mean on 2^20 examples
+    eval_ds = ds.slice(np.arange(MCMC_EVAL))
+    mcfg = MCMCConfig(epochs=ALS_SWEEPS, burn_in=1,
+                      feature_blocks=ctx["feature_blocks"])
+    torch.cuda.synchronize()
+    segsum.COLSUMS.launches = 0                     # the MCMC path
+    by_s.clear()
+    with swapped([(segsum, "segment_colsums", counting())]):
+        t0 = time.perf_counter()
+        res = mcmc.train_mcmc(cfg, mcfg, ds, eval_ds=eval_ds, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    mcmc_launches, mcmc_by_s = segsum.COLSUMS.launches, dict(by_s)
+    expected = ALS_SWEEPS * (RANK + 1) * nb
+    if mcmc_launches != expected or mcmc_by_s != {
+            1: ALS_SWEEPS * nb, 2: ALS_SWEEPS * RANK * nb}:
+        raise AssertionError(f"train_mcmc launched B7 {mcmc_launches} times "
+                             f"by S {mcmc_by_s}, expected {expected}")
+    hist = res.history
+    if not (all(np.isfinite(h["alpha"]) and h["alpha"] > 0 for h in hist)
+            and all(np.isfinite(h[k]) for h in hist[1:]
+                    for k in ("eval_rmse_avg", "eval_rmse_sample"))
+            and res.extras["avg_scores"].shape == (MCMC_EVAL,)
+            and bool(torch.isfinite(res.params.v).all())):
+        raise AssertionError(f"train_mcmc history {hist}")
+    print(f"train: train_mcmc BASELINE config 2, {ALS_SWEEPS} sweeps (burn-in "
+          f"1) of {n} ratings: one sweep {1e3 * min(sweep_s):.3f} ms "
+          f"({n / min(sweep_s):.0f} swept ex/s; of 2 sweeps, synchronized); "
+          f"train_mcmc {res.examples_per_sec:.0f} ex/s with its evals of "
+          f"{MCMC_EVAL} examples, {train_s:.3f} s wall with the workspace build; B7 "
+          f"launches {mcmc_launches} = {mcmc_launches // ALS_SWEEPS} a sweep "
+          f"(expected (K + 1) x blocks = {(RANK + 1) * nb}), by S "
+          f"{mcmc_by_s}; alpha {[round(h['alpha'], 6) for h in hist]}, mean "
+          f"lam_w {[round(h['lam_w'], 6) for h in hist]}; eval_rmse_avg "
+          f"{[round(h['eval_rmse_avg'], 6) for h in hist[1:]]} vs "
+          f"eval_rmse_sample "
+          f"{[round(h['eval_rmse_sample'], 6) for h in hist[1:]]}; {card}",
+          flush=True)
+    path28 = "train_mcmc, BASELINE config 2 (phase 28)"
+    for s, what in ((1, "a w block"), (2, "a (factor, block)")):
+        entries.append(colsums_entry(
+            f"MCMC S = {s}, {what}", *kept[(s, seg_movie.data_ptr())],
+            mcmc_by_s[s], path28, checked, card))
+    del res, eval_ds
+    kept.clear()
+    torch.cuda.empty_cache()
+
+    # 29. relational SGD at config 2's width: the users table joined on the
+    # card, 128 steps of 16,384 on the direct path and under "auto"
+    rel = users_relation(ds)
+    f = rel.num_features
+    part = rel.slice(np.arange(REL_BATCH * REL_STEPS))
+    rcfg = FMConfig(num_features=f, num_factors=RANK, reg_w=1e-6,
+                    reg_v=1e-6, seed=SEED)
+    kernels = {"gather_vw_rows": rowio.GATHER_VW,
+               "scatter_set_rows": rowio.SCATTER,
+               "segment_rowsum_sq": segsum.ROWSUM_SQ}
+    want = {"gather_vw_rows": 2 * REL_STEPS,
+            "scatter_set_rows": 4 * REL_STEPS,
+            "segment_rowsum_sq": REL_STEPS}
+    rel_runs = {}
+    for label in ("direct", "auto"):
+        sgd_cfg = SGDConfig(batch_size=REL_BATCH, epochs=1,
+                            learning_rate=0.05, update_path=label)
+        path = R.relational_update_path(rcfg, sgd_cfg)
+        if path != {"direct": "direct", "auto": "dedup"}[label]:
+            raise AssertionError(f"relational {label} resolved to {path}")
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0                          # the relational path
+        t0 = time.perf_counter()
+        res = trainer.train_sgd_relational(rcfg, sgd_cfg, part, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: k.launches for name, k in kernels.items()}
+        if got != want or not np.isfinite(res.history[0]["train_loss"]):
+            raise AssertionError(f"relational {label}: launches {got}, "
+                                 f"expected {want}; {res.history}")
+        busy, _ = device_us(lambda: trainer.train_sgd_relational(
+            rcfg, sgd_cfg, part, device=dev), tries=1)
+        rel_runs[label] = got
+        print(f"train: train_sgd_relational {label} -> {path} (F={f}, rank "
+              f"{RANK}, users table {ALS_USERS + 1} x 3, {REL_STEPS} steps of "
+              f"{REL_BATCH}, adagrad, lr 0.05): {res.examples_per_sec:.0f} "
+              f"trained ex/s (first step left out), {wall:.3f} s wall; "
+              f"device busy {busy / 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+              f"({100 * (1 - busy / 1e6 / wall):.1f}% idle, one traced run "
+              f"against the untraced wall); loss "
+              f"{res.history[0]['train_loss']:.5f}; launches {got}; {card}",
+              flush=True)
+        del res
+    # composed scores against the materialized batch's
+    tables = R.tables_to_device(rel.tables, device=dev)
+    first = rel.slice(np.arange(REL_BATCH))
+    params = fm_model.init_params(rcfg, gen, device=dev)
+    params.w.normal_(0.0, 0.1, generator=gen)
+    rb = next(R.relational_batch_iterator(first, REL_BATCH, device=dev))
+    flat = first.materialize()
+    composed = R.make_relational_score_fn(rcfg)(params, rb, tables)
+    direct = fm_model.scores(params, rcfg, torch.as_tensor(flat.ids,
+                                                           device=dev),
+                             torch.as_tensor(flat.vals, device=dev))
+    if not torch.equal(composed, direct):
+        raise AssertionError("composed scores != materialized scores")
+    # 5 direct steps against the plain versions, B6 held on the payload
+    step = R.make_relational_train_step(rcfg, SGDConfig(
+        batch_size=REL_BATCH, learning_rate=0.05, update_path="direct"))
+    batches = list(R.relational_batch_iterator(part.slice(np.arange(
+        5 * REL_BATCH)), REL_BATCH, device=dev))
+    payload, vw_args = [], []
+    plain_swaps = [(rowio, "gather_vw_rows", rowio.gather_vw_rows_reference),
+                   (rowio, "scatter_set_rows",
+                    rowio.scatter_set_rows_reference),
+                   (segsum, "segment_rowsum_sq", rowsum_sq64)]
+    with swapped([(segsum, "segment_rowsum_sq", capturing(
+            segsum.segment_rowsum_sq, payload)),
+                  (rowio, "gather_vw_rows", capturing(
+                      rowio.gather_vw_rows, vw_args))]):
+        losses, _ = state_steps_against_plain(
+            lambda st, b: step(st, b, tables), sgd_solver.init_state(
+                params, optimizer="adagrad"), batches, plain_swaps,
+            kernels.values(), "relational direct", f)
+    print(f"check: composed scores == materialized scores bit for bit "
+          f"(16,384 examples, F={f}); 5 relational direct steps, each from "
+          f"the same state with the kernels and with the plain versions: "
+          f"losses {losses} equal (rtol 1e-5), every table and slot equal "
+          f"(rtol 1e-4, atol 1e-6)", flush=True)
+    path29 = ("train_sgd_relational direct at config 2's width (phase 29); "
+              f"launches of the 'auto' (dedup) run: {rel_runs['auto']}")
+    res6 = hold64(segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference,
+                  tuple(payload), "B6 on the relational step's payload",
+                  checked)
+    entries.append(rowsum_sq_entry_of(
+        "relational, config 2 width", res6, payload,
+        rel_runs["direct"]["segment_rowsum_sq"], path29, card))
+    v, w, uids = vw_args
+    u = uids.shape[0]
+    distinct = int(torch.unique(uids).numel())
+    if not torch.equal(rowio.gather_vw_rows(v, w, uids),
+                       rowio.gather_vw_rows_reference(v, w, uids)):
+        raise AssertionError("two-table gather wrong at the relational shape")
+    t = timed_kernel(f"B1 gather_vw_rows per call, relational [v | w] "
+                     f"(U={u}, W={RANK + 1})", rowio.gather_vw_rows,
+                     rowio.gather_vw_rows_reference, (v, w, uids), None,
+                     u * 4 + (distinct + u) * (RANK + 1) * 4, 0, card)
+    entries.append({"name": "gather_vw_rows (relational, config 2 width)",
+                    "route": "cuda",
+                    "source": "sparkfm_tpu_torch/csrc/rowio.cu",
+                    "replaces": "sparkfm_tpu/ops/pallas_rowio.py:140",
+                    "launches": rel_runs["direct"]["gather_vw_rows"],
+                    "path": path29, "max_abs_err": 0.0,
+                    "library": "none (two index_selects and a cat: the "
+                               "plain version)", **t})
+    rows = torch.randn((u, RANK), device=dev, generator=gen)
+    table = params.v
+    keep = torch.ones(u, dtype=torch.bool, device=dev)
+    keep[1:] = uids[1:] != uids[:-1]
+    rowio.scatter_set_rows(table, uids, rows)
+    if not torch.equal(table[uids[keep].long()], rows[keep]):
+        raise AssertionError("row write wrong at the relational shape")
+    firsts = uids[keep].long()
+    t = timed_kernel(f"B2 scatter_set_rows per call, relational V (U={u}, "
+                     f"W={RANK})", rowio.scatter_set_rows,
+                     rowio.scatter_set_rows_reference, (table, uids, rows),
+                     lambda: table.index_copy_(0, firsts, rows[keep]),
+                     u * 4 + (u + distinct) * RANK * 4, 0, card)
+    entries.append({"name": "scatter_set_rows (relational, config 2 width)",
+                    "route": "cuda",
+                    "source": "sparkfm_tpu_torch/csrc/rowio.cu",
+                    "replaces": "sparkfm_tpu/ops/pallas_rowio.py:74",
+                    "launches": rel_runs["direct"]["scatter_set_rows"],
+                    "path": path29, "max_abs_err": 0.0,
+                    "library": "index_copy_ over the plan's distinct ids",
+                    **t})
+    del payload, vw_args, batches, params, v, w, uids, rows, table
+    torch.cuda.empty_cache()
+
+    # 30. BS-ALS on all 25M examples of phase 29's data, 3 sweeps
+    bcfg = FMConfig(num_features=f, num_factors=RANK, reg_w=0.1, reg_v=1.0,
+                    seed=SEED)
+    pb = fm_model.init_params(bcfg, torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    prep_out, host = [], collections.defaultdict(float)
+    prep = als_bs._prep
+
+    def keeping_prep(*a, **k):
+        prep_out.append(prep(*a, **k))
+        return prep_out[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    segsum.COLSUMS.launches = 0                     # the BS-ALS path
+    by_s.clear()
+    with swapped([(segsum, "segment_colsums", counting()),
+                  (als_bs, "_prep", keeping_prep)]), \
+            timed_calls([("_prep", als_bs, "_prep")], host):
+        t0 = time.perf_counter()
+        res = als_bs.train_als_relational(bcfg, ALSConfig(epochs=ALS_SWEEPS),
+                                          rel, params=pb, device=dev)
+        torch.cuda.synchronize()
+        bs_wall = time.perf_counter() - t0
+    bs_launches, bs_by_s = segsum.COLSUMS.launches, dict(by_s)
+    peak = torch.cuda.max_memory_allocated(dev)
+    arrs, statics = prep_out[0]
+    blocks = statics.num_blocks
+    main_blocks = sum(s is not None for s in statics.main_span)
+    rel_blocks = blocks - main_blocks
+    want_s = {1: ALS_SWEEPS * (main_blocks + 2 * rel_blocks),
+              2: ALS_SWEEPS * RANK * (main_blocks + rel_blocks),
+              4: ALS_SWEEPS * RANK * rel_blocks}
+    if bs_by_s != want_s or bs_launches != sum(want_s.values()):
+        raise AssertionError(f"BS-ALS B7 launches {bs_launches} by S "
+                             f"{bs_by_s}, expected {want_s}")
+    if not all(bool(torch.isfinite(t).all())
+               for t in (res.params.w0, res.params.w, res.params.v)):
+        raise AssertionError("BS-ALS parameters are not finite")
+    flat_bytes = A.workspace_hbm_bytes(types.SimpleNamespace(
+        ids=types.SimpleNamespace(size=n * rel.total_nnz_per_example),
+        num_examples=n), bcfg)
+    print(f"train: train_als_relational (BS-ALS) on {n} examples, F={f}, "
+          f"rank {RANK}, {blocks} slot blocks ({main_blocks} main, "
+          f"{rel_blocks} users columns), {ALS_SWEEPS} sweeps: host _prep "
+          f"{host['_prep']:.3f} s; {1e3 * n / res.examples_per_sec:.3f} ms a "
+          f"sweep ({res.examples_per_sec:.0f} swept ex/s), {bs_wall:.3f} s "
+          f"wall with the prep; B7 launches {bs_launches} = "
+          f"{bs_launches // ALS_SWEEPS} a sweep, by S "
+          f"{ {k: v // ALS_SWEEPS for k, v in bs_by_s.items()} } a sweep; "
+          f"peak device memory {peak / 2**30:.2f} GiB (the workspace of "
+          f"train_als on materialize() would need "
+          f"{flat_bytes / 2**30:.2f} GiB by workspace_hbm_bytes); {card}",
+          flush=True)
+    del res
+    # one BS sweep with B7 and one with its float64 plain version
+    rw, rv = (torch.as_tensor(r, device=dev) for r in bcfg.reg_vectors())
+    bs_sweep = als_bs.make_bs_sweep(bcfg, statics)
+    key_seg = arrs.rels[0].key_seg
+    lo, hi = statics.main_span[1]             # the movie slot's entries
+    movie_seg = arrs.col_feat[lo:hi]
+    with swapped([(segsum, "segment_colsums", counting(key_seg,
+                                                       movie_seg))]):
+        p_kernel = bs_sweep(pb, arrs, rw, rv)
+    count = segsum.COLSUMS.launches
+    with swapped([(segsum, "segment_colsums", colsums64)]):
+        p_plain = bs_sweep(pb, arrs, rw, rv)
+    if segsum.COLSUMS.launches != count:
+        raise AssertionError("the plain BS sweep launched the kernel")
+    bs_flips, _ = params_agree(p_kernel, p_plain, pb, "BS-ALS sweep")
+    del p_plain
+    profile_sweep("one BS-ALS sweep", lambda: bs_sweep(pb, arrs, rw, rv),
+                  card)
+    path30 = "train_als_relational, config 2 width (phase 30)"
+    for s, seg, what in ((4, key_seg, "per key over the users relation"),
+                         (2, movie_seg, "the movie slot's main entries"),
+                         (1, key_seg, "per key over the users relation")):
+        entries.append(colsums_entry(
+            f"BS-ALS S = {s}, {what}", *kept[(s, seg.data_ptr())],
+            bs_by_s[s], path30, checked, card))
+    kept.clear()
+    del arrs, p_kernel, key_seg, movie_seg
+    torch.cuda.empty_cache()
+    # on 2^21 examples: BS-ALS against train_als on materialize(), the
+    # same blocks, the JAX test's tolerances. The parameters are held after
+    # one sweep: a feature rated once has a den that train_als forms from
+    # factored sums, (q - v)^2 as q^2 - 2qv + v^2, which can round to <= 0
+    # and keep the feature (a guard flip), where BS-ALS forms h = q - v
+    # and moves it; over more sweeps each flip moves its examples' other
+    # features, so there the RMSE is held (the JAX test's gate)
+    sl = rel.slice(np.arange(REL_BATCH * REL_STEPS))
+    flat = sl.materialize()
+    blocks_sl = tuple(int(b) for b in als_bs.slot_blocks_bs(sl, f))
+    runs = {}
+    for sweeps in (1, ALS_SWEEPS):
+        acfg = ALSConfig(epochs=sweeps, feature_blocks=blocks_sl)
+        runs[sweeps] = (
+            als_bs.train_als_relational(bcfg, acfg, sl, eval_ds=flat,
+                                        eval_every=sweeps, params=pb,
+                                        device=dev),
+            train_als(bcfg, acfg, flat, eval_ds=flat, eval_every=sweeps,
+                      params=pb, device=dev))
+    bs, fl = runs[1]
+    flat_flips, flat_near = params_agree(
+        bs.params, fl.params, pb, "BS-ALS vs train_als", w_tol=(5e-2, 1e-3),
+        v_tol=(5e-2, 5e-3), w0_rtol=1e-4, ids=flat.ids)
+    r_bs, r_fl = (x.history[-1]["eval_rmse"] for x in runs[ALS_SWEEPS])
+    if not abs(r_bs - r_fl) < 1e-3:
+        raise AssertionError(f"BS-ALS RMSE {r_bs} vs train_als {r_fl}")
+    apart = int(((runs[ALS_SWEEPS][0].params.v - runs[ALS_SWEEPS][1].params.v
+                  ).abs() > 5e-3 + 5e-2 * runs[ALS_SWEEPS][1].params.v.abs()
+                 ).sum())
+    del runs, bs, fl
+    print(f"check: one BS sweep with the kernel vs with the float64 plain "
+          f"version: w, V at rtol 1e-3, atol 1e-4 but for {bs_flips} guard "
+          f"flips; on {sl.num_examples} examples BS-ALS vs train_als on "
+          f"materialize() with the same {len(set(blocks_sl))} blocks: after "
+          f"one sweep w0 rtol 1e-4, w rtol 5e-2 / atol 1e-3, V rtol 5e-2 / "
+          f"atol 5e-3 but for {flat_flips} guard flips and {flat_near} "
+          f"entries of features sharing an example with one; after "
+          f"{ALS_SWEEPS} "
+          f"sweeps eval RMSE {r_bs:.6f} vs {r_fl:.6f} (within 1e-3; {apart} "
+          f"entries of V then apart beyond rtol 5e-2 / atol 5e-3); B7 held "
+          f"to float64: {'; '.join(checked)}", flush=True)
+    print(f"time: phases 28-30 in {time.perf_counter() - t_phases:.1f} s "
+          "(host wall)", flush=True)
+    return entries
 
 
 SEGSUM_TRAP_CHILD = """
@@ -1866,14 +2467,18 @@ def dedup_row_times(state, plan, timed):
     return out
 
 
-def timed_kernel(name, fn, plain, args, library, nbytes, ops, card):
+def timed_kernel(name, fn, plain, args, library, nbytes, ops, card,
+                 library_reps=None):
     """Back-to-back and device times of ``fn``, its plain version and the
-    library call (or None) on ``args``, and the bound."""
+    library call (or None) on ``args``, and the bound. ``library_reps``:
+    time the library call over 2 windows of that many calls (for one that
+    takes a large part of a second)."""
+    lib = {} if library_reps is None else dict(reps=library_reps, windows=2)
     t = {"ms": time_ms(fn, [args]), "plain_ms": time_ms(plain, [args]),
-         "library_ms": library and time_ms(library, [()]),
+         "library_ms": library and time_ms(library, [()], **lib),
          "device_ms": spun_ms(lambda: fn(*args)),
          "plain_device_ms": spun_ms(lambda: plain(*args)),
-         "library_device_ms": library and spun_ms(library)}
+         "library_device_ms": library and spun_ms(library, **lib)}
     t.update(bound(nbytes, ops, t["device_ms"]))
     print(f"time: {name}: kernel {t['ms']:.4f} ms, plain "
           f"{t['plain_ms']:.4f} ms"
@@ -3517,7 +4122,11 @@ def main():
     # 11-14. the ALS path, with the serving model's 2 GB table freed
     del params, model, mb, w_col, uids
     torch.cuda.empty_cache()
-    als_entry = als_phases(dev, gen, card)
+    als_entry, als_ctx = als_phases(dev, gen, card)
+    # 28-30. MCMC, relational SGD and BS-ALS on phase 11's data
+    torch.cuda.empty_cache()
+    relational_entries = mcmc_relational_phases(dev, card, als_ctx)
+    del als_ctx
     # 15-18. the row sums, the fused and sorted SGD paths, B4 and B6
     torch.cuda.empty_cache()
     segsum_entries = segsum_phases(dev, cfg, gen, rng, card)
@@ -3575,8 +4184,8 @@ def main():
             per_call["plain V+w (index_selects + cat)"]),
         "library_device_ms": None,
         **bound(vw_bytes, 0, ms_or_none(vw_us))},
-        *train_entries, als_entry, *segsum_entries, *ddf_entries,
-        *deepfm_entries]}))
+        *train_entries, als_entry, *relational_entries, *segsum_entries,
+        *ddf_entries, *deepfm_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ points run on the card unless asked for the CPU (``utils/device.py``).
 """
 
 from sparkfm_tpu_torch.api import FM, DeepFMModel, FMModel, load_model
-from sparkfm_tpu_torch.config import ALSConfig, FMConfig, SGDConfig, Task
+from sparkfm_tpu_torch.config import (ALSConfig, FMConfig, MCMCConfig,
+                                      MeshConfig, SGDConfig, Solver, Task,
+                                      TrainConfig)
 from sparkfm_tpu_torch.models.fm import (FMParams, init_params,
                                          params_from_numpy, predict, scores)
 from sparkfm_tpu_torch.serving import MicroBatcher
@@ -29,7 +31,7 @@ from sparkfm_tpu_torch.training.trainer import (TrainResult, evaluate,
 
 __all__ = [
     "FM", "FMModel", "DeepFMModel", "load_model", "ALSConfig", "FMConfig",
-    "SGDConfig", "Task",
+    "MCMCConfig", "MeshConfig", "SGDConfig", "Solver", "Task", "TrainConfig",
     "FMParams", "init_params", "params_from_numpy", "predict", "scores",
     "MicroBatcher", "TrainResult", "evaluate", "train_als", "train_sgd",
 ]

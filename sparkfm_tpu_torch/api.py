@@ -13,7 +13,8 @@ from typing import Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from sparkfm_tpu_torch.config import ALSConfig, FMConfig, SGDConfig, Task
+from sparkfm_tpu_torch.config import (ALSConfig, FMConfig, MCMCConfig,
+                                      SGDConfig, Task)
 from sparkfm_tpu_torch.data.batching import SparseDataset, batch_iterator
 from sparkfm_tpu_torch.models import deepfm as deepfm_core
 from sparkfm_tpu_torch.models import fm as fm_core
@@ -248,7 +249,7 @@ def _detect_slot_major(train, num_fields: int) -> bool:
 
 class FM:
     """The facade: configure once, then ``fit``. Port of
-    ``sparkfm_tpu/api.py::FM`` for one device and a ``SparseDataset``::
+    ``sparkfm_tpu/api.py::FM`` for one device::
 
         model = FM(num_factors=8, max_iter=20, solver="als",
                    reg_v=0.5).fit(train, eval_ds=test)   # on the card
@@ -256,7 +257,9 @@ class FM:
 
     ``solver`` is "als" (slot-aligned blocks, ``solvers/als.py``), "sgd"
     (``train_sgd``, on the update path ``update_path`` names or "auto"
-    picks, with ``optimizer`` "adagrad", "adagrad_row", "sgd" or "adam")
+    picks, with ``optimizer`` "adagrad", "adagrad_row", "sgd" or "adam"),
+    "mcmc" (``solvers/mcmc.py::train_mcmc``, slot-aligned blocks, burn-in
+    ``max(1, max_iter // 10)``)
     or a callable ``(cfg, train, eval_ds, eval_every, generator) ->
     TrainResult``, where ``generator`` is a ``torch.Generator`` on the
     fit's device seeded with ``seed``. ``num_fields > 0`` fits a
@@ -271,9 +274,14 @@ class FM:
     wall-clock budget in seconds, checked between epochs (0 = none). The
     arguments are the JAX facade's.
 
+    ``fit`` also takes a block-structure ``data/relational.py::
+    RelationalDataset``: "sgd" trains on it as it is
+    (``training/trainer.py::train_sgd_relational``), "als" by BS-ALS
+    (``solvers/als_bs.py``), and every other solver, and DeepFM, on its
+    ``materialize()``.
+
     Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-    item: ``solver="mcmc"`` (A11), a ``mesh`` (A15) and relational input
-    (A10: BS-ALS and relational SGD).
+    item: a ``mesh`` (A15).
     """
 
     def __init__(self, num_factors: int = 8,
@@ -370,30 +378,39 @@ class FM:
         ``model="deepfm"``.
 
         ``init_params`` (an FMParams or a fitted FMModel) warm-starts the
-        "als" and "sgd" solvers; DeepFM takes none (``ValueError``, as in
+        "als", "sgd" and "mcmc" solvers on a SparseDataset; DeepFM and
+        relational input take none (``ValueError``, as in
         the JAX facade). ``checkpoint_dir`` checkpoints and
         resumes the "sgd" solver's training (``train_sgd``). A callable
         solver takes neither ``init_params`` nor a ``timeout``, and no
-        solver but "sgd" takes a ``checkpoint_dir``: they are given no way
+        solver but "sgd" on a SparseDataset takes a ``checkpoint_dir``:
+        they are given no way
         to honour them, so ``fit`` raises ``ValueError`` where the JAX
         facade drops them silently. DeepFM honours ``update_path``, which
         the JAX facade does not pass to its DeepFM trainer.
         """
-        # imported here: training.trainer (and so solvers.als) imports
+        # imported here: training.trainer (and so the solvers) imports
         # this module
-        from sparkfm_tpu_torch.solvers import als
+        from sparkfm_tpu_torch.solvers import als, als_bs, mcmc
         from sparkfm_tpu_torch.training import trainer
 
-        if hasattr(train, "materialize"):
-            raise NotImplementedError(
-                "relational datasets are not ported yet (ROADMAP A10: "
-                "BS-ALS and relational SGD)")
         if self.mesh is not None:
             raise NotImplementedError("mesh training is not ported yet "
                                       "(ROADMAP A15)")
         if checkpoint_dir is not None and self.solver != "sgd":
             raise ValueError("checkpoint_dir checkpoints the 'sgd' solver "
                              f"only, not {self.solver!r}")
+        relational = hasattr(train, "materialize")
+        if relational and (init_params is not None
+                           or checkpoint_dir is not None):
+            raise ValueError("init_params warm start and checkpoint_dir "
+                             "take a SparseDataset, not a relational one")
+        if relational and (self.model == "deepfm"
+                           or self.solver not in ("sgd", "als")):
+            train = train.materialize()
+            relational = False
+            if eval_ds is not None and hasattr(eval_ds, "materialize"):
+                eval_ds = eval_ds.materialize()
         if isinstance(init_params, FMModel):
             init_params = init_params.params
         device = device_util.resolve(device)
@@ -418,7 +435,24 @@ class FM:
             return DeepFMModel(params=res.params, cfg=dcfg,
                                history=res.history,
                                examples_per_sec=res.examples_per_sec)
-        if callable(self.solver):
+        if relational:
+            if self.solver == "sgd":
+                res = trainer.train_sgd_relational(
+                    cfg, SGDConfig(learning_rate=self.learning_rate,
+                                   optimizer=self.optimizer,
+                                   batch_size=self.batch_size,
+                                   epochs=self.max_iter,
+                                   update_path=self.update_path,
+                                   max_seconds=self.timeout),
+                    train, eval_ds, self.eval_every, generator,
+                    device=device)
+            else:
+                res = als_bs.train_als_relational(
+                    cfg, ALSConfig(epochs=self.max_iter,
+                                   max_seconds=self.timeout),
+                    train, eval_ds, self.eval_every, generator,
+                    device=device)
+        elif callable(self.solver):
             if init_params is not None or self.timeout:
                 raise ValueError(
                     "a callable solver is called as (cfg, train, eval_ds, "
@@ -446,8 +480,12 @@ class FM:
                                 self.eval_every, generator,
                                 params=init_params, device=device)
         elif self.solver == "mcmc":
-            raise NotImplementedError("the MCMC solver is not ported yet "
-                                      "(ROADMAP A11)")
+            mcmc_cfg = MCMCConfig(epochs=self.max_iter,
+                                  burn_in=max(1, self.max_iter // 10),
+                                  feature_blocks=als.slot_blocks(train),
+                                  max_seconds=self.timeout)
+            res = mcmc.train_mcmc(cfg, mcmc_cfg, train, eval_ds, generator,
+                                  params=init_params, device=device)
         else:
             raise ValueError(f"unknown solver {self.solver!r}")
         return FMModel(params=res.params, cfg=cfg, history=res.history,

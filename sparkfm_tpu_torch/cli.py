@@ -14,7 +14,7 @@ the card unless given ``--device cpu``, and raise without one).
                   on generated MovieLens-shaped data
 
 Not ported yet: ``--mesh`` and ``--distributed`` raise
-``NotImplementedError`` naming ROADMAP A15, ``--solver mcmc`` naming A11.
+``NotImplementedError`` naming ROADMAP A15.
 ``predict`` and ``eval`` load a DeepFM model directory as a DeepFM by its
 tag (``api.py::load_model``); the JAX CLI loads every directory as a plain
 FM and fails with a ``KeyError`` on a DeepFM one.
@@ -341,8 +341,7 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--task", choices=[x.value for x in Task],
                    default="regression")
     t.add_argument("--solver", default="als",
-                   choices=["als", "sgd", "mcmc"],
-                   help="mcmc is not ported yet: raises, ROADMAP A11")
+                   choices=["als", "sgd", "mcmc"])
     t.add_argument("--factors", type=int, default=8)
     t.add_argument("--iters", type=int, default=10)
     t.add_argument("--reg0", type=float, default=0.0)

@@ -1,9 +1,11 @@
 """Model and solver configuration.
 
-A copy of ``Task``, ``FMConfig``, ``SGDConfig`` and ``ALSConfig`` from
-``sparkfm_tpu/config.py``, so the port imports without jax and one set of
-keyword arguments builds the same config in both packages. The other
-solvers' configs come with those solvers.
+A copy of ``sparkfm_tpu/config.py`` (``Task``, ``Solver``, ``FMConfig``,
+``SGDConfig``, ``ALSConfig``, ``MCMCConfig``, ``MeshConfig`` and
+``TrainConfig``), so the port imports without jax and one set of keyword
+arguments builds the same config in both packages. ``MeshConfig`` is the
+dataclass alone: the sharded paths that read it are not ported yet
+(ROADMAP A15), and a mesh given to an entry point raises.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ class Task(enum.Enum):
 
     REGRESSION = "regression"
     CLASSIFICATION = "classification"
+
+
+class Solver(enum.Enum):
+    SGD = "sgd"
+    ALS = "als"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,3 +178,64 @@ class ALSConfig:
     block_size: int = 4096
     max_seconds: float = 0.0
     feature_blocks: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class MCMCConfig:
+    """Gibbs-sampled Bayesian FM (libFM's MCMC solver; Rendle 2012),
+    ``solvers/mcmc.py``; same fields and defaults as the JAX package's.
+
+    The blocked sweep of ALS, but each coordinate is drawn from its
+    conditional posterior, and the noise precision alpha and the per-group
+    priors (lambda, mu) are Gibbs-sampled too: no learning rate and no L2
+    strengths to tune. Evaluation scores are averaged over the samples
+    from ``burn_in`` on. ``max_seconds``: a wall-clock budget checked
+    between samples (0 = none). ``alpha_0``/``beta_0`` and
+    ``alpha_lambda``/``beta_lambda``: the Gamma hyperpriors of alpha and
+    lambda; ``mu_0``/``gamma_0``: the Gaussian hyperprior of the means,
+    mu ~ N(mu_0, 1 / (gamma_0 lambda)).
+    """
+
+    epochs: int = 50
+    burn_in: int = 5
+    block_size: int = 4096
+    feature_blocks: Optional[tuple] = None
+    max_seconds: float = 0.0
+    alpha_0: float = 1.0
+    beta_0: float = 1.0
+    alpha_lambda: float = 1.0
+    beta_lambda: float = 1.0
+    mu_0: float = 0.0
+    gamma_0: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout: ``data`` ways over examples, ``model`` ways
+    over the rows of the V/w tables; ``exchange`` picks the sharded SGD
+    step's sparse gradient exchange ("auto" | "unique" | "global" |
+    "dense"). Not read by the port yet (ROADMAP A15)."""
+
+    data: int = 1
+    model: int = 1
+    data_axis: str = "data"
+    model_axis: str = "model"
+    exchange: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One run's settings in one tree: the model, each solver's config,
+    the mesh, the solver, and the eval, checkpoint and log periods
+    (``checkpoint_every`` and ``log_every`` in steps; 0 checkpoints only
+    at the end)."""
+
+    fm: FMConfig = None
+    sgd: SGDConfig = dataclasses.field(default_factory=SGDConfig)
+    als: ALSConfig = dataclasses.field(default_factory=ALSConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    solver: Solver = Solver.SGD
+    eval_every: int = 1
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    log_every: int = 100

@@ -178,3 +178,14 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
                 raise err[0]
             return
         yield item
+
+
+def to_device_arrays(ds: SparseDataset, *, device) -> dict:
+    """The whole dataset as tensors on ``device``: ``ids``, ``vals``, ``y``
+    and, where the dataset has them, ``field_ids``."""
+    out = {"ids": torch.as_tensor(ds.ids, device=device),
+           "vals": torch.as_tensor(ds.vals, device=device),
+           "y": torch.as_tensor(ds.y, device=device)}
+    if ds.field_ids is not None:
+        out["field_ids"] = torch.as_tensor(ds.field_ids, device=device)
+    return out

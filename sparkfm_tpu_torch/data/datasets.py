@@ -9,9 +9,8 @@ the same file gives the same arrays in both packages).
                         (hex strings), tab-separated, empty = missing
   * Avazu CTR        — `train.csv`, comma + header: id,click,hour,21 cats
 
-``load_movielens_relational`` (the users.dat join) raises
-``NotImplementedError`` naming ROADMAP A10. The tests run the loaders on
-fixture files in the exact on-disk formats (``tests/fixtures/``).
+The tests run the loaders on fixture files in the exact on-disk formats
+(``tests/fixtures/``).
 """
 
 from __future__ import annotations
@@ -26,7 +25,8 @@ import numpy as np
 from sparkfm_tpu_torch.data.batching import SparseDataset
 from sparkfm_tpu_torch.data.schema import (Column, Identity, Ignored, Target,
                                            read_delimited)
-from sparkfm_tpu_torch.data.vectorizer import Vectorizer
+from sparkfm_tpu_torch.data.vectorizer import (RelationVectorizer,
+                                               Vectorizer)
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +95,30 @@ def load_movielens(path: str, max_examples: Optional[int] = None,
 def load_movielens_relational(directory: str,
                               max_examples: Optional[int] = None
                               ) -> tuple:
-    """The ratings joined with the users.dat side table: needs the
-    relational data path, which is not ported yet."""
-    raise NotImplementedError(
-        "load_movielens_relational needs the relational data path, not "
-        "ported yet (ROADMAP A10); load_movielens gives the ratings alone")
+    """The ratings joined with the users.dat side table (MovieLens-1M
+    layout): gender, age and occupation one-hot, zip ignored. Returns
+    (SparseDataset, fitted RelationVectorizer); the vectorizer's
+    ``transform_relational`` gives the block-structure form of the same
+    rows."""
+    ratings = os.path.join(directory, "ratings.dat")
+    users = os.path.join(directory, "users.dat")
+    if not (os.path.exists(ratings) and os.path.exists(users)):
+        raise FileNotFoundError(
+            f"need ratings.dat and users.dat under {directory} "
+            "(MovieLens-1M layout)")
+    vec = RelationVectorizer(
+        [Identity("user"), Identity("item"), Target("rating"),
+         Ignored("timestamp")])
+    vec.add_relation(
+        read_delimited(users, "::"),
+        [Target("user_id"), Identity("gender"), Identity("age"),
+         Identity("occupation"), Ignored("zip")],
+        join_column=0)
+    rows = list(read_delimited(ratings, "::"))
+    if max_examples is not None:
+        rows = rows[:max_examples]
+    ds = vec.fit_transform(rows)
+    return ds, vec
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Synthetic datasets: low-rank MovieLens-style ratings and hashed
 power-law CTR data (Criteo/Avazu shape). Port of
-``sparkfm_tpu/data/synth.py::synth_movielens`` and ``synth_ctr``; numpy
-only, so the same seed gives the same arrays in both packages."""
+``sparkfm_tpu/data/synth.py`` (``synth_movielens``, ``synth_ctr``,
+``field_of_feature_map``); numpy only, so the same seed gives the same
+arrays in both packages."""
 
 from __future__ import annotations
 
@@ -69,3 +70,12 @@ def synth_ctr(num_examples: int = 100000, num_fields: int = 16,
                                 (num_examples, num_fields)).copy()
     return SparseDataset(ids=ids, vals=vals, y=y, num_features=num_buckets,
                          field_ids=field_ids)
+
+
+def field_of_feature_map(num_buckets: int, num_fields: int) -> np.ndarray:
+    """(F,) int32 feature -> field map of :func:`synth_ctr`'s layout: field
+    f owns the bucket range [f * (F // num_fields), (f + 1) * ...), and the
+    remainder buckets go to the last field."""
+    per_field = num_buckets // num_fields
+    f = np.minimum(np.arange(num_buckets) // per_field, num_fields - 1)
+    return f.astype(np.int32)

@@ -9,11 +9,11 @@ in sorted order (so the same rows give the same vocabulary, and the same
 libFM file, in both packages), unseen categorical values go to a
 per-column OOV bucket, and strings hash through ``zlib.crc32``.
 
-Relation joins are the materialized form (:meth:`RelationVectorizer.
-transform`): a side table vectorized once, keyed by its Target column, and
-spliced in place of the main table's join-key column. The block-structure
-form (``transform_relational``) raises ``NotImplementedError`` naming
-ROADMAP A10.
+Relation joins: a side table vectorized once, keyed by its Target
+column, and spliced in place of the main table's join-key column, either
+materialized (:meth:`RelationVectorizer.transform`) or in block-structure
+form (:meth:`RelationVectorizer.transform_relational`: the tables apart,
+each example with its row keys, ``data/relational.py``).
 """
 
 from __future__ import annotations
@@ -312,12 +312,68 @@ class RelationVectorizer(Vectorizer):
 
     def transform_relational(self, rows: Iterable[Sequence[str]],
                              max_nnz: Optional[int] = None):
-        """The block-structure form (relation tables joined at batch time)
-        needs the relational data path, which is not ported yet."""
-        raise NotImplementedError(
-            "relational datasets are not ported yet (ROADMAP A10: BS-ALS "
-            "and relational SGD); use transform() for the materialized "
-            "form")
+        """Map rows to a ``data/relational.py::RelationalDataset``: each
+        relation stays one padded table (its keys in sorted order, then
+        the null row), and each example carries its row key per relation
+        (a missed join keys the null row). The feature space is
+        :meth:`transform`'s, so both forms score alike."""
+        from sparkfm_tpu_torch.data.relational import (RelationalDataset,
+                                                       RelationTable)
+        if not self.fitted:
+            raise RuntimeError("call fit() first")
+        rel_cols = sorted(self.relations)
+
+        tables: List[RelationTable] = []
+        key_to_row: List[Dict[str, int]] = []
+        for c in rel_cols:
+            _, mapping = self.relations[c]
+            keys = sorted(mapping)
+            lr = max(max((len(mapping[k][0]) for k in keys), default=1), 1)
+            tids = np.zeros((len(keys) + 1, lr), np.int32)
+            tvals = np.zeros((len(keys) + 1, lr), np.float32)
+            for r, k in enumerate(keys):
+                ids, vals = mapping[k]
+                n = min(len(ids), lr)
+                tids[r, :n] = ids[:n]
+                tvals[r, :n] = vals[:n]
+            tables.append(RelationTable(ids=tids, vals=tvals,
+                                        offset=self.offsets[c]))
+            key_to_row.append({k: r for r, k in enumerate(keys)})
+
+        ncols = len(self.schema)
+        packed = []
+        all_keys: List[List[int]] = []
+        dropped = 0
+        for row in rows:
+            if len(row) != ncols:
+                dropped += 1
+                continue
+            try:
+                y = self.schema[self.target_col].transform(
+                    row[self.target_col])
+            except ValueError:
+                dropped += 1
+                continue
+            ids: List[int] = []
+            vals: List[float] = []
+            for i in range(ncols):
+                if self.block_dims[i] == 0 or i in self.relations:
+                    continue
+                lids, lvals = self._cell_features(i, row[i])
+                ids.extend(self.offsets[i] + j for j in lids)
+                vals.extend(lvals)
+            packed.append((y, np.asarray(ids, np.int64),
+                           np.asarray(vals, np.float64)))
+            all_keys.append([key_to_row[r].get(row[c], len(key_to_row[r]))
+                             for r, c in enumerate(rel_cols)])
+        self.rows_dropped = dropped
+        main = pack_examples(packed, num_features=self.dimension,
+                             max_nnz=max_nnz)
+        return RelationalDataset(
+            main_ids=main.ids, main_vals=main.vals, y=main.y,
+            keys=np.asarray(all_keys, np.int32).reshape(
+                len(packed), len(rel_cols)),
+            tables=tuple(tables), num_features=self.dimension)
 
 
 def feature_groups_of(vec: "Vectorizer") -> tuple:

@@ -30,6 +30,17 @@ def mae(pred: torch.Tensor, target: torch.Tensor,
     return ae.sum() / n
 
 
+def sign_accuracy(pred: torch.Tensor, target: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fraction of examples whose raw score has the target's sign, for
+    targets in {-1, +1} (a target > 0 counts as +1, any other as -1, so
+    0/1 targets work too); a score of 0 agrees with neither."""
+    t_pm = torch.where(target > 0, 1.0, -1.0)
+    agree = (torch.sign(pred) * t_pm) > 0
+    a, n = _masked(agree.to(torch.float32), mask)
+    return a.sum() / n
+
+
 def accuracy(prob: torch.Tensor, target: torch.Tensor,
              threshold: float = 0.5,
              mask: Optional[torch.Tensor] = None) -> torch.Tensor:

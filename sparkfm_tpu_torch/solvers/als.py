@@ -85,9 +85,10 @@ class ALSWorkspace:
     block_of_feat: (F,) int32 feature -> block; den_w: (F,) f32 Σx² per
         feature.
 
-    Every array equals the JAX workspace's. The JAX workspace also holds
-    ``col_feat`` (= present[col_rank]) and an all-ones example ``mask``
-    for its sharded form; the single-device sweep reads neither.
+    Every array equals the JAX workspace's. The JAX workspace also stores
+    ``col_feat`` and an all-ones example ``mask``; here both are derived
+    when read (:attr:`col_feat`, :attr:`mask`), since no sweep of the port
+    needs them on the card.
     """
 
     slot_rank: torch.Tensor
@@ -99,6 +100,16 @@ class ALSWorkspace:
     present: torch.Tensor
     block_of_feat: torch.Tensor
     den_w: torch.Tensor
+
+    @property
+    def col_feat(self) -> torch.Tensor:
+        """(nnz,) int32 feature id of each CSC entry: present[col_rank]."""
+        return self.present.index_select(0, self.col_rank)
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """(N,) f32 example mask: all ones on one device."""
+        return torch.ones_like(self.y)
 
 
 def feature_blocks_of(num_features: int, als_cfg: ALSConfig) -> tuple:
@@ -258,6 +269,64 @@ def _compact(reg, present: torch.Tensor):
     return reg
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockViews:
+    """How a compact sweep reads block b of a workspace of ``n`` examples:
+    ``column_pure`` (host-checked by :func:`blocks_are_column_pure`),
+    ``csc_uniform`` (:func:`csc_blocks_uniform`, requires column_pure) and
+    ``slice_identity`` (:func:`csc_slice_identity`) select the faster
+    forms of the same sums. The ALS and MCMC sweeps share it."""
+
+    n: int
+    column_pure: bool = False
+    csc_uniform: bool = False
+    slice_identity: tuple = ()
+
+    def __post_init__(self):
+        if self.csc_uniform and not self.column_pure:
+            raise ValueError("csc_uniform requires column_pure")
+
+    def csc(self, arr: torch.Tensor, b: int) -> torch.Tensor:
+        """Block b's part of a CSC array: its N-run, or all of it."""
+        return arr[b * self.n:(b + 1) * self.n] if self.csc_uniform else arr
+
+    def to_csc(self, ex: torch.Tensor, col_row: torch.Tensor,
+               b: int) -> torch.Tensor:
+        """An example vector in block b's CSC order."""
+        if (self.csc_uniform and b < len(self.slice_identity)
+                and self.slice_identity[b]):
+            return ex
+        return ex.index_select(0, self.csc(col_row, b))
+
+    def patch(self, arr_c: torch.Tensor, rank_csr: torch.Tensor,
+              vals: torch.Tensor, b: int) -> torch.Tensor:
+        """Per-example sum over block b's slots of arr_c[rank] * vals."""
+        if self.column_pure:
+            return _take(arr_c, rank_csr[b]) * vals[b]
+        return (_take(arr_c, rank_csr) * vals).sum(0)
+
+
+def compact_forward(ws: ALSWorkspace, w0: torch.Tensor, w_c: torch.Tensor,
+                    v_t: torch.Tensor, use_bias: bool = True,
+                    use_linear: bool = True) -> tuple:
+    """(score (N,), q_bank (K, N)) from rank-space parameters, one factor
+    at a time; q of each factor is banked for its turn in the factor
+    loop (``v_t``: (K, Fp) factors by rank)."""
+    rank_csr, vals_csr = ws.slot_rank, ws.slot_val
+    k, n = v_t.shape[0], ws.y.shape[0]
+    score = torch.zeros_like(ws.y)
+    q_bank = torch.empty((k, n), dtype=torch.float32, device=ws.y.device)
+    for f in range(k):
+        vr = _take(v_t[f], rank_csr) * vals_csr                 # (L, N)
+        q_bank[f] = vr.sum(0)
+        score += 0.5 * (q_bank[f].square() - vr.square().sum(0))
+    if use_linear:
+        score = score + (_take(w_c, rank_csr) * vals_csr).sum(0)
+    if use_bias:
+        score = score + w0
+    return score, q_bank
+
+
 def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
                       num_ranks: int, reg0: float, reg_w, reg_v,
                       use_bias: bool = True, use_linear: bool = True,
@@ -267,13 +336,10 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
     new parameters; ``params`` is not changed.
 
     ``reg_w`` / ``reg_v`` are scalars or per-feature (F,) tensors.
-    ``column_pure`` (host-checked by :func:`blocks_are_column_pure`),
-    ``csc_uniform`` (:func:`csc_blocks_uniform`, requires column_pure) and
-    ``slice_identity`` (:func:`csc_slice_identity`) select the faster
-    forms of the same updates."""
-    if csc_uniform and not column_pure:
-        raise ValueError("csc_uniform requires column_pure")
-    n = ws.y.shape[0]
+    ``column_pure``, ``csc_uniform`` and ``slice_identity`` select the
+    faster forms of the same updates (:class:`BlockViews`)."""
+    views = BlockViews(ws.y.shape[0], column_pure, csc_uniform,
+                       slice_identity)
     k = params.v.shape[1]
     present = ws.present
     rank_csr, vals_csr = ws.slot_rank, ws.slot_val
@@ -285,56 +351,34 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
     block_c = ws.block_of_feat.index_select(0, present)
     in_block = [block_c == b for b in range(num_blocks)]
     rw_c, rv_c = _compact(reg_w, present), _compact(reg_v, present)
+    csc = views.csc
 
-    def csc(arr, b):
-        """Block b's part of a CSC array: its N-run, or all of it."""
-        return arr[b * n:(b + 1) * n] if csc_uniform else arr
-
-    def to_csc(ex, b):
-        """An example vector in block b's CSC order."""
-        if csc_uniform and b < len(slice_identity) and slice_identity[b]:
-            return ex
-        return ex.index_select(0, csc(col_row, b))
-
-    def patch(arr_c, vals, b):
-        """Per-example sum over block b's slots of arr_c[rank] * vals."""
-        if column_pure:
-            return _take(arr_c, rank_csr[b]) * vals[b]
-        return (_take(arr_c, rank_csr) * vals).sum(0)
-
-    # forward, one factor at a time; q of each factor banked for its turn
-    score = torch.zeros_like(ws.y)
-    q_bank = torch.empty((k, n), dtype=torch.float32, device=ws.y.device)
-    for f in range(k):
-        vr = _take(v_t[f], rank_csr) * vals_csr                 # (L, N)
-        q_bank[f] = vr.sum(0)
-        score += 0.5 * (q_bank[f].square() - vr.square().sum(0))
-    if use_linear:
-        score = score + (_take(w_c, rank_csr) * vals_csr).sum(0)
-    if use_bias:
-        score = score + params.w0
+    score, q_bank = compact_forward(ws, params.w0, w_c, v_t, use_bias,
+                                    use_linear)
     e = score - ws.y
 
     w0_new = params.w0.clone()
     if use_bias:
         w0_new = _guarded_theta(params.w0, e.sum(),
-                                torch.tensor(float(n), device=e.device),
-                                reg0)
+                                torch.tensor(float(ws.y.shape[0]),
+                                             device=e.device), reg0)
         e = e + (w0_new - params.w0)
 
     if use_linear:
         for b in range(num_blocks):
-            num = segsum.segment_colsums([to_csc(e, b) * csc(x, b)],
-                                         csc(col_rank, b), num_ranks)[:, 0]
+            num = segsum.segment_colsums(
+                [views.to_csc(e, col_row, b) * csc(x, b)],
+                csc(col_rank, b), num_ranks)[:, 0]
             theta = _guarded_theta(w_c, num, den_w_c, rw_c)
             delta = torch.where(in_block[b], theta - w_c, 0.0)
-            e = e + patch(delta, vals_csr, b)
+            e = e + views.patch(delta, rank_csr, vals_csr, b)
             w_c = w_c + delta
 
     for f in range(k):
         vf, q = v_t[f], q_bank[f]
         for b in range(num_blocks):
-            e_csc, q_csc = to_csc(e, b), to_csc(q, b)
+            e_csc = views.to_csc(e, col_row, b)
+            q_csc = views.to_csc(q, col_row, b)
             xb = csc(x, b)
             xb2 = xb * xb
             sums = segsum.segment_colsums(
@@ -348,19 +392,29 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
             delta = torch.where(in_block[b], theta - vf, 0.0)
             vf_new = vf + delta
             dsq = torch.where(in_block[b], vf_new.square() - vf.square(), 0.0)
-            q_new = q + patch(delta, vals_csr, b)
+            q_new = q + views.patch(delta, rank_csr, vals_csr, b)
             e = (e + 0.5 * (q_new.square() - q.square())
-                 - 0.5 * patch(dsq, vals_sq, b))
+                 - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
             vf, q = vf_new, q_new
         v_t[f] = vf
 
+    return scatter_compact(params, present, w0_new,
+                           w_c if use_linear else None, v_t)
+
+
+def scatter_compact(params: FMParams, present: torch.Tensor,
+                    w0: torch.Tensor, w_c: Optional[torch.Tensor],
+                    v_t: torch.Tensor) -> FMParams:
+    """New parameters: copies of ``params`` with the present features'
+    rows replaced by the rank-space ``w_c`` (None: w unchanged) and ``v_t``
+    (K, Fp)."""
     idx = present.long()
     w_new = params.w.clone()
-    if use_linear:
+    if w_c is not None:
         w_new[idx] = w_c
     v_new = params.v.clone()
     v_new[idx] = v_t.t()
-    return FMParams(w0=w0_new, w=w_new, v=v_new)
+    return FMParams(w0=w0, w=w_new, v=v_new)
 
 
 def workspace_hbm_bytes(ds: SparseDataset, cfg: FMConfig) -> int:

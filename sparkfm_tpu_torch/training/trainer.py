@@ -6,7 +6,8 @@ JAX package: "direct" and "dedup" (separate tables,
 plans) and "sorted" (the fused record table); with several hybrid steps
 per dispatch (``SGDConfig.steps_per_dispatch``: CUDA graphs on the card,
 ``utils/graphs.py``) and checkpointed, resumable training
-(``checkpoint_dir``, ``utils/checkpoint.py::Checkpointer``).
+(``checkpoint_dir``, ``utils/checkpoint.py::Checkpointer``); and
+``train_sgd_relational`` on block-structure data (``data/relational.py``).
 
 Not ported yet, and raising ``NotImplementedError`` when asked for: the
 sharded mesh path (``mesh``, ROADMAP A15).
@@ -50,9 +51,14 @@ def evaluate(params: FMParams, cfg: FMConfig, ds: SparseDataset,
 
 @dataclasses.dataclass
 class TrainResult:
+    """A run's parameters, per-epoch history records and examples per
+    second; ``extras`` holds what a solver returns besides (MCMC: its
+    posterior-mean scores and its last state)."""
+
     params: FMParams
     history: List[Dict[str, float]]
     examples_per_sec: float = 0.0
+    extras: dict = dataclasses.field(default_factory=dict)
 
 
 def _time_budget_reached(t0: float, max_seconds: float, epoch: int) -> bool:
@@ -226,6 +232,57 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         checkpoint_every=checkpoint_every, resume=resume)
     return TrainResult(
         params=sgd_solver.trim_params(get_params(state), cfg.num_features),
+        history=history, examples_per_sec=eps)
+
+
+def train_sgd_relational(cfg: FMConfig, sgd_cfg: SGDConfig, train,
+                         eval_ds=None, eval_every: int = 1,
+                         generator: Optional[torch.Generator] = None, *,
+                         device=device_util.DEFAULT) -> TrainResult:
+    """SGD on a block-structure ``data/relational.py::RelationalDataset``
+    on ``device`` (default: the card; without one it raises): the
+    relation tables are copied to the device once and joined to each
+    batch there (``compose_batch``), and the step is the "direct" or
+    "dedup" step of ``relational_update_path`` ("auto": direct below 2^16
+    features, dedup on device plans from 2^16 up, where the JAX package
+    raises). V is drawn from ``generator`` (default: seeded from
+    ``cfg.seed``). Each history record holds the epoch's mean
+    ``train_loss`` and, every ``eval_every`` epochs and after the last,
+    ``eval_*`` metrics of ``eval_ds``: a RelationalDataset (materialized
+    once) or a SparseDataset. The epoch loop is :func:`run_epochs`."""
+    from sparkfm_tpu_torch.data import relational as R
+
+    device = device_util.resolve(device)
+    path = R.relational_update_path(cfg, sgd_cfg)
+    step_fn = R.make_relational_train_step(cfg, sgd_cfg)
+    state = sgd_solver.init_state(
+        fm_model.init_params(cfg, generator, device=device),
+        optimizer=sgd_cfg.optimizer)
+    if path == "dedup":
+        state = sgd_solver.pad_state_for_dedup(state)
+    tables = R.tables_to_device(train.tables, device=device)
+    if eval_ds is not None and hasattr(eval_ds, "materialize"):
+        eval_ds = eval_ds.materialize()
+
+    def run_epoch(state, epoch, dispatch):
+        batches = R.relational_batch_iterator(
+            train, sgd_cfg.batch_size, device=device,
+            shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed, epoch=epoch)
+        for batch in prefetch(batches, PREFETCH_DEPTH):
+            def single(b=batch):
+                nonlocal state
+                state, aux = step_fn(state, b, tables)
+                return aux
+            dispatch(single, 1)
+        return state, []
+
+    state, history, eps = run_epochs(
+        state, sgd_cfg, train.num_examples, run_epoch, path=path,
+        evaluate_state=None if eval_ds is None else (
+            lambda s: evaluate(s.params, cfg, eval_ds, sgd_cfg.batch_size)),
+        eval_every=eval_every)
+    return TrainResult(
+        params=sgd_solver.trim_params(state.params, cfg.num_features),
         history=history, examples_per_sec=eps)
 
 

@@ -13,6 +13,12 @@ fused path under "auto", as the JAX facade does, and is held to it at the
 trainer tests' tolerance (rtol 2e-4, atol 2e-5). ``FM(num_fields=...)``
 is held to the JAX facade in ``tests/test_torch_ffm.py``.
 
+``FM(solver="mcmc")`` is held to the JAX facade under the injected draws
+of ``tests/test_torch_mcmc.py``, and a ``RelationalDataset`` is routed as
+the JAX facade routes it ("sgd" and "als" on the block structure, the
+others on ``materialize()``); ``tests/test_torch_relational.py`` and
+``tests/test_torch_als_bs.py`` hold those fits to the JAX facade's.
+
 Two divergences from the JAX facade, on purpose: a callable solver given
 ``init_params`` or a nonzero ``timeout``, and any solver but "sgd" given a
 ``checkpoint_dir``, raise ``ValueError``, where the JAX facade drops them
@@ -32,6 +38,7 @@ from sparkfm_tpu.models import fm as jfm
 from sparkfm_tpu_torch import (FM, ALSConfig, FMModel, TrainResult,
                                params_from_numpy, train_als)
 from sparkfm_tpu_torch.data import synth
+from test_torch_mcmc import FakeDraws, jax_fakes  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 
@@ -118,25 +125,81 @@ def test_unknown_solver_raises(ratings):
         FM(model="wide")
 
 
-class _Relational:
-    """Stands in for the JAX package's RelationalDataset."""
-
-    num_features = 10
-
-    def materialize(self):
-        raise AssertionError("not reached")
-
-
-@pytest.mark.parametrize("kw,fit_kw,match", [
-    (dict(solver="mcmc"), {}, "A11"),
-    (dict(mesh="4x1"), {}, "A15"),
-    ({}, dict(train=_Relational()), "A10"),
-])
-def test_unported_options_raise(ratings, kw, fit_kw, match):
-    fit_kw = dict(fit_kw)
-    train = fit_kw.pop("train", ratings)
+@pytest.mark.parametrize("kw,match", [(dict(mesh="4x1"), "A15")])
+def test_unported_options_raise(ratings, kw, match):
     with pytest.raises(NotImplementedError, match=match):
-        FM(max_iter=1, **kw).fit(train, device="cpu", **fit_kw)
+        FM(max_iter=1, **kw).fit(ratings, device="cpu")
+
+
+def test_fit_mcmc_matches_jax(ratings, jax_fakes, monkeypatch):
+    """FM(solver="mcmc") warm-started from the same weights, under the same
+    injected draws (``tests/test_torch_mcmc.py``), equals the JAX facade:
+    slot blocks, burn-in max(1, max_iter // 10), the history at rtol 1e-4
+    and the last sample at the sweep parity."""
+    from sparkfm_tpu_torch.solvers import mcmc as pmcmc
+
+    jds = jsynth.synth_movielens(num_users=50, num_items=60,
+                                 num_examples=4000, seed=0)
+    rng = np.random.default_rng(11)
+    arrays = (np.float32(0.1),
+              rng.normal(0, 0.05, ratings.num_features).astype(np.float32),
+              rng.normal(0, 0.05, (ratings.num_features, 4)
+                         ).astype(np.float32))
+    kw = dict(num_factors=4, solver="mcmc", max_iter=3, seed=0)
+    jmodel = sfm.FM(**kw).fit(jds, eval_ds=jds, init_params=jfm.FMParams(
+        *(jnp.asarray(a) for a in arrays)))
+    monkeypatch.setattr(pmcmc, "TorchDraws", lambda generator: FakeDraws())
+    pmodel = FM(**kw).fit(ratings, eval_ds=ratings, device="cpu",
+                          init_params=params_from_numpy(*arrays,
+                                                        device="cpu"))
+    assert [sorted(h) for h in pmodel.history] == [
+        sorted(h) for h in jmodel.history]
+    assert "eval_rmse_avg" not in pmodel.history[0]     # burn-in 1
+    for got, want in zip(pmodel.history, jmodel.history):
+        for key, value in want.items():
+            np.testing.assert_allclose(got[key], value, rtol=1e-4,
+                                       err_msg=key)
+    for name in ("w", "v"):
+        np.testing.assert_allclose(getattr(pmodel.params, name).numpy(),
+                                   np.asarray(getattr(jmodel.params, name)),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("solver", ["sgd", "als", "mcmc", "callable"])
+def test_fit_relational_routes_as_jax(solver, monkeypatch):
+    """A RelationalDataset: "sgd" trains on composed batches and "als" by
+    BS-ALS, neither materializing the training set; "mcmc" and a callable
+    solver train on its ``materialize()``, as the JAX facade routes
+    them."""
+    from sparkfm_tpu_torch.data import relational as PR
+    from sparkfm_tpu_torch.solvers import als_bs, mcmc
+    from sparkfm_tpu_torch.training import trainer
+    from test_als_bs import _relational
+
+    rel = PR.relational_from_numpy(_relational(n=600))
+    called = []
+    for mod, name in ((trainer, "train_sgd_relational"),
+                      (als_bs, "train_als_relational"),
+                      (mcmc, "train_mcmc")):
+        monkeypatch.setattr(mod, name, lambda *a, _f=getattr(mod, name),
+                            _n=name, **k: called.append(_n) or _f(*a, **k))
+    materialized = []
+    real = PR.RelationalDataset.materialize
+    monkeypatch.setattr(PR.RelationalDataset, "materialize",
+                        lambda self: materialized.append(1) or real(self))
+
+    def fit_callable(cfg, train, eval_ds, eval_every, generator):
+        called.append("callable")
+        return train_als(cfg, ALSConfig(epochs=1), train, device="cpu")
+
+    model = FM(num_factors=2, max_iter=2, reg_v=0.5, batch_size=128,
+               solver=fit_callable if solver == "callable" else solver
+               ).fit(rel, device="cpu")
+    want = {"sgd": "train_sgd_relational", "als": "train_als_relational",
+            "mcmc": "train_mcmc", "callable": "callable"}[solver]
+    assert called == [want]
+    assert len(materialized) == (solver in ("mcmc", "callable"))
+    assert np.isfinite(model.predict_dataset(real(rel))).all()
 
 
 @pytest.mark.parametrize("solver", ["als", "sgd"])

@@ -95,3 +95,30 @@ def test_bad_budget_raises(datasets, budget):
     with pytest.raises(ValueError, match="ladder"):
         next(pbatching.batch_iterator(pds, 128, device="cpu",
                                       dedup_budget=budget, dedup_fill=F))
+
+
+@pytest.mark.parametrize("buckets,fields", [(1 << 10, 16), (1000, 7),
+                                            (39, 39)])
+def test_field_of_feature_map_matches_jax(buckets, fields):
+    got = psynth.field_of_feature_map(buckets, fields)
+    want = jsynth.field_of_feature_map(buckets, fields)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    ds = psynth.synth_ctr(num_examples=64, num_fields=fields,
+                          num_buckets=buckets, seed=1)
+    np.testing.assert_array_equal(got[ds.ids], ds.field_ids)
+
+
+@pytest.mark.parametrize("fields", [False, True])
+def test_to_device_arrays_matches_jax(fields):
+    ds = psynth.synth_ctr(num_examples=50, num_fields=4, num_buckets=64,
+                          seed=2)
+    if not fields:
+        ds.field_ids = None
+    got = pbatching.to_device_arrays(ds, device="cpu")
+    want = jbatching.to_device_arrays(ds)
+    assert sorted(got) == sorted(want)
+    for name, arr in want.items():
+        assert got[name].device.type == "cpu"
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(arr),
+                                      err_msg=name)

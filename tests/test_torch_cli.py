@@ -5,9 +5,10 @@ and the same JSON; ``train``, ``eval``, ``predict`` and
 ``movielens-demo`` print the JAX CLI's keys with values within rtol 1e-4,
 atol 1e-5 (both packages' inits patched to the same numpy weights; the
 port's ``examples_per_sec`` is its own and not compared); ``verify-data``
-prints the same report but for the command it names. Also the raises of
-what is not ported (A11, A15) and the DeepFM save -> eval round trip,
-which the JAX CLI cannot make."""
+prints the same report but for the command it names; ``train --solver
+mcmc`` under the same injected draws. Also the raises of what is not
+ported (A15) and the DeepFM save -> eval round trip, which the JAX CLI
+cannot make."""
 
 import json
 import os
@@ -30,6 +31,7 @@ from sparkfm_tpu_torch import cli as pcli
 from sparkfm_tpu_torch.models import deepfm as PDF
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.solvers import sgd_fused as psgd_fused
+from test_torch_mcmc import FakeDraws, jax_fakes  # noqa: F401 (a fixture)
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -271,8 +273,23 @@ def test_deepfm_save_then_eval_and_predict(capsys, tmp_path, same_init):
             data, num_features=1 << 18)), **TOL)
 
 
+def test_train_mcmc_matches_jax(capsys, tmp_path, same_init, jax_fakes,
+                                monkeypatch):
+    """``train --solver mcmc`` prints the JAX CLI's JSON, both packages
+    from the same initial weights and under the same injected draws
+    (``tests/test_torch_mcmc.py``: JAX unjitted with its normal and gamma
+    patched, the port's default draw source replaced)."""
+    from sparkfm_tpu_torch.solvers import mcmc as pmcmc
+    monkeypatch.setattr(pmcmc, "TorchDraws", lambda generator: FakeDraws())
+    jout, pout = _both(capsys, [
+        "train", "--synth", "movielens", "--synth-examples", "1500",
+        "--solver", "mcmc", "--iters", "3", "--factors", "4", "--split",
+        "0.8,0.2"], tmp_path)
+    got = _same_json(jout, pout, tmp_path)
+    assert np.isfinite(got["test_rmse"])
+
+
 @pytest.mark.parametrize("extra,match", [
-    (["--solver", "mcmc"], "A11"),
     (["--solver", "sgd", "--mesh", "2x1"], "A15"),
     (["--solver", "sgd", "--distributed"], "A15"),
 ])

@@ -1,8 +1,8 @@
 """The port on a CUDA card: the row gathers (one table and two), row
 write, factored backward, per-slot backward, row-sum and per-rank
 stream-sum kernels against their plain versions, the scoring, SGD
-(hybrid, fused and sorted) and ALS training paths on the card against the
-CPU, and the CUDA graphs of several steps (``utils/graphs.py``) and
+(hybrid, fused and sorted), ALS, MCMC, relational SGD and BS-ALS
+training paths on the card against the CPU, and the CUDA graphs of several steps (``utils/graphs.py``) and
 checkpointed training against eager steps and uninterrupted runs.
 
 These tests skip without a card. This file imports no jax, so it also
@@ -1009,3 +1009,163 @@ def test_cli_train_on_card(dev, capsys, argv, kernels):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["train_examples"] == 3200 and out["examples_per_sec"] > 0
     assert all(kerns[k].launches > before[k] for k in kernels)
+
+
+def _users_relation(n=20000, users=300, movies=400, seed=3):
+    """(user, movie) ratings with a users side table of three one-hot
+    columns (2, 7 and 21 values), keyed by user, in block-structure form."""
+    from sparkfm_tpu_torch.data import relational as PR
+    rng = np.random.default_rng(seed)
+    uid = rng.integers(0, users, n)
+    demo = np.stack([rng.integers(0, 2, users), 2 + rng.integers(0, 7, users),
+                     9 + rng.integers(0, 21, users)], axis=1)
+    off = users + movies
+    table = np.concatenate([demo, np.zeros((1, 3), np.int64)]).astype(
+        np.int32)
+    vals = np.concatenate([np.ones((users, 3)), np.zeros((1, 3))]).astype(
+        np.float32)
+    main = np.stack([uid, users + rng.integers(0, movies, n)], axis=1)
+    y = (3 + 0.5 * (demo[uid, 0] - 0.5) + 0.3 * rng.normal(size=n)).astype(
+        np.float32)
+    return PR.RelationalDataset(
+        main_ids=main.astype(np.int32), main_vals=np.ones((n, 2), np.float32),
+        y=y, keys=uid[:, None].astype(np.int32),
+        tables=(PR.RelationTable(ids=table, vals=vals, offset=off),),
+        num_features=off + 30)
+
+
+def test_mcmc_sweep_on_card_matches_cpu(dev):
+    """One MCMC sweep on the card through B7 ((K + 1) x blocks launches),
+    against the same sweep on the CPU under one draw source's values, and
+    two card sweeps from one seed bit for bit."""
+    from sparkfm_tpu_torch.solvers import mcmc as pmcmc
+    ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=1)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=8, seed=1)
+    acfg = ALSConfig(feature_blocks=pals.slot_blocks(ds))
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+
+    class Recorded:
+        """The card generator's draws, replayed on the CPU."""
+
+        def __init__(self, draws, device):
+            self.draws, self.device, self.log = draws, device, []
+
+        def normal(self, shape):
+            return self._keep(self.draws.normal(shape))
+
+        def gamma(self, shape_param):
+            return self._keep(self.draws.gamma(
+                shape_param.to(self.draws.generator.device)))
+
+        def _keep(self, x):
+            self.log.append(x.cpu())
+            return x.to(self.device)
+
+    def sweep(device, draws):
+        ws, nb = pals.build_workspace(ds, cfg, acfg, device=device)
+        state = pmcmc.init_mcmc_state(pfm.FMParams(
+            *(t.to(device) for t in (init.w0, init.w, init.v))))
+        return pmcmc.mcmc_sweep(state, ws, draws, nb, cfg.num_features,
+                                column_pure=True, csc_uniform=True,
+                                slice_identity=pals.csc_slice_identity(
+                                    ws, nb, ds.num_examples))
+
+    def card_draws():
+        return pmcmc.TorchDraws(torch.Generator(device=dev).manual_seed(5))
+
+    before = segsum.COLSUMS.launches
+    rec = Recorded(card_draws(), dev)
+    on_card = sweep(dev, rec)
+    assert segsum.COLSUMS.launches - before == (8 + 1) * 2
+    replay = iter(rec.log)
+
+    class Replay:
+        def normal(self, shape):
+            return next(replay)
+
+        def gamma(self, shape_param):
+            return next(replay)
+
+    on_cpu = sweep(torch.device("cpu"), Replay())
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
+                                   getattr(on_cpu.params, name),
+                                   rtol=1e-3, atol=1e-4, err_msg=name)
+    np.testing.assert_allclose(float(on_card.alpha), float(on_cpu.alpha),
+                               rtol=1e-5)
+    again = sweep(dev, card_draws())
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(again.params, name),
+                           getattr(on_card.params, name)), name
+
+
+@pytest.mark.parametrize("update_path,launches", [
+    ("direct", dict(gather_vw=2, scatter=4, rowsum_sq=1)),
+    ("dedup", dict(gather_vw=2, scatter=4, rowsum_sq=1))])
+def test_relational_sgd_on_card_matches_cpu(dev, update_path, launches,
+                                           monkeypatch):
+    """train_sgd_relational on the card (B1's two-table gathers, B6, B2 per
+    step) against the CPU run from the same initial weights, and twice
+    bit for bit."""
+    from sparkfm_tpu_torch.training import trainer as ptrainer
+    rel = _users_relation()
+    init = pfm.init_params(FMConfig(num_features=rel.num_features,
+                                    num_factors=8),
+                           torch.Generator().manual_seed(2), device="cpu")
+    monkeypatch.setattr(pfm, "init_params", lambda cfg, generator=None, *,
+                        device: pfm.FMParams(*(t.to(device, copy=True)
+                                               for t in (init.w0, init.w,
+                                                         init.v))))
+    cfg = FMConfig(num_features=rel.num_features, num_factors=8,
+                   reg_v=0.01, seed=2)
+    sgd_cfg = SGDConfig(batch_size=2048, epochs=2, learning_rate=0.05,
+                        update_path=update_path)
+    kernels = dict(gather_vw=rowio.GATHER_VW, scatter=rowio.SCATTER,
+                   rowsum_sq=segsum.ROWSUM_SQ)
+    before = {k: v.launches for k, v in kernels.items()}
+    on_card = ptrainer.train_sgd_relational(cfg, sgd_cfg, rel, eval_ds=rel,
+                                            device=dev)
+    steps = 2 * -(-rel.num_examples // 2048)
+    evals = steps          # an eval each epoch: one gather a batch
+    for k, per_step in launches.items():
+        got = kernels[k].launches - before[k]
+        assert got == per_step * steps + (evals if k == "gather_vw" else 0), k
+    on_cpu = ptrainer.train_sgd_relational(cfg, sgd_cfg, rel, eval_ds=rel,
+                                           device="cpu")
+    np.testing.assert_allclose([h["train_loss"] for h in on_card.history],
+                               [h["train_loss"] for h in on_cpu.history],
+                               rtol=1e-4)
+    for name in ("w", "v"):
+        np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
+                                   getattr(on_cpu.params, name),
+                                   rtol=2e-4, atol=2e-5, err_msg=name)
+    again = ptrainer.train_sgd_relational(cfg, sgd_cfg, rel, device=dev)
+    assert torch.equal(again.params.v, on_card.params.v)
+
+
+def test_bs_als_on_card_matches_cpu(dev):
+    """train_als_relational on the card (B7 at S = 1, 2 and 4) against the
+    CPU run."""
+    from sparkfm_tpu_torch.solvers import als_bs as pbs
+    rel = _users_relation()
+    cfg = FMConfig(num_features=rel.num_features, num_factors=8, reg_w=0.1,
+                   reg_v=0.5, seed=1)
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(1),
+                           device="cpu")
+    flat = rel.materialize()
+    before = segsum.COLSUMS.launches
+    on_card = pbs.train_als_relational(cfg, ALSConfig(epochs=3), rel,
+                                       eval_ds=flat, params=init, device=dev)
+    # 2 main blocks, 3 relation columns: w 2 + 3 x 2, a factor 2 + 3 x 2
+    assert segsum.COLSUMS.launches - before == 3 * (8 + 8 * 8)
+    on_cpu = pbs.train_als_relational(cfg, ALSConfig(epochs=3), rel,
+                                      eval_ds=flat, params=init,
+                                      device="cpu")
+    np.testing.assert_allclose(
+        [h["eval_rmse"] for h in on_card.history],
+        [h["eval_rmse"] for h in on_cpu.history], rtol=1e-4)
+    for name in ("w0", "w", "v"):
+        np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
+                                   getattr(on_cpu.params, name),
+                                   rtol=1e-3, atol=1e-4, err_msg=name)

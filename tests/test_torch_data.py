@@ -197,8 +197,9 @@ def test_vectorizer_matches_jax(tmp_path):
 
 def test_relation_vectorizer_matches_jax():
     """The users.dat join spliced into the ratings' feature space (the
-    materialized form), as the JAX package's; the block-structure form
-    raises naming A10."""
+    materialized form), and the block-structure form
+    (``transform_relational``) whose ``materialize()`` is that same
+    dataset, as the JAX package's."""
     def build(S, V):
         vec = V.RelationVectorizer([S.Identity("user"), S.Identity("item"),
                                     S.Target("rating"), S.Ignored("ts")])
@@ -213,8 +214,21 @@ def test_relation_vectorizer_matches_jax():
     assert PV.feature_groups_of(pv) == JV.feature_groups_of(jv)
     with pytest.raises(ValueError, match="target"):
         pv.add_relation([], [PS.Target()], join_column=2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        pv.transform_relational(rows)
+    prel, jrel = pv.transform_relational(rows), jv.transform_relational(rows)
+    for name in ("main_ids", "main_vals", "y", "keys"):
+        np.testing.assert_array_equal(getattr(prel, name),
+                                      getattr(jrel, name), err_msg=name)
+    for t, u in zip(prel.tables, jrel.tables, strict=True):
+        assert t.offset == u.offset
+        np.testing.assert_array_equal(t.ids, np.asarray(u.ids))
+        np.testing.assert_array_equal(t.vals, np.asarray(u.vals))
+    # the same rows, the main block's slots first
+    flat, mat = pv.transform(rows), prel.materialize()
+    for ds in (flat, mat):
+        order = np.argsort(ds.ids, axis=1, kind="stable")
+        ds.ids = np.take_along_axis(ds.ids, order, axis=1)
+        ds.vals = np.take_along_axis(ds.vals, order, axis=1)
+    assert_same_dataset(mat, flat)
 
 
 @pytest.mark.parametrize("source", ["dir", "ratings.dat", "u.data",
@@ -230,9 +244,13 @@ def test_movielens_loaders_match_jax(source):
                         JD.load_movielens(path, vectorizer=jvec)[0])
 
 
-def test_movielens_relational_raises_a10():
-    with pytest.raises(NotImplementedError, match="A10"):
-        PD.load_movielens_relational(ML)
+def test_movielens_relational_loader_matches_jax():
+    """The ratings joined with users.dat (materialized) and the fitted
+    RelationVectorizer, as the JAX package's loader gives them."""
+    (pds, pvec), (jds, jvec) = (PD.load_movielens_relational(ML),
+                                JD.load_movielens_relational(ML))
+    assert_same_dataset(pds, jds)
+    assert (pvec.offsets, pvec.dimension) == (jvec.offsets, jvec.dimension)
 
 
 @pytest.mark.parametrize("with_fields", [False, True])

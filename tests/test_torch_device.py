@@ -5,15 +5,20 @@ missing card; none falls back to the CPU. ``device="cpu"`` runs."""
 
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
 from sparkfm_tpu_torch import api, cli
-from sparkfm_tpu_torch.config import ALSConfig, FMConfig, SGDConfig
-from sparkfm_tpu_torch.data import synth
+from sparkfm_tpu_torch.config import (ALSConfig, FMConfig, MCMCConfig,
+                                      SGDConfig)
+from sparkfm_tpu_torch.data import relational, synth
 from sparkfm_tpu_torch.models import deepfm
 from sparkfm_tpu_torch.solvers.als import train_als
-from sparkfm_tpu_torch.training.trainer import train_sgd
+from sparkfm_tpu_torch.solvers.als_bs import train_als_relational
+from sparkfm_tpu_torch.solvers.mcmc import train_mcmc
+from sparkfm_tpu_torch.training.trainer import (train_sgd,
+                                                train_sgd_relational)
 from sparkfm_tpu_torch.utils import device as device_util
 
 torch.set_num_threads(1)
@@ -39,6 +44,12 @@ def _entry_points(root):
     cfg = FMConfig(num_features=ml.num_features, num_factors=2)
     dcfg = deepfm.DeepFMConfig(fm=FMConfig(num_features=64, num_factors=2,
                                            num_fields=4), hidden=(4,))
+    rel = relational.RelationalDataset(
+        main_ids=ml.ids[:, 1:], main_vals=ml.vals[:, 1:], y=ml.y,
+        keys=ml.ids[:, :1], num_features=ml.num_features,
+        tables=(relational.RelationTable(
+            ids=np.arange(11, dtype=np.int32)[:, None],
+            vals=(np.arange(11) < 10).astype(np.float32)[:, None]),))
     return {
         "FM.fit": lambda **kw: api.FM(num_factors=2, max_iter=1).fit(
             ml, **kw),
@@ -54,16 +65,28 @@ def _entry_points(root):
                                             **kw),
         "train_deepfm": lambda **kw: deepfm.train_deepfm(
             dcfg, SGDConfig(epochs=1, batch_size=64), ctr, **kw),
+        "train_mcmc": lambda **kw: train_mcmc(cfg, MCMCConfig(epochs=1),
+                                              ml, **kw),
+        "train_sgd_relational": lambda **kw: train_sgd_relational(
+            cfg, SGDConfig(epochs=1, batch_size=64), rel, **kw),
+        "train_als_relational": lambda **kw: train_als_relational(
+            cfg, ALSConfig(epochs=1), rel, **kw),
         "cli": lambda **kw: cli.main(
             ["train", "--synth", "movielens", "--synth-examples", "200",
              "--iters", "1"] + (["--device", kw["device"]] if kw else [])),
+        "cli --solver mcmc": lambda **kw: cli.main(
+            ["train", "--synth", "movielens", "--synth-examples", "200",
+             "--iters", "1", "--solver", "mcmc"]
+            + (["--device", kw["device"]] if kw else [])),
     }
 
 
 @pytest.mark.parametrize("name", ["FM.fit", "FMModel.load",
                                   "DeepFMModel.load", "load_model",
                                   "train_sgd", "train_als", "train_deepfm",
-                                  "cli"])
+                                  "train_mcmc", "train_sgd_relational",
+                                  "train_als_relational", "cli",
+                                  "cli --solver mcmc"])
 def test_default_device_is_the_card_and_raises_without_one(
         saved, monkeypatch, name, capsys):
     call = _entry_points(saved)[name]
@@ -86,7 +109,8 @@ def test_resolve():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             device_util.resolve()
     for fn in (api.FM.fit, api.FMModel.load, api.DeepFMModel.load,
-               api.load_model, train_sgd, train_als, deepfm.train_deepfm):
+               api.load_model, train_sgd, train_als, deepfm.train_deepfm,
+               train_mcmc, train_sgd_relational, train_als_relational):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
     assert cli.build_parser().parse_args(["eval", "--model", "m", "--libfm",

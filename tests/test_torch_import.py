@@ -206,3 +206,41 @@ def test_data_cli_and_deepfm_import_with_jax_blocked():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[] None 0"
+
+
+def test_mcmc_relational_and_bs_als_train_with_jax_blocked():
+    """With jax blocked: FM(solver="mcmc") fits; a relational dataset from
+    transform_relational trains by relational SGD and by BS-ALS through the
+    facade; load_movielens_relational loads; no kernel is built."""
+    r = _run_blocked("""
+        import numpy as np
+        from sparkfm_tpu_torch import FM, MCMCConfig, Solver, TrainConfig
+        from sparkfm_tpu_torch.data import datasets, schema, synth
+        from sparkfm_tpu_torch.data.vectorizer import RelationVectorizer
+        from sparkfm_tpu_torch.ops import segsum
+        ml = synth.synth_movielens(num_users=30, num_items=40,
+                                   num_examples=1500, seed=0)
+        m = FM(num_factors=2, solver="mcmc", max_iter=3).fit(
+            ml, eval_ds=ml, device="cpu")
+        assert "eval_rmse_avg" in m.history[-1]
+        fix = "tests/fixtures/ml_fixture"
+        vec = RelationVectorizer([schema.Identity("user"),
+                                  schema.Identity("item"),
+                                  schema.Target("rating"),
+                                  schema.Ignored("ts")])
+        vec.add_relation(schema.read_delimited(fix + "/users.dat", "::"),
+                         [schema.Target("uid"), schema.Identity("gender"),
+                          schema.Identity("age"), schema.Identity("occ"),
+                          schema.Ignored("zip")], join_column=0)
+        rows = list(schema.read_delimited(fix + "/ratings.dat", "::"))[:800]
+        rel = vec.fit(rows).transform_relational(rows)
+        for solver in ("sgd", "als"):
+            fit = FM(num_factors=2, solver=solver, max_iter=2,
+                     batch_size=256, reg_v=0.5).fit(rel, device="cpu")
+            assert np.isfinite(fit.params.v.numpy()).all()
+        ds, _ = datasets.load_movielens_relational(fix, max_examples=300)
+        assert ds.num_examples == 300
+        print(segsum.COLSUMS.path, segsum.COLSUMS.launches)
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "None 0"

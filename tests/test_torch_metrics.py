@@ -53,3 +53,23 @@ def test_auc_masked_entries_do_not_count():
     mask = torch.tensor([True, True, True, False])
     assert PM.auc(s, y, mask).item() == 1.0
     assert PM.auc(s[:3], y[:3]).item() == 1.0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("labels", ["plus_minus_one", "zero_one"])
+def test_sign_accuracy_matches_jax(masked, labels):
+    """Raw scores of both signs (some exactly 0) against {-1, +1} or {0, 1}
+    targets."""
+    rng = np.random.default_rng(9)
+    pred = rng.normal(size=300).astype(np.float32)
+    pred[::17] = 0.0
+    target = (rng.random(300) < 0.5).astype(np.float32)
+    if labels == "plus_minus_one":
+        target = 2 * target - 1
+    mask = rng.random(300) < 0.7
+    want = float(JM.sign_accuracy(jnp.asarray(pred), jnp.asarray(target),
+                                  mask=jnp.asarray(mask) if masked else None))
+    got = PM.sign_accuracy(torch.from_numpy(pred), torch.from_numpy(target),
+                           mask=torch.from_numpy(mask) if masked else None)
+    np.testing.assert_allclose(got.item(), want, **TOL)
+    assert 0.3 < want < 0.7
