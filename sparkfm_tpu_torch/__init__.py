@@ -14,8 +14,11 @@ and row-sum kernels, single-device ALS training (``ALSConfig``,
 serving (``models/deepfm.py``, ``DeepFMModel``), the ``FM`` facade over
 them, the data pipeline (``data/``: libFM files, the Vectorizer, the
 public datasets' loaders) and the command line (``python -m
-sparkfm_tpu_torch``). The kernels are CUDA C++ under ``csrc/``. Entry
-points run on the card unless asked for the CPU (``utils/device.py``).
+sparkfm_tpu_torch``), and sharded training over a (data, model) mesh
+of ranks on ``torch.distributed`` (``parallel/``: SGD, DeepFM, ALS and
+MCMC; ``FM(mesh=...)``, ``--mesh``). The kernels are CUDA C++ under
+``csrc/``. Entry points run on the card unless asked for the CPU
+(``utils/device.py``).
 """
 
 from sparkfm_tpu_torch.api import FM, DeepFMModel, FMModel, load_model

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from sparkfm_tpu_torch.config import (ALSConfig, FMConfig, MCMCConfig,
-                                      SGDConfig, Task)
+                                      MeshConfig, SGDConfig, Task)
 from sparkfm_tpu_torch.data.batching import SparseDataset, batch_iterator
 from sparkfm_tpu_torch.models import deepfm as deepfm_core
 from sparkfm_tpu_torch.models import fm as fm_core
@@ -227,6 +227,43 @@ def load_model(directory: str, *, device=device_util.DEFAULT):
         directory, device=device)
 
 
+def _parse_mesh(mesh, exchange: str = "auto"):
+    """None | DeviceMesh | MeshConfig | "DxM" -> None, a ``MeshConfig``
+    (when one was given or an exchange must ride along: the trainers read
+    ``MeshConfig.exchange``) or the ``DeviceMesh`` as it is."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        if exchange != "auto":
+            raise ValueError(
+                "exchange= with a DeviceMesh is ambiguous - pass a "
+                "MeshConfig(data, model, exchange=...) or a 'DxM' string")
+        return mesh
+    if isinstance(mesh, MeshConfig):
+        if exchange != "auto" and mesh.exchange != exchange:
+            mesh = dataclasses.replace(mesh, exchange=exchange)
+        return mesh
+    if isinstance(mesh, str):
+        d, m = (int(x) for x in mesh.lower().split("x"))
+        return MeshConfig(data=d, model=m, exchange=exchange)
+    raise ValueError(f"mesh must be None, DeviceMesh, MeshConfig or 'DxM' "
+                     f"string; got {mesh!r}")
+
+
+def _coordinate_mesh(mesh, device):
+    """ALS and MCMC shard the examples over ``data`` with the parameters
+    replicated: an exchange pin means nothing there, so it is refused."""
+    from sparkfm_tpu_torch.parallel import mesh as M
+    mesh, exchange = M.resolve_mesh(mesh, device=device)
+    if exchange != "auto":
+        raise ValueError(
+            "exchange= applies to the sharded SGD/DeepFM paths; "
+            "ALS/MCMC shard examples with replicated parameters "
+            f"(got exchange={exchange!r})")
+    return mesh
+
+
 def _detect_slot_major(train, num_fields: int) -> bool:
     """True iff every example's slot l holds a field-l feature
     (field_ids == arange(num_fields) in every row: the fixed-column
@@ -280,8 +317,13 @@ class FM:
     (``solvers/als_bs.py``), and every other solver, and DeepFM, on its
     ``materialize()``.
 
-    Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-    item: a ``mesh`` (A15).
+    ``mesh`` ("DxM", a ``MeshConfig`` or a ``DeviceMesh`` of
+    ``parallel/mesh.py``) trains the "sgd" (FM or DeepFM), "als" and
+    "mcmc" solvers sharded over a (data, model) mesh of ranks; every rank
+    runs the same ``fit`` (under ``torchrun``, or
+    ``parallel.multihost.spawn``). ``exchange`` pins the sharded SGD
+    exchange; the coordinate solvers refuse one. A one-process run takes
+    only a 1 x 1 mesh and raises naming the world size a larger one needs.
     """
 
     def __init__(self, num_factors: int = 8,
@@ -394,9 +436,15 @@ class FM:
         from sparkfm_tpu_torch.solvers import als, als_bs, mcmc
         from sparkfm_tpu_torch.training import trainer
 
-        if self.mesh is not None:
-            raise NotImplementedError("mesh training is not ported yet "
-                                      "(ROADMAP A15)")
+        mesh = _parse_mesh(self.mesh, self.exchange)
+        if mesh is not None and (self.solver not in ("sgd", "als", "mcmc")
+                                 or hasattr(train, "materialize")):
+            raise ValueError("mesh training supports solver='sgd' (FM or "
+                             "DeepFM), 'als' or 'mcmc' on a SparseDataset "
+                             "(materialize relational data first)")
+        if mesh is not None and init_params is not None:
+            raise ValueError("init_params warm start is single-device for "
+                             "now")
         if checkpoint_dir is not None and self.solver != "sgd":
             raise ValueError("checkpoint_dir checkpoints the 'sgd' solver "
                              f"only, not {self.solver!r}")
@@ -431,7 +479,7 @@ class FM:
                                 max_seconds=self.timeout)
             res = deepfm_core.train_deepfm(
                 dcfg, sgd_cfg, train, eval_ds, self.eval_every, generator,
-                checkpoint_dir=checkpoint_dir, device=device)
+                mesh=mesh, checkpoint_dir=checkpoint_dir, device=device)
             return DeepFMModel(params=res.params, cfg=dcfg,
                                history=res.history,
                                examples_per_sec=res.examples_per_sec)
@@ -471,21 +519,37 @@ class FM:
             res = trainer.train_sgd(cfg, sgd_cfg, train, eval_ds,
                                     self.eval_every, generator,
                                     checkpoint_dir=checkpoint_dir,
-                                    init_params=init_params, device=device)
+                                    mesh=mesh, init_params=init_params,
+                                    device=device)
         elif self.solver == "als":
             als_cfg = ALSConfig(epochs=self.max_iter,
                                 feature_blocks=als.slot_blocks(train),
                                 max_seconds=self.timeout)
-            res = als.train_als(cfg, als_cfg, train, eval_ds,
-                                self.eval_every, generator,
-                                params=init_params, device=device)
+            if mesh is not None:
+                from sparkfm_tpu_torch.parallel.sharded_als import (
+                    train_als_sharded)
+                res = train_als_sharded(
+                    cfg, als_cfg, train, _coordinate_mesh(mesh, device),
+                    eval_ds, self.eval_every, generator)
+            else:
+                res = als.train_als(cfg, als_cfg, train, eval_ds,
+                                    self.eval_every, generator,
+                                    params=init_params, device=device)
         elif self.solver == "mcmc":
             mcmc_cfg = MCMCConfig(epochs=self.max_iter,
                                   burn_in=max(1, self.max_iter // 10),
                                   feature_blocks=als.slot_blocks(train),
                                   max_seconds=self.timeout)
-            res = mcmc.train_mcmc(cfg, mcmc_cfg, train, eval_ds, generator,
-                                  params=init_params, device=device)
+            if mesh is not None:
+                from sparkfm_tpu_torch.parallel.sharded_als import (
+                    train_mcmc_sharded)
+                res = train_mcmc_sharded(cfg, mcmc_cfg, train,
+                                         _coordinate_mesh(mesh, device),
+                                         eval_ds, generator)
+            else:
+                res = mcmc.train_mcmc(cfg, mcmc_cfg, train, eval_ds,
+                                      generator, params=init_params,
+                                      device=device)
         else:
             raise ValueError(f"unknown solver {self.solver!r}")
         return FMModel(params=res.params, cfg=cfg, history=res.history,

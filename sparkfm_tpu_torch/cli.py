@@ -13,8 +13,11 @@ the card unless given ``--device cpu``, and raise without one).
   movielens-demo  the reference's canonical testALS flow end-to-end
                   on generated MovieLens-shaped data
 
-Not ported yet: ``--mesh`` and ``--distributed`` raise
-``NotImplementedError`` naming ROADMAP A15.
+``train --mesh DxM`` trains over a (data, model) mesh of ranks;
+``--distributed`` joins the ``torchrun`` world first (``python -m
+torch.distributed.run --nproc-per-node N -m sparkfm_tpu_torch train
+--mesh ... --distributed``). Every rank trains; rank 0 prints the JSON
+line and saves the model. A one-process run takes only ``--mesh 1x1``.
 ``predict`` and ``eval`` load a DeepFM model directory as a DeepFM by its
 tag (``api.py::load_model``); the JAX CLI loads every directory as a plain
 FM and fails with a ``KeyError`` on a DeepFM one.
@@ -121,9 +124,12 @@ def cmd_train(args) -> int:
     from sparkfm_tpu_torch.api import FM
     from sparkfm_tpu_torch.data.split import split_by_random
 
-    if args.distributed:
-        raise NotImplementedError("multi-host training (--distributed) is "
-                                  "not ported yet (ROADMAP A15)")
+    from sparkfm_tpu_torch.parallel import multihost
+
+    if args.distributed and not multihost.initialize(device=args.device):
+        raise SystemExit("--distributed needs the torchrun environment "
+                         "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT): "
+                         "launch with python -m torch.distributed.run")
     ds, vec = _load_dataset(args)
     if args.test_libfm:
         from sparkfm_tpu_torch.data import libfm
@@ -164,6 +170,8 @@ def cmd_train(args) -> int:
     if test is not None:
         out.update({f"test_{k}": round(v, 6)
                     for k, v in model.evaluate(test).items()})
+    if multihost.process_index():
+        return 0        # every rank holds the model; rank 0 reports it
     if args.save_model:
         model.save(args.save_model)
         out["saved_to"] = args.save_model
@@ -359,12 +367,14 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--hidden", default="128,64",
                    help="deepfm tower widths, comma-separated")
     t.add_argument("--mesh", default=None,
-                   help="train over a (data, model) device mesh, e.g. "
+                   help="train over a (data, model) mesh of ranks, e.g. "
                         "'4x2' = 4-way data x 2-way table row sharding "
-                        "(not ported yet: raises, ROADMAP A15)")
+                        "(solver sgd, als or mcmc; more than one rank "
+                        "needs --distributed under torchrun)")
     t.add_argument("--distributed", action="store_true",
-                   help="multi-host training (not ported yet: raises, "
-                        "ROADMAP A15)")
+                   help="join the torchrun world first (every rank runs "
+                        "this command; NCCL on the card, gloo with "
+                        "--device cpu)")
     t.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="hybrid path: run this many staged batches per "
                         "dispatch (a CUDA graph on the card; update "

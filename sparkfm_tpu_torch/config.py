@@ -3,9 +3,8 @@
 A copy of ``sparkfm_tpu/config.py`` (``Task``, ``Solver``, ``FMConfig``,
 ``SGDConfig``, ``ALSConfig``, ``MCMCConfig``, ``MeshConfig`` and
 ``TrainConfig``), so the port imports without jax and one set of keyword
-arguments builds the same config in both packages. ``MeshConfig`` is the
-dataclass alone: the sharded paths that read it are not ported yet
-(ROADMAP A15), and a mesh given to an entry point raises.
+arguments builds the same config in both packages. ``MeshConfig`` is
+read by the sharded paths (``parallel/``), which honour its ``exchange``.
 """
 
 from __future__ import annotations
@@ -214,7 +213,9 @@ class MeshConfig:
     """Device mesh layout: ``data`` ways over examples, ``model`` ways
     over the rows of the V/w tables; ``exchange`` picks the sharded SGD
     step's sparse gradient exchange ("auto" | "unique" | "global" |
-    "dense"). Not read by the port yet (ROADMAP A15)."""
+    "dense"), which the sharded SGD and DeepFM trainers honour and the
+    ALS and MCMC ones refuse. ``parallel/mesh.py::mesh_from_config``
+    builds the mesh; the axis names are the JAX package's."""
 
     data: int = 1
     model: int = 1

@@ -498,21 +498,26 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
 # ---------------------------------------------------------------------------
 # Training loop
 
-def _eval_metrics(params: DeepFMParams, cfg: DeepFMConfig, ds,
-                  batch_size: int) -> Dict[str, float]:
-    """The JAX trainer's eval keys: rmse (regression), or auc and
-    accuracy (classification), from the scores of every example."""
-    outs = []
-    for b in batch_iterator(ds, batch_size, device=params.device):
-        outs.append(scores(params, cfg, b.ids, b.vals)[b.mask])
-    s = torch.cat(outs).cpu()
-    y = torch.from_numpy(ds.y[:s.shape[0]])
-    if cfg.fm.task == Task.REGRESSION:
+def _metrics_of(s: torch.Tensor, y: np.ndarray,
+                task: Task) -> Dict[str, float]:
+    """The JAX trainer's eval keys from every example's score: rmse
+    (regression), or auc and accuracy (classification)."""
+    y = torch.from_numpy(y[:s.shape[0]])
+    if task == Task.REGRESSION:
         return {"rmse": float((s.double() - y.double()).square().mean()
                               .sqrt())}
     prob = torch.sigmoid(s.double())
     return {"auc": float(M.auc(s, y)),
             "accuracy": float(((prob >= 0.5) == (y > 0)).double().mean())}
+
+
+def _eval_metrics(params: DeepFMParams, cfg: DeepFMConfig, ds,
+                  batch_size: int) -> Dict[str, float]:
+    """:func:`_metrics_of` the scores of every example."""
+    outs = []
+    for b in batch_iterator(ds, batch_size, device=params.device):
+        outs.append(scores(params, cfg, b.ids, b.vals)[b.mask])
+    return _metrics_of(torch.cat(outs).cpu(), ds.y, cfg.fm.task)
 
 
 def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
@@ -542,18 +547,21 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
     another path's layout raises ``ValueError``. ``examples_per_sec``
     leaves out the first step, its time and its examples (kernel builds,
     warm-up). The epoch loop is ``training/trainer.py::run_epochs``, the
-    one ``train_sgd`` runs. ``mesh`` raises
-    ``NotImplementedError`` (ROADMAP A15). Returns a ``TrainResult``
-    whose params are DeepFMParams of F rows.
+    one ``train_sgd`` runs. ``mesh`` (a ``DeviceMesh``, a ``MeshConfig``,
+    whose ``exchange`` is honoured, or "DxM") trains sharded on this rank:
+    :func:`_train_deepfm_sharded`. Returns a ``TrainResult`` whose
+    params are DeepFMParams of F rows.
     """
     # imported here: the trainer imports this module
     from sparkfm_tpu_torch.training.trainer import (PREFETCH_DEPTH,
                                                     TrainResult, run_epochs)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sharded mesh path is not ported yet (ROADMAP A15)")
     device = device_util.resolve(device)
+    if mesh is not None:
+        return _train_deepfm_sharded(cfg, sgd_cfg, train, eval_ds,
+                                     eval_every, generator, mesh,
+                                     checkpoint_dir, checkpoint_every,
+                                     resume, device)
     path = resolve_deepfm_path(cfg, sgd_cfg)
     step_fn = make_train_step(cfg, sgd_cfg)
     if path == "fused":
@@ -593,3 +601,97 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
         record_overflows=False)
     return TrainResult(params=params_of(state, cfg), history=history,
                        examples_per_sec=eps)
+
+
+def _train_deepfm_sharded(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
+                          eval_ds, eval_every: int, generator, mesh,
+                          checkpoint_dir, checkpoint_every, resume, device):
+    """The sharded DeepFM loop of this rank (JAX
+    ``models/deepfm.py::_train_deepfm_sharded``) through
+    ``parallel/sharded_deepfm.py``'s step. The exchange
+    (``MeshConfig.exchange``, honoured or refused): "auto" takes global
+    host plans with ``host_plan``, else per-shard device plans; "global"
+    one host ladder plan over the global batch (needs ``host_plan``);
+    "unique" per-shard plans, stacked host plans with ``host_plan``;
+    "dense" is refused (DeepFM's table updates are per unique row). The
+    batches, checkpoints (one directory per rank), time budget and evals
+    as ``training/trainer.py::_train_sgd_sharded``."""
+    from sparkfm_tpu_torch.parallel import mesh as Mesh
+    from sparkfm_tpu_torch.parallel import multihost as MH
+    from sparkfm_tpu_torch.parallel import sharded_deepfm as SD
+    from sparkfm_tpu_torch.training.trainer import (PREFETCH_DEPTH,
+                                                    TrainResult, _rank_dir,
+                                                    run_epochs)
+
+    mesh, exchange = Mesh.resolve_mesh(mesh, device=device)
+    if exchange not in ("auto", "global", "unique"):
+        raise ValueError(
+            f"sharded DeepFM supports exchange auto/global/unique, got "
+            f"{exchange!r} (dense slot exchange does not apply: DeepFM "
+            "table updates are per-unique-row)")
+    if exchange == "global" and not sgd_cfg.host_plan:
+        raise ValueError("exchange='global' requires host_plan=True "
+                         "(it consumes a host dedup plan)")
+    mode = exchange
+    if mode == "auto":
+        mode = "global" if sgd_cfg.host_plan else "unique"
+    d_shards = Mesh.size(mesh, Mesh.DATA_AXIS)
+    if sgd_cfg.batch_size % d_shards:
+        raise ValueError(f"batch_size={sgd_cfg.batch_size} not divisible by "
+                         f"data axis size {d_shards}")
+    state, pcfg = SD.init_sharded_state(cfg, mesh, generator)
+    step_fn = SD.make_sharded_train_step(pcfg, sgd_cfg, mesh)
+    score_fn = SD.make_sharded_score(pcfg, mesh)
+    fill = pcfg.fm.num_features - 1
+    plan_cap = E.auto_budget(sgd_cfg.batch_size * train.max_nnz)
+    stacked_budget = E.auto_budget(
+        (sgd_cfg.batch_size // d_shards) * train.max_nnz)
+    rung = [1]
+
+    def lift(batch):
+        ids = np.asarray(batch.ids)
+        if sgd_cfg.host_plan and mode == "global":
+            hp = E.host_dedup(ids, plan_cap, fill)
+            rung[0] = max(rung[0], E.ladder_budget(int(hp.count),
+                                                   cap=plan_cap))
+            plan = hp._replace(uids=hp.uids[:rung[0]], order=None,
+                               seg=None, svals=None, sex=None)
+            return MH.global_batch(mesh, batch, False, plan, "global")
+        if sgd_cfg.host_plan:
+            plan = E.stack_plans(ids, d_shards, stacked_budget, fill)
+            return MH.global_batch(mesh, batch, False, plan, "stacked")
+        return MH.global_batch(mesh, batch)
+
+    def eval_metrics(state):
+        outs = []
+        for b in batch_iterator(eval_ds, sgd_cfg.batch_size, device="cpu"):
+            gb = MH.global_batch(mesh, b)
+            s = MH.collect(score_fn(state, gb.ids, gb.vals), mesh,
+                           Mesh.DATA_AXIS)
+            outs.append(torch.from_numpy(s[:int(b.mask.sum())]))
+        return _metrics_of(torch.cat(outs), eval_ds.y, cfg.fm.task)
+
+    def run_epoch(state, epoch, dispatch):
+        batches = batch_iterator(train, sgd_cfg.batch_size, device="cpu",
+                                 shuffle=sgd_cfg.shuffle_each_epoch,
+                                 seed=cfg.fm.seed, epoch=epoch)
+        for batch in prefetch(map(lift, batches), PREFETCH_DEPTH):
+            def single(b=batch):
+                nonlocal state
+                state, aux = step_fn(state, b)
+                return aux
+            dispatch(single, 1)
+        return state, []
+
+    state, history, eps = run_epochs(
+        state, sgd_cfg, train.num_examples, run_epoch,
+        path=f"sharded deepfm {mode}",
+        evaluate_state=None if eval_ds is None else eval_metrics,
+        eval_every=eval_every,
+        checkpoint_dir=_rank_dir(checkpoint_dir, mesh),
+        checkpoint_every=checkpoint_every, resume=resume,
+        record_overflows=False,
+        stop_together=lambda stop: Mesh.any_rank(stop, mesh))
+    return TrainResult(
+        params=SD.trimmed_params(state, mesh, cfg.fm.num_features),
+        history=history, examples_per_sec=eps)

@@ -249,6 +249,68 @@ def host_dedup(ids, budget: int, fill: int, vals=None) -> DedupBatch:
                       svals=svals, sex=sex)
 
 
+def stack_plans(ids, num_shards: int, budget: int, fill: int) -> DedupBatch:
+    """Per-data-shard host plans of a global (B, L) id block, stacked: the
+    block split into ``num_shards`` equal row chunks, :func:`host_dedup`
+    on each; uids (D, U), ranks (B, L) concatenated like the ids, count
+    and overflow (D,). order/seg are dropped. The sharded "unique"
+    exchange (``parallel/sharded_sgd.py``) reads them."""
+    b = ids.shape[0]
+    if b % num_shards:
+        raise ValueError(f"{b} rows not divisible by {num_shards} shards")
+    chunk = b // num_shards
+    plans = [host_dedup(ids[d * chunk:(d + 1) * chunk], budget, fill)
+             for d in range(num_shards)]
+    return DedupBatch(
+        uids=np.stack([p.uids for p in plans]),
+        ranks=np.concatenate([p.ranks for p in plans], axis=0),
+        count=np.asarray([p.count for p in plans], np.int32),
+        overflow=np.asarray([p.overflow for p in plans], bool))
+
+
+def stack_hybrid_extras(ranks, vals, num_shards: int,
+                        u_cap: int = 0) -> tuple:
+    """Per-data-shard sorted-backward extras of a GLOBAL plan's (B, L)
+    ranks: each of ``num_shards`` row chunks sorts its slots by global
+    rank, so the analytic backward (kernel B3) runs per shard on dense
+    local ranks. Returns (seg, svals, sex, gmap, u_cap): seg (D, N_loc)
+    the local dense ranks, sorted; svals (D, N_loc) the slot values in
+    that order; sex (D, N_loc) each sorted slot's shard-local example;
+    gmap (D, u_cap) local unique -> global rank, unused entries 0 (their
+    rows are exact zeros, harmless adds). ``u_cap`` is a minimum: the
+    stack is padded to at least the ladder rung above the largest
+    per-shard unique count, so a caller can keep it from shrinking."""
+    b, l = ranks.shape
+    if b % num_shards:
+        raise ValueError(f"{b} rows not divisible by {num_shards} shards")
+    chunk = b // num_shards
+    per = []
+    max_u = 1
+    for d in range(num_shards):
+        gr = np.asarray(ranks[d * chunk:(d + 1) * chunk],
+                        np.int64).reshape(-1)
+        order = np.argsort(gr, kind="stable")
+        sgr = gr[order]
+        boundary = np.empty(len(sgr), bool)
+        boundary[0] = True
+        boundary[1:] = sgr[1:] != sgr[:-1]
+        seg = (np.cumsum(boundary) - 1).astype(np.int32)
+        u_d = int(seg[-1]) + 1
+        max_u = max(max_u, u_d)
+        sv = np.asarray(vals[d * chunk:(d + 1) * chunk],
+                        np.float32).reshape(-1)[order]
+        per.append((seg, sv, (order // l).astype(np.int32),
+                    sgr[boundary].astype(np.int32), u_d))
+    u_cap = max(ladder_budget(max_u), u_cap)
+    gmaps = []
+    for _, _, _, guniq, u_d in per:
+        gm = np.zeros((u_cap,), np.int32)
+        gm[:u_d] = guniq
+        gmaps.append(gm)
+    return (np.stack([p[0] for p in per]), np.stack([p[1] for p in per]),
+            np.stack([p[2] for p in per]), np.stack(gmaps), u_cap)
+
+
 def plan_to_device(plan: DedupBatch, device) -> DedupBatch:
     """A host plan with its per-slot arrays as tensors on ``device``;
     count and overflow stay host numbers, for the host to branch on."""

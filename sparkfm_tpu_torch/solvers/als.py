@@ -46,10 +46,15 @@ the transient is two (L, N) tensors instead of (L, N, K) ones (6.4 GB each
 at BASELINE config 2); and the bank spares the factor loop K passes that
 would recompute q.
 
-Not ported yet: the reference sweep ``_sweep_impl`` / ``als_sweep``, the
-base of the sharded sweep (ROADMAP A15). Its only single-device use in the
-JAX package is a dataset with no entries, whose parameters it leaves
-unchanged; :func:`train_als` does the same.
+:func:`als_sweep` is the JAX package's reference sweep
+(``_sweep_impl``) in its direct form: per-feature state in the full F
+space, every per-feature sum over the feature-sorted CSC view by kernel B7
+with the feature ids as its ranks, every per-example sum an ``index_add_``
+by example (XLA scatters in the JAX package, not Pallas). With ``allr`` it
+is the sharded sweep (``parallel/sharded_als.py``): each per-feature and
+example-space sum is summed over the ranks that hold the examples.
+:func:`train_als` runs the compact sweep; a dataset with no entries
+leaves its parameters unchanged, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -402,6 +407,113 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
                            w_c if use_linear else None, v_t)
 
 
+class DirectViews:
+    """How the reference sweeps (:func:`als_sweep`,
+    ``mcmc.mcmc_sweep_direct``) read a workspace ``ws`` that provides
+    ``y``, ``mask`` (N,), the feature-sorted CSC view ``col_feat``,
+    ``col_row``, ``col_val`` (nnz,), ``block_of_feat`` and ``den_w`` (F,):
+    an :class:`ALSWorkspace`, or one rank's shard
+    (``parallel/sharded_als.py::ShardedWorkspace``). Per-feature sums are
+    kernel B7 over the sorted feature ids as ranks, then ``allr`` (the
+    sharded sweep's psum over the ranks holding the examples, in place;
+    none on one device); per-example sums are ``index_add_``."""
+
+    def __init__(self, ws, num_features: int, allr=None):
+        self.ws, self.num_features = ws, num_features
+        self.allr = allr or (lambda t: t)
+        self.col_feat = ws.col_feat.contiguous()
+        self.feat = self.col_feat.long()
+        self.row = ws.col_row.long()
+        self.x = ws.col_val
+        self.x_sq = self.x.square()
+
+    def by_row(self, t: torch.Tensor) -> torch.Tensor:
+        """(nnz,) CSC values summed per example: (N,)."""
+        return torch.zeros_like(self.ws.y).index_add_(0, self.row, t)
+
+    def by_feat(self, *streams) -> torch.Tensor:
+        """(F, S): each (nnz,) CSC stream summed per feature (B7)."""
+        return self.allr(segsum.segment_colsums(streams, self.col_feat,
+                                                self.num_features))
+
+    def score(self, params: FMParams, use_bias: bool,
+              use_linear: bool) -> torch.Tensor:
+        """(N,) FM scores from the CSC view alone."""
+        x, feat = self.x, self.feat
+        score = torch.zeros_like(self.ws.y)
+        if use_bias:
+            score = score + params.w0
+        if use_linear:
+            score = score + self.by_row(params.w.index_select(0, feat) * x)
+        for f in range(params.v.shape[1]):
+            vx = params.v[:, f].index_select(0, feat) * x
+            score = score + 0.5 * (self.by_row(vx).square()
+                                   - self.by_row(vx.square()))
+        return score
+
+    def h(self, q: torch.Tensor, vf: torch.Tensor) -> torch.Tensor:
+        """A factor's h = x (q - x v) at each CSC entry."""
+        x = self.x
+        return x * (q.index_select(0, self.row)
+                    - x * vf.index_select(0, self.feat))
+
+    def patch(self, e, q, vf, delta, in_block) -> tuple:
+        """(vf + delta, q, e) after a block's factor step: q patched by
+        Σ delta x, e by the full quadratic change of the factor's term."""
+        vf_new = vf + delta
+        q_new = q + self.by_row(delta.index_select(0, self.feat) * self.x)
+        dsq = torch.where(in_block, vf_new.square() - vf.square(), 0.0)
+        e = (e + 0.5 * (q_new.square() - q.square())
+             - 0.5 * self.by_row(dsq.index_select(0, self.feat) * self.x_sq))
+        return vf_new, q_new, e
+
+
+def als_sweep(params: FMParams, ws, num_blocks: int, num_features: int,
+              reg0: float, reg_w, reg_v, use_bias: bool = True,
+              use_linear: bool = True, allr=None) -> FMParams:
+    """One reference sweep (JAX ``solvers/als.py::_sweep_impl`` /
+    ``als_sweep``): w0, every w block, every (factor, block), in the full
+    F space, reading ``ws`` through :class:`DirectViews` (B7 one stream a
+    w block, two a (factor, block)). Returns new parameters; ``params``
+    is not changed. With ``allr`` it is the sharded sweep: every
+    per-feature sum, den_w and the bias sums are summed over the ranks;
+    parameters stay replicated and the e/q patches local.
+    ``reg_w``/``reg_v`` are scalars or per-feature (F,) tensors."""
+    d = DirectViews(ws, num_features, allr)
+    mask, bof = ws.mask, ws.block_of_feat
+    den_w_g = d.allr(ws.den_w.clone())
+    e = d.score(params, use_bias, use_linear) - ws.y
+
+    w0_new = params.w0.clone()
+    if use_bias:
+        w0_new = _guarded_theta(params.w0, d.allr((e * mask).sum()),
+                                d.allr(mask.sum()), reg0)
+        e = e + (w0_new - params.w0)
+
+    w = params.w.clone()
+    if use_linear:
+        for b in range(num_blocks):
+            num = d.by_feat(e.index_select(0, d.row) * d.x)[:, 0]
+            theta = _guarded_theta(w, num, den_w_g, reg_w)
+            delta = torch.where(bof == b, theta - w, 0.0)
+            w = w + delta
+            e = e + d.by_row(delta.index_select(0, d.feat) * d.x)
+
+    v = params.v.clone()
+    for f in range(v.shape[1]):
+        vf = v[:, f].clone()
+        q = d.by_row(vf.index_select(0, d.feat) * d.x)
+        for b in range(num_blocks):
+            h = d.h(q, vf)
+            sums = d.by_feat(e.index_select(0, d.row) * h, h * h)
+            theta = _guarded_theta(vf, sums[:, 0], sums[:, 1], reg_v)
+            in_block = bof == b
+            vf, q, e = d.patch(e, q, vf, torch.where(in_block, theta - vf,
+                                                     0.0), in_block)
+        v[:, f] = vf
+    return FMParams(w0=w0_new, w=w, v=v)
+
+
 def scatter_compact(params: FMParams, present: torch.Tensor,
                     w0: torch.Tensor, w_c: Optional[torch.Tensor],
                     v_t: torch.Tensor) -> FMParams:
@@ -455,9 +567,9 @@ def _check_hbm(ds: SparseDataset, cfg: FMConfig, device) -> None:
     if limit and need > 0.9 * limit:
         raise ValueError(
             f"ALS workspace needs ~{need / 2**30:.1f} GiB but the device "
-            f"has {limit / 2**30:.1f} GiB HBM free. Subsample, or wait for "
-            "the sharded sweep (ROADMAP A15). Set SPARKFM_HBM_BUDGET to "
-            "override the detected limit.")
+            f"has {limit / 2**30:.1f} GiB HBM free. Subsample, or shard the "
+            "examples over a mesh (FM(mesh=...), parallel/sharded_als.py). "
+            "Set SPARKFM_HBM_BUDGET to override the detected limit.")
 
 
 def train_als(cfg: FMConfig, als_cfg: ALSConfig, train: SparseDataset,

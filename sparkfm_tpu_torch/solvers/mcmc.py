@@ -160,6 +160,43 @@ def _draw_theta(theta, num, den, alpha, lam, mu, noise):
     return torch.where(torch.isfinite(draw) & (den > 0), draw, theta)
 
 
+def _draw_priors(state: MCMCState, draws, grp: "_Groups", n_valid,
+                 sum_e2, alpha_0, beta_0, alpha_l, beta_l, mu_0,
+                 gamma_0) -> tuple:
+    """(alpha, lam_w, mu_w, lam_v, mu_v): the noise precision from the
+    valid example count ``n_valid`` and Σe² (0-d tensors), then each
+    group's priors over all F features, w0 in group 0 of w, one Gamma
+    variate per (group, factor column); drawn in the JAX sweep's order."""
+    params = state.params
+    G, k = grp.count.shape[0], params.v.shape[1]
+    dev = params.device
+    alpha = draws.gamma(alpha_0 + 0.5 * n_valid) / (beta_0 + 0.5 * sum_e2)
+
+    w0_onehot = torch.zeros((G,), device=dev)
+    w0_onehot[0] = 1.0
+    p_w = grp.count + w0_onehot
+    sum_w_g = grp.sum(params.w) + w0_onehot * params.w0
+    mu_w_mean = (sum_w_g + gamma_0 * mu_0) / (p_w + gamma_0)
+    ssq_w = (grp.sum((params.w - grp.spread(state.mu_w)).square())
+             + w0_onehot * (params.w0 - state.mu_w[0]).square()
+             + gamma_0 * (state.mu_w - mu_0).square())
+    lam_w = (draws.gamma(alpha_l + 0.5 * (p_w + 1))
+             / (beta_l + 0.5 * ssq_w))
+    mu_w = (mu_w_mean + draws.normal((G,))
+            * torch.rsqrt((p_w + gamma_0) * lam_w))
+
+    cnt = grp.count[:, None]
+    mu_v_mean = (grp.sum(params.v) + gamma_0 * mu_0) / (cnt + gamma_0)
+    ssq_v = (grp.sum((params.v - grp.spread(state.mu_v)).square())
+             + gamma_0 * (state.mu_v - mu_0).square())
+    lam_v = (draws.gamma((alpha_l + 0.5 * (cnt + 1)).expand(G, k)
+                         .contiguous())
+             / (beta_l + 0.5 * ssq_v))
+    mu_v = (mu_v_mean + draws.normal((G, k))
+            * torch.rsqrt((cnt + gamma_0) * lam_v))
+    return alpha, lam_w, mu_w, lam_v, mu_v
+
+
 def mcmc_sweep(state: MCMCState, ws: als.ALSWorkspace, draws,
                num_blocks: int, num_features: int,
                groups: Optional[torch.Tensor] = None, num_groups: int = 1,
@@ -204,35 +241,10 @@ def mcmc_sweep(state: MCMCState, ws: als.ALSWorkspace, draws,
     def scalar(v):
         return torch.tensor(v, dtype=torch.float32, device=dev)
 
-    # noise precision
-    alpha = (draws.gamma(scalar(alpha_0 + 0.5 * n))
-             / (beta_0 + 0.5 * e.square().sum()))
-
-    # per-group linear priors, over all F features; w0 joins group 0
     grp = _Groups(groups, G, F, dev)
-    w0_onehot = torch.zeros((G,), device=dev)
-    w0_onehot[0] = 1.0
-    p_w = grp.count + w0_onehot
-    sum_w_g = grp.sum(params.w) + w0_onehot * params.w0
-    mu_w_mean = (sum_w_g + gamma_0 * mu_0) / (p_w + gamma_0)
-    ssq_w = (grp.sum((params.w - grp.spread(state.mu_w)).square())
-             + w0_onehot * (params.w0 - state.mu_w[0]).square()
-             + gamma_0 * (state.mu_w - mu_0).square())
-    lam_w = (draws.gamma(alpha_l + 0.5 * (p_w + 1))
-             / (beta_l + 0.5 * ssq_w))
-    mu_w = (mu_w_mean + draws.normal((G,))
-            * torch.rsqrt((p_w + gamma_0) * lam_w))
-
-    # per-(group, factor column) priors: one Gamma variate per column
-    cnt = grp.count[:, None]
-    mu_v_mean = (grp.sum(params.v) + gamma_0 * mu_0) / (cnt + gamma_0)
-    ssq_v = (grp.sum((params.v - grp.spread(state.mu_v)).square())
-             + gamma_0 * (state.mu_v - mu_0).square())
-    lam_v = (draws.gamma((alpha_l + 0.5 * (cnt + 1)).expand(G, k)
-                         .contiguous())
-             / (beta_l + 0.5 * ssq_v))
-    mu_v = (mu_v_mean + draws.normal((G, k))
-            * torch.rsqrt((cnt + gamma_0) * lam_v))
+    alpha, lam_w, mu_w, lam_v, mu_v = _draw_priors(
+        state, draws, grp, scalar(float(n)), e.square().sum(), alpha_0,
+        beta_0, alpha_l, beta_l, mu_0, gamma_0)
 
     # the priors at each present feature's group
     if grp.of_feat is None:
@@ -288,6 +300,75 @@ def mcmc_sweep(state: MCMCState, ws: als.ALSWorkspace, draws,
                               w_c if use_linear else None, v_t)
     return MCMCState(params=new, alpha=alpha, lam_w=lam_w, mu_w=mu_w,
                      lam_v=lam_v, mu_v=mu_v)
+
+
+def mcmc_sweep_direct(state: MCMCState, ws, draws, num_blocks: int,
+                      num_features: int,
+                      groups: Optional[torch.Tensor] = None,
+                      num_groups: int = 1, alpha_0: float = 1.0,
+                      beta_0: float = 1.0, alpha_l: float = 1.0,
+                      beta_l: float = 1.0, mu_0: float = 0.0,
+                      gamma_0: float = 1.0, use_bias: bool = True,
+                      use_linear: bool = True, allr=None) -> MCMCState:
+    """:func:`mcmc_sweep` in the direct form of the JAX sweep
+    (``sparkfm_tpu/solvers/mcmc.py::mcmc_sweep``) and of
+    ``als.als_sweep``: per-feature state in the full F space, per-feature
+    sums by kernel B7 over the sorted feature ids, per-example sums by
+    ``index_add_`` (``als.DirectViews``). With ``allr``
+    (the sharded sweep, ``parallel/sharded_als.py``) every sum over
+    examples (the valid count, Σe², Σe, the per-feature num and den) is
+    summed over the ranks holding them; the parameters stay replicated
+    and every rank asks ``draws`` for the same draws, so the chain is the
+    one-device chain. The draws are :func:`mcmc_sweep`'s, in its order."""
+    d = als.DirectViews(ws, num_features, allr)
+    params = state.params
+    F, G = num_features, num_groups
+    dev = params.device
+    mask, bof = ws.mask, ws.block_of_feat
+    n_valid = d.allr(mask.sum())
+    den_w_g = d.allr(ws.den_w.clone())
+    e = (d.score(params, use_bias, use_linear) - ws.y) * mask
+
+    grp = _Groups(groups, G, F, dev)
+    alpha, lam_w, mu_w, lam_v, mu_v = _draw_priors(
+        state, draws, grp, n_valid, d.allr(e.square().sum()), alpha_0,
+        beta_0, alpha_l, beta_l, mu_0, gamma_0)
+    lam_w_f, mu_w_f = grp.spread(lam_w), grp.spread(mu_w)
+    lam_v_f, mu_v_f = grp.spread(lam_v), grp.spread(mu_v)
+
+    w0_new = params.w0.clone()
+    if use_bias:
+        w0_new = _draw_theta(params.w0, d.allr(e.sum()), n_valid, alpha,
+                             lam_w[0], mu_w[0], draws.normal(()))
+        e = e + (w0_new - params.w0) * mask
+
+    w = params.w.clone()
+    if use_linear:
+        for b in range(num_blocks):
+            noise = draws.normal((F,))
+            num = d.by_feat(e.index_select(0, d.row) * d.x)[:, 0]
+            theta = _draw_theta(w, num, den_w_g, alpha, lam_w_f, mu_w_f,
+                                noise)
+            delta = torch.where(bof == b, theta - w, 0.0)
+            w = w + delta
+            e = e + d.by_row(delta.index_select(0, d.feat) * d.x)
+
+    v = params.v.clone()
+    for f in range(v.shape[1]):
+        vf = v[:, f].clone()
+        q = d.by_row(vf.index_select(0, d.feat) * d.x)
+        for b in range(num_blocks):
+            noise = draws.normal((F,))
+            h = d.h(q, vf)
+            sums = d.by_feat(e.index_select(0, d.row) * h, h * h)
+            theta = _draw_theta(vf, sums[:, 0], sums[:, 1], alpha,
+                                lam_v_f[:, f], mu_v_f[:, f], noise)
+            in_block = bof == b
+            vf, q, e = d.patch(e, q, vf, torch.where(in_block, theta - vf,
+                                                     0.0), in_block)
+        v[:, f] = vf
+    return MCMCState(params=FMParams(w0=w0_new, w=w, v=v), alpha=alpha,
+                     lam_w=lam_w, mu_w=mu_w, lam_v=lam_v, mu_v=mu_v)
 
 
 def train_mcmc(cfg: FMConfig, mcmc_cfg: MCMCConfig, train: SparseDataset,

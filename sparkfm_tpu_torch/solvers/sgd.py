@@ -307,6 +307,44 @@ def _update_direct_per_slot(opt: str, sgd_cfg: SGDConfig, t_u, s_u, s2_u,
     return t_u - total, s_u, s2_u
 
 
+def update_plan_rows(sgd_cfg: SGDConfig, state: SGDState, plan,
+                     budget: int, g: torch.Tensor, rows_u: tuple,
+                     valid: torch.Tensor, per_slot: bool) -> None:
+    """Update the plan's unique rows of ``state``'s tables IN PLACE from
+    the per-slot gradients ``g`` ((N, vk+1) ``[g_v | g_w]`` in the order of
+    the ids the plan was built on). ``rows_u``: the (table, slot, slot2)
+    rows the plan's uids read (slot2 None but under adam); ``valid``:
+    (U, 1), false for budget slots past the plan's count, which write back
+    the rows they read. ``per_slot``: the direct rule of momentum and adam
+    (:func:`_update_direct_per_slot`), else one update of each unique row
+    from its ``[Σg | Σg²]`` (kernel B6). The rows go back through kernel
+    B2, so the plan's uids must be distinct up to its fill."""
+    opt = sgd_cfg.optimizer
+    p = state.params
+    vk = p.v.shape[1]
+    t_u, s_u, s2_u = rows_u
+    if per_slot:
+        g_srt = g.index_select(0, plan.order.long())
+        t_new, s_new, s2_new = _update_direct_per_slot(
+            opt, sgd_cfg, t_u, s_u, s2_u, g_srt, plan, budget, state.step)
+    else:
+        acc = E.accumulate_sq_to_unique_sorted(g, plan, budget)
+        t_new, s_new, s2_new = _update_unique(
+            opt, sgd_cfg, t_u, s_u, s2_u, acc[:, :vk + 1], acc[:, vk + 1:],
+            state.step)
+    writes = [(p.v, p.w, torch.where(valid, t_new, t_u))]
+    if opt != "sgd" or sgd_cfg.momentum > 0:
+        writes.append((state.slot_v, state.slot_w,
+                       torch.where(valid, s_new, s_u)))
+    if opt == "adam":
+        writes.append((state.slot2_v, state.slot2_w,
+                       torch.where(valid, s2_new, s2_u)))
+    for tv, tw, new in writes:
+        rowio.scatter_set_rows(tv, plan.uids, new[:, :vk].contiguous())
+        rowio.scatter_set_rows(tw.view(-1, 1), plan.uids,
+                               new[:, vk:].contiguous())
+
+
 def make_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     """(SGDState, SparseBatch) -> (SGDState, aux) for the "direct" and
     "dedup" paths (:func:`resolve_update_path`); the returned state holds
@@ -345,7 +383,6 @@ def make_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
     direct = path == "direct"
     per_slot = direct and (opt == "adam" or (opt == "sgd"
                                              and sgd_cfg.momentum > 0))
-    writes_slot = opt != "sgd" or sgd_cfg.momentum > 0
     reg_cpu = reg_vectors(cfg)
     reg_on = {}                         # device -> the reg vectors there
 
@@ -393,29 +430,8 @@ def make_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
         with torch.no_grad():
             g = torch.cat([g_vrows.reshape(-1, vk), g_wrows.reshape(-1, 1)],
                           dim=1)                                # (N, vk+1)
-            if per_slot:
-                g_srt = g.index_select(0, plan.order.long())
-                t_new, s_new, s2_new = _update_direct_per_slot(
-                    opt, sgd_cfg, t_u, s_u, s2_u, g_srt, plan, budget,
-                    state.step)
-            else:
-                acc = E.accumulate_sq_to_unique_sorted(g, plan, budget)
-                t_new, s_new, s2_new = _update_unique(
-                    opt, sgd_cfg, t_u, s_u, s2_u, acc[:, :vk + 1],
-                    acc[:, vk + 1:], state.step)
-            # slots past the plan's count keep the rows they read
-            writes = [(p.v, p.w, torch.where(valid, t_new, t_u))]
-            if writes_slot:
-                writes.append((state.slot_v, state.slot_w,
-                               torch.where(valid, s_new, s_u)))
-            if adam:
-                writes.append((state.slot2_v, state.slot2_w,
-                               torch.where(valid, s2_new, s2_u)))
-            for tv, tw, new in writes:
-                rowio.scatter_set_rows(tv, plan.uids,
-                                       new[:, :vk].contiguous())
-                rowio.scatter_set_rows(tw.view(-1, 1), plan.uids,
-                                       new[:, vk:].contiguous())
+            update_plan_rows(sgd_cfg, state, plan, budget, g,
+                             (t_u, s_u, s2_u), valid, per_slot)
             if cfg.use_bias:
                 w0_new, sw0, s2w0 = _dense_scalar_update(
                     opt, sgd_cfg.learning_rate, sgd_cfg, p.w0,

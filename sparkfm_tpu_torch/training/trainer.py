@@ -6,28 +6,31 @@ JAX package: "direct" and "dedup" (separate tables,
 plans) and "sorted" (the fused record table); with several hybrid steps
 per dispatch (``SGDConfig.steps_per_dispatch``: CUDA graphs on the card,
 ``utils/graphs.py``) and checkpointed, resumable training
-(``checkpoint_dir``, ``utils/checkpoint.py::Checkpointer``); and
+(``checkpoint_dir``, ``utils/checkpoint.py::Checkpointer``); the sharded
+path over a (data, model) mesh of ranks (``mesh``,
+``parallel/sharded_sgd.py``, with :func:`evaluate_sharded`); and
 ``train_sgd_relational`` on block-structure data (``data/relational.py``).
-
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-sharded mesh path (``mesh``, ROADMAP A15).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from sparkfm_tpu_torch.api import FMModel
+from sparkfm_tpu_torch.api import FMModel, _metrics
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig
 from sparkfm_tpu_torch.data.batching import (SparseDataset, batch_iterator,
                                              prefetch)
 from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
+from sparkfm_tpu_torch.ops import embedding as E
+from sparkfm_tpu_torch.parallel import mesh as M
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
 from sparkfm_tpu_torch.utils import device as device_util
@@ -129,10 +132,19 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     examples (kernel builds, warm-up, the first graph's capture), as the
     JAX trainer leaves out its compile; a capture for a rung first met
     later is counted. The epoch loop is :func:`run_epochs`.
+
+    ``mesh`` (a ``DeviceMesh`` from ``parallel/mesh.py``, a ``MeshConfig``,
+    whose ``exchange`` is honoured, or "DxM") trains sharded on this rank:
+    :func:`_train_sgd_sharded`. Every rank of the mesh makes the
+    same call.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the sharded mesh path is not ported yet (ROADMAP A15)")
+        if init_params is not None:
+            raise ValueError("init_params warm start is single-device for "
+                             "now")
+        return _train_sgd_sharded(
+            cfg, sgd_cfg, train, eval_ds, eval_every, generator, hooks,
+            checkpoint_dir, checkpoint_every, resume, mesh, device)
     path = sgd_solver.resolve_update_path(cfg, sgd_cfg)
     device = device_util.resolve(device)
     if init_params is not None and (init_params.v.shape[0]
@@ -235,6 +247,152 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         history=history, examples_per_sec=eps)
 
 
+def _rank_dir(checkpoint_dir: Optional[str], mesh) -> Optional[str]:
+    """Each rank's own checkpoint directory under ``checkpoint_dir``."""
+    if checkpoint_dir is None:
+        return None
+    return os.path.join(checkpoint_dir,
+                        f"rank{M.axis_index(M.DATA_AXIS, mesh)}x"
+                        f"{M.axis_index(M.MODEL_AXIS, mesh)}")
+
+
+def _train_sgd_sharded(cfg: FMConfig, sgd_cfg: SGDConfig,
+                       train: SparseDataset, eval_ds, eval_every, generator,
+                       hooks, checkpoint_dir, checkpoint_every, resume, mesh,
+                       device) -> TrainResult:
+    """The sharded SGD epoch loop of this rank (JAX
+    ``training/trainer.py::_train_sgd_sharded``).
+
+    The exchange: ``MeshConfig.exchange`` when it pins one, else "global"
+    with host plans and adagrad or sgd (one host plan over the whole
+    global batch, built on every rank from the same batch; with the
+    hybrid extras of ``stack_hybrid_extras`` for plain FM, float32,
+    adagrad or sgd, no feature_groups: the per-shard backward is kernel
+    B3), else "unique" (device plans) or "dense" (adam, momentum). A
+    pinned "unique" with host plans takes stacked per-shard plans. The
+    plans' ladder rungs and the extras' u_cap only grow, and are sized
+    from the global batch, so every rank agrees on them.
+
+    Every rank draws the same (seed, epoch) batch order and keeps its data
+    coordinate's rows (``multihost.global_batch``). Checkpoints go to one
+    directory per rank under ``checkpoint_dir``; the time budget stops
+    all ranks after the same epoch. Evals score each rank's rows and
+    gather the scores, so every rank reports the same metrics. Returns
+    the whole parameters, trimmed to ``cfg.num_features``, on every
+    rank."""
+    from sparkfm_tpu_torch.parallel import multihost as MH
+    from sparkfm_tpu_torch.parallel import sharded_sgd as S
+
+    mesh, exchange_pref = M.resolve_mesh(mesh, device=device)
+    d_shards = M.size(mesh, M.DATA_AXIS)
+    if sgd_cfg.batch_size % d_shards:
+        raise ValueError(f"batch_size={sgd_cfg.batch_size} not divisible by "
+                         f"data axis size {d_shards}")
+    ffm = cfg.num_fields > 0
+    unique = (sgd_cfg.optimizer in ("adagrad", "sgd")
+              and sgd_cfg.momentum == 0)
+    if exchange_pref == "auto":
+        use_global = sgd_cfg.host_plan and unique
+        exchange = "global" if use_global else "auto"
+    else:
+        exchange = exchange_pref
+        use_global = exchange == "global"
+        if use_global and not sgd_cfg.host_plan:
+            raise ValueError("exchange='global' requires host_plan=True "
+                             "(it consumes a host dedup plan)")
+    state, pcfg = S.init_sharded_state(cfg, mesh, generator,
+                                       optimizer=sgd_cfg.optimizer)
+    step_fn = S.make_sharded_train_step(pcfg, sgd_cfg, mesh, exchange)
+    score_fn = S.make_sharded_score_fn(pcfg, mesh)
+    fill = pcfg.num_features - 1
+    global_hybrid = use_global and S.hybrid_eligible(cfg, sgd_cfg)
+    stacked_budget = None
+    if use_global:
+        plan_cap = E.auto_budget(sgd_cfg.batch_size * train.max_nnz)
+        log.info("mesh path: exchange=global backward=%s",
+                 "hybrid (kernel B3 per shard, one psum)" if global_hybrid
+                 else "autograd")
+    elif exchange == "unique" and sgd_cfg.host_plan:
+        stacked_budget = sgd_cfg.unique_budget or E.auto_budget(
+            (sgd_cfg.batch_size // d_shards) * train.max_nnz)
+        log.info("mesh path: exchange=unique (stacked host plans)")
+    else:
+        log.info("mesh path: exchange=%s",
+                 S.resolve_exchange(sgd_cfg, exchange))
+    rung = [1]          # the global plan's ladder rung, only growing
+    u_cap = [1]         # the hybrid extras' per-shard cap, only growing
+
+    def lift(batch):
+        ids = np.asarray(batch.ids)
+        if stacked_budget is not None:
+            plan = E.stack_plans(ids, d_shards, stacked_budget, fill)
+            return MH.global_batch(mesh, batch, ffm, plan, "stacked")
+        if not use_global:
+            return MH.global_batch(mesh, batch, ffm)
+        if sgd_cfg.unique_budget:
+            hp = E.host_dedup(ids, sgd_cfg.unique_budget, fill)
+        else:
+            hp = E.host_dedup(ids, plan_cap, fill)
+            rung[0] = max(rung[0], E.ladder_budget(int(hp.count),
+                                                   cap=plan_cap))
+            hp = hp._replace(uids=hp.uids[:rung[0]])
+        plan = hp._replace(order=None, seg=None, svals=None, sex=None)
+        if not global_hybrid:
+            return MH.global_batch(mesh, batch, ffm, plan, "global")
+        seg, svals, sex, gmap, u_cap[0] = E.stack_hybrid_extras(
+            np.asarray(hp.ranks), np.asarray(batch.vals), d_shards,
+            u_cap=u_cap[0])
+        plan = plan._replace(order=gmap, seg=seg, svals=svals, sex=sex)
+        return MH.global_batch(mesh, batch, ffm, plan, "global_hybrid")
+
+    def run_epoch(state, epoch, dispatch):
+        flags = []
+        batches = batch_iterator(train, sgd_cfg.batch_size, device="cpu",
+                                 shuffle=sgd_cfg.shuffle_each_epoch,
+                                 seed=cfg.seed, epoch=epoch,
+                                 drop_remainder=False)
+        for batch in prefetch(map(lift, batches), PREFETCH_DEPTH):
+            def single(b=batch):
+                nonlocal state
+                state, aux = step_fn(state, b)
+                return aux
+            aux = dispatch(single, 1)
+            if "unique_overflow" in aux:
+                flags.append(aux["unique_overflow"])
+        return state, flags
+
+    state, history, eps = run_epochs(
+        state, sgd_cfg, train.num_examples, run_epoch,
+        path=f"sharded {exchange}",
+        evaluate_state=None if eval_ds is None else (
+            lambda s: evaluate_sharded(s.params, pcfg, eval_ds, mesh,
+                                       score_fn, sgd_cfg.batch_size)),
+        eval_every=eval_every, hooks=hooks,
+        checkpoint_dir=_rank_dir(checkpoint_dir, mesh),
+        checkpoint_every=checkpoint_every, resume=resume,
+        stop_together=lambda stop: M.any_rank(stop, mesh))
+    return TrainResult(params=S.trimmed_params(state, mesh, cfg.num_features),
+                       history=history, examples_per_sec=eps)
+
+
+def evaluate_sharded(params: FMParams, pcfg: FMConfig, ds: SparseDataset,
+                     mesh, score_fn, batch_size: int = 8192
+                     ) -> Dict[str, float]:
+    """:func:`evaluate` on a mesh: each rank scores its rows of every
+    batch with the sharded ``score_fn`` from its row-sharded ``params``;
+    the scores are gathered over ``data``, so every rank computes the
+    same metrics."""
+    from sparkfm_tpu_torch.parallel import multihost as MH
+    scores = []
+    for b in batch_iterator(ds, batch_size, device="cpu"):
+        gb = MH.global_batch(mesh, b, pcfg.num_fields > 0)
+        s = score_fn(params, gb.ids, gb.vals, gb.field_ids)
+        n_valid = int(b.mask.sum())
+        scores.append(MH.collect(s, mesh, M.DATA_AXIS)[:n_valid])
+    scores = np.concatenate(scores)
+    return _metrics(scores, ds.y[:len(scores)], pcfg.task)
+
+
 def train_sgd_relational(cfg: FMConfig, sgd_cfg: SGDConfig, train,
                          eval_ds=None, eval_every: int = 1,
                          generator: Optional[torch.Generator] = None, *,
@@ -292,7 +450,8 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
                eval_every: int = 1, hooks: Optional[List[Callable]] = None,
                checkpoint_dir: Optional[str] = None,
                checkpoint_every: int = 1, resume: bool = True,
-               record_overflows: bool = True):
+               record_overflows: bool = True,
+               stop_together: Optional[Callable[[bool], bool]] = None):
     """The epoch loop that :func:`train_sgd` and
     ``models/deepfm.py::train_deepfm`` share: resume, the epochs, their
     history records and evals, the time budget, the checkpoints and the
@@ -316,7 +475,9 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
     checkpoint there, it is restored into the state's own tensors and the
     loop goes on at the next epoch; a checkpoint of another state layout
     (another update ``path``) raises ``ValueError``, a missing or corrupt
-    file raises as itself.
+    file raises as itself. On a mesh, ``stop_together`` turns each rank's
+    time-budget verdict into one that every rank shares (any rank's), so
+    no rank stops while the others wait in a collective.
 
     ``examples_per_sec`` leaves out the first dispatch, its time and its
     examples (kernel builds, warm-up, a first graph capture), as the JAX
@@ -395,6 +556,8 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
                 for h in hooks:
                     h(epoch, state, rec)
             stop = _time_budget_reached(t0, sgd_cfg.max_seconds, epoch)
+            if stop_together is not None:
+                stop = stop_together(stop)
             if ckpt is not None and ((epoch + 1) % checkpoint_every == 0
                                      or epoch == sgd_cfg.epochs - 1
                                      or stop):

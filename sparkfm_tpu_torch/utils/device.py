@@ -1,7 +1,8 @@
 """The device an entry point runs on.
 
 Entry points (``FM.fit``, ``FMModel.load``, ``DeepFMModel.load``,
-``train_sgd``, ``train_als``, ``train_deepfm`` and the CLI) run on the
+``train_sgd``, ``train_als``, ``train_deepfm``, ``parallel.multihost.spawn``
+and ``dryrun_multichip``, and the CLI) run on the
 card unless the caller asks for another device: their ``device`` defaults
 to ``"cuda"``. Without a card that default raises; nothing falls back to
 the CPU, which must be asked for (``device="cpu"``, ``--device cpu``).

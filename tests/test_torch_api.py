@@ -125,9 +125,12 @@ def test_unknown_solver_raises(ratings):
         FM(model="wide")
 
 
-@pytest.mark.parametrize("kw,match", [(dict(mesh="4x1"), "A15")])
+@pytest.mark.parametrize("kw,match", [pytest.param(
+    dict(mesh="4x1"), "world of 4 processes", id="kw0-A15")])
 def test_unported_options_raise(ratings, kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A mesh (ported since A15) larger than 1 x 1 in a one-process run
+    raises and names the world it needs; it never shrinks."""
+    with pytest.raises(ValueError, match=match):
         FM(max_iter=1, **kw).fit(ratings, device="cpu")
 
 

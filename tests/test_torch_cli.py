@@ -6,9 +6,9 @@ and the same JSON; ``train``, ``eval``, ``predict`` and
 atol 1e-5 (both packages' inits patched to the same numpy weights; the
 port's ``examples_per_sec`` is its own and not compared); ``verify-data``
 prints the same report but for the command it names; ``train --solver
-mcmc`` under the same injected draws. Also the raises of what is not
-ported (A15) and the DeepFM save -> eval round trip, which the JAX CLI
-cannot make."""
+mcmc`` under the same injected draws. Also ``--mesh`` and
+``--distributed`` refusing a one-process run they cannot serve, and the
+DeepFM save -> eval round trip, which the JAX CLI cannot make."""
 
 import json
 import os
@@ -289,12 +289,17 @@ def test_train_mcmc_matches_jax(capsys, tmp_path, same_init, jax_fakes,
     assert np.isfinite(got["test_rmse"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--solver", "sgd", "--mesh", "2x1"], "A15"),
-    (["--solver", "sgd", "--distributed"], "A15"),
+@pytest.mark.parametrize("extra,error,match", [
+    pytest.param(["--solver", "sgd", "--mesh", "2x1"], ValueError,
+                 "world of 2 processes", id="extra0-A15"),
+    pytest.param(["--solver", "sgd", "--distributed"], SystemExit,
+                 "torchrun", id="extra1-A15"),
 ])
-def test_unported_options_raise(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_options_raise(extra, error, match):
+    """``--mesh`` and ``--distributed`` (ported since A15) in a one-process
+    run without torchrun: a mesh larger than 1 x 1 raises naming the
+    world it needs, and ``--distributed`` exits naming torchrun."""
+    with pytest.raises(error, match=match):
         pcli.main(["train", "--synth", "movielens", "--synth-examples",
                    "500", "--device", "cpu", *extra])
 

@@ -2,8 +2,10 @@
 write, factored backward, per-slot backward, row-sum and per-rank
 stream-sum kernels against their plain versions, the scoring, SGD
 (hybrid, fused and sorted), ALS, MCMC, relational SGD and BS-ALS
-training paths on the card against the CPU, and the CUDA graphs of several steps (``utils/graphs.py``) and
-checkpointed training against eager steps and uninterrupted runs.
+training paths on the card against the CPU, the CUDA graphs of several steps (``utils/graphs.py``) and
+checkpointed training against eager steps and uninterrupted runs, and
+the sharded paths (``parallel/``) on a one-rank NCCL mesh against the
+one-device paths.
 
 These tests skip without a card. This file imports no jax, so it also
 runs on a GPU machine without it, from the repository root:
@@ -1169,3 +1171,217 @@ def test_bs_als_on_card_matches_cpu(dev):
         np.testing.assert_allclose(getattr(on_card.params, name).cpu(),
                                    getattr(on_cpu.params, name),
                                    rtol=1e-3, atol=1e-4, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths on a one-rank NCCL mesh (parallel/)
+
+@pytest.fixture(scope="module")
+def mesh1():
+    """A (1, 1) mesh on one real NCCL rank, in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from sparkfm_tpu_torch.parallel import mesh as PM
+    return PM.make_mesh(1, 1, device="cuda")
+
+
+def _sharded_batches(ds, n, bs=512):
+    return [b for _, b in zip(range(n), batch_iterator(ds, bs,
+                                                       device="cpu"))]
+
+
+@pytest.mark.parametrize("exchange,plan,opt", [
+    ("global", "hybrid", "adagrad"), ("global", "global", "adagrad"),
+    ("unique", None, "adagrad"), ("dense", None, "adam")])
+def test_sharded_sgd_one_rank_nccl_matches_direct_step(dev, mesh1, exchange,
+                                                       plan, opt):
+    """Each exchange on a one-rank NCCL mesh against the one-device direct
+    step on the card, step by step from a copy of the sharded state; the
+    hybrid exchange launches B3 once a step, the global and unique ones B6
+    (their local sums), all B1 (the masked lookup; the dense exchange also
+    reads its [v | w], m and v rows by it, and runs the direct step's
+    update). Tables and slots at rtol 1e-4, atol 1e-6; under adam, whose
+    entries move by about lr a slot, on each step's change (rtol 1e-4 of
+    it, plus an ulp and 1e-6 of the largest change), where up to 64
+    entries of w and V may differ by 2 lr: a slot whose gradient is at
+    rounding level flips the sign of its step when the two steps'
+    gradients round apart."""
+    from sparkfm_tpu_torch.parallel import multihost as MH
+    from sparkfm_tpu_torch.parallel import sharded_sgd as S
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    ds = psynth.synth_ctr(4096, num_fields=8, num_buckets=1 << 12, seed=3)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=8,
+                   task=Task.CLASSIFICATION, reg_w=1e-4, reg_v=1e-4)
+    sgd_cfg = SGDConfig(batch_size=512, optimizer=opt, unique_budget=4096,
+                        learning_rate=1e-5 if opt == "adam" else 1e-2)
+    state, pcfg = S.init_sharded_state(cfg, mesh1,
+                                       torch.Generator(dev).manual_seed(2),
+                                       opt)
+    step = S.make_sharded_train_step(pcfg, sgd_cfg, mesh1, exchange)
+    ref_step = psgd.make_train_step(pcfg, dataclasses.replace(
+        sgd_cfg, update_path="direct"))
+    fill = pcfg.num_features - 1
+    kernels = (segsum.FACTORED, segsum.ROWSUM_SQ, rowio.GATHER_VW)
+    launches = [0, 0, 0]
+    f = cfg.num_features
+    for b in _sharded_batches(ds, 4):
+        p = None
+        if plan is not None:
+            p = PE.host_dedup(np.asarray(b.ids), 4096, fill,
+                              vals=np.asarray(b.vals))
+            if plan == "hybrid":
+                seg, sv, sex, gmap, _ = PE.stack_hybrid_extras(
+                    p.ranks, np.asarray(b.vals), 1)
+                p = p._replace(order=gmap, seg=seg, svals=sv, sex=sex)
+            else:
+                p = p._replace(order=None, seg=None, svals=None, sex=None)
+        ref = dataclasses.replace(state, params=pfm.FMParams(*(
+            t.clone() for t in (state.params.w0, state.params.w,
+                                state.params.v))),
+            slot_w=state.slot_w.clone(), slot_v=state.slot_v.clone(),
+            slot2_w=state.slot2_w.clone(), slot2_v=state.slot2_v.clone())
+        start = {n: t.cpu()[:f].double().numpy()
+                 for n, t in _sgd_tables(state).items()}
+        before = [k.launches for k in kernels]
+        state, aux = step(state, MH.global_batch(
+            mesh1, b, plan=p, plan_mode="global_hybrid"
+            if plan == "hybrid" else "global"))
+        launches = [n + k.launches - b0
+                    for n, k, b0 in zip(launches, kernels, before)]
+        ref, ref_aux = ref_step(ref, dataclasses.replace(
+            b, ids=b.ids.to(dev), vals=b.vals.to(dev), y=b.y.to(dev),
+            mask=b.mask.to(dev), field_ids=None))
+        np.testing.assert_allclose(float(aux["loss"]),
+                                   float(ref_aux["loss"]), rtol=1e-5)
+        refs = _sgd_tables(ref)
+        for name, t in _sgd_tables(state).items():
+            a = t.cpu()[:f].numpy()
+            w = refs[name].cpu()[:f].numpy()
+            if opt != "adam":
+                np.testing.assert_allclose(a, w, rtol=1e-4, atol=1e-6,
+                                           err_msg=name)
+                continue
+            change = np.abs(w - start[name])
+            diff = np.abs(a.astype(np.float64) - w)
+            bad = diff > (1e-4 * change + np.spacing(np.abs(w))
+                          + 1e-6 * change.max())
+            flips = name in ("w", "v")
+            assert bad.sum() <= (64 if flips else 0), (name, bad.sum())
+            assert (diff[bad] <= 2 * sgd_cfg.learning_rate).all(), name
+    assert launches == [4 if plan == "hybrid" else 0,
+                        4 if exchange in ("unique", "global")
+                        and plan != "hybrid" else 0,
+                        16 if exchange == "dense" else 4]
+
+
+def _sgd_tables(state):
+    """An SGDState's tables and slots by name (0-d slot2 placeholders
+    left out)."""
+    out = {"w": state.params.w, "v": state.params.v}
+    for n in ("slot_w", "slot_v", "slot2_w", "slot2_v"):
+        if getattr(state, n).dim():
+            out[n] = getattr(state, n)
+    return out
+
+
+def test_sharded_als_and_mcmc_one_rank_nccl(dev, mesh1):
+    """The sharded sweep on one NCCL rank against the one-device
+    reference sweep and the compact sweep on the card; B7 launches
+    (K + 1) x blocks a sweep, with S = 1 for w and S = 2 for V."""
+    from sparkfm_tpu_torch.parallel import sharded_als as SA
+    ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=1)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=8, reg_v=0.5)
+    acfg = ALSConfig(feature_blocks=pals.slot_blocks(ds))
+    init = pfm.init_params(cfg, torch.Generator(dev).manual_seed(1),
+                           device=dev)
+    ws, nb = SA.build_sharded_workspace(ds, cfg, acfg, mesh1)
+    before = segsum.COLSUMS.launches
+    got = SA.make_sharded_sweep(cfg, nb, mesh1)(init, ws)
+    assert segsum.COLSUMS.launches - before == (8 + 1) * nb
+    one_ws, _ = pals.build_workspace(ds, cfg, acfg, device=dev)
+    for want in (pals.als_sweep(init, one_ws, nb, cfg.num_features, 0.0,
+                                0.0, 0.5),
+                 pals.als_sweep_compact(init, one_ws, nb,
+                                        one_ws.present.shape[0], 0.0, 0.0,
+                                        0.5)):
+        for name in ("w0", "w", "v"):
+            np.testing.assert_allclose(getattr(got, name).cpu(),
+                                       getattr(want, name).cpu(),
+                                       rtol=1e-3, atol=1e-4, err_msg=name)
+    from sparkfm_tpu_torch import MCMCConfig
+    res = SA.train_mcmc_sharded(
+        cfg, MCMCConfig(epochs=2, burn_in=1,
+                        feature_blocks=acfg.feature_blocks),
+        ds, mesh1, eval_ds=ds)
+    assert np.isfinite(res.history[-1]["eval_rmse_avg"])
+
+
+def test_sharded_deepfm_one_rank_nccl_matches_dedup_step(dev, mesh1):
+    from sparkfm_tpu_torch.models import deepfm as DF
+    from sparkfm_tpu_torch.parallel import multihost as MH
+    from sparkfm_tpu_torch.parallel import sharded_deepfm as SD
+    ds = psynth.synth_ctr(4096, num_fields=8, num_buckets=1 << 12, seed=4)
+    cfg = DF.DeepFMConfig(fm=FMConfig(num_features=ds.num_features,
+                                      num_factors=8, num_fields=8,
+                                      task=Task.CLASSIFICATION),
+                          hidden=(32, 16))
+    sgd_cfg = SGDConfig(batch_size=512, learning_rate=0.05,
+                        update_path="dedup", unique_budget=4096)
+    state, pcfg = SD.init_sharded_state(cfg, mesh1,
+                                        torch.Generator(dev).manual_seed(3))
+    p = state.fm.params
+    ref_cfg = DF.DeepFMConfig(fm=pcfg.fm.replace(
+        num_features=pcfg.fm.num_features - 1), hidden=cfg.hidden)
+    ref = DF.pad_deepfm_state_for_dedup(DF.init_state(DF.DeepFMParams(
+        pfm.FMParams(p.w0.clone(), p.w[:-1].clone(), p.v[:-1].clone()),
+        [w.clone() for w in state.mlp_w], [b.clone() for b in state.mlp_b])))
+    step = SD.make_sharded_train_step(pcfg, sgd_cfg, mesh1)
+    ref_step = DF.make_train_step(ref_cfg, sgd_cfg)
+    for b in _sharded_batches(ds, 3):
+        state, aux = step(state, MH.global_batch(mesh1, b))
+        ref, ref_aux = ref_step(ref, dataclasses.replace(
+            b, ids=b.ids.to(dev), vals=b.vals.to(dev), y=b.y.to(dev),
+            mask=b.mask.to(dev)))
+        np.testing.assert_allclose(float(aux["loss"]),
+                                   float(ref_aux["loss"]), rtol=1e-5)
+    f = cfg.fm.num_features
+    np.testing.assert_allclose(state.fm.params.v.cpu()[:f],
+                               ref.fm.params.v.cpu()[:f], rtol=1e-4,
+                               atol=1e-6)
+    for a, b in zip(state.mlp_w, ref.mlp_w):
+        np.testing.assert_allclose(a.cpu(), b.cpu(), rtol=1e-4, atol=1e-6)
+
+
+def test_b3_and_b7_at_sharded_shapes_equal_plain(dev):
+    """B3 on one data shard's id-sorted block (local dense ranks from
+    stack_hybrid_extras, U_cap rows) and B7 on one shard's CSC view (the
+    feature ids as ranks, with gaps; S = 1 and 2), each against its plain
+    version in float64."""
+    rng = np.random.default_rng(7)
+    ids = (rng.zipf(1.3, (8192, 39)) % (1 << 20)).astype(np.int32)
+    vals = np.ones(ids.shape, np.float32)
+    hp = PE.host_dedup(ids, 1 << 18, (1 << 20) - 1, vals=vals)
+    seg, sv, sex, gmap, u_cap = PE.stack_hybrid_extras(hp.ranks, vals, 2)
+    g = torch.Generator(dev).manual_seed(7)
+    k = 32
+    vw = torch.randn((u_cap, k + 1), generator=g, device=dev) * 0.1
+    ex = torch.randn((4096, k + 2), generator=g, device=dev)
+    seg_t = torch.as_tensor(seg[0], device=dev)
+    x = torch.as_tensor(sv[0], device=dev)
+    ex_srt = ex.index_select(0, torch.as_tensor(sex[0], device=dev).long())
+    got = segsum.fm_grad_segsum_factored(vw, ex_srt, x, seg_t, u_cap,
+                                         1e-4, 1e-4)
+    want = segsum.fm_grad_segsum_factored_reference(
+        vw.double(), ex_srt.double(), x.double(), seg_t, u_cap, 1e-4, 1e-4)
+    np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4, atol=1e-4)
+
+    feat = np.sort(rng.integers(0, 200_000, 2_000_000).astype(np.int32))
+    seg7 = torch.as_tensor(feat, device=dev)
+    for s in (1, 2):
+        streams = [torch.randn(feat.shape[0], generator=g, device=dev)
+                   for _ in range(s)]
+        got = segsum.segment_colsums(streams, seg7, 200_000)
+        want = segsum.segment_colsums_reference(
+            [t.double() for t in streams], seg7, 200_000)
+        np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4,
+                                   atol=1e-4)

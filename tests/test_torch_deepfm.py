@@ -395,7 +395,7 @@ def test_facade_raises():
     with pytest.raises(ValueError, match="warm start"):
         papi.FM(solver="sgd", **kw).fit(ds, init_params=object(),
                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="world of 2 processes"):
         papi.FM(solver="sgd", mesh="2x1", **kw).fit(ds, device="cpu")
 
 
@@ -519,7 +519,8 @@ def test_record_width_at_config_5():
 
 def test_train_deepfm_time_budget_and_mesh():
     """max_seconds stops after the epoch that reaches it, as in the JAX
-    trainer; a mesh raises naming A15."""
+    trainer; a 2 x 1 mesh in a one-process run raises naming the world
+    it needs."""
     _, pcfg = _cfgs()
     ids, vals, y = _data()
     ds = pbatching.SparseDataset(ids=ids, vals=vals, y=y, num_features=F)
@@ -527,6 +528,6 @@ def test_train_deepfm_time_budget_and_mesh():
                                            max_seconds=1e-6), ds,
                            device="cpu")
     assert [h["epoch"] for h in res.history] == [0]
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="world of 2 processes"):
         PDF.train_deepfm(pcfg, SGDConfig(batch_size=B), ds, mesh="2x1",
                          device="cpu")

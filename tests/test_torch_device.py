@@ -14,6 +14,7 @@ from sparkfm_tpu_torch.config import (ALSConfig, FMConfig, MCMCConfig,
                                       SGDConfig)
 from sparkfm_tpu_torch.data import relational, synth
 from sparkfm_tpu_torch.models import deepfm
+from sparkfm_tpu_torch.parallel import multihost
 from sparkfm_tpu_torch.solvers.als import train_als
 from sparkfm_tpu_torch.solvers.als_bs import train_als_relational
 from sparkfm_tpu_torch.solvers.mcmc import train_mcmc
@@ -78,6 +79,8 @@ def _entry_points(root):
             ["train", "--synth", "movielens", "--synth-examples", "200",
              "--iters", "1", "--solver", "mcmc"]
             + (["--device", kw["device"]] if kw else [])),
+        "dryrun_multichip": lambda **kw: multihost.dryrun_multichip(
+            1, timeout=120, **kw),
     }
 
 
@@ -86,7 +89,7 @@ def _entry_points(root):
                                   "train_sgd", "train_als", "train_deepfm",
                                   "train_mcmc", "train_sgd_relational",
                                   "train_als_relational", "cli",
-                                  "cli --solver mcmc"])
+                                  "cli --solver mcmc", "dryrun_multichip"])
 def test_default_device_is_the_card_and_raises_without_one(
         saved, monkeypatch, name, capsys):
     call = _entry_points(saved)[name]
@@ -110,7 +113,8 @@ def test_resolve():
             device_util.resolve()
     for fn in (api.FM.fit, api.FMModel.load, api.DeepFMModel.load,
                api.load_model, train_sgd, train_als, deepfm.train_deepfm,
-               train_mcmc, train_sgd_relational, train_als_relational):
+               train_mcmc, train_sgd_relational, train_als_relational,
+               multihost.spawn, multihost.dryrun_multichip):
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", fn.__qualname__
     assert cli.build_parser().parse_args(["eval", "--model", "m", "--libfm",

@@ -244,3 +244,32 @@ def test_mcmc_relational_and_bs_als_train_with_jax_blocked():
     """)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "None 0"
+
+
+def _jax_in_rank(mesh):
+    """The dry run of every sharded path, then the modules a rank holds
+    that belong to jax or the JAX package."""
+    from sparkfm_tpu_torch.parallel import multihost
+    multihost.dryrun(mesh)
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "sparkfm_tpu" or m.startswith("sparkfm_tpu."))
+
+
+def test_parallel_imports_and_runs_without_jax():
+    """``sparkfm_tpu_torch.parallel.*`` imports with jax blocked, and a
+    rank that runs every sharded path loads neither jax nor the JAX
+    package."""
+    r = _run_blocked("""
+        import sparkfm_tpu_torch.parallel.mesh
+        import sparkfm_tpu_torch.parallel.multihost
+        import sparkfm_tpu_torch.parallel.sharded_sgd
+        import sparkfm_tpu_torch.parallel.sharded_als
+        import sparkfm_tpu_torch.parallel.sharded_deepfm
+        print("ok")
+    """)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    from sparkfm_tpu_torch.parallel import multihost
+    assert multihost.spawn(_jax_in_rank, (2, 1), "cpu", timeout=180) == [
+        [], []]

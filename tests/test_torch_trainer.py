@@ -207,12 +207,14 @@ def test_steps_per_dispatch_runs_single_steps_off_the_hybrid_path(path):
 
 
 @pytest.mark.parametrize("kw,sgd_kw,match", [
-    (dict(mesh=object()), {}, "A15"),
+    pytest.param(dict(mesh=object()), {}, "mesh must be",
+                 id="kw0-sgd_kw0-A15"),
 ])
 def test_unported_options_raise(kw, sgd_kw, match):
+    """A ``mesh`` (ported since A15) that is no mesh raises."""
     ds = psynth.synth_ctr(num_examples=64, seed=5, **SYNTH)
     cfg = FMConfig(num_features=F, num_factors=K)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         train_sgd(cfg, SGDConfig(**dict(SGD, **sgd_kw)), ds, device="cpu",
                   **kw)
 
