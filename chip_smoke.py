@@ -94,11 +94,16 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      of the workspace build, part by part;
  15. holds the row-sum kernel B5 (``segment_rowsum``) against its plain
      version in float64 (max |a - b| / (1 + |b|) < 1e-4; 2.5e-4 at W = 354,
-     also over 8 more seeds, see ``b5_wide_errors``) on a bench-recipe
-     plan (N = 638,976, a ~162k-slot head run) at W = 66 and 35 (the fused
-     and sorted payloads) and 1, 3, 130, 354, with seg[0] > 0, with gaps
-     and at N = 100,003, on rows of the phase's own seed; its sums repeat exactly, ranks without slots are
-     zero, and an out-of-range rank traps in a child process;
+     also over 8 more seeds, see ``b5_wide_errors``) at the shapes its
+     paths give it on a bench-recipe batch (N = 638,976, a ~162k-slot head
+     run): W = 35 (the fused adagrad_row pack) over the ladder plan and W
+     = 33 (the direct step's per-slot terms) over a ``dedup_ids`` plan of
+     budget N, both on B6's staged tiles (``segsum.rowsum_layout``); then
+     at W = 1, 3, 66, 130 and 354 (66 and wider on the chunked layout),
+     and with seg[0] > 0, with gaps and at N = 100,003 on each layout, on
+     rows of the phase's own seed; its sums repeat exactly, ranks without
+     slots are zero, and an out-of-range rank traps in a child process on
+     each layout;
  16. trains BASELINE config 3 on the fused path with the default
      ``accumulate="auto"``, which sums by sorted runs on the card
      (``train_sgd``, as phase 9), the launch counts set to 0 just before:
@@ -115,8 +120,9 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
  18. holds B6 (``segment_rowsum_sq``) and B4 (``fm_grad_segsum``) against
      their plain versions in float64 on phase 15's plan at k = 32, 4 and
      33, and B4 against B3 on the rows it expands (< 1e-6); sums repeat,
-     out-of-range ranks trap; then profiles B4, B5 and B6 per call against
-     their plain versions, B6 also against the sequence it replaced on the
+     out-of-range ranks trap; then profiles B4, B5 (W = 35, with
+     ``index_add_``) and B6 per call against their plain versions, B6
+     also against the sequence it replaced on the
      fused and sorted steps (squares, ``cat``, B5), and one epoch of each
      SGD path (hybrid, fused on host plans, fused on device plans,
      sorted): trained ex/s, the device's busy share and its top events;
@@ -129,7 +135,10 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      production caller) must match the steps, and a second card run must
      give the same parameters bit for bit; then 5 direct steps against
      the plain versions (B5/B6 in float64) and B6 on the step's own
-     payload against float64; profiles one epoch;
+     payload against float64; one epoch under adam on the direct path (B5
+     one a step on its per-slot terms, W = 9, U = 2,625), B5 on its
+     payload against float64 and timed beside ``index_add_``; profiles one
+     epoch;
  20. the dedup path at BASELINE config 3's width (2^24 buckets, rank 32,
      bench-recipe batches with host ladder plans) under adam and under
      momentum: 3 steps twice from one state, bit for bit, with the launch
@@ -170,7 +179,10 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      float32, 4.56 GB; 2^22 rows if the disk lacks the room, said so) in a
      scratch directory beside this script, timed as GB/s and removed;
  25-27. BASELINE config 5 (DeepFM) trained and served, and the command
-     line (``deepfm_cli_phases``);
+     line (``deepfm_cli_phases``); phase 25 also runs 3 steps
+     of the DeepFM direct step under momentum (B5 one a step on its
+     per-slot terms, W = 17 at U = N = 319,488), B5 on their payload
+     against float64 and timed beside ``index_add_``;
  28. (run after phase 14, on phase 11's data and workspace) MCMC at
      BASELINE config 2: one sweep with the stream sums and one with their
      float64 plain version from one state under one recorded draw source
@@ -243,13 +255,17 @@ the least time the card could take, from the bytes the call must move at
 main paths' runs, serving and training; B4, which no path runs, counts
 one call at the main path's shapes, as its ``path`` field says; B5's
 count is the fused adagrad_row run's, B6's the fused (auto) run's, with
-the sorted run's beside it; ``before_ms``/``before_device_ms`` on B6's
+the sorted run's beside it; B5's entries carry the ``layout`` it took
+(``segsum.rowsum_layout``: "tiles" or "chunks"); ``before_ms``/``before_device_ms`` on B6's
 fused, sorted and FFM entries: the squares, ``cat`` and B5 that B6
 replaced there), the last line the result. Entries named
 ``... (FFM record)``, ``... (direct, config 1)``, ``... (dedup, ...)``
 time the same kernels at the shapes of phases 19-21, and ``... (config 5
 record)`` / ``(config 5 DeepFM)`` at phase 25's, with their launches from
-those runs.
+those runs; B5 at every shape a path gives it: ``segment_rowsum`` (W =
+35, phase 16's run), ``(direct, config 1, adam)`` (W = 9, phase 19),
+``(config 5 DeepFM direct, momentum)`` (W = 17, U = N, phase 25) and
+``(sharded dense exchange, adam)`` (W = 33, U = N, phase 31).
 """
 
 import collections
@@ -1983,6 +1999,8 @@ print("no trap")
 """
 SEGSUM_TRAP_CALLS = {
     "segment_rowsum": "segsum.segment_rowsum(ones(4, 3), seg, 5)",
+    "segment_rowsum (chunked)": "segsum.segment_rowsum(ones(4, 100), seg, "
+                                "5)",
     "segment_rowsum_sq": "segsum.segment_rowsum_sq(ones(4, 3), seg, 5)",
     "fm_grad_segsum": "segsum.fm_grad_segsum(ones(4, 5), ones(4, 6), "
                       "ones(4), seg, 5, 1e-3, 1e-3)"}
@@ -2039,6 +2057,14 @@ def replaced_by_b6(g, seg, num_segments):
     return segsum.segment_rowsum(torch.cat([gv, gv.square(), gw,
                                             gw.square()], 1), seg,
                                  num_segments)
+
+
+def rowsum_layout_of(n, w):
+    """The layout B5 takes for N slots of W floats on card 0: "tiles" or
+    "chunks" (``segsum.rowsum_layout``)."""
+    from sparkfm_tpu_torch.ops import segsum
+    return segsum.rowsum_layout(n, w, segsum.ROWSUM.num_sms(
+        torch.device("cuda", 0)))[0]
 
 
 def as64(a):
@@ -2111,25 +2137,38 @@ def segsum_phases(dev, cfg, gen, rng, card):
 
     root = os.path.dirname(os.path.abspath(__file__))
     cap = E.auto_budget(BATCH * SLOTS)
-    plan = E.host_dedup(zipf_ids(rng, BATCH), cap, fill=BUCKETS,
+    ids15 = zipf_ids(rng, BATCH)
+    plan = E.host_dedup(ids15, cap, fill=BUCKETS,
                         vals=np.ones((BATCH, SLOTS), np.float32))
     u = E.ladder_budget(int(plan.count), cap=cap)
     seg = torch.as_tensor(plan.seg, device=dev)
     n = seg.shape[0]
     edges = np.flatnonzero(np.r_[True, plan.seg[1:] != plan.seg[:-1], True])
     head = int(np.diff(edges).max())
+    # the direct step's plan of the same ids: budget N, fill F - 1
+    dplan = E.dedup_ids(torch.as_tensor(ids15, device=dev), n,
+                        fill=BUCKETS - 1)
 
-    # 15. B5 against its float64 plain version: the fused and sorted
-    # payloads at the main path's plan, then odd shapes, on rows of this
-    # phase's own seed
+    # 15. B5 against its float64 plain version at the shapes its paths
+    # give it on the main path's plan (the fused adagrad_row pack, W = k +
+    # 3, over the ladder plan; the direct step's per-slot terms, W = k +
+    # 1, over the budget-N plan, nearly all of whose ranks are zero rows),
+    # then other widths (the chunked layout past ROWSUM_TILE_WIDTH) and
+    # odd shapes on both layouts, on rows of this phase's own seed
     checked = []
     gen15 = torch.Generator(device=dev).manual_seed(SEED + 15)
-    g66 = torch.randn((n, 2 * RANK + 2), generator=gen15, device=dev)
+    g35 = torch.randn((n, RANK + 3), generator=gen15, device=dev)
     rowsum_main = hold64(segsum.segment_rowsum,
-                       segsum.segment_rowsum_reference, (g66, seg, u),
-                       f"W=66 N={n} U={u}", checked)
-    for w in (RANK + 3, 1, 3, 130, B5_WIDE):
-        g = torch.randn((n, w), generator=gen15, device=dev)
+                         segsum.segment_rowsum_reference, (g35, seg, u),
+                         f"W={RANK + 3} N={n} U={u}", checked)
+    g33 = torch.randn((n, RANK + 1), generator=gen15, device=dev)
+    hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+           (g33, dplan.seg, n), f"W={RANK + 1} U=N={n}", checked)
+    del g33
+    g66 = torch.randn((n, 2 * RANK + 2), generator=gen15, device=dev)
+    for w in (1, 3, 2 * RANK + 2, 130, B5_WIDE):
+        g = g66 if w == 2 * RANK + 2 else torch.randn(
+            (n, w), generator=gen15, device=dev)
         hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
                (g, seg, u), f"W={w}", checked,
                B5_WIDE_TOL if w == B5_WIDE else 1e-4)
@@ -2149,14 +2188,17 @@ def segsum_phases(dev, cfg, gen, rng, card):
     odd = 100003
     for label, s in (("seg[0] = 5", seg + 5), ("gaps", gaps),
                      (f"N={odd}", seg[:odd])):
-        hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
-             (g66[:s.shape[0]], s, int(s[-1]) + 3), label, checked)
-    trapped = traps(["segment_rowsum"], root)
+        for g in (g35, g66):
+            hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+                   (g[:s.shape[0]], s, int(s[-1]) + 3),
+                   f"{label} W={g.shape[1]}", checked)
+    del g66, dplan
+    trapped = traps(["segment_rowsum", "segment_rowsum (chunked)"], root)
     print(f"check: row-sum kernel (B5) against the plain version in float64, "
           f"max |a-b|/(1+|b|) < 1e-4, on a bench-recipe plan (head run "
           f"{head} slots): {'; '.join(checked)}; sums repeat exactly; ranks "
-          f"without slots are zero; out-of-range rank -> "
-          f"{trapped['segment_rowsum']}", flush=True)
+          f"without slots are zero; out-of-range rank -> {trapped}",
+          flush=True)
 
     # 16. the fused path at BASELINE config 3: train_sgd, then 5 steps
     # against the plain versions, then steps on plans built on the card
@@ -2328,7 +2370,7 @@ def segsum_phases(dev, cfg, gen, rng, card):
     # profile: the three kernels per call, then one epoch of each SGD path
     timed = {
         "segment_rowsum": (segsum.segment_rowsum,
-                           segsum.segment_rowsum_reference, (g66, seg, u)),
+                           segsum.segment_rowsum_reference, (g35, seg, u)),
         "segment_rowsum_sq": (segsum.segment_rowsum_sq,
                               segsum.segment_rowsum_sq_reference,
                               main["sq"]),
@@ -2338,8 +2380,8 @@ def segsum_phases(dev, cfg, gen, rng, card):
     # (U, width) output written once; float32 adds (B5), adds and squares
     # (B6), ~8 operations per slot and column (B4)
     sq_g, b4_args = main["sq"][0], main["b4"]
-    cost = {"segment_rowsum": (4 * (g66.numel() + n + u * g66.shape[1]),
-                               g66.numel()),
+    cost = {"segment_rowsum": (4 * (g35.numel() + n + u * g35.shape[1]),
+                               g35.numel()),
             "segment_rowsum_sq": (4 * (sq_g.numel() + n
                                        + 2 * u * sq_g.shape[1]),
                                   3 * sq_g.numel()),
@@ -2348,11 +2390,11 @@ def segsum_phases(dev, cfg, gen, rng, card):
                                8 * n * (RANK + 1))}
     # the one library call that computes B5's function: index_add_ of the
     # rows into a zeroed (U, W)
-    lib_out = torch.zeros((u, g66.shape[1]), device=dev)
+    lib_out = torch.zeros((u, g35.shape[1]), device=dev)
     seg_l = seg.long()
 
     def index_add():
-        return lib_out.index_add_(0, seg_l, g66)
+        return lib_out.index_add_(0, seg_l, g35)
     # what B6 replaced on the fused and sorted steps: the squares of
     # [g_v | g_w], their cat into [g_v | g_v² | g_w | g_w²] and B5
     sq_args = main["sq"]
@@ -2384,7 +2426,7 @@ def segsum_phases(dev, cfg, gen, rng, card):
           f"{times['segment_rowsum_sq'][2]:.2f} us (CUDA events, queued "
           f"behind a spin kernel); {card}", flush=True)
     del lib_out, seg_l
-    del g66, timed, main, sq_args
+    del g35, timed, main, sq_args
     torch.cuda.empty_cache()
     for label, kw in (("hybrid", dict(update_path="hybrid")),
                       ("fused, host plans", dict(update_path="fused")),
@@ -2429,8 +2471,10 @@ def segsum_phases(dev, cfg, gen, rng, card):
         entry("segment_rowsum", 101, rowsum_main, times["segment_rowsum"],
               "index_add_",
               launches=train_launches["fused (auto), adagrad_row"],
+              layout=rowsum_layout_of(n, RANK + 3),
               path="train_sgd fused under adagrad_row, accumulate='auto' "
-                   "(phase 16), its (N, k+3) pack; timed at W = 66"),
+                   "(phase 16): its (N, k+3) pack over the ladder plan, "
+                   f"W = {RANK + 3}, U = {u}"),
         entry("segment_rowsum_sq", 238, sq_res, times["segment_rowsum_sq"],
               "none (the squares are formed in the kernel)",
               launches=train_launches["fused (auto)"],
@@ -2616,6 +2660,32 @@ def rowsum_sq_entry_of(label, res, payload, launches, path, card):
             **t}
 
 
+def rowsum_entry_of(label, res, payload, launches, path, card):
+    """B5's kernel entry at one path's payload (g, seg, U): its times
+    beside the plain version's and ``index_add_``'s, its bound and the
+    layout it takes, and its errors against float64 ``res`` (from
+    :func:`hold64`)."""
+    from sparkfm_tpu_torch.ops import segsum
+    g, seg, u = payload
+    n, w = g.shape
+    lib_out = torch.zeros((u, w), device=g.device)
+    seg_l = seg.long()
+    t = timed_kernel(f"B5 segment_rowsum per call, {label} (N={n}, W={w}, "
+                     f"U={u})", segsum.segment_rowsum,
+                     segsum.segment_rowsum_reference, (g, seg, u),
+                     lambda: lib_out.index_add_(0, seg_l, g),
+                     4 * (n * w + n + u * w), n * w, card)
+    return {"name": f"segment_rowsum ({label})", "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+            "replaces": "sparkfm_tpu/ops/pallas_segsum.py:101",
+            "launches": launches, "path": path,
+            "layout": rowsum_layout_of(n, w),
+            "max_abs_err": res[0], "max_rel_err": res[1],
+            "plain_f32_max_rel_err": res[2],
+            "err_against": "plain version in float64",
+            "library": "index_add_", **t}
+
+
 def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     """Phases 19-21: BASELINE config 1 on the direct path, the dedup path
     at BASELINE config 3's width under adam and under momentum, and
@@ -2760,6 +2830,34 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     checked = []
     res1 = hold64(segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference,
                   tuple(payload1), "B6 on config 1's payload", checked)
+    # config 1's direct step under adam: its per-slot terms (W = k + 1)
+    # summed by B5 over the step's plan (budget F), one launch a step
+    sgd1a = dataclasses.replace(sgd1, epochs=1, optimizer="adam",
+                                learning_rate=0.01)
+    steps1a = -(-parts.training.num_examples // 4096)
+    payload1a = []
+    zero_counts()
+    with swapped([(segsum, "segment_rowsum", capturing(
+            segsum.segment_rowsum, payload1a))]):
+        res1a = train_sgd(cfg1, sgd1a, parts.training, device=dev)
+    launches1a = read_counts()
+    want1a = {"gather_vw_rows": 3 * steps1a, "scatter_set_rows": 6 * steps1a,
+              "segment_rowsum": steps1a}
+    loss1a = res1a.history[-1]["train_loss"]
+    if launches1a != want1a or not np.isfinite(loss1a):
+        raise AssertionError(f"config 1 under adam: launches {launches1a}, "
+                             f"expected {want1a}; loss {loss1a}")
+    res1a = hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+                   tuple(payload1a), "B5 on config 1's adam terms", checked)
+    print(f"train: BASELINE config 1 on the direct path under adam, one "
+          f"epoch of {steps1a} steps: loss {loss1a:.5f}, launches "
+          f"{launches1a} (B5 on the per-slot terms a step); {checked[-1]}",
+          flush=True)
+    entries.append(rowsum_entry_of(
+        "direct, config 1, adam", res1a, payload1a,
+        launches1a["segment_rowsum"],
+        "train_sgd direct under adam, BASELINE config 1 (phase 19)", card))
+    del payload1a
     profile_epoch("BASELINE config 1, direct", cfg1,
                   dataclasses.replace(sgd1, epochs=1), parts.training)
     entries.append(rowsum_sq_entry(
@@ -3462,7 +3560,8 @@ def deepfm_tensors_equal(a, b):
 
 def deepfm_cli_phases(dev, gen, rng, card, root):
     """Phases 25-27: BASELINE config 5 (Criteo-shape DeepFM) trained on
-    the fused path at full width, DeepFM serving and the facade, and the
+    the fused path at full width (and 3 steps of the direct step under
+    momentum, B5's caller), DeepFM serving and the facade, and the
     command line on the card. Returns the kernels' JSON entries at config
     5's shapes."""
     import io
@@ -3723,9 +3822,37 @@ def deepfm_cli_phases(dev, gen, rng, card, root):
           f"1e-5), v, w, slots [:F] equal (rtol 1e-4, atol 1e-6; "
           f"{excused_d} entries within lr x {head_d}-slot run x 2^-24 = "
           f"{flip_d:.3g}), tower and bias equal (rtol 1e-5)", flush=True)
-    del state_d, step_d, batches_d
+    del state_d, step_d
+    # the direct step under momentum on the same batches: its per-slot
+    # terms (W = k + 1) summed by B5 over a plan of budget N, one a step
+    step_m = DF.make_train_step(cfg5, dataclasses.replace(
+        sgd5, update_path="direct", optimizer="sgd", momentum=0.9))
+    state_m = DF.init_state(DF.init_params(
+        cfg5, torch.Generator(device=dev).manual_seed(SEED + 7), device=dev))
+    payload_m, checked_m = [], []
+    zero_counts()
+    with swapped([(segsum, "segment_rowsum", capturing(
+            segsum.segment_rowsum, payload_m))]):
+        losses_m = [float(step_m(state_m, b)[1]["loss"]) for b in batches_d]
+    launched_m = read_counts()
+    if launched_m != {"gather_vw_rows": 6, "scatter_set_rows": 12,
+                      "segment_rowsum": 3} or not np.all(
+                          np.isfinite(losses_m)):
+        raise AssertionError(f"config 5 direct momentum: launches "
+                             f"{launched_m}, losses {losses_m}")
+    res_m = hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
+                   tuple(payload_m), "B5 on the momentum terms", checked_m)
+    print(f"train: config 5 direct path under momentum, 3 steps: losses "
+          f"{losses_m}, launches {launched_m} (B5 on the per-slot terms a "
+          f"step); {checked_m[0]}", flush=True)
+    del state_m, step_m, batches_d
     path5 = "train_deepfm fused, BASELINE config 5 DeepFM (phase 25)"
-    entries = []
+    entries = [rowsum_entry_of(
+        "config 5 DeepFM direct, momentum", res_m, payload_m,
+        launched_m["segment_rowsum"],
+        "the DeepFM direct step under momentum, BASELINE config 5 (phase "
+        "25)", card)]
+    del payload_m
     for name, line, t, err, lib in (
             ("gather_rows (config 5 record)", "pallas_rowio.py:140",
              t_gather, 0.0, "index_select"),
@@ -4356,26 +4483,12 @@ def sharded_phases(dev, card, root, als_ctx):
     res = hold64(segsum.segment_rowsum, segsum.segment_rowsum_reference,
                  payload, "B5 at the dense exchange's per-slot terms",
                  checked)
-    n_b5, w_b5 = payload[0].shape
-    t = timed_kernel(f"B5 segment_rowsum, the dense exchange's adam terms "
-                     f"(N={n_b5}, W={w_b5}, U={payload[2]})",
-                     segsum.segment_rowsum, segsum.segment_rowsum_reference,
-                     payload, lambda: torch.zeros(
-                         (payload[2], w_b5), device=dev).index_add_(
-                         0, payload[1].long(), payload[0]),
-                     4 * (n_b5 * w_b5 + n_b5 + payload[2] * w_b5),
-                     n_b5 * w_b5, card)
-    entries.append({
-        "name": "segment_rowsum (sharded dense exchange, adam)",
-        "route": "cuda", "source": "sparkfm_tpu_torch/csrc/segsum.cu",
-        "replaces": "sparkfm_tpu/ops/pallas_segsum.py:101",
-        "launches": launches["segment_rowsum (dense, adam)"],
-        "path": "phase 31: the dense exchange's per-slot step terms under "
-                "adam, summed per row of [v | w], one a step",
-        "max_abs_err": res[0], "max_rel_err": res[1],
-        "plain_f32_max_rel_err": res[2],
-        "err_against": "plain version in float64", "library": "index_add_",
-        **t})
+    entries.append(rowsum_entry_of(
+        "sharded dense exchange, adam", res, payload,
+        launches["segment_rowsum (dense, adam)"],
+        "phase 31: the dense exchange's per-slot step terms under adam, "
+        "summed per row of [v | w] over the direct step's plan (budget N), "
+        "one a step", card))
     del g, g_srt, payload, plan, terms
     # B2 writing the dense exchange's V rows back (the direct step's
     # write: the plan's distinct ids, then its fill), exact on every row

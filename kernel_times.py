@@ -18,12 +18,25 @@ seed, so every root sees the same data:
 - B3, the factored backward, and B4, the same from per-slot rows, at N =
   638,976 slots, k = 32 (a bench-recipe plan: 16384 x 39 zipf(1.3) ids
   hashed into 2^24): in all, pass 1 and pass 2;
-- B5 and B6, the row sums, at W = 66 and 33 on the same plan, B6 at W =
-  9 on a plan of BASELINE config 1's direct step (4096 user-item pairs,
-  2,625 features) and B5 at W = 354 and B6 at W = 177 on a plan of config
-  4's fused FFM step (8192 x 22 ``synth_ctr`` ids in 2^22): in all, pass 1
-  and pass 2; where the root stages B6's rows in shared-memory tiles,
-  B6 also at tiles of 32, 44 and 96 KB;
+- B6, the row sums with squares, at W = 33 on the same plan, at W = 9 on
+  a plan of BASELINE config 1's direct step (4096 user-item pairs, 2,625
+  features), at W = 177 on a plan of config 4's fused FFM step (8192 x 22
+  ``synth_ctr`` ids in 2^22) and at W = 17 on a ladder plan of config 5's
+  DeepFM batch (8192 x 39 field-major zipf ids in 2^20): in all, pass 1
+  and pass 2, and in all by CUDA events behind a spin kernel; where the
+  root stages B6's rows in shared-memory tiles, also at tiles of 32, 44
+  and 96 KB;
+- B5, the row sums, at the shapes its paths give it: the fused
+  adagrad_row pack (W = 35) on the main plan, the direct step's per-slot
+  terms over plans of budget N (W = 33 on the main batch's ids, W = 17 on
+  config 5's) and config 1's direct step (W = 9, U = 2,625); then at W =
+  9, 17, 33, 35, 66, 177 and 354 on the main plan and at 354 on the FFM
+  plan, on both layouts where the root has two (``segsum.rowsum_layout``),
+  the crossover's evidence: each by CUDA events behind a spin kernel,
+  split into pass 1 and pass 2 by torch.profiler, beside the plain
+  version, ``index_add_`` and the bound (bytes at 3.35 TB/s), and held to
+  float64 (< 2.5e-4 past W = 177, where the head run gives W draws of its
+  error);
 - B1, the gather: one serving chunk's V (W = 32) and w (W = 1) by two
   calls, and by the two-table form where the root has it, at U = 40,960;
   the fused record (W = 68) at U = 40,960 (each of these one call per
@@ -93,6 +106,35 @@ def device_us(fn, reps=10, tries=3):
     return best
 
 
+def spun_us(fn, reps=10, windows=3, spin=20_000_000):
+    # device us of one call: CUDA events around reps calls queued behind a
+    # spin kernel (~10 ms), so the host's launch cost stays off the clock;
+    # best of windows
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return 1e3 * best
+
+
+def config5_ids():
+    # BASELINE config 5's batch: 8192 x 39 zipf(1.3) ids, each field's slot
+    # hashed into its own range of 2^20 buckets
+    raw = rng.zipf(1.3, size=(8192, 39)).astype(np.int64)
+    per = (1 << 20) // 39
+    return (((raw * 2654435761) % (1 << 20)) % per
+            + per * np.arange(39)[None, :]).astype(np.int32)
+
+
 def split(res, *names):
     if res is None:                 # no trace saw device time
         return None
@@ -131,15 +173,17 @@ out["B4"] = split(device_us(lambda: segsum.fm_grad_segsum(
 del vw_srt, want
 
 
-def rowsums(label, fn, plain, w, seg, u, sweep=False):
-    # B5 or B6 at width w on seg: checked against float64, then timed;
-    # where the root stages B6's rows in shared memory (segsum.TILE_BYTES),
-    # also at other tile sizes
+def rowsums(label, w, seg, u, sweep=False):
+    # B6 at width w on seg: checked against float64, then timed; where the
+    # root stages B6's rows in shared memory (segsum.TILE_BYTES), also at
+    # other tile sizes
+    fn, plain = segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference
     g = torch.randn((seg.shape[0], w), generator=gen, device=dev)
     err = rel(fn(g, seg, u), plain(g.double(), seg, u))
     assert err < 1e-4, (label, err)
-    out[label] = split(device_us(lambda: fn(g, seg, u)), "rowsum",
-                       "crossing") + [err]
+    out[label] = {"profiled": split(device_us(lambda: fn(g, seg, u)),
+                                    "rowsum", "crossing"),
+                  "err": err, "spun_us": spun_us(lambda: fn(g, seg, u))}
     if sweep and hasattr(segsum, "TILE_BYTES"):
         keep = segsum.TILE_BYTES
         for tile in (32 << 10, 44 << 10, 96 << 10):
@@ -150,17 +194,63 @@ def rowsums(label, fn, plain, w, seg, u, sweep=False):
         segsum.TILE_BYTES = keep
 
 
-rowsums("B5", segsum.segment_rowsum, segsum.segment_rowsum_reference, 66,
-        seg, u)
-rowsums("B6", segsum.segment_rowsum_sq, segsum.segment_rowsum_sq_reference,
-        33, seg, u, sweep=True)
+def forced(kind):
+    # segsum.rowsum_layout pinned to one of B5's two layouts
+    if kind == "tiles":
+        return lambda n, w, num_sms: ("tiles",
+                                      *segsum.tile_layout(n, w, num_sms))
+    return lambda n, w, num_sms: ("chunks",
+                                  2 * -(-n // segsum.ROWSUM_CHUNK))
+
+
+def b5_entry(label, w, seg, u, both=False):
+    # B5 at width w on seg: held to float64 (max rel < 1e-4, < 2.5e-4 at W
+    # > 177, where the ~162k-slot head run gives W draws of its error) and
+    # bit for bit, then timed by CUDA events behind a spin kernel (spun),
+    # split into pass 1 and pass 2 by torch.profiler, beside the plain
+    # version, index_add_ and the bound; with both, also on each layout
+    n = seg.shape[0]
+    g = torch.randn((n, w), generator=gen, device=dev)
+    want = segsum.segment_rowsum_reference(g.double(), seg, u)
+    lib_out = torch.zeros((u, w), device=dev)
+    seg_l = seg.long()
+    bound_us = 1e6 * 4 * (n * w + n + u * w) / 3.35e12
+    has_layouts = hasattr(segsum, "rowsum_layout")
+    layout = (segsum.rowsum_layout(n, w, segsum.ROWSUM.num_sms(dev))[0]
+              if has_layouts else "chunks")
+    rec = {"n": n, "w": w, "u": u, "layout": layout, "bound_us": bound_us}
+
+    def timed(key):
+        got = segsum.segment_rowsum(g, seg, u)
+        err = rel(got, want)
+        assert err < (2.5e-4 if w > 177 else 1e-4), (label, key, err)
+        assert torch.equal(got, segsum.segment_rowsum(g, seg, u)), label
+        spun = spun_us(lambda: segsum.segment_rowsum(g, seg, u))
+        rec[key] = {"spun_us": spun, "share": bound_us / spun, "err": err,
+                    "profiled": split(device_us(
+                        lambda: segsum.segment_rowsum(g, seg, u)), "rowsum",
+                        "crossing")}
+    timed(layout)
+    if both and has_layouts:
+        keep = segsum.rowsum_layout
+        for kind in ("tiles", "chunks"):
+            if kind != layout:
+                segsum.rowsum_layout = forced(kind)
+                timed(kind)
+        segsum.rowsum_layout = keep
+    rec["plain_us"] = spun_us(
+        lambda: segsum.segment_rowsum_reference(g, seg, u))
+    rec["index_add_us"] = spun_us(lambda: lib_out.index_add_(0, seg_l, g))
+    out[label] = rec
+
+
+rowsums("B6", 33, seg, u, sweep=True)
 # BASELINE config 1's direct step: 4096 (user, item) pairs of 2,625
 # features, a device plan with budget 2,625
 ids1 = np.stack([rng.integers(0, 943, 4096),
                  943 + rng.integers(0, 1682, 4096)], 1).astype(np.int32)
 plan1 = E.dedup_ids(torch.as_tensor(ids1, device=dev), 2625, fill=2624)
-rowsums("B6 W=9", segsum.segment_rowsum_sq,
-        segsum.segment_rowsum_sq_reference, 9, plan1.seg, 2625)
+rowsums("B6 W=9", 9, plan1.seg, 2625)
 # BASELINE config 4's fused FFM step: 8192 x 22 field-hashed ids into
 # 2^22, a ladder plan
 from sparkfm_tpu_torch.data import synth
@@ -170,10 +260,35 @@ plan4 = E.host_dedup(ids4, E.auto_budget(ids4.size), fill=1 << 22)
 seg4 = torch.as_tensor(plan4.seg, device=dev)
 u4 = E.ladder_budget(int(plan4.count), cap=E.auto_budget(ids4.size))
 out["FFM plan"] = [seg4.shape[0], u4]
-rowsums("B5 W=354", segsum.segment_rowsum, segsum.segment_rowsum_reference,
-        354, seg4, u4)
-rowsums("B6 W=177", segsum.segment_rowsum_sq,
-        segsum.segment_rowsum_sq_reference, 177, seg4, u4, sweep=True)
+rowsums("B6 W=177", 177, seg4, u4, sweep=True)
+# BASELINE config 5's DeepFM step: 8192 x 39 field-major zipf ids in 2^20
+ids5 = config5_ids()
+plan5 = E.host_dedup(ids5, E.auto_budget(ids5.size), fill=1 << 20)
+seg5 = torch.as_tensor(plan5.seg, device=dev)
+u5 = E.ladder_budget(int(plan5.count), cap=E.auto_budget(ids5.size))
+rowsums("B6 W=17", 17, seg5, u5)
+
+# B5 at the shapes its paths give it: the fused step's adagrad_row pack
+# (W = k + 3) on the ladder plan; the direct step's per-slot momentum and
+# adam terms (W = vk + 1) over a dedup_ids plan of budget N (config 3's
+# width; config 5's DeepFM under momentum), and config 1's budget of F
+N3 = BATCH * SLOTS
+dplan3 = E.dedup_ids(torch.as_tensor(zipf_ids(), device=dev), N3,
+                     fill=BUCKETS - 1)
+dplan5 = E.dedup_ids(torch.as_tensor(config5_ids(), device=dev), ids5.size,
+                     fill=(1 << 20) - 1)
+b5_paths = (("fused adagrad_row W=35", RANK + 3, seg, u),
+            ("direct W=33 U=N", RANK + 1, dplan3.seg, N3),
+            ("DeepFM direct W=17 U=N", 17, dplan5.seg, ids5.size),
+            ("config 1 direct W=9", 9, plan1.seg, 2625))
+for label, w, s, uu in b5_paths:
+    b5_entry(f"B5 {label}", w, s, uu)
+# the crossover's evidence: both layouts (where the root has two) at each
+# width on the ladder plan, and on config 4's FFM plan at W = 354
+for w in (9, 17, 33, 35, 66, 177, 354):
+    b5_entry(f"B5 W={w} ladder", w, seg, u, both=True)
+b5_entry("B5 W=354 FFM plan", 354, seg4, u4, both=True)
+del dplan3, dplan5
 
 # B1 at the serving chunk, the record and a device plan, each call on
 # another plan's uids (8 plans), as the smoke times them; the tables have

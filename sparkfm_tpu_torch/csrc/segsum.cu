@@ -2,18 +2,19 @@
 //
 // * B3, the factored FM backward, and B4, the same backward from per-slot
 //   rows (fm_grad_spans_kernel, then rows_crossing_kernel), below;
-// * B5, segment_rowsum (rowsum_chunks_kernel), and B6, segment_rowsum_sq
-//   (rowsum_sq_tiles_kernel), each then rows_crossing_kernel, after them;
+// * B5, segment_rowsum, and B6, segment_rowsum_sq, on one staged-tile
+//   kernel (rowsum_tiles_kernel, without and with the squares; B5's rows
+//   wider than 64 floats on rowsum_chunks_kernel), each then
+//   rows_crossing_kernel, after them;
 // * B7, segment_colsums (colsums_chunks_kernel and
 //   colsums_crossing_kernel), last.
 //
 // All cut the sorted stream into chunks (B3/B4: equal spans, one per
-// warp; B5, B7: fixed chunks; B6: chunks that fall with N), write runs
-// that lie inside a
-// chunk straight out, and sum the partial rows of runs that cross chunks
-// in a second pass, in a fixed order, without atomics. Every launcher
-// takes the card's SM count from its caller, which looks it up once per
-// device.
+// warp; B5's wide rows, B7: fixed chunks; the tiles: chunks that fall
+// with N), write runs that lie inside a chunk straight out, and sum the
+// partial rows of runs that cross chunks in a second pass, in a fixed
+// order, without atomics. Every launcher takes the card's SM count from
+// its caller, which looks it up once per device.
 //
 // B3. Factored FM backward over id-sorted slots: per-run sums of the FM
 // gradient and of its square,
@@ -119,13 +120,14 @@
 // order. A longer run is left to the warp's whole block, which takes such
 // runs in warp order (one slot per warp): warp w sums rows w, w + 32, ...
 // in order, lanes over columns, and warp 0 adds the 32 warps' sums in
-// warp order. No atomics. For B3-B5 pass 2 also writes the zero rows of
-// the ranks no slot has (a warp those before the runs that begin in its
-// chunk, found by comparing neighbouring ranks, and a slice of those past
-// seg[n - 1]), so the output is written once and not filled first (the
-// same writes in B3's pass 1 slowed its loop by taking registers; here
-// they cost ~2 us at the main path's shape, against ~3.5 us for filling
-// the output). B6's pass 1 writes them itself.
+// warp order. No atomics. For B3, B4 and B5's chunked layout pass 2
+// also writes the zero rows of the ranks no slot has (a warp those before
+// the runs that begin in its chunk, found by comparing neighbouring
+// ranks, and a slice of those past seg[n - 1]), so the output is written
+// once and not filled first (the same writes in B3's pass 1 slowed its
+// loop by taking registers; here they cost ~2 us at the main path's
+// shape, against ~3.5 us for filling the output). The staged tiles' pass
+// 1 (B5, B6) writes them itself.
 
 #include <cstdint>
 
@@ -136,7 +138,8 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int64_t kChunk = 256;        // B5: sorted slots per warp
+constexpr int64_t kChunk = 256;        // B5 wide rows: slots a warp (the
+                                       // wrapper's ROWSUM_CHUNK)
 constexpr int kThreads1 = 256;         // pass 1: 8 warps a block
 constexpr int kWarps1 = kThreads1 / 32;
 constexpr int kBlocks1 = 3;            // B3/B4: resident blocks per SM
@@ -433,8 +436,8 @@ __device__ __forceinline__ void zero_gaps(const int32_t* __restrict__ seg,
 // 32g .. 32g + 31, one warp each (the design is in the note above). With
 // `zeros` it also writes the zero rows of the ranks no slot has, so the
 // caller need not fill out: warp c those before the runs that begin in
-// chunk c, and every warp its slice of the ranks past seg[n - 1] (B6
-// calls it without `zeros`: its pass 1 writes them).
+// chunk c, and every warp its slice of the ranks past seg[n - 1] (the
+// staged tiles call it without `zeros`: their pass 1 writes them).
 __global__ void __launch_bounds__(kThreads2)
 rows_crossing_kernel(const int32_t* __restrict__ seg,
                      const float* __restrict__ partials,
@@ -603,24 +606,59 @@ int launch_fm_grad(const float* vw, const float* ex, const float* x,
 //   out[r] = sum of g[i] over the slots i with seg[i] == r      (U, W)
 //
 // B5 replaces sparkfm_tpu/ops/pallas_segsum.py::_segsum_kernel (called
-// through _segment_rowsum_pallas, public segment_rowsum): the per-unique
-// sums of the fused step's adagrad_row pack (W = k + 3 = 35) in
-// sparkfm_tpu_torch/solvers/sgd_fused.py and of the direct step's
-// per-slot momentum and adam terms (solvers/sgd.py). The TPU kernel
+// through _segment_rowsum_pallas, public segment_rowsum). The TPU kernel
 // reduces each tile with a one-hot matrix product on the MXU and carries
-// a run's sum through the ordered grid.
+// a run's sum through the ordered grid. Its callers in the port, since B6
+// took the [g | g^2] packs: the fused step's adagrad_row pack (W = k + 3:
+// 35 at rank 32, over a ladder plan, U = 40,960;
+// sparkfm_tpu_torch/solvers/sgd_fused.py) and the direct step's per-slot
+// momentum and adam terms (W = vk + 1: 33 at rank 32, 17 at BASELINE
+// config 5, 9 at config 1) over the step's own plan, whose budget is N
+// (solvers/sgd.py; also the sharded dense exchange and DeepFM's direct
+// step), so that at U = N ~94% of the output is zero rows past seg[n - 1].
 //
-// What bounds them: bytes. At the main path's N = 638,976 slots and W = 66
-// the kernel reads 169 MB of g and 2.6 MB of seg once and adds once per
-// float: a ~50 us floor at 3.35 TB/s. The layout is B3's: lanes own
-// columns (lane l owns columns col0 + l, col0 + l + 32, ... of a tile of
-// 32 * C columns), so a warp reads each row of its tile with coalesced
-// 128-byte loads, G rows ahead; wider rows take more tiles, one per
-// blockIdx.y, so any W works (a later FFM slice packs 2 F k + 2 columns).
-// Run skew (one ~162k-slot run per zipf batch): fixed chunks of kChunk
-// slots, one warp each, two partial rows per chunk, and B3's pass 2, which
-// also writes the zero rows of ranks with no slots. seg must be sorted; a
-// rank outside [0, num_segments) traps.
+// What bounds it: bytes. It reads g and seg once and writes (U, W), one
+// add per float: 97.8 MB (29.2 us at 3.35 TB/s) for the adagrad_row pack
+// at N = 638,976, 171.2 MB (51.1 us) for the direct step's terms at U = N
+// = 638,976, 79 MB of it zero rows. Two layouts, chosen by the caller
+// from W (ops/segsum.py::rowsum_layout):
+//
+// * W <= 64, every width a path gives B5: B6's staged tiles without the
+//   squares (rowsum_tiles_kernel<false>, below, with B6's note): a block
+//   stages a chunk of consecutive rows by one bulk copy and sums it in
+//   row groups of W threads, so device-memory reads are whole lines
+//   whatever W is; it writes the zero rows in pass 1 (the tail past
+//   seg[n - 1] a slice a block, by 16-byte stores, after its sums), and
+//   pass 2 sums only the partial rows of crossing runs.
+// * Wider rows: rowsum_chunks_kernel, below. Lanes own columns (lane l
+//   owns columns col0 + l, col0 + l + 32, ... of a tile of 32 * C
+//   columns), so a warp reads each row of its tile with coalesced 128-byte
+//   loads, G rows ahead; wider rows take more tiles, one per blockIdx.y,
+//   so any W up to 65,536 works. Fixed chunks of kChunk slots, one warp
+//   each, two partial rows per chunk, and pass 2 with `zeros`, which also
+//   writes the zero rows.
+//
+// Measured on the H100 (PERF.md, kernel_times.py): on the tiles W = 35
+// over the ladder plan takes 54.8 us (53% of the bound; the chunked
+// kernel 61.1), W = 33 at U = N 79.5 us (64%; chunked 110.4, which left
+// its 79 MB of zero rows to pass 2, 54 us of it), W = 17 at U = N 32.9 us
+// (41%; chunked 57.5, index_add_ 47). What holds the tiles: pass 1 moves
+// 2.2 to 2.5 TB/s, as B6's, and pass 2 costs 5 to 9 us of dependent
+// round trips at every shape. At config 1's N = 8,192 (W = 9) the two
+// launches' latency is all there is: 11.5 us against the chunked
+// kernel's 32.8, but index_add_ (3.6 us) and the plain version (8.9) are
+// faster there. On the ladder plan the tiles win at W = 9 to 35 and 177,
+// the chunked kernel at W = 66 (86.6 against 88.2 us) and 354 (418
+// against 434): no path runs B5 past W = 35, so the rule keeps one
+// threshold between 35 and 66. At narrow rows the chunked layout loses
+// as B6's note says: at W = 33 a warp's second column tile has one busy
+// lane and every 132-byte row is two scattered requests. Tried and no
+// faster on the tiles: other chunk sizes (1 to 16 chunks an SM at least,
+// 32 KB tiles), and the tail's zero rows written while the copy lands
+// (1-2% slower at U = N than after the sums).
+//
+// seg must be sorted, gaps allowed; a rank outside [0, num_segments)
+// traps. No atomics on either layout: the sums repeat bit for bit.
 
 constexpr int64_t kMaxRowWidth = 1 << 16;
 
@@ -701,18 +739,17 @@ rowsum_chunks_kernel(const float* __restrict__ g,       // (N, w)
 }
 
 template <int C, int G>
-void launch_rowsum_chunks(const float* g, const int32_t* seg, float* out,
-                          float* partials, int64_t n, int64_t num_segments,
-                          int64_t w, int64_t num_chunks, dim3 grid,
-                          cudaStream_t stream) {
+void launch_chunks(const float* g, const int32_t* seg, float* out,
+                   float* partials, int64_t n, int64_t num_segments, int64_t w,
+                   int64_t num_chunks, dim3 grid, cudaStream_t stream) {
   rowsum_chunks_kernel<C, G><<<grid, kThreads1, 0, stream>>>(
       g, seg, out, partials, n, num_segments, w, num_chunks);
 }
 
-// Both passes of B5; returns cudaGetLastError().
-int launch_rowsum(const float* g, const int32_t* seg, float* out,
-                  float* partials, int64_t n, int64_t num_segments, int64_t w,
-                  int num_sms, void* stream) {
+// Both passes of B5 on the chunked layout; returns cudaGetLastError().
+int launch_rowsum_chunked(const float* g, const int32_t* seg, float* out,
+                          float* partials, int64_t n, int64_t num_segments,
+                          int64_t w, int num_sms, void* stream) {
   if (n <= 0) return 0;
   if (w < 1 || w > kMaxRowWidth)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -727,20 +764,20 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
   switch (cols) {
     case 1:
-      launch_rowsum_chunks<1, 32>(g, seg, out, partials, n, num_segments,
-                                      w, num_chunks, grid, s);
+      launch_chunks<1, 32>(g, seg, out, partials, n, num_segments, w,
+                           num_chunks, grid, s);
       break;
     case 2:
-      launch_rowsum_chunks<2, 16>(g, seg, out, partials, n, num_segments,
-                                      w, num_chunks, grid, s);
+      launch_chunks<2, 16>(g, seg, out, partials, n, num_segments, w,
+                           num_chunks, grid, s);
       break;
     case 3:
-      launch_rowsum_chunks<3, 8>(g, seg, out, partials, n, num_segments,
-                                     w, num_chunks, grid, s);
+      launch_chunks<3, 8>(g, seg, out, partials, n, num_segments, w,
+                          num_chunks, grid, s);
       break;
     default:
-      launch_rowsum_chunks<4, 8>(g, seg, out, partials, n, num_segments,
-                                     w, num_chunks, grid, s);
+      launch_chunks<4, 8>(g, seg, out, partials, n, num_segments, w,
+                          num_chunks, grid, s);
       break;
   }
   const cudaError_t err = cudaGetLastError();
@@ -752,8 +789,8 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
 
 
 // ---------------------------------------------------------------------------
-// B6, redesigned: segment_rowsum_sq by staged tiles (rowsum_sq_tiles_kernel,
-// then rows_crossing_kernel).
+// B6, redesigned: segment_rowsum_sq by staged tiles (rowsum_tiles_kernel
+// with the squares, then rows_crossing_kernel).
 //
 //   out[r] = [ sum g[i] | sum g[i]^2 ]  over the slots i with seg[i] == r
 //                                                                  (U, 2W)
@@ -772,8 +809,8 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
 // What bounds it: bytes. It reads g (N W floats) and seg once and writes
 // (U, 2W): 97.7 MB at the dedup and fused payload (N = 638,976, W = 33,
 // U = 40,960), a 29 us floor at 3.35 TB/s, against three float operations
-// per element. The chunked layout B5 keeps (lanes over columns, 256-slot
-// chunks a warp) loses at the shapes B6 is given: at W = 33 a warp's
+// per element. B5's chunked layout (lanes over columns, 256-slot chunks a
+// warp) loses at the shapes B6 is given: at W = 33 a warp's
 // second column tile has one busy lane and every 132-byte row is two
 // scattered requests; at W = 177 the second tile has 49 busy lanes of
 // 128 and re-reads seg; at N = 8,192 (config 1) 32 chunks give 32 warps
@@ -827,33 +864,61 @@ int launch_rowsum(const float* g, const int32_t* seg, float* out,
 // chunk's ranks are loaded, before its block writes a row (other blocks
 // may have written theirs).
 //
-// B5 keeps the chunked kernel above: on these tiles it was slower at the
-// fused FFM step's W = 354 and at W = 66 (PERF.md).
+// B5's rows of up to 64 floats run on this kernel without the squares
+// (kSquares false): the same design and summation order, sums only, the
+// partial rows and the output W wide (B5's note, above).
 
 constexpr int kTileThreads = 512;       // pass 1: most threads a block
 constexpr int kTileBlocks = 3;          // pass 1: blocks an SM (launch bound)
 constexpr size_t kTileMaxSmem = 200 * 1024;  // pass 1: a chunk's rows, ranks
 
-// Pass 1 of B6: block c sums chunk c, `chunk` slots in `groups`
-// row groups of `per` rows and `cols` = min(w, kTileThreads) columns. The
-// chunk's span of g starts `ph` floats past a 16-byte bound; the tile keeps
-// it at that offset, so the span rounded out to 16-byte bounds is one
-// aligned bulk copy. A chunk whose rounded copy would leave g (the first
-// and last ones) is loaded by the threads instead.
+// Zeros out[f0, f1) (out 16-byte aligned), block b of `blocks` its slice
+// of whole 16-byte stores, its `nt` threads over consecutive ones; the at
+// most three floats at each end of the range by block b = 0.
+__device__ __forceinline__ void zero_range(float* __restrict__ out,
+                                           int64_t f0, int64_t f1, int64_t b,
+                                           int64_t blocks, int t, int nt) {
+  if (f1 <= f0) return;
+  int64_t a0 = (f0 + 3) & ~int64_t{3};
+  int64_t a1 = f1 & ~int64_t{3};
+  if (a1 < a0) a0 = a1 = f1;            // inside one 16 bytes: floats only
+  if (b == 0) {
+    if (t < a0 - f0) out[f0 + t] = 0.f;
+    if (t < f1 - a1) out[a1 + t] = 0.f;
+  }
+  const int64_t q0 = a0 >> 2, q1 = a1 >> 2;
+  const int64_t per = (q1 - q0 + blocks - 1) / blocks;
+  const int64_t s = q0 + b * per;
+  const int64_t e = s + per < q1 ? s + per : q1;
+  float4* const out4 = reinterpret_cast<float4*>(out);
+  for (int64_t q = s + t; q < e; q += nt)
+    out4[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Pass 1 of B6 (kSquares: out[r] = [sum g | sum g^2], 2w wide) and of B5
+// on tiles (sums only, w wide): block c sums chunk c, `chunk` slots in
+// `groups` row groups of `per` rows and `cols` = min(w, kTileThreads)
+// columns. The chunk's span of g starts `ph` floats past a 16-byte bound;
+// the tile keeps it at that offset, so the span rounded out to 16-byte
+// bounds is one aligned bulk copy. A chunk whose rounded copy would leave
+// g (the first and last ones) is loaded by the threads instead.
+template <bool kSquares>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
-rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
-                       const int32_t* __restrict__ seg, // (N,) sorted
-                       float* __restrict__ out,         // (U, 2w)
-                       float* __restrict__ partials,    // (chunks, 2, 2w)
-                       int64_t n, int64_t num_segments, int w, int chunk,
-                       int groups, int per, int cols, int tile_floats) {
+rowsum_tiles_kernel(const float* __restrict__ g,     // (N, w)
+                    const int32_t* __restrict__ seg, // (N,) sorted
+                    float* __restrict__ out,         // (U, out_w)
+                    float* __restrict__ partials,    // (chunks, 2, out_w)
+                    int64_t n, int64_t num_segments, int w, int chunk,
+                    int groups, int per, int cols, int tile_floats) {
+  constexpr int kParts = kSquares ? 2 : 1;   // sums, and their squares'
   extern __shared__ __align__(16) float tile_smem[];  // rows, then ranks
-  // the groups' first runs begun before them (sums, squares) and last runs
-  // going on after them (sums, squares), at [group * w + column]
-  __shared__ float ends[4][kTileThreads];
+  // the groups' first runs begun before them (parts 0 .. kParts - 1) and
+  // last runs going on after them (parts kParts ..), at [group * w +
+  // column]
+  __shared__ float ends[2 * kParts][kTileThreads];
   __shared__ __align__(8) uint64_t bar;
   const int t = threadIdx.x;
-  const int64_t out_w = 2 * static_cast<int64_t>(w);
+  const int64_t out_w = kParts * static_cast<int64_t>(w);
   const int64_t c0 = blockIdx.x;
   const int64_t s0 = c0 * chunk;
   const int rows = static_cast<int>(n - s0 < chunk ? n - s0 : chunk);
@@ -919,15 +984,16 @@ rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
         const bool begun = first && rank == before;
         const bool going = last && rank == after;
         if (groups > 1 && (begun || going)) {
-          ends[begun ? 0 : 2][j * w + c] = acc;
-          ends[begun ? 1 : 3][j * w + c] = sq;
+          const int e = begun ? 0 : kParts;
+          ends[e][j * w + c] = acc;
+          if constexpr (kSquares) ends[e + 1][j * w + c] = sq;
           return;
         }
         float* const dst = begun   ? partials + 2 * c0 * out_w
                            : going ? partials + (2 * c0 + 1) * out_w
                                    : out + static_cast<int64_t>(rank) * out_w;
         dst[c] = acc;
-        dst[w + c] = sq;
+        if constexpr (kSquares) dst[w + c] = sq;
       };
       const float* v = tile + r0 * w + c;
 #pragma unroll 4
@@ -940,7 +1006,7 @@ rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
           acc = sq = 0.f;
         }
         acc += *v;
-        sq = fmaf(*v, *v, sq);
+        if constexpr (kSquares) sq = fmaf(*v, *v, sq);
       }
       flush(true);
     }
@@ -966,7 +1032,8 @@ rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
     };
     const int c = cp;
     if (j < active && going(j) && !(begun(j) && one_run(j))) {
-      float acc = ends[2][j * w + c], sq = ends[3][j * w + c];
+      float acc = ends[kParts][j * w + c], sq = 0.f;
+      if constexpr (kSquares) sq = ends[kParts + 1][j * w + c];
       float* dst = out + static_cast<int64_t>(ranks[end_of(j)]) * out_w;
       for (int m = j + 1;; ++m) {
         if (m >= active) {                // it goes on past the chunk
@@ -974,55 +1041,55 @@ rowsum_sq_tiles_kernel(const float* __restrict__ g,     // (N, w)
           break;
         }
         acc += ends[0][m * w + c];
-        sq += ends[1][m * w + c];
+        if constexpr (kSquares) sq += ends[1][m * w + c];
         if (!passes_through(m)) break;
       }
       dst[c] = acc;
-      dst[w + c] = sq;
+      if constexpr (kSquares) dst[w + c] = sq;
     }
     if (j == 0 && begun(0)) {             // the chunk's first run
-      float acc = ends[0][c], sq = ends[1][c];
+      float acc = ends[0][c], sq = 0.f;
+      if constexpr (kSquares) sq = ends[1][c];
       for (int m = 0; passes_through(m) && m + 1 < active; ++m) {
         acc += ends[0][(m + 1) * w + c];
-        sq += ends[1][(m + 1) * w + c];
+        if constexpr (kSquares) sq += ends[1][(m + 1) * w + c];
       }
       float* const dst = partials + 2 * c0 * out_w;
       dst[c] = acc;
-      dst[w + c] = sq;
+      if constexpr (kSquares) dst[w + c] = sq;
     }
   }
   // the zero rows of the ranks past the last slot's, a slice a block
-  const int64_t f0 = (static_cast<int64_t>(last_rank) + 1) * out_w;
-  const int64_t f1 = num_segments * out_w;
-  const int64_t slice = f1 > f0 ? (f1 - f0 + gridDim.x - 1) / gridDim.x : 0;
-  const int64_t z0 = f0 + c0 * slice;
-  for (int64_t f = z0 + t; f < z0 + slice && f < f1; f += blockDim.x)
-    out[f] = 0.f;
+  zero_range(out, (static_cast<int64_t>(last_rank) + 1) * out_w,
+             num_segments * out_w, c0, gridDim.x, t, blockDim.x);
 }
 
-// Both passes of B6; returns cudaGetLastError().
-int launch_rowsum_sq_tiles(const float* g, const int32_t* seg, float* out,
+// Both passes of B6 (kSquares) or of B5 on tiles; returns
+// cudaGetLastError().
+template <bool kSquares>
+int launch_rowsum_tiles(const float* g, const int32_t* seg, float* out,
                         float* partials, int64_t n, int64_t num_segments,
                         int64_t w, int64_t chunk, int64_t groups, int num_sms,
                         void* stream) {
   if (n <= 0) return 0;
   const int64_t cols = w < kTileThreads ? w : kTileThreads;
   if (w < 1 || chunk < 1 || groups < 1 || groups > chunk ||
-      groups * cols > kTileThreads)
+      groups * cols > kTileThreads ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // the chunk's span rounded out to 16-byte bounds, then its ranks
   const int64_t tile_floats = (chunk * w + 6 + 3) / 4 * 4;
   const size_t smem = 4 * static_cast<size_t>(tile_floats + chunk + 2);
   if (smem > kTileMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // past 48 KB with the static arrays, a block's shared memory needs the
-  // opt-in, set once a device to the most any launch asks
+  // opt-in, set once a device (and kernel) to the most any launch asks
   static bool opted_in[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= 64) return static_cast<int>(cudaErrorInvalidDevice);
   if (!opted_in[device]) {
-    err = cudaFuncSetAttribute(rowsum_sq_tiles_kernel,
+    err = cudaFuncSetAttribute(rowsum_tiles_kernel<kSquares>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(kTileMaxSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1030,17 +1097,18 @@ int launch_rowsum_sq_tiles(const float* g, const int32_t* seg, float* out,
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + chunk - 1) / chunk;
-  rowsum_sq_tiles_kernel<<<static_cast<unsigned>(num_chunks),
-                           static_cast<int>((groups * cols + 31) / 32 * 32),
-                           smem, s>>>(
+  rowsum_tiles_kernel<kSquares><<<static_cast<unsigned>(num_chunks),
+                                  static_cast<int>((groups * cols + 31) / 32
+                                                   * 32),
+                                  smem, s>>>(
       g, seg, out, partials, n, num_segments, static_cast<int>(w),
       static_cast<int>(chunk), static_cast<int>(groups),
       static_cast<int>((chunk + groups - 1) / groups),
       static_cast<int>(cols), static_cast<int>(tile_floats));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_crossing(seg, partials, out, n, num_segments, 2 * w, chunk,
-                  num_chunks, num_sms, false, s);
+  launch_crossing(seg, partials, out, n, num_segments, (kSquares ? 2 : 1) * w,
+                  chunk, num_chunks, num_sms, false, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1498,12 +1566,6 @@ int64_t sfm_fm_grad_partial_rows(int64_t n, int64_t k, int64_t num_sms) {
   return 2 * ((n + span - 1) / span);
 }
 
-// Number of partial rows the caller of B5 allocates for N sorted slots:
-// two per chunk, each as wide as the output row.
-int64_t sfm_chunk_partial_rows(int64_t n) {
-  return 2 * ((n + kChunk - 1) / kChunk);
-}
-
 // B3 and B4 launch both passes on `stream` and return cudaGetLastError()
 // (0 on success). They write every row of `out` (num_segments x (2k+2)),
 // zeros for the ranks no slot has, so the caller need not fill it; the
@@ -1533,16 +1595,22 @@ int sfm_fm_grad_segsum(const float* vw_srt, const float* ex, const float* x,
 }
 
 // B5 and B6 launch both passes on `stream` and return cudaGetLastError().
-// They write every row of `out` (num_segments x W for B5, x 2W for B6),
-// zeros for the ranks no slot has; the caller checks shapes and types
-// (1 <= W <= 65536 for B5, <= 32768 for B6), allocates `partials` of the
-// output's width (B5: sfm_chunk_partial_rows(n) rows) and keeps the
-// tensors alive until the stream has run the kernels.
+// They write every row of `out` (num_segments x W for B5, x 2W for B6;
+// 16-byte aligned), zeros for the ranks no slot has; the caller checks
+// shapes and types (1 <= W <= 65536 for B5, <= 32768 for B6), allocates
+// `partials`, two rows of the output's width a chunk, and keeps the
+// tensors alive until the stream has run the kernels. B5 runs on the
+// staged tiles when `chunk` > 0 (the layout as B6's, below), else on the
+// chunked kernel (kChunk slots a chunk).
 int sfm_segment_rowsum(const float* g, const int32_t* seg, float* out,
                        float* partials, int64_t n, int64_t num_segments,
-                       int64_t w, int num_sms, void* stream) {
-  return launch_rowsum(g, seg, out, partials, n, num_segments, w, num_sms,
-                       stream);
+                       int64_t w, int64_t chunk, int64_t groups, int num_sms,
+                       void* stream) {
+  if (chunk > 0)
+    return launch_rowsum_tiles<false>(g, seg, out, partials, n, num_segments,
+                                      w, chunk, groups, num_sms, stream);
+  return launch_rowsum_chunked(g, seg, out, partials, n, num_segments, w,
+                               num_sms, stream);
 }
 
 // B6 takes its layout from the caller: `chunk` sorted slots a block in
@@ -1553,8 +1621,8 @@ int sfm_segment_rowsum_sq(const float* g, const int32_t* seg, float* out,
                           float* partials, int64_t n, int64_t num_segments,
                           int64_t w, int64_t chunk, int64_t groups,
                           int num_sms, void* stream) {
-  return launch_rowsum_sq_tiles(g, seg, out, partials, n, num_segments, w,
-                                chunk, groups, num_sms, stream);
+  return launch_rowsum_tiles<true>(g, seg, out, partials, n, num_segments, w,
+                                  chunk, groups, num_sms, stream);
 }
 
 // Number of partial rows (of s floats) that the caller allocates for

@@ -14,7 +14,10 @@ and only CPU tensors take the plain version (``*_reference``):
   and also B3's oracle;
 - :func:`segment_rowsum` (kernel B5), per-rank sums of (N, W) rows: the
   fused step's adagrad_row pack and the direct step's per-slot momentum
-  and adam terms (``solvers/sgd_fused.py``, ``solvers/sgd.py``);
+  and adam terms (``solvers/sgd_fused.py``, ``solvers/sgd.py``), at the
+  layout :func:`rowsum_layout` picks: B6's staged tiles without the
+  squares for rows of up to ROWSUM_TILE_WIDTH floats (every path's), the
+  chunked kernel for wider ones;
 - :func:`segment_rowsum_sq` (kernel B6), ``[Σg | Σg²]`` per rank with the
   squares formed in the kernel, at the layout :func:`tile_layout` picks:
   the direct and dedup steps' ``[g_v | g_w]`` (``ops/embedding.py``) and,
@@ -53,12 +56,15 @@ MAX_STREAMS = 16           # segment_colsums' largest S
 TILE_THREADS = 512         # B6: most threads a block
 TILE_BYTES = 64 << 10      # B6: a chunk's rows and ranks in shared memory
 CHUNKS_PER_SM = 4          # B6 at small N: chunks an SM at least
+ROWSUM_TILE_WIDTH = 64     # B5: the widest rows it sums on B6's tiles
+ROWSUM_CHUNK = 256         # B5 on wider rows: slots a warp (kChunk)
 _FM_GRAD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3
 _ROWSUM_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
 FACTORED = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum_factored",
                       _FM_GRAD_ARGS)
 FM_GRAD = CudaKernel("segsum", SOURCE, "sfm_fm_grad_segsum", _FM_GRAD_ARGS)
-ROWSUM = CudaKernel("segsum", SOURCE, "sfm_segment_rowsum", _ROWSUM_ARGS)
+ROWSUM = CudaKernel("segsum", SOURCE, "sfm_segment_rowsum",
+                    _ROWSUM_ARGS + [ctypes.c_int64] * 2)
 ROWSUM_SQ = CudaKernel("segsum", SOURCE, "sfm_segment_rowsum_sq",
                        _ROWSUM_ARGS + [ctypes.c_int64] * 2)
 COLSUMS = CudaKernel(
@@ -234,17 +240,21 @@ def _check_rows(name, g, seg, num_segments) -> None:
 
 
 def _rowsum(g, seg, num_segments):
-    """Launch B5 on checked CUDA tensors. The kernel writes every row of
-    the output, zeros for the ranks no slot has."""
+    """Launch B5 on checked CUDA tensors, at :func:`rowsum_layout`. The
+    kernel writes every row of the output, zeros for the ranks no slot
+    has."""
     n, w = g.shape
     if n == 0:
         return torch.zeros((num_segments, w), dtype=torch.float32,
                            device=g.device)
+    layout = rowsum_layout(n, w, ROWSUM.num_sms(g.device))
+    chunk, groups = layout[1:3] if layout[0] == "tiles" else (0, 0)
     out = torch.empty((num_segments, w), dtype=torch.float32,
                       device=g.device)
-    partials = _partials(ROWSUM, "sfm_chunk_partial_rows", w, g.device, n)
+    partials = torch.empty((layout[-1], w), dtype=torch.float32,
+                           device=g.device)
     ROWSUM.launch(g.device, g.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                  partials.data_ptr(), n, num_segments, w)
+                  partials.data_ptr(), n, num_segments, w, chunk, groups)
     return out
 
 
@@ -262,20 +272,32 @@ def segment_rowsum(g: torch.Tensor, seg: torch.Tensor,
 
 
 def tile_layout(n: int, w: int, num_sms: int) -> tuple:
-    """B6's layout of N sorted slots of W floats on a card of ``num_sms``
-    SMs (``csrc/segsum.cu``, rowsum_sq_tiles_kernel): ``(chunk, groups,
-    partial_rows)``, the slots a block stages in shared memory and sums
-    (one chunk each), the row groups its threads form and the pass-1
-    partial rows to allocate, two a chunk. A chunk holds the rows and
-    ranks that fit in TILE_BYTES, but no more than N over CHUNKS_PER_SM
-    chunks an SM, so a small N still spreads over the card; ``groups``
-    fills TILE_THREADS threads with groups of min(W, TILE_THREADS)
-    columns, and the chunk is a multiple of it."""
+    """The staged tiles' layout (``csrc/segsum.cu``, rowsum_tiles_kernel:
+    B6, and B5 on narrow rows) of N sorted slots of W floats on a card of
+    ``num_sms`` SMs: ``(chunk, groups, partial_rows)``, the slots a block
+    stages in shared memory and sums (one chunk each), the row groups its
+    threads form and the pass-1 partial rows to allocate, two a chunk. A
+    chunk holds the rows and ranks that fit in TILE_BYTES, but no more
+    than N over CHUNKS_PER_SM chunks an SM, so a small N still spreads
+    over the card; ``groups`` fills TILE_THREADS threads with groups of
+    min(W, TILE_THREADS) columns, and the chunk is a multiple of it."""
     chunk = max(1, TILE_BYTES // (4 * (w + 1)))
     chunk = min(chunk, max(1, -(-n // (CHUNKS_PER_SM * num_sms))))
     groups = max(1, min(TILE_THREADS // min(w, TILE_THREADS), chunk))
     chunk = chunk // groups * groups
     return chunk, groups, 2 * -(-n // chunk)
+
+
+def rowsum_layout(n: int, w: int, num_sms: int) -> tuple:
+    """B5's layout of N sorted slots of W floats on a card of ``num_sms``
+    SMs (``csrc/segsum.cu``): rows of at most ROWSUM_TILE_WIDTH floats go
+    to B6's staged tiles without the squares, ``("tiles", chunk, groups,
+    partial_rows)`` as :func:`tile_layout` gives them; wider rows to the
+    chunked kernel (lanes over columns, ROWSUM_CHUNK slots a warp),
+    ``("chunks", partial_rows)``. Either way two partial rows a chunk."""
+    if w <= ROWSUM_TILE_WIDTH:
+        return ("tiles", *tile_layout(n, w, num_sms))
+    return ("chunks", 2 * -(-n // ROWSUM_CHUNK))
 
 
 def _rowsum_sq(g, seg, num_segments):

@@ -543,6 +543,209 @@ def test_rowsum_sq_kernel_traps_on_a_rank_out_of_range(dev):
     assert "unspecified launch failure" in child.stderr, child.stderr[-2000:]
 
 
+def _zipf_ids(rng, rows, slots, buckets):
+    """bench.py's id recipe: zipf(1.3) draws hashed into the buckets; at
+    16,384 x 39 one id takes ~162k slots."""
+    raw = rng.zipf(1.3, size=(rows, slots)).astype(np.int64)
+    return ((raw * 2654435761) % buckets).astype(np.int32)
+
+
+def _field_ids(rng, rows, slots, buckets):
+    """BASELINE config 5's ids: each slot's zipf(1.3) draw hashed into its
+    own field's range of the buckets."""
+    per = buckets // slots
+    raw = rng.zipf(1.3, size=(rows, slots)).astype(np.int64)
+    return (((raw * 2654435761) % buckets) % per
+            + per * np.arange(slots)[None, :]).astype(np.int32)
+
+
+def _b5_path_plan(dev, shape):
+    """(seg, U, W) of one shape a path gives B5: the fused adagrad_row
+    pack (W = k + 3 = 35) over a bench-recipe ladder plan; the direct
+    step's per-slot terms over a ``dedup_ids`` plan of budget N at rank 32
+    (W = 33) and at BASELINE config 5 (W = 17); config 1's direct step
+    (W = 9, 4,096 user-item pairs of 2,625 features, budget F)."""
+    rng = np.random.default_rng(13)
+    if shape == "adagrad_row":
+        ids = _zipf_ids(rng, 16384, 39, 1 << 24)
+        cap = PE.auto_budget(ids.size)
+        plan = PE.host_dedup(ids, cap, fill=1 << 24)
+        return (torch.as_tensor(plan.seg, device=dev),
+                PE.ladder_budget(int(plan.count), cap=cap), 35)
+    if shape == "config 1":
+        ids = np.stack([rng.integers(0, 943, 4096),
+                        943 + rng.integers(0, 1682, 4096)], 1)
+        rows, w = 2625, 9
+    elif shape == "direct":
+        ids, rows, w = _zipf_ids(rng, 16384, 39, 1 << 24), 1 << 24, 33
+    else:                                          # "config 5"
+        ids, rows, w = _field_ids(rng, 8192, 39, 1 << 20), 1 << 20, 17
+    budget = min(ids.size, rows)
+    plan = PE.dedup_ids(torch.as_tensor(ids.astype(np.int32), device=dev),
+                        budget, fill=rows - 1)
+    return plan.seg, budget, w
+
+
+@pytest.mark.parametrize("layout", ["tiles", "chunks"])
+@pytest.mark.parametrize("shape", ["adagrad_row", "direct", "config 5",
+                                   "config 1"])
+def test_rowsum_kernel_on_each_layout_at_path_shapes(dev, monkeypatch, shape,
+                                                     layout):
+    """B5 at each shape its paths give it, on both of its layouts (the
+    wrapper's rule, ``segsum.rowsum_layout``, pinned to one): against the
+    plain version in float64 at max |a - b| / (1 + |b|) < 1e-4, bit for
+    bit on a second call, zero rows for the ranks no slot has (at U = N
+    nearly all of them), one launch a call. The bench-recipe plans have a
+    ~162k-slot head run; there the chunked layout, which adds the run's
+    ~630 chunk sums in pass 2, is held to 2.5e-4, the bound chip_smoke.py
+    set for it on that run (B5_WIDE_TOL: it read up to 1.87e-4, the f32
+    plain version 3.26e-4 and more), and read 1.29e-4 at W = 33 on an
+    H100; the tiles' groups and chunk sums keep 1e-4."""
+    seg, u, w = _b5_path_plan(dev, shape)
+    n = seg.shape[0]
+    tol = 1e-4
+    if shape in ("adagrad_row", "direct"):
+        assert int(torch.bincount(seg).max()) > 100_000
+        tol = 2.5e-4 if layout == "chunks" else 1e-4
+    if layout == "tiles":
+        monkeypatch.setattr(segsum, "rowsum_layout", lambda n, w, s: (
+            "tiles", *segsum.tile_layout(n, w, s)))
+    else:
+        monkeypatch.setattr(segsum, "rowsum_layout", lambda n, w, s: (
+            "chunks", 2 * -(-n // segsum.ROWSUM_CHUNK)))
+    g = torch.randn((n, w), generator=torch.Generator(dev).manual_seed(5),
+                    device=dev)
+    want = segsum.segment_rowsum_reference(g.double(), seg, u)
+    before = segsum.ROWSUM.launches
+    got = segsum.segment_rowsum(g, seg, u)
+    assert segsum.ROWSUM.launches == before + 1
+    assert got.shape == (u, w)
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < tol
+    assert torch.equal(got, segsum.segment_rowsum(g, seg, u))
+    empty = torch.ones(u, dtype=torch.bool, device=dev)
+    empty[seg.long()] = False
+    assert not got[empty].any()
+
+
+@pytest.mark.parametrize("w", [1, 64, 65, 65536])
+def test_rowsum_kernel_takes_every_width(dev, w):
+    """B5 takes 1 <= W <= 65536 on the card: the tiles up to
+    ROWSUM_TILE_WIDTH, the chunked kernel past it, held to float64 with a
+    run across chunks and a gap."""
+    assert segsum.rowsum_layout(2000, w, 132)[0] == (
+        "tiles" if w <= segsum.ROWSUM_TILE_WIDTH else "chunks")
+    n = 2000 if w < 65536 else 40
+    ranks = np.arange(n)
+    ranks[:n // 2] = 0                     # one run of half the slots
+    seg = torch.as_tensor(2 * ranks.astype(np.int32), device=dev)
+    u = int(seg[-1]) + 3
+    g = torch.randn((n, w), generator=torch.Generator(dev).manual_seed(w),
+                    device=dev)
+    got = segsum.segment_rowsum(g, seg, u)
+    want = segsum.segment_rowsum_reference(g.double(), seg, u)
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
+    assert not got[1::2].any()
+
+
+@pytest.mark.parametrize("w", [3, 100])
+def test_rowsum_kernel_traps_on_a_rank_out_of_range(dev, w):
+    """A rank outside [0, U) traps B5 on either layout (W = 3 on the tiles,
+    100 on the chunked kernel), in a child process."""
+    code = ("import torch\n"
+            "from sparkfm_tpu_torch.ops import segsum\n"
+            "seg = torch.tensor([0, 1, 1, 5], dtype=torch.int32, "
+            "device='cuda')\n"
+            f"segsum.segment_rowsum(torch.ones((4, {w}), device='cuda'), "
+            "seg, 5)\n"
+            "torch.cuda.synchronize()\n")
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=REPO)
+    assert child.returncode != 0
+    assert "unspecified launch failure" in child.stderr, child.stderr[-2000:]
+
+
+def _plain_rows64(g, seg, num_segments):
+    """B5's plain version in float64, rounded to float32."""
+    return segsum.segment_rowsum_reference(g.double(), seg,
+                                           num_segments).float()
+
+
+def _close_on_card(a, b, what, rtol=1e-4, atol=1e-6):
+    bad = (a - b).abs() > atol + rtol * b.abs()
+    assert not bool(bad.any()), f"{what}: {int(bad.sum())} entries differ"
+
+
+@pytest.mark.parametrize("path", ["fused adagrad_row", "direct adam"])
+def test_b5_steps_on_card_equal_plain_steps(dev, monkeypatch, path):
+    """The two steps that sum by B5 on the card at rank 32 (4,096 x 39
+    synth_ctr slots in 2^20 rows): the fused step under adagrad_row (its
+    (N, k+3) pack over ladder plans, U = 8,192) and the direct step under
+    adam (per-slot terms, budget U = N = 159,744). Each of 5 steps runs
+    twice from one state, with the kernels and with the plain versions
+    (B5 in float64, B1 and B2 as ``index_select``/``index_copy_``), and the
+    run goes on from the kernels' result: losses at rtol 1e-5, every table
+    at rtol 1e-4, atol 1e-6 (PERF.md section 2)."""
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    f = 1 << 20
+    cfg = FMConfig(num_features=f, num_factors=32, task=Task.CLASSIFICATION,
+                   reg_v=1e-6, seed=4)
+    _, batches = _ctr_batches(dev, 5, seed=13, f=f, rows=4096, slots=39)
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(4),
+                           device="cpu")
+    if path == "fused adagrad_row":
+        sgd = SGDConfig(batch_size=4096, learning_rate=0.05,
+                        optimizer="adagrad_row", update_path="fused")
+        step = sgd_fused.make_fused_train_step(cfg, sgd)
+        state = _fused_state(cfg, dev, 4)
+
+        def tables(st):
+            return [st.table[:f], st.w0]
+
+        def clone(st):
+            return dataclasses.replace(st, table=st.table.clone(),
+                                       w0=st.w0.clone(),
+                                       slot_w0=st.slot_w0.clone(),
+                                       step=st.step.clone())
+    else:
+        sgd = SGDConfig(batch_size=4096, learning_rate=1e-4,
+                        optimizer="adam", update_path="direct")
+        step = psgd.make_train_step(cfg, sgd)
+        state = psgd.init_state(pfm.FMParams(*(t.to(dev) for t in (
+            init.w0, init.w, init.v))), "adam")
+        names = ("slot_w0", "slot_w", "slot_v", "slot2_w0", "slot2_w",
+                 "slot2_v", "step")
+
+        def tables(st):
+            return [st.params.w0, st.params.w, st.params.v] + [
+                getattr(st, n) for n in names[:-1]]
+
+        def clone(st):
+            return dataclasses.replace(
+                st, params=pfm.FMParams(*(t.clone() for t in (
+                    st.params.w0, st.params.w, st.params.v))),
+                **{n: getattr(st, n).clone() for n in names})
+    swaps = {(segsum, "segment_rowsum"): _plain_rows64,
+             (rowio, "gather_rows"): rowio.gather_rows_reference,
+             (rowio, "gather_vw_rows"): rowio.gather_vw_rows_reference,
+             (rowio, "scatter_set_rows"): rowio.scatter_set_rows_reference}
+    for i, b in enumerate(batches):
+        plain_in = clone(state)
+        before = segsum.ROWSUM.launches
+        state, aux = step(state, b)
+        assert segsum.ROWSUM.launches == before + 1
+        with monkeypatch.context() as m:
+            for (mod, name), fn in swaps.items():
+                m.setattr(mod, name, fn)
+            plain_out, plain_aux = step(plain_in, b)
+        assert segsum.ROWSUM.launches == before + 1
+        np.testing.assert_allclose(float(aux["loss"]),
+                                   float(plain_aux["loss"]), rtol=1e-5)
+        for j, (a, p) in enumerate(zip(tables(state), tables(plain_out))):
+            _close_on_card(a, p, f"{path} step {i} table {j}")
+
+
 @pytest.mark.parametrize("n,k,long_run", [
     (1, 4, 0), (257, 32, 0), (5000, 33, 0), (20000, 32, 9000),
     (3000, 128, 2999), (700, 1, 0)])

@@ -44,14 +44,26 @@ def _seg(rng, n, kind):
     return seg.astype(np.int32)
 
 
+def _segments(seg, n, kind):
+    """U for a case: N for "budget" (the direct step's plan, budget N, so
+    most ranks have no slot), else a few ranks past the last."""
+    return n if kind == "budget" else int(seg[-1]) + 4
+
+
 CASES = [  # (n, W, kind)
     (96, 66, "dense"), (90, 35, "offset"), (77, 1, "dense"),
-    (64, 130, "dense"), (1500, 66, "long"), (40, 3, "one_run")]
+    (64, 130, "dense"), (1500, 66, "long"), (40, 3, "one_run"),
+    # B5's widths on its paths, at a budget of N: config 1's direct step
+    # (W = 9), config 5's (17), the direct step at rank 32 (33) and the
+    # fused adagrad_row pack (35)
+    (300, 9, "budget"), (200, 17, "budget"), (257, 33, "budget"),
+    (130, 35, "budget")]
 
 
 def _outside(seg, u):
+    """The ranks no slot has."""
     mask = np.ones(u, bool)
-    mask[seg[0]:seg[-1] + 1] = False
+    mask[seg] = False
     return mask
 
 
@@ -60,7 +72,7 @@ def _outside(seg, u):
 def test_segment_rowsum_matches_jax(n, w, kind, force):
     rng = np.random.default_rng(n + w)
     seg = _seg(rng, n, kind)
-    u = int(seg[-1]) + 4
+    u = _segments(seg, n, kind)
     g = rng.normal(size=(n, w)).astype(np.float32)
     want = np.asarray(S.segment_rowsum(jnp.asarray(g), jnp.asarray(seg), u,
                                        tile=16, force=force))
@@ -72,12 +84,33 @@ def test_segment_rowsum_matches_jax(n, w, kind, force):
     assert not got.numpy()[_outside(seg, u)].any()  # rank-zeroing contract
 
 
+@pytest.mark.parametrize("w", [9, 17, 33, 35])
+def test_segment_rowsum_with_gaps_matches_jax(w):
+    """B5's path widths at a budget of N over ranks with gaps (steps up to
+    2) from seg[0] = 2: the zero rows before the first rank, between
+    gapped ranks and past the last, against the JAX XLA branch (the
+    Pallas kernel's interpret mode needs dense ranks)."""
+    rng = np.random.default_rng(40 + w)
+    n = 240
+    incr = rng.choice([0, 0, 1, 2], n)
+    incr[0] = 0
+    seg = (2 + np.cumsum(incr)).astype(np.int32)
+    assert seg[-1] < n and (np.diff(seg) > 1).any()
+    g = rng.normal(size=(n, w)).astype(np.float32)
+    want = np.asarray(S.segment_rowsum(jnp.asarray(g), jnp.asarray(seg), n,
+                                       force="xla"))
+    got = segsum.segment_rowsum(torch.from_numpy(g), torch.from_numpy(seg), n)
+    assert got.shape == (n, w)
+    np.testing.assert_allclose(got.numpy(), want, **TOL["xla"])
+    assert not got.numpy()[_outside(seg, n)].any()
+
+
 @pytest.mark.parametrize("force", ["xla", "interpret"])
 @pytest.mark.parametrize("n,w,kind", CASES)
 def test_segment_rowsum_sq_matches_jax(n, w, kind, force):
     rng = np.random.default_rng(n + w + 1)
     seg = _seg(rng, n, kind)
-    u = int(seg[-1]) + 4
+    u = _segments(seg, n, kind)
     g = rng.normal(size=(n, w)).astype(np.float32)
     want = np.asarray(S.segment_rowsum_sq(
         jnp.asarray(g), jnp.asarray(seg), u, tile=16, subtile=8,
@@ -174,7 +207,7 @@ def test_accumulate_to_unique_sorted_matches_jax_and_scatter(payload):
     (4, 3, 132, (1, 1, 8)),
 ])
 def test_tile_layout_rule(n, w, num_sms, want):
-    """B6's layout (kernel rowsum_sq_tiles_kernel): a chunk of rows and
+    """B6's layout (kernel rowsum_tiles_kernel): a chunk of rows and
     ranks within TILE_BYTES, at most N over CHUNKS_PER_SM chunks an SM (so
     config 1's 8,192 slots give ~4 blocks an SM, not 32 warps in all), a
     multiple of its row groups, which fill at most TILE_THREADS threads;
@@ -186,6 +219,33 @@ def test_tile_layout_rule(n, w, num_sms, want):
     assert chunk <= -(-n // (segsum.CHUNKS_PER_SM * num_sms))
     assert chunk % groups == 0
     assert groups * min(w, segsum.TILE_THREADS) <= segsum.TILE_THREADS
+
+
+@pytest.mark.parametrize("n,w,num_sms,want", [
+    (638976, 35, 132, ("tiles", 448, 14, 2854)),   # fused adagrad_row pack
+    (638976, 33, 132, ("tiles", 480, 15, 2664)),   # direct step, rank 32
+    (319488, 17, 132, ("tiles", 600, 30, 1066)),   # config 5's direct step
+    (8192, 9, 132, ("tiles", 16, 16, 1024)),       # config 1: 512 chunks
+    (638976, 64, 132, ("tiles", 248, 8, 5154)),    # the widest on tiles
+    (638976, 66, 132, ("chunks", 4992)),           # the chunked kernel's
+    (180224, 354, 132, ("chunks", 1408)),          # an FFM record's pack
+    (4, 65536, 132, ("chunks", 2)),                # the widest B5 takes
+])
+def test_rowsum_layout_rule(n, w, num_sms, want):
+    """B5's layout: rows of at most ROWSUM_TILE_WIDTH floats (every
+    path's: 9, 17, 33, 35) on B6's staged tiles at B6's own layout, wider
+    rows on the chunked kernel, ROWSUM_CHUNK slots a warp; two partial
+    rows a chunk either way. The crossover lies between the widths the
+    tiles won at on an H100 (9 to 35) and 66, where the chunked kernel
+    did (PERF.md)."""
+    layout = segsum.rowsum_layout(n, w, num_sms)
+    assert layout == want
+    if layout[0] == "tiles":
+        assert w <= segsum.ROWSUM_TILE_WIDTH
+        assert layout[1:] == segsum.tile_layout(n, w, num_sms)
+    else:
+        assert w > segsum.ROWSUM_TILE_WIDTH
+        assert layout[1] == 2 * -(-n // segsum.ROWSUM_CHUNK)
 
 
 def test_empty_streams_give_zeros():

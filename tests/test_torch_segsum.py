@@ -277,7 +277,7 @@ def test_factored_card_order_holds_to_float64_and_jax(k):
 
 def _rowsum_sq_card_order(g, seg, u, chunk, groups):
     """The card's B6 sums in its own float32 order (csrc/segsum.cu,
-    rowsum_sq_tiles_kernel): chunks of ``chunk`` slots, each cut into
+    rowsum_tiles_kernel): chunks of ``chunk`` slots, each cut into
     ``groups`` row groups of ``per`` rows; within a group each run's rows
     are added in slot order (the squares one rounding each, as the
     kernel's fused multiply-add). A group's first run begun before it and
@@ -405,6 +405,45 @@ def test_rowsum_sq_card_order_holds_to_float64_and_jax(n, w, kind, num_sms,
             bf16x2=False, force=force))
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4,
                                    err_msg=force)
+
+
+@pytest.mark.parametrize("n,w,kind,num_sms,forces", [
+    (8192, 9, "budget", 132, ("xla", "interpret")),   # config 1's direct
+    (20000, 17, "budget", 132, ("xla", "interpret")),  # step at budget N
+    (20000, 33, "budget", 4, ("xla",)),                # full 64 KB tiles
+    (20000, 35, "long", 132, ("xla", "interpret")),    # adagrad_row pack
+    (5000, 33, "gaps", 132, ("xla",)),                 # ranks with no slots
+])
+def test_rowsum_card_order_holds_to_float64_and_jax(n, w, kind, num_sms,
+                                                    forces):
+    """B5's summation order on the card at the widths its paths give it,
+    where ``segsum.rowsum_layout`` puts it on B6's staged tiles: B6's
+    order without the squares, so the sum columns of
+    :func:`_rowsum_sq_card_order` at the same layout. "budget" is a
+    "long" case at U = N, the direct step's plan, whose ranks past the
+    last slot's are zero rows. Held to the float64 sums at max |a - b| /
+    (1 + |b|) < 1e-4 and to JAX ``segment_rowsum`` at rtol = atol = 1e-4,
+    as B6's order is above, plus the JAX sums' own distance from float64:
+    its XLA branch adds a long run's terms one after another in float32,
+    3.1e-4 off the float64 sums at the 9,000-slot run of U = N at W = 33
+    (this order: 2.7e-5)."""
+    g, seg, u = _rows_sq_case(np.random.default_rng(n + w + 7), n, w,
+                              "long" if kind == "budget" else kind)
+    if kind == "budget":
+        u = n
+    layout = segsum.rowsum_layout(n, w, num_sms)
+    assert layout[0] == "tiles" and layout[1:] == segsum.tile_layout(
+        n, w, num_sms)
+    got = _rowsum_sq_card_order(g, seg, u, *layout[1:3])[:, :w]
+    exact = segsum.segment_rowsum_reference(
+        torch.from_numpy(g).double(), torch.from_numpy(seg), u).numpy()
+    assert float((np.abs(got - exact) / (1 + np.abs(exact))).max()) < 1e-4
+    for force in forces:
+        want = np.asarray(S.segment_rowsum(jnp.asarray(g), jnp.asarray(seg),
+                                           u, tile=1024, force=force))
+        np.testing.assert_allclose(
+            got, want, rtol=1e-4, atol=1e-4 + np.abs(want - exact).max(),
+            err_msg=force)
 
 
 def _colsums_case(rng, n, s, kind):
