@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from sparkfm_tpu_torch.ops import embedding as E
+from sparkfm_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -104,6 +105,9 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
     size; ``"ladder"`` sizes it to the batch's unique count rounded up to
     a ladder rung (``ladder_budget``). Rungs only grow within one
     iterator, so the plan shapes settle on one or two.
+
+    Each batch's assembly, plan and copies are the span ``data.batch``;
+    the copies are counted by ``utils/profiling.py::to_device``.
     """
     ladder = dedup_budget == "ladder"
     if not (dedup_budget is None or ladder or (
@@ -119,6 +123,7 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
     plans = dedup_budget is not None and dedup_fill is not None
     ladder_cap = E.auto_budget(batch_size * ds.max_nnz)
     rung = 1
+    move = profiling.to_device
     for start in range(0, n, batch_size):
         idx = order[start:start + batch_size]
         b = len(idx)
@@ -126,35 +131,36 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
             if drop_remainder:
                 return
             idx = np.concatenate([idx, np.zeros((batch_size - b,), np.int64)])
-        mask = np.zeros((batch_size,), bool)
-        mask[:b] = True
-        ids_np = ds.ids[idx]
-        vals_np = ds.vals[idx] * mask[:, None]
-        plan = None
-        if plans:
-            hp = E.host_dedup(ids_np, ladder_cap if ladder else dedup_budget,
-                              dedup_fill, vals=vals_np)
-            if ladder:
-                rung = max(rung, E.ladder_budget(int(hp.count),
-                                                 cap=ladder_cap))
-                hp = hp._replace(uids=hp.uids[:rung])
-            plan = E.plan_to_device(hp, device)
-        yield SparseBatch(
-            ids=torch.as_tensor(ids_np, device=device),
-            vals=torch.as_tensor(vals_np, device=device),
-            y=torch.as_tensor(ds.y[idx] * mask, device=device),
-            mask=torch.as_tensor(mask, device=device),
-            field_ids=(None if ds.field_ids is None
-                       else torch.as_tensor(ds.field_ids[idx],
-                                            device=device)),
-            plan=plan)
+        with profiling.annotate("data.batch"):
+            mask = np.zeros((batch_size,), bool)
+            mask[:b] = True
+            ids_np = ds.ids[idx]
+            vals_np = ds.vals[idx] * mask[:, None]
+            plan = None
+            if plans:
+                hp = E.host_dedup(ids_np,
+                                  ladder_cap if ladder else dedup_budget,
+                                  dedup_fill, vals=vals_np)
+                if ladder:
+                    rung = max(rung, E.ladder_budget(int(hp.count),
+                                                     cap=ladder_cap))
+                    hp = hp._replace(uids=hp.uids[:rung])
+                plan = E.plan_to_device(hp, device)
+            batch = SparseBatch(
+                ids=move(ids_np, device), vals=move(vals_np, device),
+                y=move(ds.y[idx] * mask, device), mask=move(mask, device),
+                field_ids=(None if ds.field_ids is None
+                           else move(ds.field_ids[idx], device)),
+                plan=plan)
+        yield batch
 
 
 def prefetch(it: Iterator, depth: int = 2) -> Iterator:
     """Run an iterator in a background thread with a bounded queue, so
     batch assembly, plan building and host-to-device copies overlap the
     consumer's work. An exception in the worker is raised in the
-    consumer."""
+    consumer. The consumer's wait for an item is the span
+    ``data.prefetch_wait``."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     sentinel = object()
     err: list = []
@@ -171,7 +177,8 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with profiling.annotate("data.prefetch_wait"):
+            item = q.get()
         if item is sentinel:
             t.join()
             if err:

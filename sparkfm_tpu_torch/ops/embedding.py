@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from sparkfm_tpu_torch.ops import rowio, segsum
+from sparkfm_tpu_torch.utils import profiling
 
 
 class DedupBatch(NamedTuple):
@@ -212,8 +213,14 @@ def host_dedup(ids, budget: int, fill: int, vals=None) -> DedupBatch:
     With ``vals`` (same shape as ids) the plan also carries ``svals`` and
     ``sex``. Runs the native radix-sort builder (``data/native_io.py``)
     when it is available and the numpy code below otherwise; both give
-    the same arrays (``SPARKFM_NO_NATIVE=1`` forces numpy).
+    the same arrays (``SPARKFM_NO_NATIVE=1`` forces numpy). A call is the
+    span ``plan.host_dedup``.
     """
+    with profiling.annotate("plan.host_dedup"):
+        return _host_dedup(ids, budget, fill, vals)
+
+
+def _host_dedup(ids, budget: int, fill: int, vals) -> DedupBatch:
     from sparkfm_tpu_torch.data import native_io
     nat = native_io.dedup_plan_native(
         np.asarray(ids), budget, fill,
@@ -312,10 +319,11 @@ def stack_hybrid_extras(ranks, vals, num_shards: int,
 
 
 def plan_to_device(plan: DedupBatch, device) -> DedupBatch:
-    """A host plan with its per-slot arrays as tensors on ``device``;
-    count and overflow stay host numbers, for the host to branch on."""
+    """A host plan with its per-slot arrays as tensors on ``device``
+    (copies counted by ``utils/profiling.py::to_device``); count and
+    overflow stay host numbers, for the host to branch on."""
     def move(x):
-        return None if x is None else torch.as_tensor(x, device=device)
+        return None if x is None else profiling.to_device(x, device)
     return plan._replace(uids=move(plan.uids), ranks=move(plan.ranks),
                          order=move(plan.order), seg=move(plan.seg),
                          svals=move(plan.svals), sex=move(plan.sex))

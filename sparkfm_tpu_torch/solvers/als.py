@@ -74,6 +74,7 @@ from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import segsum
 from sparkfm_tpu_torch.training.trainer import TrainResult, evaluate
 from sparkfm_tpu_torch.utils import device as device_util
+from sparkfm_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -342,9 +343,25 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
 
     ``reg_w`` / ``reg_v`` are scalars or per-feature (F,) tensors.
     ``column_pure``, ``csc_uniform`` and ``slice_identity`` select the
-    faster forms of the same updates (:class:`BlockViews`)."""
-    views = BlockViews(ws.y.shape[0], column_pure, csc_uniform,
-                       slice_identity)
+    faster forms of the same updates (:class:`BlockViews`).
+
+    Spans (``utils/profiling.py::annotate``, timed on the card too): the
+    sweep is ``als.sweep``; in it the forward is ``als.forward``, the w
+    blocks ``als.linear``, and each (factor, block) is ``als.gather`` (e
+    and q in CSC order), ``als.streams`` (the five product streams),
+    ``als.colsums`` (B7), ``als.solve`` (num, den, the new factors) and
+    ``als.patch`` (q and e patched)."""
+    on_card = ws.y.is_cuda
+    with annotate("als.sweep", device=on_card):
+        return _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w,
+                              reg_v, use_bias, use_linear,
+                              BlockViews(ws.y.shape[0], column_pure,
+                                         csc_uniform, slice_identity),
+                              on_card)
+
+
+def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
+                   use_bias, use_linear, views, on_card):
     k = params.v.shape[1]
     present = ws.present
     rank_csr, vals_csr = ws.slot_rank, ws.slot_val
@@ -358,8 +375,9 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
     rw_c, rv_c = _compact(reg_w, present), _compact(reg_v, present)
     csc = views.csc
 
-    score, q_bank = compact_forward(ws, params.w0, w_c, v_t, use_bias,
-                                    use_linear)
+    with annotate("als.forward", device=on_card):
+        score, q_bank = compact_forward(ws, params.w0, w_c, v_t, use_bias,
+                                        use_linear)
     e = score - ws.y
 
     w0_new = params.w0.clone()
@@ -370,36 +388,44 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
         e = e + (w0_new - params.w0)
 
     if use_linear:
-        for b in range(num_blocks):
-            num = segsum.segment_colsums(
-                [views.to_csc(e, col_row, b) * csc(x, b)],
-                csc(col_rank, b), num_ranks)[:, 0]
-            theta = _guarded_theta(w_c, num, den_w_c, rw_c)
-            delta = torch.where(in_block[b], theta - w_c, 0.0)
-            e = e + views.patch(delta, rank_csr, vals_csr, b)
-            w_c = w_c + delta
+        with annotate("als.linear", device=on_card):
+            for b in range(num_blocks):
+                num = segsum.segment_colsums(
+                    [views.to_csc(e, col_row, b) * csc(x, b)],
+                    csc(col_rank, b), num_ranks)[:, 0]
+                theta = _guarded_theta(w_c, num, den_w_c, rw_c)
+                delta = torch.where(in_block[b], theta - w_c, 0.0)
+                e = e + views.patch(delta, rank_csr, vals_csr, b)
+                w_c = w_c + delta
 
     for f in range(k):
         vf, q = v_t[f], q_bank[f]
         for b in range(num_blocks):
-            e_csc = views.to_csc(e, col_row, b)
-            q_csc = views.to_csc(q, col_row, b)
-            xb = csc(x, b)
-            xb2 = xb * xb
-            sums = segsum.segment_colsums(
-                [e_csc * xb * q_csc, e_csc * xb2, xb2 * q_csc * q_csc,
-                 xb2 * xb * q_csc, xb2 * xb2],
-                csc(col_rank, b), num_ranks)                    # (Fp, 5)
-            num = sums[:, 0] - vf * sums[:, 1]
-            den = (sums[:, 2] - 2.0 * vf * sums[:, 3]
-                   + vf.square() * sums[:, 4]).clamp_min(0.0)
-            theta = _guarded_theta(vf, num, den, rv_c)
-            delta = torch.where(in_block[b], theta - vf, 0.0)
-            vf_new = vf + delta
-            dsq = torch.where(in_block[b], vf_new.square() - vf.square(), 0.0)
-            q_new = q + views.patch(delta, rank_csr, vals_csr, b)
-            e = (e + 0.5 * (q_new.square() - q.square())
-                 - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
+            with annotate("als.gather", device=on_card):
+                e_csc = views.to_csc(e, col_row, b)
+                q_csc = views.to_csc(q, col_row, b)
+            with annotate("als.streams", device=on_card):
+                xb = csc(x, b)
+                xb2 = xb * xb
+                streams = [e_csc * xb * q_csc, e_csc * xb2,
+                           xb2 * q_csc * q_csc, xb2 * xb * q_csc, xb2 * xb2]
+            with annotate("als.colsums", device=on_card):
+                sums = segsum.segment_colsums(
+                    streams, csc(col_rank, b), num_ranks)       # (Fp, 5)
+            del streams
+            with annotate("als.solve", device=on_card):
+                num = sums[:, 0] - vf * sums[:, 1]
+                den = (sums[:, 2] - 2.0 * vf * sums[:, 3]
+                       + vf.square() * sums[:, 4]).clamp_min(0.0)
+                theta = _guarded_theta(vf, num, den, rv_c)
+                delta = torch.where(in_block[b], theta - vf, 0.0)
+                vf_new = vf + delta
+                dsq = torch.where(in_block[b],
+                                  vf_new.square() - vf.square(), 0.0)
+            with annotate("als.patch", device=on_card):
+                q_new = q + views.patch(delta, rank_csr, vals_csr, b)
+                e = (e + 0.5 * (q_new.square() - q.square())
+                     - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
             vf, q = vf_new, q_new
         v_t[f] = vf
 

@@ -34,7 +34,7 @@ from sparkfm_tpu_torch.parallel import mesh as M
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid, sgd_sorted
 from sparkfm_tpu_torch.utils import device as device_util
-from sparkfm_tpu_torch.utils import graphs
+from sparkfm_tpu_torch.utils import graphs, profiling
 from sparkfm_tpu_torch.utils.checkpoint import (Checkpointer, LayoutMismatch,
                                                 state_tensors)
 
@@ -483,6 +483,11 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
     examples (kernel builds, warm-up, a first graph capture), as the JAX
     trainer leaves out its compile; a run of one dispatch counts it.
     Returns ``(state, history, examples_per_sec)``.
+
+    Spans (``utils/profiling.py::annotate``): each ``run()`` is
+    ``train.dispatch``; what follows an epoch's steps (its loss mean and
+    overflow count, the eval, the hooks, the checkpoint) is
+    ``train.epoch_end``.
     """
     history: List[Dict[str, float]] = []
     start_epoch = 0
@@ -518,7 +523,8 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
             def dispatch(run, n):
                 nonlocal warmup
                 tw = time.perf_counter() if warmup is None else None
-                aux = run()
+                with profiling.annotate("train.dispatch"):
+                    aux = run()
                 if tw is not None:
                     float(aux["loss"])  # waits for the dispatch to end
                     warmup = (time.perf_counter() - tw,
@@ -531,38 +537,41 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
 
             state, flags = run_epoch(state, epoch, dispatch)
             n_examples += num_examples
-            rec = {"epoch": epoch,
-                   "train_loss": float(torch.stack(losses).mean())}
-            on = next((f.device for f in flags if torch.is_tensor(f)),
-                      None)
-            overflows = int(torch.stack([torch.as_tensor(f, device=on)
-                                         for f in flags]).sum()) if flags else 0
-            if flags and record_overflows:
-                rec["unique_overflow_steps"] = overflows
-            if overflows:
-                log.warning(
-                    "epoch %d: %d step(s) overflowed the unique-id budget "
-                    "(updates aliased); raise SGDConfig.unique_budget",
-                    epoch, overflows)
-            if evaluate_state is not None and (
-                    epoch % eval_every == 0 or epoch == sgd_cfg.epochs - 1):
-                rec.update({f"eval_{k}": v
-                            for k, v in evaluate_state(state).items()})
-            history.append(rec)
-            log.info("epoch %d: %s", epoch,
-                     " ".join(f"{k}={v:.5f}" for k, v in rec.items()
-                              if k != "epoch"))
-            if hooks:
-                for h in hooks:
-                    h(epoch, state, rec)
-            stop = _time_budget_reached(t0, sgd_cfg.max_seconds, epoch)
-            if stop_together is not None:
-                stop = stop_together(stop)
-            if ckpt is not None and ((epoch + 1) % checkpoint_every == 0
-                                     or epoch == sgd_cfg.epochs - 1
-                                     or stop):
-                ckpt.save(epoch, state,
-                          extra={"epoch": epoch, "history": history})
+            with profiling.annotate("train.epoch_end"):
+                rec = {"epoch": epoch,
+                       "train_loss": float(torch.stack(losses).mean())}
+                on = next((f.device for f in flags if torch.is_tensor(f)),
+                          None)
+                overflows = int(torch.stack(
+                    [torch.as_tensor(f, device=on) for f in flags]).sum()
+                ) if flags else 0
+                if flags and record_overflows:
+                    rec["unique_overflow_steps"] = overflows
+                if overflows:
+                    log.warning(
+                        "epoch %d: %d step(s) overflowed the unique-id "
+                        "budget (updates aliased); raise "
+                        "SGDConfig.unique_budget", epoch, overflows)
+                if evaluate_state is not None and (
+                        epoch % eval_every == 0
+                        or epoch == sgd_cfg.epochs - 1):
+                    rec.update({f"eval_{k}": v
+                                for k, v in evaluate_state(state).items()})
+                history.append(rec)
+                log.info("epoch %d: %s", epoch,
+                         " ".join(f"{k}={v:.5f}" for k, v in rec.items()
+                                  if k != "epoch"))
+                if hooks:
+                    for h in hooks:
+                        h(epoch, state, rec)
+                stop = _time_budget_reached(t0, sgd_cfg.max_seconds, epoch)
+                if stop_together is not None:
+                    stop = stop_together(stop)
+                if ckpt is not None and ((epoch + 1) % checkpoint_every == 0
+                                         or epoch == sgd_cfg.epochs - 1
+                                         or stop):
+                    ckpt.save(epoch, state,
+                              extra={"epoch": epoch, "history": history})
             if stop:
                 break
     finally:

@@ -43,6 +43,7 @@ import torch
 
 from sparkfm_tpu_torch.data.batching import SparseBatch
 from sparkfm_tpu_torch.ops.embedding import DedupBatch
+from sparkfm_tpu_torch.utils import profiling
 from sparkfm_tpu_torch.utils.build import launch_counts
 
 _BATCH = ("ids", "vals", "y", "mask", "field_ids")
@@ -305,12 +306,15 @@ class PinnedStage:
     def load(self, staged: Staged, dst: Dict[str, torch.Tensor]) -> None:
         """Copy the staged batch into the device tensors ``dst``."""
         for name, t in dst.items():
-            t.copy_(staged.fields[name], non_blocking=True)
+            src = staged.fields[name]
+            profiling.count_h2d(src, t.device)
+            t.copy_(src, non_blocking=True)
         self._release(staged.slot)
 
     def to_device(self, staged: Staged) -> SparseBatch:
         """The staged batch as a new SparseBatch on the device."""
-        fields = {name: t.to(self.device, non_blocking=True, copy=True)
+        fields = {name: profiling.to_device(t, self.device,
+                                            non_blocking=True, copy=True)
                   for name, t in staged.fields.items()}
         self._release(staged.slot)
         return batch_from_fields(fields, staged.overflow)

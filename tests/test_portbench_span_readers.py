@@ -1,0 +1,105 @@
+"""The benchmark's readers of the port's spans and counters
+(``portbench/metrics/``): each gives None where its span or counter was
+not recorded, and the value its docstring defines from a record filled on
+the CPU under a profiler session. Device times come from CUDA events, so
+the ALS readers are given a record whose device times are set by hand."""
+
+import os
+import time
+import types
+
+import pytest
+from torch.profiler import profile
+
+from portbench import harness
+from sparkfm_tpu_torch.utils import profiling
+
+METRICS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "portbench", "metrics")
+READERS = ["data.input_wait_pct.train", "plan.host_dedup_ms.train",
+           "copy.h2d_pageable_mb_per_step.train", "als.gather_ms.als",
+           "als.streams_ms.als", "als.patch_ms.als"]
+REC = types.SimpleNamespace(window_s=2.0, steps=8)
+
+
+def _reader(name):
+    return harness.load_module(os.path.join(METRICS, name + ".py"),
+                               "test_reader_" + name.replace(".", "_")).read
+
+
+@pytest.fixture
+def record():
+    profiling.clear()
+    yield
+    profiling.clear()
+
+
+def _fill():
+    """Spans and counters of a few steps, recorded in a session."""
+    with profile():
+        for _ in range(3):
+            with profiling.annotate("data.prefetch_wait"):
+                time.sleep(0.002)
+        for _ in range(4):
+            with profiling.annotate("data.batch"):
+                with profiling.annotate("plan.host_dedup"):
+                    time.sleep(0.001)
+        profiling.count("copy.h2d_pageable_bytes", 18_100_000)
+        profiling.count("copy.h2d_pageable_bytes", 18_100_000)
+        profiling.count("copy.h2d_pinned_bytes", 5)
+        with profiling.annotate("als.sweep"):
+            for name in ("als.gather", "als.streams", "als.colsums",
+                         "als.patch"):
+                with profiling.annotate(name):
+                    pass
+    return profiling.recorded()
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_a_reader_reads_none_without_its_span(record, name):
+    assert _reader(name)(REC) is None
+    with profile():
+        with profiling.annotate("something.else"):
+            pass
+        profiling.count("copy.h2d_pinned_bytes", 64)
+    assert _reader(name)(REC) is None
+
+
+def test_input_wait_is_the_waits_share_of_the_window(record):
+    wait = _fill()["spans"]["data.prefetch_wait"]
+    got = _reader("data.input_wait_pct.train")(REC)
+    assert got == pytest.approx(100.0 * wait["host_s"] / REC.window_s)
+    assert got >= 100.0 * 3 * 0.002 / REC.window_s
+
+
+def test_host_dedup_ms_is_the_mean_plan_time(record):
+    plan = _fill()["spans"]["plan.host_dedup"]
+    assert plan["calls"] == 4
+    got = _reader("plan.host_dedup_ms.train")(REC)
+    assert got == pytest.approx(1e3 * plan["host_s"] / 4)
+    assert got >= 1.0
+
+
+def test_pageable_mb_per_step_reads_the_counter(record):
+    _fill()
+    got = _reader("copy.h2d_pageable_mb_per_step.train")(REC)
+    assert got == pytest.approx(2 * 18.1 / REC.steps)
+
+
+@pytest.mark.parametrize("name", ["als.gather", "als.streams", "als.patch"])
+def test_als_readers_read_device_ms_a_sweep(record, monkeypatch, name):
+    rec = _fill()
+    reader = _reader(name + "_ms.als")
+    # on the CPU the spans carry no device time: nothing to read
+    assert rec["spans"][name]["device_s"] is None
+    assert reader(REC) is None
+    device = {"als.gather": 0.504, "als.streams": 0.8, "als.patch": 0.2}
+    recorded = profiling.recorded
+
+    def with_device():
+        out = recorded()
+        for span, secs in device.items():
+            out["spans"][span]["device_s"] = secs
+        return out
+    monkeypatch.setattr(profiling, "recorded", with_device)
+    assert reader(REC) == pytest.approx(1e3 * device[name] / REC.steps)
