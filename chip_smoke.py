@@ -78,19 +78,25 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      view 4 bytes short of a 16-byte bound, and at odd shapes; shows that
      its sums repeat exactly and, in a child process, that a rank out of
      range traps; times each block's call, pass 1 and pass 2, against its
-     bound;
+     bound; then holds the ALS stream sums (``als_stream_sums``: B7 over
+     the five products of a (factor, block), formed in the kernel from e,
+     q and x) on the user block (no rows) and the movie block (its rows)
+     bit for bit against B7 over the streams torch forms and against their
+     plain version in float64, and times them beside that sequence;
  12. trains BASELINE config 2 with ALS: the structure flags must be
      column_pure / csc_uniform / slice_identity = True / True / (True,
-     False); one sweep with the kernel and one with the float64 plain
-     version swapped in, from the same parameters, must agree; then
-     ``train_als`` runs 3 sweeps with the kernel's launch count set to 0
-     just before and read just after (3 x 33 x 2 = 198), and the
+     False); one sweep with the kernels and one with their float64 plain
+     versions swapped in, from the same parameters, must agree; then
+     ``train_als`` runs 3 sweeps with the launch counts set to 0 just
+     before and read just after (B7 3 x 2 = 6 for the w blocks, the
+     stream sums 3 x 32 x 2 = 192), and the
      regularized squared loss, in float64 from the parameters, must fall
      after sweep 1 and again by sweep 3;
  13. fits ``FM(solver="als")`` on the card on ``synth_movielens`` and
      checks its eval RMSE;
  14. profiles ALS: the device's busy share of one sweep with its top
-     device events and the stream sums' passes 1 and 2, and the host time
+     device events and B7's and the stream sums' passes 1 and 2, and the
+     host time
      of the workspace build, part by part;
  15. holds the row-sum kernel B5 (``segment_rowsum``) against its plain
      version in float64 (max |a - b| / (1 + |b|) < 1e-4; 2.5e-4 at W = 354,
@@ -1093,6 +1099,26 @@ def colsums64(streams, seg, num_segments):
         [s.double() for s in streams], seg, num_segments).float()
 
 
+def stream_sums64(e, q, x, row, seg, num_segments):
+    """The ALS stream sums' plain version in float64, rounded to float32:
+    the oracle of the kernel in the sweep's twin (phase 12)."""
+    from sparkfm_tpu_torch.ops import segsum
+    return segsum.als_stream_sums_reference(
+        e.double(), q.double(), x.double(), row, seg, num_segments).float()
+
+
+def torch_streams(e, q, x, row, seg, num_segments):
+    """What the ALS stream sums replace: e and q gathered into CSC order,
+    the five streams formed by torch, then B7; their bit-exact oracle."""
+    from sparkfm_tpu_torch.ops import segsum
+    e_c = e if row is None else e.index_select(0, row)
+    q_c = q if row is None else q.index_select(0, row)
+    x2 = x * x
+    return segsum.segment_colsums(
+        [e_c * x * q_c, e_c * x2, x2 * q_c * q_c, x2 * x * q_c, x2 * x2],
+        seg, num_segments)
+
+
 def hold_colsums(streams, seg, u, label, checked):
     """B7 against its plain version in float64 on the same streams (max
     |a - b| / (1 + |b|) < 1e-4), its sums repeated bit for bit and ranks
@@ -1158,8 +1184,9 @@ def colsums_entry(label, streams, seg, u, launches, path, checked, card):
 
 
 def als_phases(dev, gen, card):
-    """Phases 11-14, the ALS path; returns the stream-sum kernel's JSON
-    entry, and the data and workspace for phases 28-30 (``ctx``)."""
+    """Phases 11-14, the ALS path; returns the JSON entries of B7 and of
+    the ALS stream sums, and the data and workspace for phases 28-30
+    (``ctx``)."""
     from sparkfm_tpu_torch import FM, ALSConfig, FMConfig, train_als
     from sparkfm_tpu_torch.data import split, synth
     from sparkfm_tpu_torch.models import fm as fm_model
@@ -1297,8 +1324,63 @@ def als_phases(dev, gen, card):
           f"{card}", flush=True)
     del streams, args, library
 
-    # 12. one sweep with the kernel and one with the float64 plain version
-    # swapped in, from the same parameters
+    # the ALS stream sums on both blocks, as the sweep calls them: the user
+    # block's CSC run is the example order (no rows), the movie block
+    # gathers e and q by its rows; held bit for bit to B7 over the streams
+    # torch forms and to the float64 plain version, then timed beside that
+    # sequence against the bound (seg, x, e and q read once; the movie
+    # block's rows too; (U, 5) written)
+    e_t, q_t = (torch.randn(ALS_N, generator=gen, device=dev)
+                for _ in range(2))
+    stream_blocks = {}
+    for label, b, gather in (("user", 0, False), ("movie", 1, True)):
+        seg_b = ws.col_rank[b * ALS_N:(b + 1) * ALS_N]
+        x_b = ws.col_val[b * ALS_N:(b + 1) * ALS_N]
+        row_b = ws.col_row[b * ALS_N:(b + 1) * ALS_N] if gather else None
+        args = (e_t, q_t, x_b, row_b, seg_b, n_ranks)
+        got = segsum.als_stream_sums(*args)
+        if not torch.equal(got, torch_streams(*args)):
+            raise AssertionError(f"stream sums differ from B7 over the "
+                                 f"torch-formed streams on the {label} "
+                                 f"block")
+        if not torch.equal(got, segsum.als_stream_sums(*args)):
+            raise AssertionError(f"stream sums do not repeat on the {label} "
+                                 f"block")
+        err = max_rel_err(got, segsum.als_stream_sums_reference(
+            e_t.double(), q_t.double(), x_b.double(), row_b, seg_b,
+            n_ranks))
+        if not err < 1e-4:
+            raise AssertionError(f"stream sums off on the {label} block: "
+                                 f"{err:.3g} from float64")
+        us = 1e3 * spun_ms(lambda a=args: segsum.als_stream_sums(*a))
+        _, events = device_us(lambda a=args: [segsum.als_stream_sums(*a)
+                                              for _ in range(5)])
+        by = {e.key: e.self_device_time_total / 5 for e in events}
+        stream_blocks[label] = {
+            "all": us,
+            "pass 1": sum(v for k, v in by.items()
+                          if "als_stream_sums_kernel" in k),
+            "pass 2": sum(v for k, v in by.items()
+                          if "als_stream_sums_crossing" in k),
+            "replaced_us": 1e3 * spun_ms(lambda a=args: torch_streams(*a),
+                                         reps=5),
+            "max_rel_err": err,
+            **bound(4 * ((5 if gather else 4) * ALS_N + 5 * n_ranks),
+                    9 * ALS_N, us / 1e3)}
+    del e_t, q_t, args
+    print("check: ALS stream sums equal B7 over the torch-formed streams "
+          "bit for bit, repeat exactly, and hold to float64 (max "
+          "|a-b|/(1+|b|) < 1e-4); device (CUDA events, behind a spin "
+          "kernel): " + "; ".join(
+              f"{label} block {t['all']:.2f} us (pass 1 {t['pass 1']:.2f}, "
+              f"pass 2 {t['pass 2']:.2f}), bound {t['bound_us']:.2f} us, "
+              f"{pct(t['share_of_bound'])}; the gathers, streams and B7 it "
+              f"replaces {t['replaced_us']:.2f} us; err {t['max_rel_err']:.3g}"
+              for label, t in stream_blocks.items()) + f"; {card}",
+          flush=True)
+
+    # 12. one sweep with the kernels and one with their float64 plain
+    # versions swapped in, from the same parameters
     p0 = fm_model.init_params(cfg, torch.Generator(device=dev).manual_seed(
         SEED), device=dev)
     rw, rv = (torch.as_tensor(r, device=dev) for r in cfg.reg_vectors())
@@ -1314,11 +1396,12 @@ def als_phases(dev, gen, card):
     p_kernel = sweep(p0)
     torch.cuda.synchronize()
     first_sweep_s = time.perf_counter() - t0
-    count = segsum.COLSUMS.launches
-    with swapped([(segsum, "segment_colsums", colsums64)]):
+    count = segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches
+    with swapped([(segsum, "segment_colsums", colsums64),
+                  (segsum, "als_stream_sums", stream_sums64)]):
         p_plain = sweep(p0)
-    if segsum.COLSUMS.launches != count:
-        raise AssertionError("the plain sweep launched the kernel")
+    if (segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches) != count:
+        raise AssertionError("the plain sweep launched a kernel")
     loss_k, loss_p = als_loss(p_kernel, ws, cfg), als_loss(p_plain, ws, cfg)
     if abs(loss_k - loss_p) > 1e-6 * abs(loss_p):
         raise AssertionError(f"sweep losses differ: kernel {loss_k}, plain "
@@ -1342,8 +1425,8 @@ def als_phases(dev, gen, card):
         raise AssertionError(f"{flips} guard flips between the sweeps")
     np.testing.assert_allclose(float(p_kernel.w0), float(p_plain.w0),
                                rtol=1e-6)
-    print(f"check: one sweep with the kernel vs with the float64 plain "
-          f"version from the same parameters: losses {loss_k:.10g} vs "
+    print(f"check: one sweep with the kernels vs with their float64 plain "
+          f"versions from the same parameters: losses {loss_k:.10g} vs "
           f"{loss_p:.10g} (rtol 1e-6); w, V equal at rtol 1e-3, atol 1e-4 "
           f"but for {flips} den > 0 guard flips (<= 1e-4 of V's entries); "
           f"first sweep {first_sweep_s:.3f} s", flush=True)
@@ -1361,17 +1444,19 @@ def als_phases(dev, gen, card):
         return out
 
     torch.cuda.synchronize()
-    segsum.COLSUMS.launches = 0
+    segsum.COLSUMS.launches = segsum.STREAM_SUMS.launches = 0
     with swapped([(A, "als_sweep_compact", keeping)]):
         t0 = time.perf_counter()
         res = train_als(cfg, als_cfg, ds, params=p0, device=dev)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
     launches = segsum.COLSUMS.launches
-    expected = ALS_SWEEPS * (RANK + 1) * nb
-    if launches != expected:
-        raise AssertionError(f"train_als launched the stream-sum kernel "
-                             f"{launches} times, expected {expected}")
+    stream_launches = segsum.STREAM_SUMS.launches
+    expected = (ALS_SWEEPS * nb, ALS_SWEEPS * RANK * nb)
+    if (launches, stream_launches) != expected:
+        raise AssertionError(f"train_als launched B7 and the stream sums "
+                             f"{launches} and {stream_launches} times, "
+                             f"expected {expected}")
     losses = [als_loss(fm_model.FMParams(*t), ws, cfg) for t in after]
     if not (np.all(np.isfinite(losses)) and losses[0] < loss0
             and losses[-1] < losses[0]):
@@ -1385,27 +1470,29 @@ def als_phases(dev, gen, card):
           f"{' -> '.join(f'{x:.10g}' for x in losses)}; "
           f"{res.examples_per_sec:.0f} swept ex/s, {sweep_ms:.3f} ms per "
           f"sweep ({train_s:.3f} s wall with the workspace build and its "
-          f"checks); launches {launches}; {card}", flush=True)
+          f"checks); launches B7 {launches}, stream sums {stream_launches}; "
+          f"{card}", flush=True)
     del res, after
 
     # 13. the facade on the card
     mds = synth.synth_movielens(60, 80, 8000, rank=3, noise=0.1, seed=0)
     coll = split.split_by_random(mds, 0.8, 0.2, seed=0)
-    count = segsum.COLSUMS.launches
+    count = segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches
     model = FM(num_factors=8, solver="als", max_iter=8, reg_w=0.1,
                reg_v=0.5).fit(coll.training, eval_ds=coll.test, device=dev)
-    facade_launches = segsum.COLSUMS.launches - count
+    facade_launches = (segsum.COLSUMS.launches - count[0],
+                       segsum.STREAM_SUMS.launches - count[1])
     rmses = [h["eval_rmse"] for h in model.history]
     base = float(np.std(coll.test.y))
-    if not (model.device == dev and facade_launches == 8 * 9 * 2
+    if not (model.device == dev and facade_launches == (8 * 2, 8 * 8 * 2)
             and rmses[-1] < 0.7 * base and rmses[-1] < rmses[0]):
         raise AssertionError(f"FM(solver='als') on the card: eval RMSE "
                              f"{rmses} against std {base}, "
                              f"{facade_launches} launches")
     print(f"check: FM(solver='als').fit on the card (synth_movielens 60x80, "
           f"8000 ratings, 8 sweeps): eval RMSE {rmses[0]:.4f} -> "
-          f"{rmses[-1]:.4f} < 0.7 x std {base:.4f}; {facade_launches} "
-          f"launches", flush=True)
+          f"{rmses[-1]:.4f} < 0.7 x std {base:.4f}; launches (B7, stream "
+          f"sums) {facade_launches}", flush=True)
 
     # 14. where an ALS sweep's time goes
     torch.cuda.synchronize()
@@ -1419,11 +1506,14 @@ def als_phases(dev, gen, card):
     sweep_b7 = {name: (sum(e.self_device_time_total for e in events
                            if key in e.key),
                        sum(e.count for e in events if key in e.key))
-                for name, key in (("pass 1", "colsums_chunks"),
-                                  ("pass 2", "colsums_crossing"))}
+                for name, key in (
+                    ("B7 pass 1", "colsums_chunks"),
+                    ("B7 pass 2", "colsums_crossing"),
+                    ("stream sums pass 1", "als_stream_sums_kernel"),
+                    ("stream sums pass 2", "als_stream_sums_crossing"))}
     print(f"profile: one ALS sweep: device busy {busy / 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}"
-          f"% idle); stream sums "
+          f"% idle); "
           + ", ".join(f"{k} {v[0] / 1e3:.3f} ms x{v[1]}"
                       for k, v in sweep_b7.items())
           + f"; top device events (us): {top}; {card}", flush=True)
@@ -1437,10 +1527,20 @@ def als_phases(dev, gen, card):
           f"checks: " + ", ".join(f"{k} {host[k]:.3f} s" for k in (
               "blocks_are_column_pure", "csc_blocks_uniform",
               "csc_slice_identity")) + " (host CPU)", flush=True)
-    return {"name": "segment_colsums", "route": "cuda",
+    stream_entry = {
+        "name": "als_stream_sums", "route": "cuda",
+        "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+        "replaces": "none; beside sparkfm_tpu/ops/pallas_segsum.py:808, "
+                    "with the gathers and streams the sweep formed for it",
+        "launches": stream_launches, "launches_facade": facade_launches[1],
+        "path": "train_als, one call a (factor, block) (phase 12)",
+        "device_us_by_block": stream_blocks,
+        "library": "none (the gathers, torch products and B7 it replaces: "
+                   "replaced_us)"}
+    return [{"name": "segment_colsums", "route": "cuda",
             "source": "sparkfm_tpu_torch/csrc/segsum.cu",
             "replaces": "sparkfm_tpu/ops/pallas_segsum.py:808",
-            "launches": launches, "launches_facade": facade_launches,
+            "launches": launches, "launches_facade": facade_launches[0],
             "max_abs_err": main_abs, "max_rel_err": main_err,
             "plain_f32_max_rel_err": main_plain_err,
             "err_against": "plain version in float64",
@@ -1458,7 +1558,8 @@ def als_phases(dev, gen, card):
                 for label, by_s in blocks.items() for s, t in by_s.items()},
             "plain_device_us_user": plain_us[1],
             "sweep_device_ms": {k: v[0] / 1e3 for k, v in sweep_b7.items()},
-            "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}}, dict(
+            "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}},
+            stream_entry], dict(
         ds=ds, ws=ws, nb=nb, cfg=cfg, feature_blocks=als_cfg.feature_blocks,
         flags=dict(column_pure=cpure, csc_uniform=uniform,
                    slice_identity=ident))
@@ -5237,7 +5338,7 @@ def main():
     # 11-14. the ALS path, with the serving model's 2 GB table freed
     del params, model, mb, w_col, uids
     torch.cuda.empty_cache()
-    als_entry, als_ctx = als_phases(dev, gen, card)
+    als_entries, als_ctx = als_phases(dev, gen, card)
     elapsed("11-14")
     # 28-30. MCMC, relational SGD and BS-ALS on phase 11's data
     torch.cuda.empty_cache()
@@ -5315,7 +5416,7 @@ def main():
             per_call["plain V+w (index_selects + cat)"]),
         "library_device_ms": None,
         **bound(vw_bytes, 0, ms_or_none(vw_us))},
-        *train_entries, als_entry, *relational_entries, *segsum_entries,
+        *train_entries, *als_entries, *relational_entries, *segsum_entries,
         *ddf_entries, *deepfm_entries, *sharded_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

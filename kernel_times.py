@@ -3,7 +3,7 @@
 shapes, for one or more checkouts of the repository, taken in turns on one
 card.
 
-    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0]
+    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0] [--als]
 
 Each ROOT is a checkout (the repository root, or a ``git archive`` of
 another commit unpacked somewhere). For each entry of ``--order`` (default:
@@ -42,6 +42,18 @@ seed, so every root sees the same data:
   the fused record (W = 68) at U = 40,960 (each of these one call per
   plan over 8 bench-recipe plans, so the rows are not all in L2 from the
   call before) and at a device plan's 2^18 slots.
+- the ALS sweep's per-rank sums (alone with ``--als``) at the
+  ``ml25m-als-sweep`` cell's shapes
+  (``portbench/configs/ml25m-als-r32.json``, ratings from seed 0 by
+  ``portbench/gen/ratings.py``: N = 25,000,095 slots a block, U =
+  221,588): B7 at S = 5 and S = 1 on the user block (ranks in example
+  order) and the movie block (its slice of the CSC ranks at offset N),
+  and, where the root has ``segsum.als_stream_sums``, the stream sums on
+  each block (the user block without rows, the movie block with them),
+  held equal to B7 over the streams torch forms, bit for bit; each by CUDA
+  events behind a spin kernel, split into pass 1 and pass 2 by
+  torch.profiler, beside the sequence the stream sums replace (the
+  gathers, the five torch products and B7) and the byte bound.
 
 With ``--paths`` each child instead trains one epoch (after a warm-up
 epoch) of BASELINE config 3 (2^24 buckets, rank 32, ``synth_ctr`` 16384 x
@@ -62,7 +74,8 @@ import os
 import subprocess
 import sys
 
-CHILD = r"""
+HERE = os.path.dirname(os.path.abspath(__file__))
+COMMON = r"""
 import json, sys
 import numpy as np
 import torch
@@ -147,6 +160,9 @@ def rel(got, want):
 
 
 out = {}
+"""
+
+KERNELS = r"""
 cap = E.auto_budget(BATCH * SLOTS)
 plan = E.host_dedup(zipf_ids(), cap, fill=BUCKETS)
 seg = torch.as_tensor(plan.seg, device=dev)
@@ -326,7 +342,80 @@ assert torch.equal(rowio.gather_rows(rec, dplan.uids),
                    rowio.gather_rows_reference(rec, dplan.uids))
 out["B1 device plan"] = split(device_us(
     lambda: rowio.gather_rows(rec, dplan.uids)))
-print(json.dumps({"root": ROOT, "n": n, "u": u, "us": out}))
+out["main plan"] = [n, u]
+del rec, dplan, plans, uidss
+"""
+
+ALS = r"""
+
+# the ALS sweep's per-rank sums at the ml25m-als-sweep cell's shapes: the
+# cell's ratings (every user and movie rated, so a feature's rank is its
+# id), examples sorted by user; the CSC view is the user block (example
+# order) then the movie block (stably sorted by movie, its rows the
+# examples), x all ones, as build_workspace makes it
+sys.path.append(HERE)
+from portbench.gen import ratings as R
+cfg2 = json.load(open(f"{HERE}/portbench/configs/ml25m-als-r32.json"))
+ids2 = torch.as_tensor(R.ratings(cfg2, 0, dev)[0], device=dev)
+ids2 = ids2[torch.sort(ids2[:, 0], stable=True)[1]]
+n2 = ids2.shape[0]
+u2 = int(cfg2["num_users"]) + int(cfg2["num_movies"])
+order = torch.sort(ids2[:, 1], stable=True)[1]
+col_rank = torch.cat([ids2[:, 0], ids2[order, 1]]).contiguous()
+col_row = torch.cat([torch.arange(n2, device=dev), order]).int()
+col_val = torch.ones(2 * n2, device=dev)
+assert int(torch.unique(col_rank).numel()) == u2
+del ids2, order
+e2 = torch.randn(n2, generator=gen, device=dev)
+q2 = torch.randn(n2, generator=gen, device=dev)
+
+
+def stream_passes(fn, *names):
+    total = spun_us(fn, reps=5, windows=3)
+    res = split(device_us(fn, reps=5), *names)
+    return {"spun_us": total, "profiled": res}
+
+
+for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
+    seg_b = col_rank[b * n2:(b + 1) * n2]
+    x_b = col_val[b * n2:(b + 1) * n2]
+    row_b = col_row[b * n2:(b + 1) * n2] if gather else None
+
+    def torch_streams():
+        e_c = e2 if row_b is None else e2.index_select(0, row_b)
+        q_c = q2 if row_b is None else q2.index_select(0, row_b)
+        x2 = x_b * x_b
+        return segsum.segment_colsums(
+            [e_c * x_b * q_c, e_c * x2, x2 * q_c * q_c, x2 * x_b * q_c,
+             x2 * x2], seg_b, u2)
+    streams = [torch.randn(n2, generator=gen, device=dev) for _ in range(5)]
+    rec2 = {"n": n2, "u": u2, "seg_offset_bytes": seg_b.data_ptr() % 16}
+    for s in (5, 1):
+        got = segsum.segment_colsums(streams[:s], seg_b, u2)
+        err = rel(got, segsum.segment_colsums_reference(
+            [t.double() for t in streams[:s]], seg_b, u2))
+        assert err < 1e-4, ("B7", label, s, err)
+        rec2[f"B7 S={s}"] = dict(stream_passes(
+            lambda s=s: segsum.segment_colsums(streams[:s], seg_b, u2),
+            "colsums_chunks", "colsums_crossing"), err=err,
+            bound_us=1e6 * 4 * ((s + 1) * n2 + u2 * s) / 3.35e12)
+    del streams
+    rec2["gathers, streams and B7"] = stream_passes(torch_streams)
+    if hasattr(segsum, "als_stream_sums"):
+        def fused():
+            return segsum.als_stream_sums(e2, q2, x_b, row_b, seg_b, u2)
+        got = fused()
+        assert torch.equal(got, torch_streams()), ("stream sums", label)
+        assert torch.equal(got, fused()), ("stream sums repeat", label)
+        err = rel(got, segsum.als_stream_sums_reference(
+            e2.double(), q2.double(), x_b.double(), row_b, seg_b, u2))
+        assert err < 1e-4, ("stream sums", label, err)
+        rec2["stream sums"] = dict(stream_passes(
+            fused, "als_stream_sums_kernel", "als_stream_sums_crossing"),
+            err=err, bound_us=1e6 * 4 * ((5 if gather else 4) * n2
+                                         + 5 * u2) / 3.35e12)
+    out[f"ALS {label}"] = rec2
+print(json.dumps({"root": ROOT, "us": out}))
 """
 
 PATHS = r"""
@@ -397,6 +486,8 @@ def main():
                     help="comma-separated indices into the roots, in turn")
     ap.add_argument("--paths", action="store_true",
                     help="profile one epoch of each SGD path instead")
+    ap.add_argument("--als", action="store_true",
+                    help="time only the ALS sweep's per-rank sums")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -413,7 +504,9 @@ def main():
     for i in order:
         child = subprocess.run(
             [sys.executable, "-c",
-             f"ROOT = {roots[i]!r}\n" + (PATHS if args.paths else CHILD)],
+             f"ROOT = {roots[i]!r}\nHERE = {HERE!r}\n"
+             + (PATHS if args.paths else COMMON + ALS if args.als
+                else COMMON + KERNELS + ALS)],
             capture_output=True, text=True, timeout=900)
         if child.returncode != 0:
             sys.exit(f"kernel_times: {roots[i]} failed:\n{child.stdout}"

@@ -7,7 +7,9 @@
 //   wider than 64 floats on rowsum_chunks_kernel), each then
 //   rows_crossing_kernel, after them;
 // * B7, segment_colsums (colsums_chunks_kernel and
-//   colsums_crossing_kernel), last.
+//   colsums_crossing_kernel), and the ALS stream sums, B7 over five
+//   products it forms itself (als_stream_sums_kernel and
+//   als_stream_sums_crossing_kernel), last.
 //
 // All cut the sorted stream into chunks (B3/B4: equal spans, one per
 // warp; B5's wide rows, B7: fixed chunks; the tiles: chunks that fall
@@ -1183,12 +1185,65 @@ int launch_rowsum_tiles(const float* g, const int32_t* seg, float* out,
 // view holds only that block's ranks). A rank outside [0, num_segments)
 // traps.
 
+// ---------------------------------------------------------------------------
+// The ALS stream sums (als_stream_sums_kernel, then
+// als_stream_sums_crossing_kernel): B7 at S = 5 over the five product
+// streams of a (factor, block) of the compact ALS sweep
+// (sparkfm_tpu_torch/solvers/als.py), formed inside the kernel,
+//
+//   out[r] = sum over the slots i of run r of
+//            [e_c x q_c, e_c x^2, x^2 q_c^2, x^3 q_c, x^4],
+//   e_c = e[row[i]], q_c = q[row[i]]  (e[i], q[i] when row is null),
+//
+// with x, row and seg the block's slice of the CSC view, e the residual
+// and q the factor's sum per example. It stands beside the TPU kernel
+// sparkfm_tpu/ops/pallas_segsum.py::_segsum_streams_kernel (B7), whose
+// function it extends: the JAX package gathers e and q and forms the
+// streams in XLA, then sums them with B7. 64 calls a sweep of BASELINE
+// config 2 (K = 32, two blocks).
+//
+// What bounds it: bytes. Without rows (block 0, whose CSC order is the
+// example order) it reads seg, x, e and q once: 16 bytes a slot, 400 MB at
+// N = 25M, a 121 us floor at 3.35 TB/s. With rows it reads seg, x and the
+// rows (12 bytes a slot) and e[row] and q[row], which on the movie block
+// land on scattered examples: a 32-byte sector each, most of them from
+// DRAM, since e and q hold 100 MB each against a 50 MB L2. The torch
+// passes it replaces wrote and read back the two gathered arrays and the
+// five streams, 56 bytes a slot more, in 11 launches. The design is
+// B7's (above), with three changes:
+//
+// * What a tile stages: seg, x and the rows (or e and q) by bulk copies,
+//   as B7 stages its streams. A lane then loads e[row] and q[row] of its
+//   V = 16 slots from device memory, all 32 loads issued before the first
+//   is used, and forms the products in registers.
+// * Numerics: each product is formed as torch forms its stream, (e x) q,
+//   e (x x), ((x x) q) q, ((x x) x) q, (x x)(x x), by __fmul_rn, which the
+//   compiler does not contract into the sum's add, and summed in B7's
+//   order (B7's pass 1 and pass 2 bodies, chunk_sums and crossing_sums,
+//   are shared), so the sums equal B7's over the torch-formed streams bit
+//   for bit.
+// * Tiles of one step (512 slots): small buffers leave room for more
+//   warps an SM, which the gathers need.
+//
+// What holds it, measured on the H100 (PERF.md): at config 2's shapes the
+// user block takes ~162 us (74% of its floor) against ~1.08 ms for the
+// streams and B7, and the movie block ~1.49 ms against ~2.50 ms for the
+// gathers, streams and B7. Its 50M gathers run at ~34G a second, the
+// rate at which the two index_selects it replaces gathered them (~35G):
+// the scattered sectors of e and q, not the kernel, set that block's
+// time.
+//
+// No kernel of it has "colsums" in its name, so that a trace's B7 time
+// stays B7's. A row outside [0, rows) traps, as a rank outside [0, U)
+// does.
+
 constexpr int64_t kColChunk = 4096;    // sorted slots per pass-1 block
 constexpr int kColPad = 4;             // floats a shifted bulk copy adds
 constexpr uint32_t kColSmem = 40 * 1024;  // pass 1's two buffers
 constexpr int kMaxStreams = 16;
 constexpr int kColThreads2 = 256;      // pass 2: a warp per chunk
 constexpr int kColWarps2 = kColThreads2 / 32;
+constexpr int kProducts = 5;           // the ALS stream sums' columns
 
 struct Streams {
   const float* p[kMaxStreams];
@@ -1205,17 +1260,192 @@ int colsums_tile(int s, int v) {
   return tile;
 }
 
-// SM: s rounded up (1, 2, 4, 5, 8 or 16), the streams held per lane; V:
-// consecutive slots per lane, a multiple of 4.
-template <int SM, int V>
-__global__ void __launch_bounds__(32)
-colsums_chunks_kernel(Streams streams, int s,
-                      const int32_t* __restrict__ seg,   // (N,) sorted
-                      float* __restrict__ out,           // (U, s)
-                      float* __restrict__ partials,      // (chunks, 2, s)
-                      int64_t n, int64_t num_segments, int tile) {
-  extern __shared__ __align__(16) float smem[];  // [2][s + 1][tile + pad]
+// V floats of a lane's slots from a staged array, `sh` floats past the
+// 16-byte boundary its copy starts at: 16-byte loads when that is 0.
+template <int V>
+__device__ __forceinline__ void staged(const float* src, int sh,
+                                       float (&x)[V]) {
+  if (sh == 0) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(src + i);
+      x[i] = f.x; x[i + 1] = f.y; x[i + 2] = f.z; x[i + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) x[i] = src[i];
+  }
+}
+
+// What pass 1 stages and sums for B7: seg (array 0) and s <= SM streams,
+// each slot's values the streams' own. from_smem reads a lane's V slots of
+// a staged tile (array a at buf + a * stride, shift(a) floats in), and
+// from_global the first lc of them from device memory.
+template <int SM>
+struct StreamSlots {
+  static constexpr int kArrays = SM + 1;  // the most arrays it stages
+  Streams streams;
+  const int32_t* seg;
+  int s;
+
+  __device__ __forceinline__ int width() const { return s; }
+  __device__ __forceinline__ int arrays() const { return s + 1; }
+  __device__ __forceinline__ const float* array(int a) const {
+    return a == 0 ? reinterpret_cast<const float*>(seg) : streams.p[a - 1];
+  }
+  template <int V, class Shift>
+  __device__ __forceinline__ void from_smem(const float* buf, int stride,
+                                            int off, Shift shift,
+                                            int32_t (&r)[V],
+                                            float (&v)[V][SM]) const {
+#pragma unroll
+    for (int a = 0; a <= SM; ++a) {
+      if (a > s) continue;
+      const int sh = shift(a);
+      float x[V];
+      staged<V>(buf + a * stride + sh + off, sh, x);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        if (a == 0) r[i] = __float_as_int(x[i]);
+        else v[i][a > 0 ? a - 1 : 0] = x[i];
+      }
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ void from_global(int64_t slot0, int lc,
+                                              int32_t (&r)[V],
+                                              float (&v)[V][SM]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (i < lc) {
+        const int64_t slot = slot0 + i;
+        r[i] = seg[slot];
+#pragma unroll
+        for (int q = 0; q < SM; ++q)
+          if (q < s) v[i][q] = streams.p[q][slot];
+      }
+    }
+  }
+};
+
+// What pass 1 stages and sums for the ALS stream sums: seg, x and, with
+// kGather, the rows (e and q are then gathered from device memory per
+// slot, every lane's loads in flight at once), else e and q themselves;
+// each slot's five products formed in registers in the order torch forms
+// the streams, by round-to-nearest multiplies that the compiler may not
+// contract into a sum's add.
+template <bool kGather>
+struct ProductSlots {
+  static constexpr int kArrays = kGather ? 3 : 4;
+  const int32_t* seg;
+  const float* x;
+  const int32_t* row;
+  const float* e;
+  const float* q;
+  uint32_t num_rows;                    // e's and q's length
+
+  __device__ __forceinline__ int width() const { return kProducts; }
+  __device__ __forceinline__ int arrays() const { return kArrays; }
+  __device__ __forceinline__ const float* array(int a) const {
+    return a == 0 ? reinterpret_cast<const float*>(seg)
+           : a == 1 ? x
+           : kGather ? reinterpret_cast<const float*>(row)
+           : a == 2 ? e : q;
+  }
+  // e[row] and q[row] of the first lc slots
+  template <int V>
+  __device__ __forceinline__ void gather(const float (&rw)[V], int lc,
+                                         float (&ev)[V],
+                                         float (&qv)[V]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (i < lc) {
+        const uint32_t j = __float_as_uint(rw[i]);
+        if (j >= num_rows) __trap();
+        ev[i] = __ldg(e + j);
+        qv[i] = __ldg(q + j);
+      }
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ void products(const float (&sg)[V],
+                                           const float (&xv)[V],
+                                           const float (&ev)[V],
+                                           const float (&qv)[V], int lc,
+                                           int32_t (&r)[V],
+                                           float (&v)[V][kProducts]) const {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (i < lc) {
+        r[i] = __float_as_int(sg[i]);
+        const float x1 = xv[i], e1 = ev[i], q1 = qv[i];
+        const float x2 = __fmul_rn(x1, x1);
+        v[i][0] = __fmul_rn(__fmul_rn(e1, x1), q1);   // (e x) q
+        v[i][1] = __fmul_rn(e1, x2);                   // e x^2
+        v[i][2] = __fmul_rn(__fmul_rn(x2, q1), q1);   // (x^2 q) q
+        v[i][3] = __fmul_rn(__fmul_rn(x2, x1), q1);   // (x^2 x) q
+        v[i][4] = __fmul_rn(x2, x2);                   // x^2 x^2
+      }
+    }
+  }
+  template <int V, class Shift>
+  __device__ __forceinline__ void from_smem(const float* buf, int stride,
+                                            int off, Shift shift,
+                                            int32_t (&r)[V],
+                                            float (&v)[V][kProducts]) const {
+    float sg[V], xv[V], ev[V], qv[V];
+    staged<V>(buf + shift(0) + off, shift(0), sg);
+    staged<V>(buf + stride + shift(1) + off, shift(1), xv);
+    if (kGather) {
+      float rw[V];
+      staged<V>(buf + 2 * stride + shift(2) + off, shift(2), rw);
+      gather<V>(rw, V, ev, qv);
+    } else {
+      staged<V>(buf + 2 * stride + shift(2) + off, shift(2), ev);
+      staged<V>(buf + 3 * stride + shift(3) + off, shift(3), qv);
+    }
+    products<V>(sg, xv, ev, qv, V, r, v);
+  }
+  template <int V>
+  __device__ __forceinline__ void from_global(int64_t slot0, int lc,
+                                              int32_t (&r)[V],
+                                              float (&v)[V][kProducts]) const {
+    float sg[V], xv[V], ev[V], qv[V], rw[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (i < lc) {
+        sg[i] = __int_as_float(seg[slot0 + i]);
+        xv[i] = x[slot0 + i];
+        if (kGather) {
+          rw[i] = __int_as_float(row[slot0 + i]);
+        } else {
+          ev[i] = e[slot0 + i];
+          qv[i] = q[slot0 + i];
+        }
+      }
+    }
+    if (kGather) gather<V>(rw, lc, ev, qv);
+    products<V>(sg, xv, ev, qv, lc, r, v);
+  }
+};
+
+// Pass 1 of B7 and of the ALS stream sums: the sums of chunk blockIdx.x's
+// slots, as `slots` gives them (SM: the values a slot holds; V: its slots
+// a lane), in B7's order (the design note above). The dynamic shared
+// memory holds two buffers of the slots' staged arrays, tile + kColPad
+// floats each.
+template <int SM, int V, class Slots>
+__device__ __forceinline__ void chunk_sums(const Slots& slots,
+                                           const int32_t* __restrict__ seg,
+                                           float* __restrict__ out,
+                                           float* __restrict__ partials,
+                                           int64_t n, int64_t num_segments,
+                                           int tile) {
+  extern __shared__ __align__(16) float smem[];  // [2][arrays][tile + pad]
   __shared__ __align__(8) uint64_t bar[2];
+  constexpr int A = Slots::kArrays;
+  const int s = slots.width();
+  const int arrays = slots.arrays();
   const int lane = threadIdx.x;
   const int64_t c = blockIdx.x;
   const int64_t s0 = c * kColChunk;
@@ -1223,14 +1453,11 @@ colsums_chunks_kernel(Streams streams, int s,
   const int32_t before = s0 > 0 ? seg[s0 - 1] : -1;
   const int32_t after = s1 < n ? seg[s1] : -1;
   const int stride = tile + kColPad;
-  // array a: seg (a == 0) or stream a - 1
-  auto array = [&](int a) -> const float* {
-    return a == 0 ? reinterpret_cast<const float*>(seg) : streams.p[a - 1];
-  };
   // floats from the 16-byte boundary below an array's tile start to it;
   // tiles start at multiples of 4 slots, so the same for every tile
   auto shift = [&](int a) -> int {
-    return static_cast<int>(reinterpret_cast<uintptr_t>(array(a)) >> 2 & 3);
+    return static_cast<int>(
+        reinterpret_cast<uintptr_t>(slots.array(a)) >> 2 & 3);
   };
   // a tile read by bulk copies: the shifted copy stays inside [0, N)
   auto in_smem = [&](int64_t i0) {
@@ -1240,14 +1467,15 @@ colsums_chunks_kernel(Streams streams, int s,
   auto load = [&](int64_t i0, int b) {
     uint32_t bytes = 0;
 #pragma unroll
-    for (int a = 0; a <= SM; ++a)
-      if (a <= s) bytes += (tile + (shift(a) ? kColPad : 0)) * 4;
+    for (int a = 0; a < A; ++a)
+      if (a < arrays) bytes += (tile + (shift(a) ? kColPad : 0)) * 4;
     sfm::mbar_expect_bytes(&bar[b], bytes);
 #pragma unroll
-    for (int a = 0; a <= SM; ++a) {
-      if (a <= s) {
+    for (int a = 0; a < A; ++a) {
+      if (a < arrays) {
         const int sh = shift(a);
-        sfm::bulk_load(smem + (b * (s + 1) + a) * stride, array(a) + i0 - sh,
+        sfm::bulk_load(smem + (b * arrays + a) * stride,
+                       slots.array(a) + i0 - sh,
                        (tile + (sh ? kColPad : 0)) * 4, &bar[b]);
       }
     }
@@ -1288,7 +1516,7 @@ colsums_chunks_kernel(Streams streams, int s,
       sfm::mbar_wait(&bar[b], parity >> b & 1u);
       parity ^= 1u << b;
     }
-    const float* buf = smem + b * (s + 1) * stride;
+    const float* buf = smem + b * arrays * stride;
     const int len = static_cast<int>(s1 - i0 < tile ? s1 - i0 : tile);
     for (int j0 = 0; j0 < len; j0 += 32 * V) {
       const int cnt = len - j0 < 32 * V ? len - j0 : 32 * V;
@@ -1303,41 +1531,10 @@ colsums_chunks_kernel(Streams streams, int s,
 #pragma unroll
         for (int q = 0; q < SM; ++q) v[i][q] = 0.f;
       }
-      if (from_smem) {                      // full tile: lc == V
-#pragma unroll
-        for (int a = 0; a <= SM; ++a) {
-          if (a > s) continue;
-          const int sh = shift(a);
-          const float* src = buf + a * stride + sh + off;
-          float x[V];
-          if (sh == 0) {
-#pragma unroll
-            for (int i = 0; i < V; i += 4) {
-              const float4 f = *reinterpret_cast<const float4*>(src + i);
-              x[i] = f.x; x[i + 1] = f.y; x[i + 2] = f.z; x[i + 3] = f.w;
-            }
-          } else {
-#pragma unroll
-            for (int i = 0; i < V; ++i) x[i] = src[i];
-          }
-#pragma unroll
-          for (int i = 0; i < V; ++i) {
-            if (a == 0) r[i] = __float_as_int(x[i]);
-            else v[i][a > 0 ? a - 1 : 0] = x[i];
-          }
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          if (i < lc) {
-            const int64_t slot = i0 + off + i;
-            r[i] = seg[slot];
-#pragma unroll
-            for (int q = 0; q < SM; ++q)
-              if (q < s) v[i][q] = streams.p[q][slot];
-          }
-        }
-      }
+      if (from_smem)                        // full tile: lc == V
+        slots.template from_smem<V>(buf, stride, off, shift, r, v);
+      else
+        slots.template from_global<V>(i0 + off, lc, r, v);
 #pragma unroll
       for (int i = 0; i < V; ++i)
         if (i < lc && (r[i] < 0 || static_cast<int64_t>(r[i]) >= num_segments))
@@ -1443,6 +1640,38 @@ colsums_chunks_kernel(Streams streams, int s,
   if (lane == 0 && carry_rank >= 0) write(carry_rank, carry, true);
 }
 
+// B7's pass 1. SM: s rounded up (1, 2, 4, 5, 8 or 16), the streams held
+// per lane; V: consecutive slots per lane, a multiple of 4.
+template <int SM, int V>
+__global__ void __launch_bounds__(32)
+colsums_chunks_kernel(Streams streams, int s,
+                      const int32_t* __restrict__ seg,   // (N,) sorted
+                      float* __restrict__ out,           // (U, s)
+                      float* __restrict__ partials,      // (chunks, 2, s)
+                      int64_t n, int64_t num_segments, int tile) {
+  chunk_sums<SM, V>(StreamSlots<SM>{streams, seg, s}, seg, out, partials,
+                    n, num_segments, tile);
+}
+
+// The ALS stream sums' pass 1: B7's at S = 5, V = 16, on products formed
+// from e, q (gathered by `row` when kGather) and x.
+template <bool kGather>
+__global__ void __launch_bounds__(32)
+als_stream_sums_kernel(const float* __restrict__ e,     // (rows,)
+                       const float* __restrict__ q,     // (rows,)
+                       const float* __restrict__ x,     // (N,)
+                       const int32_t* __restrict__ row, // (N,) or null
+                       const int32_t* __restrict__ seg, // (N,) sorted
+                       float* __restrict__ out,         // (U, 5)
+                       float* __restrict__ partials,    // (chunks, 2, 5)
+                       int64_t n, int64_t num_rows, int64_t num_segments,
+                       int tile) {
+  chunk_sums<kProducts, 16>(
+      ProductSlots<kGather>{seg, x, row, e, q,
+                            static_cast<uint32_t>(num_rows)},
+      seg, out, partials, n, num_segments, tile);
+}
+
 // Row j of the partial rows of the run that begins in chunk c: chunk c's
 // row 1, then row 0 of chunk c + j.
 __device__ __forceinline__ const float* colsums_partial(
@@ -1450,12 +1679,11 @@ __device__ __forceinline__ const float* colsums_partial(
   return partials + (j == 0 ? 2 * c + 1 : 2 * (c + j)) * s;
 }
 
-// Pass 2: block g takes chunks 8g .. 8g + 7, one warp each.
-__global__ void __launch_bounds__(kColThreads2)
-colsums_crossing_kernel(const int32_t* __restrict__ seg,
-                        const float* __restrict__ partials,
-                        float* __restrict__ out, int64_t n, int s,
-                        int64_t num_chunks) {
+// Pass 2 of B7 and of the ALS stream sums: block g takes chunks 8g ..
+// 8g + 7, one warp each.
+__device__ __forceinline__ void crossing_sums(
+    const int32_t* __restrict__ seg, const float* __restrict__ partials,
+    float* __restrict__ out, int64_t n, int s, int64_t num_chunks) {
   __shared__ float red[kMaxStreams][kColThreads2];
   __shared__ int64_t long_runs[kColWarps2];   // warp w's long run, or -1
   const int t = threadIdx.x;
@@ -1541,6 +1769,29 @@ colsums_crossing_kernel(const int32_t* __restrict__ seg,
   }
 }
 
+__global__ void __launch_bounds__(kColThreads2)
+colsums_crossing_kernel(const int32_t* __restrict__ seg,
+                        const float* __restrict__ partials,
+                        float* __restrict__ out, int64_t n, int s,
+                        int64_t num_chunks) {
+  crossing_sums(seg, partials, out, n, s, num_chunks);
+}
+
+__global__ void __launch_bounds__(kColThreads2)
+als_stream_sums_crossing_kernel(const int32_t* __restrict__ seg,
+                                const float* __restrict__ partials,
+                                float* __restrict__ out, int64_t n,
+                                int64_t num_chunks) {
+  crossing_sums(seg, partials, out, n, kProducts, num_chunks);
+}
+
+// Pass 2's grid: a block per 8 chunks, at most 8 blocks an SM.
+unsigned crossing_blocks(int64_t num_chunks, int num_sms) {
+  int64_t blocks = (num_chunks + kColWarps2 - 1) / kColWarps2;
+  const int64_t cap = static_cast<int64_t>(num_sms) * (2048 / kColThreads2);
+  return static_cast<unsigned>(blocks > cap ? cap : blocks);
+}
+
 template <int SM, int V>
 void launch_colsums_chunks(const Streams& streams, int s, const int32_t* seg,
                            float* out, float* partials, int64_t n,
@@ -1551,6 +1802,24 @@ void launch_colsums_chunks(const Streams& streams, int s, const int32_t* seg,
   colsums_chunks_kernel<SM, V><<<static_cast<unsigned>(num_chunks), 32, smem,
                                  stream>>>(streams, s, seg, out, partials, n,
                                            num_segments, tile);
+}
+
+template <bool kGather>
+void launch_als_stream_sums(const float* e, const float* q, const float* x,
+                            const int32_t* row, const int32_t* seg,
+                            float* out, float* partials, int64_t n,
+                            int64_t num_rows, int64_t num_segments,
+                            int64_t num_chunks, cudaStream_t stream) {
+  // one step a tile: small buffers leave room for more warps an SM, which
+  // the gathers need (with 1,024-slot tiles config 2's movie block ran
+  // 22% longer and its user block 8%)
+  constexpr int tile = 32 * 16;
+  const size_t smem =
+      2 * static_cast<size_t>(ProductSlots<kGather>::kArrays) *
+      (tile + kColPad) * 4;
+  als_stream_sums_kernel<kGather><<<static_cast<unsigned>(num_chunks), 32,
+                                    smem, stream>>>(
+      e, q, x, row, seg, out, partials, n, num_rows, num_segments, tile);
 }
 
 }  // namespace
@@ -1671,13 +1940,44 @@ int sfm_segment_colsums(const void* stream_ptrs, int64_t s,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_chunks > 1) {
-    int64_t blocks = (num_chunks + kColWarps2 - 1) / kColWarps2;
-    const int64_t cap = static_cast<int64_t>(num_sms) * (2048 / kColThreads2);
-    if (blocks > cap) blocks = cap;
-    colsums_crossing_kernel<<<static_cast<unsigned>(blocks), kColThreads2, 0,
-                              st>>>(seg, partials, out, n, si, num_chunks);
+  if (num_chunks > 1)
+    colsums_crossing_kernel<<<crossing_blocks(num_chunks, num_sms),
+                              kColThreads2, 0, st>>>(seg, partials, out, n,
+                                                     si, num_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches both passes of the ALS stream sums on `stream` and returns
+// cudaGetLastError() (0 on success): out[r] = the five sums of
+// segment_colsums over [e_c x q_c, e_c x^2, x^2 q_c^2, x^3 q_c, x^4] with
+// e_c = e[row[i]], q_c = q[row[i]] (e[i], q[i] when `row` is null). e
+// and q hold num_rows floats (N when `row` is null), x, row and seg N, each
+// at any 4-byte offset; a row outside [0, num_rows) or a rank outside [0,
+// num_segments) traps. The caller zero-fills `out` (num_segments x 5),
+// allocates `partials` (sfm_colsums_partial_rows(n) x 5), checks shapes
+// and types, and keeps the tensors alive until the stream has run the
+// kernels.
+int sfm_als_stream_sums(const float* e, const float* q, const float* x,
+                        const int32_t* row, const int32_t* seg, float* out,
+                        float* partials, int64_t n, int64_t num_rows,
+                        int64_t num_segments, int num_sms, void* stream) {
+  if (n <= 0) return 0;
+  if (num_rows > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t num_chunks = (n + kColChunk - 1) / kColChunk;
+  if (row != nullptr) {
+    launch_als_stream_sums<true>(e, q, x, row, seg, out, partials, n,
+                                 num_rows, num_segments, num_chunks, st);
+  } else {
+    launch_als_stream_sums<false>(e, q, x, row, seg, out, partials, n,
+                                  num_rows, num_segments, num_chunks, st);
   }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks > 1)
+    als_stream_sums_crossing_kernel<<<crossing_blocks(num_chunks, num_sms),
+                                      kColThreads2, 0, st>>>(
+        seg, partials, out, n, num_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

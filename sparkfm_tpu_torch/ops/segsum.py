@@ -23,7 +23,10 @@ and only CPU tensors take the plain version (``*_reference``):
   the direct and dedup steps' ``[g_v | g_w]`` (``ops/embedding.py``) and,
   under adagrad and sgd, the fused and sorted steps';
 - :func:`segment_colsums` (kernel B7) sums up to 16 one-dimensional
-  streams per rank, for the ALS sweep (``solvers/als.py``).
+  streams per rank, for the ALS, MCMC and BS-ALS sweeps;
+- :func:`als_stream_sums`, B7 over the five product streams of a (factor,
+  block) of the compact ALS sweep (``solvers/als.py``), formed in the
+  kernel from e, q (gathered by the block's rows) and x.
 
 All keep the JAX signatures and contract: ``seg`` holds the sorted rank of
 each sorted slot in [0, num_segments), and ranks that no slot has come out
@@ -43,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import Optional
 
 import torch
 
@@ -71,6 +75,8 @@ COLSUMS = CudaKernel(
     "segsum", SOURCE, "sfm_segment_colsums",
     [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2)
+STREAM_SUMS = CudaKernel("segsum", SOURCE, "sfm_als_stream_sums",
+                         [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
 
 
 def _partials(kernel: CudaKernel, symbol: str, width: int, device,
@@ -394,4 +400,83 @@ def segment_colsums(streams, seg: torch.Tensor,
     COLSUMS.launch(device, ctypes.cast(ptrs, ctypes.c_void_p), s,
                    seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,
                    num_segments)
+    return out
+
+
+def als_stream_sums_reference(e: torch.Tensor, q: torch.Tensor,
+                              x: torch.Tensor, row: Optional[torch.Tensor],
+                              seg: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """Plain version of :func:`als_stream_sums`: e and q gathered into CSC
+    order, the five streams formed in torch, each product in the order the
+    kernel forms it, then :func:`segment_colsums_reference`. Keeps the
+    inputs' dtype (the card's checks run it in float64)."""
+    e_c = e if row is None else e.index_select(0, row)
+    q_c = q if row is None else q.index_select(0, row)
+    x2 = x * x
+    return segment_colsums_reference(
+        [e_c * x * q_c, e_c * x2, x2 * q_c * q_c, x2 * x * q_c, x2 * x2],
+        seg, num_segments)
+
+
+def _check_stream_sums(e, q, x, row, seg, num_segments) -> None:
+    for name, t in (("e", e), ("q", q), ("x", x)):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"als_stream_sums takes a contiguous 1-D "
+                             f"float32 {name}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    for name, t in (("seg", seg), ("row", row)):
+        if t is not None and (t.dtype != torch.int32 or t.dim() != 1
+                              or not t.is_contiguous()):
+            raise ValueError(f"als_stream_sums takes a contiguous 1-D int32 "
+                             f"{name}, got {t.dtype} {tuple(t.shape)}")
+    n = seg.shape[0]
+    rows = n if row is None else e.shape[0]
+    if (x.shape[0] != n or (row is not None and row.shape[0] != n)
+            or e.shape[0] != rows or q.shape[0] != rows):
+        raise ValueError(
+            f"lengths: e {e.shape[0]}, q {q.shape[0]}, x {x.shape[0]}, row "
+            f"{None if row is None else row.shape[0]}, seg {n}; want x, row "
+            "and seg of one length, and e and q of one length (seg's when "
+            "row is None)")
+    devices = {t.device for t in (e, q, x, row, seg) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    if seg.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"als_stream_sums has no kernel for {seg.device}")
+    if num_segments < 0:
+        raise ValueError(f"num_segments must be >= 0, got {num_segments}")
+    if rows >= 1 << 31:
+        raise ValueError(f"e and q hold {rows} floats; the kernel takes "
+                         "fewer than 2^31")
+
+
+def als_stream_sums(e: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
+                    row: Optional[torch.Tensor], seg: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """(U, 5) float32 per-rank sums of the compact ALS sweep's five
+    streams, ``segment_colsums([e_c x q_c, e_c x², x² q_c², x³ q_c, x⁴],
+    seg, U)`` with ``e_c = e[row]``, ``q_c = q[row]``, without forming the
+    streams or the gathered e and q in memory. ``e``, ``q`` (R,) and ``x``
+    (N,) are float32; ``row`` (N,) int32 indexes e and q, or is None when
+    they are already in seg's order (R = N); ``seg`` (N,) holds the sorted
+    int32 ranks. x, row and seg may be views at any element offset, as
+    for :func:`segment_colsums`. CUDA tensors run the kernel, whose sums
+    equal B7's over the streams torch forms, bit for bit (it traps on a
+    row outside [0, R) or a rank outside [0, U)); CPU tensors run the
+    plain version."""
+    _check_stream_sums(e, q, x, row, seg, num_segments)
+    device = seg.device
+    if device.type == "cpu":
+        return als_stream_sums_reference(e, q, x, row, seg, num_segments)
+    n = seg.shape[0]
+    out = torch.zeros((num_segments, 5), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    partials = _partials(STREAM_SUMS, "sfm_colsums_partial_rows", 5, device,
+                         n)
+    STREAM_SUMS.launch(device, e.data_ptr(), q.data_ptr(), x.data_ptr(),
+                       None if row is None else row.data_ptr(),
+                       seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,
+                       e.shape[0], num_segments)
     return out

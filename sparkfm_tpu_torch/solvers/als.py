@@ -22,8 +22,11 @@ The compact sweep keeps the JAX package's algorithm:
   the data (``present``); absent features never change;
 - the per-feature sums are five example-derived streams per (factor,
   block), num = Σexq − v·Σex² and den = Σx²q² − 2v·Σx³q + v²·Σx⁴,
-  summed per rank by kernel B7 (``ops/segsum.py::segment_colsums``) over
-  the feature-sorted CSC view, one stream per block for w;
+  summed per rank over the feature-sorted CSC view by
+  ``ops/segsum.py::als_stream_sums``, which gathers e and q into CSC order
+  and forms the streams inside its kernel (B7's design, its sums B7's
+  over the streams torch would form, bit for bit); one stream per block
+  for w, summed by kernel B7 (``segment_colsums``);
 - per-example quantities (q, the score, the e/q patches) are column sums
   of the (L, N) rank-space view;
 - ``csc_uniform``: when every block owns one contiguous N-run of the CSC
@@ -296,13 +299,19 @@ class BlockViews:
         """Block b's part of a CSC array: its N-run, or all of it."""
         return arr[b * self.n:(b + 1) * self.n] if self.csc_uniform else arr
 
+    def rows(self, col_row: torch.Tensor, b: int) -> Optional[torch.Tensor]:
+        """Block b's CSC rows (the example of each entry), or None when
+        its CSC run is the example order itself."""
+        if (self.csc_uniform and b < len(self.slice_identity)
+                and self.slice_identity[b]):
+            return None
+        return self.csc(col_row, b)
+
     def to_csc(self, ex: torch.Tensor, col_row: torch.Tensor,
                b: int) -> torch.Tensor:
         """An example vector in block b's CSC order."""
-        if (self.csc_uniform and b < len(self.slice_identity)
-                and self.slice_identity[b]):
-            return ex
-        return ex.index_select(0, self.csc(col_row, b))
+        rows = self.rows(col_row, b)
+        return ex if rows is None else ex.index_select(0, rows)
 
     def patch(self, arr_c: torch.Tensor, rank_csr: torch.Tensor,
               vals: torch.Tensor, b: int) -> torch.Tensor:
@@ -347,10 +356,9 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
 
     Spans (``utils/profiling.py::annotate``, timed on the card too): the
     sweep is ``als.sweep``; in it the forward is ``als.forward``, the w
-    blocks ``als.linear``, and each (factor, block) is ``als.gather`` (e
-    and q in CSC order), ``als.streams`` (the five product streams),
-    ``als.colsums`` (B7), ``als.solve`` (num, den, the new factors) and
-    ``als.patch`` (q and e patched)."""
+    blocks ``als.linear``, and each (factor, block) is
+    ``als.stream_sums`` (the five per-rank sums), ``als.solve`` (num, den,
+    the new factors) and ``als.patch`` (q and e patched)."""
     on_card = ws.y.is_cuda
     with annotate("als.sweep", device=on_card):
         return _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w,
@@ -401,18 +409,10 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
     for f in range(k):
         vf, q = v_t[f], q_bank[f]
         for b in range(num_blocks):
-            with annotate("als.gather", device=on_card):
-                e_csc = views.to_csc(e, col_row, b)
-                q_csc = views.to_csc(q, col_row, b)
-            with annotate("als.streams", device=on_card):
-                xb = csc(x, b)
-                xb2 = xb * xb
-                streams = [e_csc * xb * q_csc, e_csc * xb2,
-                           xb2 * q_csc * q_csc, xb2 * xb * q_csc, xb2 * xb2]
-            with annotate("als.colsums", device=on_card):
-                sums = segsum.segment_colsums(
-                    streams, csc(col_rank, b), num_ranks)       # (Fp, 5)
-            del streams
+            with annotate("als.stream_sums", device=on_card):
+                sums = segsum.als_stream_sums(
+                    e, q, csc(x, b), views.rows(col_row, b),
+                    csc(col_rank, b), num_ranks)                # (Fp, 5)
             with annotate("als.solve", device=on_card):
                 num = sums[:, 0] - vf * sums[:, 1]
                 den = (sums[:, 2] - 2.0 * vf * sums[:, 3]
@@ -640,6 +640,7 @@ def train_als(cfg: FMConfig, als_cfg: ALSConfig, train: SparseDataset,
              if uniform else ())
     if device.type == "cuda" and n_ranks:
         segsum.COLSUMS.build()
+        segsum.STREAM_SUMS.build()
 
     history = []
     n_examples = 0

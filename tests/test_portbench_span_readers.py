@@ -18,7 +18,8 @@ METRICS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "portbench", "metrics")
 READERS = ["data.input_wait_pct.train", "plan.host_dedup_ms.train",
            "copy.h2d_pageable_mb_per_step.train", "als.gather_ms.als",
-           "als.streams_ms.als", "als.patch_ms.als"]
+           "als.streams_ms.als", "als.patch_ms.als",
+           "als.stream_sums_ms.als"]
 REC = types.SimpleNamespace(window_s=2.0, steps=8)
 
 
@@ -49,7 +50,7 @@ def _fill():
         profiling.count("copy.h2d_pinned_bytes", 5)
         with profiling.annotate("als.sweep"):
             for name in ("als.gather", "als.streams", "als.colsums",
-                         "als.patch"):
+                         "als.stream_sums", "als.patch"):
                 with profiling.annotate(name):
                     pass
     return profiling.recorded()
@@ -86,14 +87,16 @@ def test_pageable_mb_per_step_reads_the_counter(record):
     assert got == pytest.approx(2 * 18.1 / REC.steps)
 
 
-@pytest.mark.parametrize("name", ["als.gather", "als.streams", "als.patch"])
+@pytest.mark.parametrize("name", ["als.gather", "als.streams", "als.patch",
+                                  "als.stream_sums"])
 def test_als_readers_read_device_ms_a_sweep(record, monkeypatch, name):
     rec = _fill()
     reader = _reader(name + "_ms.als")
     # on the CPU the spans carry no device time: nothing to read
     assert rec["spans"][name]["device_s"] is None
     assert reader(REC) is None
-    device = {"als.gather": 0.504, "als.streams": 0.8, "als.patch": 0.2}
+    device = {"als.gather": 0.504, "als.streams": 0.8, "als.patch": 0.2,
+              "als.stream_sums": 0.3}
     recorded = profiling.recorded
 
     def with_device():

@@ -305,23 +305,29 @@ def test_absent_features_stay_untouched():
 
 
 def test_sweep_sums_through_segment_colsums(monkeypatch):
-    """One B7 call per w block (1 stream) and per (factor, block) (5
-    streams): (K + 1) x num_blocks per sweep."""
+    """One B7 call per w block (1 stream) and one ``als_stream_sums`` call
+    per (factor, block): (K + 1) x num_blocks per sweep. Block 0's CSC run
+    is the example order (no rows); block 1 gathers by its rows."""
     calls = []
-    plain = segsum.segment_colsums
+    colsums, stream_sums = segsum.segment_colsums, segsum.als_stream_sums
 
     def counting(streams, seg, num_segments):
         calls.append(len(streams))
-        return plain(streams, seg, num_segments)
+        return colsums(streams, seg, num_segments)
+
+    def counting_products(e, q, x, row, seg, num_segments):
+        calls.append("rows" if row is not None else "identity")
+        return stream_sums(e, q, x, row, seg, num_segments)
 
     monkeypatch.setattr(segsum, "segment_colsums", counting)
+    monkeypatch.setattr(segsum, "als_stream_sums", counting_products)
     ds = _two_slot(5, n=200)
     cfg = FMConfig(num_features=ds.num_features, num_factors=3, reg_v=0.5)
     res = train_als(cfg, ALSConfig(epochs=2,
                                    feature_blocks=PA.slot_blocks(ds)), ds,
                     device="cpu")
     assert len(res.history) == 2
-    assert calls == 2 * ([1, 1] + [5, 5] * 3)
+    assert calls == 2 * ([1, 1] + ["identity", "rows"] * 3)
 
 
 @pytest.fixture(scope="module")

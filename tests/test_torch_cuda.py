@@ -432,18 +432,20 @@ def test_colsums_kernel_equals_plain_in_float64(dev, n, s, kind):
 
 
 def test_train_als_on_card_matches_cpu(dev):
-    """A few sweeps on the card through B7 (one call per w block and per
-    (factor, block)), against the same run on the CPU's plain version."""
+    """A few sweeps on the card through B7 (one call per w block) and the
+    ALS stream sums (one per (factor, block)), against the same run on the
+    CPU's plain versions."""
     ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=1)
     cfg = FMConfig(num_features=ds.num_features, num_factors=8, reg_w=0.1,
                    reg_v=0.5, seed=1)
     als_cfg = ALSConfig(epochs=3, feature_blocks=pals.slot_blocks(ds))
     init = pfm.init_params(cfg, torch.Generator().manual_seed(1),
                            device="cpu")
-    before = segsum.COLSUMS.launches
+    before = segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches
     on_card = train_als(cfg, als_cfg, ds, eval_ds=ds, params=init,
                         device=dev)
-    assert segsum.COLSUMS.launches - before == 3 * (8 + 1) * 2
+    assert segsum.COLSUMS.launches - before[0] == 3 * 2
+    assert segsum.STREAM_SUMS.launches - before[1] == 3 * 8 * 2
     on_cpu = train_als(cfg, als_cfg, ds, eval_ds=ds, params=init,
                        device="cpu")
     np.testing.assert_allclose(
@@ -456,6 +458,127 @@ def test_train_als_on_card_matches_cpu(dev):
                                    getattr(on_cpu.params, name),
                                    rtol=1e-3, atol=1e-4, err_msg=name)
 
+
+
+def _torch_streams(e, q, x, row, seg, u):
+    """B7 over the five streams as torch forms them on the card (the
+    compact sweep's former form): the ALS stream sums' bit-exact oracle."""
+    e_c = e if row is None else e.index_select(0, row)
+    q_c = q if row is None else q.index_select(0, row)
+    x2 = x * x
+    return segsum.segment_colsums(
+        [e_c * x * q_c, e_c * x2, x2 * q_c * q_c, x2 * x * q_c, x2 * x2],
+        seg, u)
+
+
+def _stream_sums_case(dev, n, kind, gather, offset, seed):
+    """A block as the compact sweep hands it over: seg of the given kind
+    (``_colsums_case``), x, and e, q with the rows into them (or none:
+    e, q in seg's order). With ``offset`` x, the rows and seg are the
+    second half of arrays of 2N, N odd: views off 16-byte bounds, as
+    ``col_rank[b*N:(b+1)*N]`` is at config 2."""
+    rng = np.random.default_rng(seed)
+    (x,), seg, u = _colsums_case(dev, n, 1, kind, seed)
+    rows = max(1, n // 3) if gather else n
+    e, q = (torch.as_tensor(rng.normal(size=rows).astype(np.float32),
+                            device=dev) for _ in range(2))
+    row = (torch.as_tensor(rng.integers(0, rows, n).astype(np.int32),
+                           device=dev) if gather else None)
+    if offset:
+        x = torch.cat([x.flip(0), x])[n:]
+        seg = torch.cat([seg.flip(0), seg])[n:]
+        row = None if row is None else torch.cat([row, row])[n:]
+        assert seg.data_ptr() % 16 == 4 * (n % 4)
+    return e, q, x, row, seg, u
+
+
+STREAM_CASES = [  # (n, kind, gather)
+    (1, "runs", False), (1001, "runs", True), (5001, "one_run", True),
+    (4097, "unique", False), (300001, "long", True), (300001, "long", False),
+    (100003, "cross_one", True), (200003, "rows33", True),
+    (150001, "runs", False)]
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("n,kind,gather", STREAM_CASES)
+def test_stream_sums_kernel_equals_b7_on_torch_streams(dev, n, kind, gather,
+                                                       offset):
+    """The ALS stream sums on the card equal B7 over the streams torch
+    forms, bit for bit: without and with rows, at N not a multiple of the
+    chunk or tile, gapped ranks, one run, unique ranks, runs crossing one
+    or two chunk boundaries, a run over 33 partial rows and a run across
+    ~44 chunks (pass 2's block-wide case), inputs at odd offsets. A second
+    call repeats the first bit for bit; the sums hold to the plain version
+    in float64 at B7's tolerance; ranks without slots are zero."""
+    e, q, x, row, seg, u = _stream_sums_case(dev, n, kind, gather, offset,
+                                             seed=n + 2 * gather + offset)
+    before = segsum.STREAM_SUMS.launches, segsum.COLSUMS.launches
+    got = segsum.als_stream_sums(e, q, x, row, seg, u)
+    assert (segsum.STREAM_SUMS.launches, segsum.COLSUMS.launches) == (
+        before[0] + 1, before[1])
+    assert got.shape == (u, 5)
+    assert torch.equal(got, _torch_streams(e, q, x, row, seg, u))
+    assert torch.equal(got, segsum.als_stream_sums(e, q, x, row, seg, u))
+    want = segsum.als_stream_sums_reference(e.double(), q.double(),
+                                            x.double(), row, seg, u)
+    assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
+        < 1e-4
+    empty = torch.ones(u, dtype=torch.bool, device=dev)
+    empty[seg.long()] = False
+    assert not got[empty].any()
+
+
+def test_stream_sums_kernel_on_no_slots_gives_zeros(dev):
+    before = segsum.STREAM_SUMS.launches
+    none = torch.zeros((0,), device=dev)
+    got = segsum.als_stream_sums(none, none, none, None,
+                                 torch.zeros((0,), dtype=torch.int32,
+                                             device=dev), 7)
+    assert got.shape == (7, 5) and not got.any()
+    assert segsum.STREAM_SUMS.launches == before
+
+
+def test_stream_sums_kernel_traps_on_a_row_out_of_range(dev):
+    """A row outside [0, len(e)) traps the kernel before e and q are read.
+    In a child process: a trap leaves its CUDA context unusable."""
+    code = ("import torch\n"
+            "from sparkfm_tpu_torch.ops import segsum\n"
+            "e = torch.ones(4, device='cuda')\n"
+            "i = lambda v: torch.tensor(v, dtype=torch.int32, "
+            "device='cuda')\n"
+            "segsum.als_stream_sums(e, e, e, i([0, 1, 4, 2]), i([0, 0, 1, 2]),"
+            " 3)\n"
+            "torch.cuda.synchronize()\n")
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=REPO)
+    assert child.returncode != 0
+    assert "unspecified launch failure" in child.stderr, child.stderr[-2000:]
+
+
+@pytest.mark.parametrize("blocks", ["slots", "contiguous"])
+def test_train_als_stream_sums_equal_torch_streams(dev, monkeypatch, blocks):
+    """train_als on the card with the ALS stream sums equals, parameter for
+    parameter, the same run with them replaced by the streams torch forms
+    and B7: on slot blocks (block 0 without rows, block 1 with) and on
+    contiguous blocks of 100 features (neither column-pure nor CSC-uniform:
+    every block gathers over all entries)."""
+    ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=2)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=4, reg_w=0.1,
+                   reg_v=0.5, seed=2)
+    als_cfg = (ALSConfig(epochs=2, feature_blocks=pals.slot_blocks(ds))
+               if blocks == "slots" else ALSConfig(epochs=2, block_size=100))
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(2),
+                           device="cpu")
+    before = segsum.STREAM_SUMS.launches
+    fused = train_als(cfg, als_cfg, ds, params=init, device=dev)
+    assert segsum.STREAM_SUMS.launches > before
+    monkeypatch.setattr(segsum, "als_stream_sums", _torch_streams)
+    before = segsum.STREAM_SUMS.launches
+    formed = train_als(cfg, als_cfg, ds, params=init, device=dev)
+    assert segsum.STREAM_SUMS.launches == before
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(fused.params, name),
+                           getattr(formed.params, name)), name
 
 def _rows_case(dev, n, w, kind, seed):
     """Sorted ranks of a kind and (N, W) normal rows on the card."""

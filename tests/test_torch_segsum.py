@@ -722,3 +722,97 @@ def test_colsums_unaligned_seg_slice_on_cpu():
     want = np.asarray(S.segment_colsums([jnp.asarray(x) for x in streams],
                                         jnp.asarray(seg), u, force="xla"))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---- the ALS stream sums: B7 over the compact sweep's five products
+
+def _stream_sums_case(rng, n, rows, gather, unit_x, kind="gaps"):
+    """e, q (rows,), x (n,), the rows (n,) int32 or None, and sorted ranks
+    with gaps, as a block of the compact ALS sweep reads them."""
+    _, seg, u = _colsums_case(rng, n, 1, kind)
+    e, q = (torch.from_numpy(rng.normal(size=rows).astype(np.float32))
+            for _ in range(2))
+    x = (torch.ones(n) if unit_x
+         else torch.from_numpy(rng.normal(size=n).astype(np.float32)))
+    row = (torch.from_numpy(rng.integers(0, rows, n).astype(np.int32))
+           if gather else None)
+    return e, q, x, row, torch.from_numpy(seg), u
+
+
+def _sweep_streams(e, q, x, row, seg, u):
+    """The streams as the compact sweep formed them before it summed them
+    in one call: e and q gathered into CSC order, five torch products,
+    then B7's plain version."""
+    e_csc = e if row is None else e.index_select(0, row)
+    q_csc = q if row is None else q.index_select(0, row)
+    xb2 = x * x
+    streams = [e_csc * x * q_csc, e_csc * xb2, xb2 * q_csc * q_csc,
+               xb2 * x * q_csc, xb2 * xb2]
+    return segsum.segment_colsums_reference(streams, seg, u)
+
+
+@pytest.mark.parametrize("unit_x", [False, True])
+@pytest.mark.parametrize("gather", [False, True])
+def test_stream_sums_plain_equals_the_sweeps_streams(gather, unit_x):
+    """The plain version (what CPU tensors run) equals the sweep's streams
+    summed by B7's plain version, bit for bit, and JAX
+    ``segment_colsums(force="xla")`` over the same streams at 1e-5."""
+    rng = np.random.default_rng(50 + 2 * gather + unit_x)
+    n = 3001
+    e, q, x, row, seg, u = _stream_sums_case(rng, n, 700 if gather else n,
+                                             gather, unit_x)
+    before = segsum.STREAM_SUMS.launches
+    got = segsum.als_stream_sums(e, q, x, row, seg, u)
+    assert segsum.STREAM_SUMS.launches == before      # CPU: plain version
+    assert got.shape == (u, 5) and got.dtype == torch.float32
+    assert torch.equal(got, _sweep_streams(e, q, x, row, seg, u))
+    assert torch.equal(got, segsum.als_stream_sums_reference(
+        e, q, x, row, seg, u))
+    ec = e if row is None else e[row.long()]
+    qc = q if row is None else q[row.long()]
+    streams = [ec * x * qc, ec * x * x, x * x * qc * qc, x * x * x * qc,
+               x * x * x * x]
+    want = np.asarray(S.segment_colsums([jnp.asarray(t.numpy())
+                                         for t in streams],
+                                        jnp.asarray(seg.numpy()), u,
+                                        force="xla"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_stream_sums_plain_keeps_float64_and_takes_no_slots():
+    """The card's checks evaluate the plain version in float64; no slots
+    give zeros."""
+    rng = np.random.default_rng(60)
+    e, q, x, row, seg, u = _stream_sums_case(rng, 200, 50, True, False)
+    got = segsum.als_stream_sums_reference(e.double(), q.double(),
+                                           x.double(), row, seg, u)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(
+        got.numpy(), _sweep_streams(e.double(), q.double(), x.double(), row,
+                                    seg, u).numpy(), rtol=1e-12)
+    empty = segsum.als_stream_sums(torch.zeros(0), torch.zeros(0),
+                                   torch.zeros(0), None,
+                                   torch.zeros(0, dtype=torch.int32), 4)
+    assert empty.shape == (4, 5) and not empty.any()
+
+
+_N5, _I32 = torch.zeros(5), torch.zeros(5, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((_N5, _N5, _N5, _I32.long(), _I32), "int32 row"),
+    ((_N5, _N5, _N5, None, _I32.long()), "int32 seg"),
+    ((_N5, _N5, _N5, None, torch.zeros(6, dtype=torch.int32)), "lengths"),
+    ((torch.zeros(9), _N5, _N5, _I32, _I32), "lengths"),
+    ((_N5, _N5, torch.zeros(4), _I32, _I32), "lengths"),
+    ((_N5, _N5, _N5, torch.zeros(4, dtype=torch.int32), _I32), "lengths"),
+    ((torch.zeros(10)[::2], _N5, _N5, None, _I32), "contiguous"),
+    ((_N5, _N5, _N5, torch.zeros(10, dtype=torch.int32)[::2], _I32),
+     "contiguous"),
+    ((_N5, _N5.double(), _N5, None, _I32), "float32 q"),
+    ((_N5, _N5, _N5.half(), None, _I32), "float32 x"),
+    ((_N5, torch.zeros(5, device="meta"), _N5, None, _I32), "devices"),
+])
+def test_stream_sums_reject_what_the_kernel_does_not_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        segsum.als_stream_sums(*args, 5)
