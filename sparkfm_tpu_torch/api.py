@@ -193,7 +193,8 @@ class DeepFMModel(_Metrics):
         "deepfm"`` (the JAX package's tag)."""
         checkpoint.save(directory, self.params.state_dict(),
                         {"cfg": self.cfg.fm.to_json(),
-                         "hidden": list(self.cfg.hidden), "model": "deepfm"})
+                         "hidden": list(self.cfg.hidden),
+                         "dropout": self.cfg.dropout, "model": "deepfm"})
 
     @classmethod
     def load(cls, directory: str, *,
@@ -213,7 +214,8 @@ class DeepFMModel(_Metrics):
             mlp_b=[state[f"mlp_b.{i}"] for i in range(layers)])
         return cls(params=params, cfg=deepfm_core.DeepFMConfig(
             fm=FMConfig.from_json(meta["cfg"]),
-            hidden=tuple(meta["hidden"])))
+            hidden=tuple(meta["hidden"]),
+            dropout=float(meta.get("dropout", 0.0))))
 
 
 def load_model(directory: str, *, device=device_util.DEFAULT):
@@ -304,7 +306,8 @@ class FM:
     are ``arange(num_fields)`` the config gets ``slot_major_fields``, as
     the JAX facade's does. ``model="deepfm"`` (with ``solver="sgd"`` and
     ``num_fields`` = slots per example) fits a DeepFM with tower widths
-    ``hidden`` (``models/deepfm.py::train_deepfm``) and returns a
+    ``hidden`` and tower ``dropout`` (the port's own; 0 = the JAX
+    facade's) (``models/deepfm.py::train_deepfm``) and returns a
     ``DeepFMModel``. ``feature_groups`` is a tuple of group ids or a
     fitted ``Vectorizer`` (one group per source column,
     ``data/vectorizer.py::feature_groups_of``). ``timeout`` is a
@@ -345,6 +348,7 @@ class FM:
                  exchange: str = "auto",
                  model: str = "fm",
                  hidden: tuple = (128, 64),
+                 dropout: float = 0.0,
                  feature_groups=None,
                  group_reg_w: Optional[tuple] = None,
                  group_reg_v: Optional[tuple] = None):
@@ -372,6 +376,7 @@ class FM:
         self.exchange = exchange
         self.model = model
         self.hidden = tuple(hidden)
+        self.dropout = float(dropout)
         self.feature_groups = feature_groups
         self.group_reg_w = (None if group_reg_w is None
                             else tuple(float(x) for x in group_reg_w))
@@ -470,7 +475,8 @@ class FM:
             if init_params is not None:
                 raise ValueError("init_params warm start supports plain "
                                  "FM on a SparseDataset")
-            dcfg = deepfm_core.DeepFMConfig(fm=cfg, hidden=self.hidden)
+            dcfg = deepfm_core.DeepFMConfig(fm=cfg, hidden=self.hidden,
+                                            dropout=self.dropout)
             sgd_cfg = SGDConfig(learning_rate=self.learning_rate,
                                 optimizer=self.optimizer,
                                 batch_size=self.batch_size,

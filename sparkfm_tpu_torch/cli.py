@@ -156,6 +156,7 @@ def cmd_train(args) -> int:
             exchange=args.exchange,
             model=args.model,
             hidden=tuple(int(x) for x in args.hidden.split(",")),
+            dropout=args.dropout,
             feature_groups=_resolve_groups(args, vec),
             group_reg_w=(tuple(float(x) for x in args.group_reg_w.split(","))
                          if args.group_reg_w else None),
@@ -366,6 +367,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "BASELINE config 5)")
     t.add_argument("--hidden", default="128,64",
                    help="deepfm tower widths, comma-separated")
+    t.add_argument("--dropout", type=float, default=0.0,
+                   help="deepfm: probability of dropping a hidden unit of "
+                        "the tower in a train step (0 = none)")
     t.add_argument("--mesh", default=None,
                    help="train over a (data, model) mesh of ranks, e.g. "
                         "'4x2' = 4-way data x 2-way table row sharding "

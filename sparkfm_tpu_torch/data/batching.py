@@ -87,16 +87,32 @@ def pack_examples(rows: Sequence[tuple], num_features: int,
                          field_ids=fids)
 
 
+def epoch_order(n: int, *, shuffle: bool, seed: int,
+                epoch: int) -> np.ndarray:
+    """The order in which :func:`batch_iterator` takes ``n`` examples:
+    ``arange(n)``, shuffled by a generator keyed by ``(seed, epoch)``
+    (the JAX package's iterator's order) with ``shuffle``."""
+    order = np.arange(n)
+    if shuffle:
+        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+        rng.shuffle(order)
+    return order
+
+
 def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
                    shuffle: bool = False, seed: int = 0,
                    drop_remainder: bool = False, epoch: int = 0,
                    dedup_budget=None,
-                   dedup_fill: Optional[int] = None) -> Iterator[SparseBatch]:
+                   dedup_fill: Optional[int] = None,
+                   pinned: bool = False,
+                   order: Optional[np.ndarray] = None
+                   ) -> Iterator[SparseBatch]:
     """Yield fixed-shape SparseBatches on ``device``; the tail batch is
     padded and masked, or dropped with ``drop_remainder``.
 
     ``shuffle`` permutes the examples with a generator keyed by
-    ``(seed, epoch)``, the same order as the JAX package's iterator.
+    ``(seed, epoch)``, the same order as the JAX package's iterator
+    (:func:`epoch_order`); ``order`` gives that order made beforehand.
 
     With ``dedup_budget`` and ``dedup_fill`` set, each batch carries a
     host dedup plan (``ops.embedding.host_dedup``): its unique ids, the
@@ -107,7 +123,12 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
     iterator, so the plan shapes settle on one or two.
 
     Each batch's assembly, plan and copies are the span ``data.batch``;
-    the copies are counted by ``utils/profiling.py::to_device``.
+    the copies are counted by ``utils/profiling.py::to_device``. With
+    ``pinned`` and a card, the batch's arrays (not a host plan's) go
+    through pinned host memory and are copied without blocking the
+    producer: a pageable copy waits for the stream's queued work, so a
+    step that leaves the host idle (DeepFM's CUDA graphs) would wait on
+    it. torch's pinned-memory cache keeps a buffer until its copy ran.
     """
     ladder = dedup_budget == "ladder"
     if not (dedup_budget is None or ladder or (
@@ -116,14 +137,14 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
         raise ValueError("dedup_budget must be None, a positive int or "
                          f"'ladder', got {dedup_budget!r}")
     n = ds.num_examples
-    order = np.arange(n)
-    if shuffle:
-        rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
-        rng.shuffle(order)
+    if order is None:
+        order = epoch_order(n, shuffle=shuffle, seed=seed, epoch=epoch)
     plans = dedup_budget is not None and dedup_fill is not None
     ladder_cap = E.auto_budget(batch_size * ds.max_nnz)
     rung = 1
     move = profiling.to_device
+    if pinned and torch.device(device).type == "cuda":
+        move = _pinned_to_device
     for start in range(0, n, batch_size):
         idx = order[start:start + batch_size]
         b = len(idx)
@@ -134,8 +155,15 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
         with profiling.annotate("data.batch"):
             mask = np.zeros((batch_size,), bool)
             mask[:b] = True
-            ids_np = ds.ids[idx]
-            vals_np = ds.vals[idx] * mask[:, None]
+            # torch's row gather runs on its thread pool, a fifth of
+            # numpy's fancy indexing on 8 cores; a full batch's values are
+            # taken as they are, where a broadcast multiply by its
+            # all-True mask took three times the gather
+            rows = torch.from_numpy(idx)
+            ids_np = torch.from_numpy(ds.ids).index_select(0, rows).numpy()
+            vals_np = torch.from_numpy(ds.vals).index_select(0, rows).numpy()
+            if b < batch_size:
+                vals_np = vals_np * mask[:, None]
             plan = None
             if plans:
                 hp = E.host_dedup(ids_np,
@@ -153,6 +181,11 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
                            else move(ds.field_ids[idx], device)),
                 plan=plan)
         yield batch
+
+
+def _pinned_to_device(x, device) -> torch.Tensor:
+    return profiling.to_device(torch.as_tensor(x).pin_memory(), device,
+                               non_blocking=True)
 
 
 def prefetch(it: Iterator, depth: int = 2) -> Iterator:

@@ -30,13 +30,29 @@ never turns on TF32. The tables go through the port's row kernels:
   FM direct step does (``solvers/sgd.py::_update_direct_per_slot``).
 
 Optimizers: adagrad and sgd everywhere, sgd with momentum on "direct"
-only; others raise the JAX package's ``ValueError``.
+only, adam on "direct" and "dedup" (the JAX package's DeepFM refuses
+adam). Under adam the touched rows take the FM dedup step's lazy rule
+(``solvers/sgd.py::_update_unique`` on each unique row's summed
+gradient, bias corrections from the global step) on both paths, and
+the tower and w0 the dense rule (``_dense_scalar_update``); rows no
+example of the step touches keep their moments, where TF1's dense
+``AdamOptimizer`` would decay them.
+
+Dropout (``DeepFMConfig.dropout`` = p > 0) multiplies each hidden
+layer's output after its ReLU by ``keep / (1 - p)`` in the train steps
+only; scoring never drops. The keep mask of hidden layer ``l`` at global
+step ``t`` (0 the first, the state's step counter) of a run seeded
+``cfg.fm.seed`` is ``torch.rand((B, width), generator=g) >= p`` for a
+generator ``g`` of the step's device seeded with
+:func:`dropout_seed` ``(seed, t, l)``: a function of those three and the
+batch's shape alone, which any code can draw again on the same device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,7 +60,8 @@ import torch
 from torch import nn
 
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig, Task
-from sparkfm_tpu_torch.data.batching import batch_iterator, prefetch
+from sparkfm_tpu_torch.data.batching import (SparseBatch, batch_iterator,
+                                             epoch_order, prefetch)
 from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import embedding as E
@@ -57,18 +74,23 @@ from sparkfm_tpu_torch.solvers import sgd_fused
 from sparkfm_tpu_torch.solvers.sgd import SGDState
 from sparkfm_tpu_torch.solvers.sgd_fused import FusedState
 from sparkfm_tpu_torch.utils import device as device_util
+from sparkfm_tpu_torch.utils import graphs, profiling
 
-_OPTIMIZERS = ("adagrad", "sgd")
+_OPTIMIZERS = ("adagrad", "sgd")            # the fused record's
+_ROW_OPTIMIZERS = ("adagrad", "adam", "sgd")  # "direct" and "dedup"
+_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class DeepFMConfig:
     """fm: the tables' shape and regularization (``num_fields`` = slots
     per example); hidden: the tower's widths (the scalar output layer is
-    implicit)."""
+    implicit); dropout: the probability of dropping a hidden unit in a
+    train step (0: none, the JAX package's tower)."""
 
     fm: FMConfig
     hidden: Tuple[int, ...] = (128, 64)
+    dropout: float = 0.0
 
     @property
     def tower_in(self) -> int:
@@ -139,14 +161,71 @@ def deepfm_params_from_numpy(w0, w, v, mlp_w, mlp_b, *,
                         mlp_b=[t(x) for x in mlp_b])
 
 
-def _tower(mlp_w, mlp_b, h: torch.Tensor) -> torch.Tensor:
-    """(B,) tower output: matmul + bias, relu between layers."""
+def _tower(mlp_w, mlp_b, h: torch.Tensor, masks=None) -> torch.Tensor:
+    """(B,) tower output: matmul + bias, relu between layers, each relu's
+    output times its dropout multiplier ``masks[i]`` when given."""
     n = len(mlp_w)
     for i, (w, b) in enumerate(zip(mlp_w, mlp_b)):
         h = torch.matmul(h, w) + b
         if i < n - 1:
             h = torch.relu(h)
+            if masks is not None:
+                h = h * masks[i]
     return h[:, 0]
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def dropout_seed(seed: int, step: int, layer: int) -> int:
+    """The generator seed of hidden layer ``layer``'s dropout mask at
+    global step ``step`` of a run seeded ``seed``: ``splitmix64(
+    splitmix64(splitmix64(seed mod 2^64) ^ step) ^ layer) >> 1``, with
+    splitmix64 Steele, Lea and Flood's finalizer of ``z + 0x9E37...7C15``
+    (a 63-bit number)."""
+    z = _splitmix64(int(seed) & _MASK64)
+    z = _splitmix64(z ^ int(step))
+    return _splitmix64(z ^ int(layer)) >> 1
+
+
+def dropout_draws(cfg: DeepFMConfig, step: int, rows: int, device,
+                  generator: Optional[torch.Generator] = None, out=None):
+    """The uniform draws behind :func:`dropout_masks` (float32, (rows,
+    width) a hidden layer) of global step ``step``, or None without
+    dropout: written into ``out``'s tensors when given. ``generator`` (of
+    ``device``) is reseeded for each layer."""
+    if cfg.dropout <= 0.0:
+        return None
+    if generator is None:
+        generator = torch.Generator(device=device)
+    draws = []
+    for layer, width in enumerate(cfg.hidden):
+        generator.manual_seed(dropout_seed(cfg.fm.seed, step, layer))
+        if out is None:
+            draws.append(torch.rand((rows, width), generator=generator,
+                                    device=device))
+        else:
+            draws.append(torch.rand(out[layer].shape, generator=generator,
+                                    out=out[layer]))
+    return draws
+
+
+def _masks_of(cfg: DeepFMConfig, draws):
+    p = float(cfg.dropout)
+    return [(r >= p) * (1.0 / (1.0 - p)) for r in draws]
+
+
+def dropout_masks(cfg: DeepFMConfig, step: int, rows: int, device,
+                  generator: Optional[torch.Generator] = None):
+    """The multipliers ``keep / (1 - p)`` (float32, (rows, width) a hidden
+    layer) of global step ``step``, or None without dropout; the module
+    doc defines them."""
+    draws = dropout_draws(cfg, step, rows, device, generator)
+    return None if draws is None else _masks_of(cfg, draws)
 
 
 def _check_field_major(cfg: DeepFMConfig, slots: int) -> None:
@@ -159,16 +238,17 @@ def _check_field_major(cfg: DeepFMConfig, slots: int) -> None:
 
 def scores_from_rows(w0: torch.Tensor, mlp_w, mlp_b, cfg: DeepFMConfig,
                      w_rows: torch.Tensor, v_rows: torch.Tensor,
-                     vals: torch.Tensor) -> torch.Tensor:
+                     vals: torch.Tensor, masks=None) -> torch.Tensor:
     """(B,) raw scores, FM head + deep head, from gathered rows: w_rows
-    (B, L), v_rows (B, L, K), vals (B, L)."""
+    (B, L), v_rows (B, L, K), vals (B, L); ``masks``: the train step's
+    dropout multipliers (:func:`dropout_masks`), None when scoring."""
     _check_field_major(cfg, vals.shape[1])
     fm_s = I.fm_scores_from_gathered(
         w0, w_rows, v_rows, vals, use_bias=cfg.fm.use_bias,
         use_linear=cfg.fm.use_linear,
         compute_dtype=getattr(torch, cfg.fm.compute_dtype))
     emb = (v_rows * vals[..., None]).reshape(vals.shape[0], -1)
-    return fm_s + _tower(mlp_w, mlp_b, emb)
+    return fm_s + _tower(mlp_w, mlp_b, emb, masks)
 
 
 def scores(params: DeepFMParams, cfg: DeepFMConfig, ids: torch.Tensor,
@@ -206,30 +286,45 @@ class DeepFMState:
     """A DeepFM train state on one device: ``fm`` holds the tables and
     their slots, an ``SGDState`` on "direct" and "dedup" (the dedup
     tables with the plan's fill row) or a ``FusedState`` on "fused"; the
-    tower's weights and biases and their optimizer slots ride beside it.
-    The train steps update every tensor in place."""
+    tower's weights and biases and their optimizer slots ride beside it
+    (``smw``/``smb``: adagrad's sums, momentum's velocities or adam's
+    first moments; ``smw2``/``smb2``: adam's second moments, empty under
+    the other optimizers). The train steps update every tensor in
+    place."""
 
     fm: Union[SGDState, FusedState]
     mlp_w: Tuple[torch.Tensor, ...]
     mlp_b: Tuple[torch.Tensor, ...]
     smw: Tuple[torch.Tensor, ...]
     smb: Tuple[torch.Tensor, ...]
+    smw2: Tuple[torch.Tensor, ...] = ()
+    smb2: Tuple[torch.Tensor, ...] = ()
 
 
-def _tower_state(fm_state, mlp_w, mlp_b) -> DeepFMState:
+def _tower_state(fm_state, mlp_w, mlp_b, adam: bool = False) -> DeepFMState:
     mlp_w = tuple(w.detach().clone() for w in mlp_w)
     mlp_b = tuple(b.detach().clone() for b in mlp_b)
+
+    def zeros(xs):
+        return tuple(torch.zeros_like(x) for x in xs)
     return DeepFMState(fm=fm_state, mlp_w=mlp_w, mlp_b=mlp_b,
-                       smw=tuple(torch.zeros_like(w) for w in mlp_w),
-                       smb=tuple(torch.zeros_like(b) for b in mlp_b))
+                       smw=zeros(mlp_w), smb=zeros(mlp_b),
+                       smw2=zeros(mlp_w) if adam else (),
+                       smb2=zeros(mlp_b) if adam else ())
 
 
-def init_state(params: DeepFMParams) -> DeepFMState:
+def init_state(params: DeepFMParams,
+               optimizer: Optional[str] = None) -> DeepFMState:
     """Fresh (zero) optimizer state around ``params`` for the direct and
     dedup paths; the tables are the params' own tensors, the tower a
-    copy. The adam slots stay 0-d placeholders: DeepFM rejects adam."""
-    return _tower_state(sgd_solver.init_state(params.fm, optimizer="sgd"),
-                        params.mlp_w, params.mlp_b)
+    copy. Under ``optimizer="adam"`` the tables' and the tower's second
+    moments are full zeros; otherwise the tables' are 0-d placeholders
+    and the tower's empty."""
+    adam = optimizer == "adam"
+    return _tower_state(
+        sgd_solver.init_state(params.fm,
+                              optimizer="adam" if adam else "sgd"),
+        params.mlp_w, params.mlp_b, adam)
 
 
 def pad_deepfm_state_for_dedup(state: DeepFMState) -> DeepFMState:
@@ -294,19 +389,28 @@ def params_of(state: DeepFMState, cfg: DeepFMConfig) -> DeepFMParams:
 
 def resolve_deepfm_path(cfg: DeepFMConfig, sgd_cfg: SGDConfig) -> str:
     """The JAX package's "auto": tables below 2^16 rows take "direct",
-    bigger ones the fused record; a pinned ``update_path`` stands."""
+    bigger ones the fused record, or "dedup" under adam (whose moments
+    the record does not carry), as ``solvers/sgd.py::
+    resolve_update_path`` sends the FM's adam; a pinned ``update_path``
+    stands."""
     path = sgd_cfg.update_path
     if path == "auto":
-        return "direct" if cfg.fm.num_features < (1 << 16) else "fused"
+        if cfg.fm.num_features < (1 << 16):
+            return "direct"
+        return "dedup" if sgd_cfg.optimizer == "adam" else "fused"
     return path
 
 
 def _check_deepfm_optimizer(sgd_cfg: SGDConfig, path: str) -> None:
-    """adagrad and plain sgd everywhere, momentum on "direct" only: adam
-    would need second-moment slots the DeepFM state does not carry."""
-    if sgd_cfg.optimizer not in _OPTIMIZERS:
+    """adagrad and plain sgd everywhere, momentum on "direct" only, adam
+    on "direct" and "dedup": the fused record holds one slot a
+    coordinate, not adam's two moments."""
+    allowed = _ROW_OPTIMIZERS if path in ("direct", "dedup") else _OPTIMIZERS
+    if sgd_cfg.optimizer not in allowed:
+        where = ("" if path in ("direct", "dedup") else
+                 f" on the {path} path (adam also on 'direct' and 'dedup')")
         raise ValueError(
-            f"deepfm supports optimizer 'adagrad' or 'sgd', got "
+            f"deepfm supports optimizer 'adagrad' or 'sgd'{where}, got "
             f"{sgd_cfg.optimizer!r} — it would otherwise train with a "
             "different optimizer than requested")
     if path in ("dedup", "fused") and sgd_cfg.momentum > 0:
@@ -315,13 +419,14 @@ def _check_deepfm_optimizer(sgd_cfg: SGDConfig, path: str) -> None:
 
 
 def _deepfm_loss(cfg: DeepFMConfig, batch, w0, w_rows, v_rows, mlp_w,
-                 mlp_b):
-    """The loss of all three paths: both heads from gathered rows, plus
-    per-appearance L2 on the touched rows (each active slot of a valid
-    example, over max(Σmask, 1)). Returns (data loss + L2, (scores, data
-    loss))."""
+                 mlp_b, masks=None):
+    """The loss of all three paths: both heads from gathered rows (the
+    tower under the dropout multipliers ``masks``), plus per-appearance
+    L2 on the touched rows (each active slot of a valid example, over
+    max(Σmask, 1)). Returns (data loss + L2, (scores, data loss))."""
     fm_cfg = cfg.fm
-    s = scores_from_rows(w0, mlp_w, mlp_b, cfg, w_rows, v_rows, batch.vals)
+    s = scores_from_rows(w0, mlp_w, mlp_b, cfg, w_rows, v_rows, batch.vals,
+                         masks)
     weights = None if batch.mask is None else batch.mask.to(torch.float32)
     data_loss = L.loss_for_task(fm_cfg.task)(s, batch.y, weights)
     active = (batch.vals != 0).to(torch.float32)
@@ -349,28 +454,55 @@ def _unique_sums(g_v: torch.Tensor, g_w: torch.Tensor, plan, budget: int,
                                   budget)
 
 
-def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
+def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
+                    cuda_graphs: bool = True):
     """(DeepFMState, SparseBatch) -> (DeepFMState, aux) on the path that
     :func:`resolve_deepfm_path` picks; every tensor of the state is
     updated in place and the same state returned. aux holds ``loss`` and
     ``scores`` (tensors on the device) and, on "dedup" and "fused", the
     plan's ``unique_count`` and ``unique_overflow``.
 
-    Each step:
+    Each step runs four phases, each a span
+    (``utils/profiling.py::annotate``, with CUDA-event device times on
+    the card):
 
-    1. a dedup plan of the batch: on "direct" one built on the device
-       whose budget holds every distinct id, fill id F - 1; on "dedup"
-       and "fused" the batch's host plan, else one built on the device
-       (``unique_budget`` or ``auto_budget``), fill id F;
-    2. the unique rows gathered by kernel B1 (two-table ``[v | w]`` and
-       ``[slot_v | slot_w]`` on "direct"/"dedup", the record on "fused"),
-       rows past the plan's count zeroed, and spread to the slots;
-    3. ``torch.autograd.grad`` of :func:`_deepfm_loss` with respect to
+    1. ``deepfm.gather``: a dedup plan of the batch: on "direct" one
+       built on the device whose budget holds every distinct id, fill id
+       F - 1; on "dedup" and "fused" the batch's host plan, else one built
+       on the device (``unique_budget`` or ``auto_budget``), fill id F;
+       the unique rows gathered by kernel B1 (two-table ``[v | w]``,
+       ``[slot_v | slot_w]`` and under adam ``[slot2_v | slot2_w]`` on
+       "direct"/"dedup", the record on "fused"), rows past the plan's
+       count zeroed, and spread to the slots;
+    2. ``deepfm.dense``: the dropout masks, both heads and
+       ``torch.autograd.grad`` of :func:`_deepfm_loss` with respect to
        w0, the slot rows and the tower;
-    4. the per-unique sums (:func:`_unique_sums`, or kernel B5 on the
-       direct step under momentum), the update of the unique rows and
-       their write-back by kernel B2 (one per table, or one record);
-    5. the bias and the tower by the dense rule (adagrad, sgd, momentum).
+    3. ``deepfm.update``: the per-unique sums (:func:`_unique_sums`, or
+       kernel B5 on the direct step under momentum), the update of the
+       unique rows and their write-back by kernel B2 (one per table, or
+       one record);
+    4. ``deepfm.tower_update``: the bias and the tower by the dense rule
+       (adagrad, sgd, momentum, adam), and the step count.
+
+    On the card (``cuda_graphs``), a batch without a host plan runs as
+    four CUDA graphs, one a phase, replayed inside its span, so that the
+    host issues a handful of calls a step where the phases launch ~400
+    kernels. The graphs are captured per state and batch shape: that
+    shape's first step runs eagerly on a side stream (it builds the
+    kernels and fills the lazy caches) before the capture. A graph reads
+    the batch from static device buffers, filled by device copies, and
+    the dropout masks from static uniform draws, drawn before its replay
+    from the generator seeded for the step (:func:`dropout_draws`); its
+    outputs are cloned into aux. All graphs of a step function share one
+    memory pool: a shape's four graphs replay one after another, and only
+    the static inputs and outputs outlive a capture. Host plans, whose
+    budget moves with the batch, and CPU tensors run the phases eagerly.
+
+    With dropout the step keeps the global step on the host: it reads
+    the state's counter at its first call (one wait for the device) and
+    counts on from there, so a state whose counter is written from
+    outside after that call (a checkpoint restored into it) needs a new
+    step function.
     """
     path = resolve_deepfm_path(cfg, sgd_cfg)
     if path not in ("direct", "dedup", "fused"):
@@ -384,10 +516,17 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
         raise ValueError(
             f"unknown accumulate={sgd_cfg.accumulate!r}; expected "
             "'auto', 'scatter' or 'segsum'")
+    if not 0.0 <= cfg.dropout < 1.0:
+        raise ValueError(f"dropout must lie in [0, 1), got {cfg.dropout!r}")
     opt, lr = sgd_cfg.optimizer, sgd_cfg.learning_rate
+    adam = opt == "adam"
     k = cfg.fm.num_factors
     per_slot = path == "direct" and opt == "sgd" and sgd_cfg.momentum > 0
     writes_slot = opt != "sgd" or sgd_cfg.momentum > 0
+    clock: list = []                # the global step of the next call
+    generators: Dict[torch.device, torch.Generator] = {}
+    groups: Dict[tuple, _StepGraphs] = {}
+    pool: list = []
 
     def plan_of(batch, rows: int):
         if path == "direct":
@@ -398,15 +537,15 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
         budget = sgd_cfg.unique_budget or E.auto_budget(batch.ids.numel())
         return E.dedup_ids(batch.ids, budget, fill=rows - 1), budget
 
-    def train_step(state: DeepFMState, batch):
+    def phases(state: DeepFMState, batch, draws):
+        """The step's four phases, yielding after each; the last yields
+        aux. ``draws``: the dropout masks' uniform draws, or None."""
         fm = state.fm
         fused = isinstance(fm, FusedState)
-        if fused != (path == "fused"):
-            raise ValueError(f"the {path} step takes "
-                             + ("a fused" if path == "fused" else "an SGD")
-                             + " DeepFMState")
         table = fm.table if fused else fm.params.v
         device = table.device
+
+        # 1. deepfm.gather
         plan, budget = plan_of(batch, table.shape[0])
         sorted_runs = per_slot or sgd_fused.segsum_accumulate(
             sgd_cfg.accumulate, device)
@@ -416,37 +555,47 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
                 "requires a plan with the id-sort permutation "
                 "(plan.order/plan.seg); both dedup_ids and host_dedup "
                 "emit it - this plan was built without it")
-
         with torch.no_grad():
-            valid = sgd_fused.valid_slots(plan.count, budget, device)[:, None]
+            valid = sgd_fused.valid_slots(plan.count, budget,
+                                          device)[:, None]
             if fused:
-                rec_u = torch.where(valid, E.gather_unique(table, plan), 0.0)
-                vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]],
-                                 1)
+                rec_u = torch.where(valid, E.gather_unique(table, plan),
+                                    0.0)
+                vw_u = torch.cat([rec_u[:, :k],
+                                  rec_u[:, 2 * k:2 * k + 1]], 1)
             else:
                 p = fm.params
                 t_u = rowio.gather_vw_rows(p.v, p.w, plan.uids)
-                s_u = rowio.gather_vw_rows(fm.slot_v, fm.slot_w, plan.uids)
+                s_u = rowio.gather_vw_rows(fm.slot_v, fm.slot_w,
+                                           plan.uids)
+                s2_u = (rowio.gather_vw_rows(fm.slot2_v, fm.slot2_w,
+                                             plan.uids)
+                        if adam else None)
                 vw_u = torch.where(valid, t_u, 0.0)
-            vw_rows = E.spread(vw_u, plan)                  # (B, L, K+1)
+            vw_rows = E.spread(vw_u, plan)              # (B, L, K+1)
             w0_t = fm.w0 if fused else fm.params.w0
-            slot_w0 = fm.slot_w0
         w0 = w0_t.detach().requires_grad_()
         w_rows = vw_rows[..., k].detach().requires_grad_()
         v_rows = vw_rows[..., :k].detach().requires_grad_()
         mlp_w = [x.detach().requires_grad_() for x in state.mlp_w]
         mlp_b = [x.detach().requires_grad_() for x in state.mlp_b]
         n_layers = len(mlp_w)
+        yield
+
+        # 2. deepfm.dense
+        masks = None if draws is None else _masks_of(cfg, draws)
         with torch.enable_grad():
-            total, (s, data_loss) = _deepfm_loss(cfg, batch, w0, w_rows,
-                                                 v_rows, mlp_w, mlp_b)
+            total, (s, data_loss) = _deepfm_loss(
+                cfg, batch, w0, w_rows, v_rows, mlp_w, mlp_b, masks)
             # w0 is off the graph without use_bias: a zero gradient
             grads = torch.autograd.grad(
                 total, (w0, w_rows, v_rows, *mlp_w, *mlp_b),
                 materialize_grads=True)
         g_w0, g_wrows, g_vrows = grads[:3]
         g_mw, g_mb = grads[3:3 + n_layers], grads[3 + n_layers:]
+        yield
 
+        # 3. deepfm.update
         with torch.no_grad():
             if per_slot:
                 g = torch.cat([g_vrows.reshape(-1, k),
@@ -463,36 +612,166 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig):
                     opt, sgd_cfg, rec_u, acc, k))
             else:
                 if not per_slot:
-                    t_new, s_new, _ = sgd_solver._update_unique(
-                        opt, sgd_cfg, t_u, s_u, None, acc[:, :k + 1],
+                    t_new, s_new, s2_new = sgd_solver._update_unique(
+                        opt, sgd_cfg, t_u, s_u, s2_u, acc[:, :k + 1],
                         acc[:, k + 1:], fm.step)
                 # slots past the plan's count keep the rows they read
                 writes = [(p.v, p.w, torch.where(valid, t_new, t_u))]
                 if writes_slot:
                     writes.append((fm.slot_v, fm.slot_w,
                                    torch.where(valid, s_new, s_u)))
+                if adam:
+                    writes.append((fm.slot2_v, fm.slot2_w,
+                                   torch.where(valid, s2_new, s2_u)))
                 for tv, tw, new in writes:
                     rowio.scatter_set_rows(tv, plan.uids,
                                            new[:, :k].contiguous())
                     rowio.scatter_set_rows(tw.view(-1, 1), plan.uids,
                                            new[:, k:].contiguous())
-            dense = [(w0_t, slot_w0, g_w0)]
-            dense += list(zip(state.mlp_w, state.smw, g_mw))
-            dense += list(zip(state.mlp_b, state.smb, g_mb))
-            for x, slot, g in dense:
-                x_new, slot_new, _ = sgd_solver._dense_scalar_update(
-                    opt, lr, sgd_cfg, x, slot, None, g, None)
+        yield
+
+        # 4. deepfm.tower_update
+        with torch.no_grad():
+            slot2_w0 = fm.slot2_w0 if adam else None
+            dense = [(w0_t, fm.slot_w0, slot2_w0, g_w0)]
+            dense += list(zip(state.mlp_w, state.smw,
+                              state.smw2 or (None,) * n_layers, g_mw))
+            dense += list(zip(state.mlp_b, state.smb,
+                              state.smb2 or (None,) * n_layers, g_mb))
+            for x, slot, slot2, g in dense:
+                x_new, slot_new, slot2_new = sgd_solver._dense_scalar_update(
+                    opt, lr, sgd_cfg, x, slot, slot2, g, fm.step)
                 x.copy_(x_new)
                 slot.copy_(slot_new)
+                if adam:
+                    slot2.copy_(slot2_new)
             fm.step.add_(1)
-
         aux = {"loss": data_loss.detach(), "scores": s.detach()}
         if path != "direct":
             aux.update(unique_count=plan.count,
                        unique_overflow=plan.overflow)
+        yield aux
+
+    def draws_of(t: int, rows: int, device, out=None):
+        if cfg.dropout <= 0:
+            return None
+        gen = generators.get(device)
+        if gen is None:
+            gen = generators[device] = torch.Generator(device=device)
+        return dropout_draws(cfg, t, rows, device, gen, out)
+
+    def eager(state, batch, t: int, on_card: bool) -> dict:
+        run = phases(state, batch, draws_of(t, batch.vals.shape[0],
+                                            batch.vals.device))
+        for name in _SPANS:
+            with profiling.annotate(name, device=on_card):
+                aux = next(run)
+        return aux
+
+    def graphed(state, batch, t: int) -> dict:
+        inputs = {name: getattr(batch, name) for name in _INPUTS
+                  if getattr(batch, name) is not None}
+        key = (_addresses(state), tuple((name, tuple(x.shape), x.dtype)
+                                        for name, x in inputs.items()))
+        group = groups.get(key)
+        if group is None:
+            aux = _warm_up(lambda: eager(state, batch, t, True),
+                           batch.ids.device)
+            groups[key] = capture(state, inputs)
+            return aux
+        for name, x in group.inputs.items():
+            x.copy_(inputs[name])
+        for name, (graph, launches) in zip(_SPANS, group.graphs):
+            with profiling.annotate(name, device=True):
+                if name == "deepfm.dense" and group.draws is not None:
+                    draws_of(t, batch.vals.shape[0], batch.vals.device,
+                             group.draws)
+                graphs.replay(graph, launches)
+        return {name: x.clone() for name, x in group.aux.items()}
+
+    def capture(state, inputs) -> _StepGraphs:
+        device = inputs["ids"].device
+        static = {name: torch.empty_like(x) for name, x in inputs.items()}
+        rows = static["vals"].shape[0]
+        draws = (None if cfg.dropout <= 0 else
+                 [torch.empty((rows, width), device=device)
+                  for width in cfg.hidden])
+        if not pool:
+            pool.append(torch.cuda.graph_pool_handle())
+        run = phases(state, SparseBatch(**static), draws)
+        out, recorded = [], []
+        for _ in _SPANS:
+            recorded.append(graphs.record(lambda: out.append(next(run)),
+                                          pool[0]))
+        return _StepGraphs(inputs=static, draws=draws, graphs=recorded,
+                           aux=out[-1])
+
+    def train_step(state: DeepFMState, batch):
+        fm = state.fm
+        fused = isinstance(fm, FusedState)
+        if fused != (path == "fused"):
+            raise ValueError(f"the {path} step takes "
+                             + ("a fused" if path == "fused" else "an SGD")
+                             + " DeepFMState")
+        if adam and (not state.smw2 or fm.slot2_v.dim() == 0):
+            raise ValueError("adam needs the second moments of a state "
+                             "from init_state(params, optimizer='adam')")
+        t = 0
+        if cfg.dropout > 0:
+            if not clock:
+                clock.append(int(fm.step))
+            t = clock[0]
+        on_card = batch.ids.device.type == "cuda"
+        if cuda_graphs and on_card and batch.plan is None:
+            aux = graphed(state, batch, t)
+        else:
+            aux = eager(state, batch, t, on_card)
+        if clock:
+            clock[0] += 1
         return state, aux
 
     return train_step
+
+
+_SPANS = ("deepfm.gather", "deepfm.dense", "deepfm.update",
+          "deepfm.tower_update")
+_INPUTS = ("ids", "vals", "y", "mask")       # what the step reads
+
+
+@dataclasses.dataclass
+class _StepGraphs:
+    """One state's and batch shape's captured step: its static inputs,
+    the dropout masks' static draws, a (graph, launches) pair a phase and
+    the static outputs."""
+
+    inputs: Dict[str, torch.Tensor]
+    draws: Optional[list]
+    graphs: list
+    aux: Dict[str, torch.Tensor]
+
+
+def _addresses(state: DeepFMState) -> tuple:
+    """The device addresses of the state's tensors, which a captured step
+    reads and writes."""
+    fm = state.fm
+    ts = [getattr(fm, f.name) for f in dataclasses.fields(fm)]
+    if isinstance(fm, SGDState):
+        ts += [fm.params.w0, fm.params.w, fm.params.v]
+    ts += [*state.mlp_w, *state.mlp_b, *state.smw, *state.smb, *state.smw2,
+           *state.smb2]
+    return tuple(t.data_ptr() for t in ts if torch.is_tensor(t))
+
+
+def _warm_up(run, device):
+    """``run()`` on a side stream of ``device`` (a step before its
+    capture), ordered after and before the current stream's work."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = run()
+    current.wait_stream(side)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -520,24 +799,57 @@ def _eval_metrics(params: DeepFMParams, cfg: DeepFMConfig, ds,
     return _metrics_of(torch.cat(outs).cpu(), ds.y, cfg.fm.task)
 
 
+def initial_state(cfg: DeepFMConfig, sgd_cfg: SGDConfig,
+                  generator: Optional[torch.Generator] = None,
+                  start: Optional[DeepFMParams] = None, *,
+                  device) -> DeepFMState:
+    """The train state of :func:`resolve_deepfm_path`'s path on
+    ``device``: from a copy of the parameters ``start`` when given, else
+    drawn from ``generator`` (:func:`init_params`); with adam's second
+    moments under adam, and the dedup path's fill row."""
+    device = torch.device(device)
+    path = resolve_deepfm_path(cfg, sgd_cfg)
+    if start is None:
+        if path == "fused":
+            return init_fused_deepfm_state(cfg, generator, device=device)
+        params = init_params(cfg, generator, device=device)
+    else:
+        params = DeepFMParams(
+            fm=FMParams(*(t.detach().to(device, copy=True) for t in (
+                start.fm.w0, start.fm.w, start.fm.v))),
+            mlp_w=list(start.mlp_w), mlp_b=list(start.mlp_b))
+        if path == "fused":
+            fused = sgd_fused.fused_from_params(
+                params.fm, cfg.fm.replace(num_fields=0), device=device)
+            return _tower_state(fused, params.mlp_w, params.mlp_b)
+    state = init_state(params, sgd_cfg.optimizer)
+    if path == "dedup":
+        state = pad_deepfm_state_for_dedup(state)
+    return state
+
+
 def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
                  eval_ds=None, eval_every: int = 1,
                  generator: Optional[torch.Generator] = None, mesh=None,
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 1, resume: bool = True, *,
+                 init_params: Optional[DeepFMParams] = None,
+                 hooks: Optional[list] = None,
                  device=device_util.DEFAULT):
     """DeepFM training on ``device`` (default: the card; without one it
     raises), the JAX package's loop for one device.
 
-    The path is :func:`resolve_deepfm_path`'s; the state comes from
-    ``generator`` (default: seeded from ``cfg.fm.seed``). Batches are
+    The path is :func:`resolve_deepfm_path`'s; the state comes from a
+    copy of ``init_params`` when given, else from ``generator`` (default:
+    seeded from ``cfg.fm.seed``; :func:`initial_state`). Batches are
     shuffled per epoch with the JAX package's (seed, epoch) order and
     built in a background thread; on "dedup" and "fused" under
     ``host_plan`` they carry host ladder plans (or plans of
     ``unique_budget``), fill id F. Each history record holds the epoch's
     mean ``train_loss`` (in float64) and, every ``eval_every`` epochs and
     after the last, ``eval_rmse`` or ``eval_auc`` and ``eval_accuracy``.
-    ``max_seconds`` stops after the epoch that reaches it.
+    ``max_seconds`` stops after the epoch that reaches it. ``hooks`` are
+    called as ``hook(epoch, state, record)`` after each epoch.
 
     With ``checkpoint_dir`` the state is saved every ``checkpoint_every``
     epochs, after the last and on a ``max_seconds`` stop; with ``resume``
@@ -558,29 +870,39 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
 
     device = device_util.resolve(device)
     if mesh is not None:
+        if init_params is not None or hooks:
+            raise ValueError("sharded DeepFM takes no init_params or hooks")
         return _train_deepfm_sharded(cfg, sgd_cfg, train, eval_ds,
                                      eval_every, generator, mesh,
                                      checkpoint_dir, checkpoint_every,
                                      resume, device)
     path = resolve_deepfm_path(cfg, sgd_cfg)
     step_fn = make_train_step(cfg, sgd_cfg)
-    if path == "fused":
-        state = init_fused_deepfm_state(cfg, generator, device=device)
-    else:
-        state = init_state(init_params(cfg, generator, device=device))
-        if path == "dedup":
-            state = pad_deepfm_state_for_dedup(state)
+    state = initial_state(cfg, sgd_cfg, generator, init_params,
+                          device=device)
     dedup_budget = None
     if path in ("dedup", "fused") and sgd_cfg.host_plan:
         dedup_budget = sgd_cfg.unique_budget or "ladder"
+    # the next epoch's order is shuffled while this one trains: on the
+    # card's host a 2^20 shuffle (~50 ms, outside the GIL) left the card
+    # idle at every epoch's start
+    ahead = ThreadPoolExecutor(max_workers=1)
+    orders = {}
+
+    def order_of(epoch: int):
+        return epoch_order(train.num_examples,
+                           shuffle=sgd_cfg.shuffle_each_epoch,
+                           seed=cfg.fm.seed, epoch=epoch)
 
     def run_epoch(state, epoch, dispatch):
+        pending = orders.pop(epoch, None)
+        order = order_of(epoch) if pending is None else pending.result()
+        orders[epoch + 1] = ahead.submit(order_of, epoch + 1)
         flags = []
         for batch in prefetch(batch_iterator(
                 train, sgd_cfg.batch_size, device=device,
-                shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.fm.seed,
-                epoch=epoch, dedup_budget=dedup_budget,
-                dedup_fill=cfg.fm.num_features), PREFETCH_DEPTH):
+                dedup_budget=dedup_budget, dedup_fill=cfg.fm.num_features,
+                pinned=True, order=order), PREFETCH_DEPTH):
             def single(b=batch):
                 nonlocal state
                 state, aux = step_fn(state, b)
@@ -591,14 +913,18 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
         return state, flags
 
     # the JAX package's DeepFM records hold no unique_overflow_steps
-    state, history, eps = run_epochs(
-        state, sgd_cfg, train.num_examples, run_epoch, path=path,
-        evaluate_state=None if eval_ds is None else (
-            lambda s: _eval_metrics(params_of(s, cfg), cfg, eval_ds,
-                                    sgd_cfg.batch_size)),
-        eval_every=eval_every, checkpoint_dir=checkpoint_dir,
-        checkpoint_every=checkpoint_every, resume=resume,
-        record_overflows=False)
+    try:
+        state, history, eps = run_epochs(
+            state, sgd_cfg, train.num_examples, run_epoch, path=path,
+            evaluate_state=None if eval_ds is None else (
+                lambda s: _eval_metrics(params_of(s, cfg), cfg, eval_ds,
+                                        sgd_cfg.batch_size)),
+            eval_every=eval_every, hooks=hooks,
+            checkpoint_dir=checkpoint_dir,
+            checkpoint_every=checkpoint_every, resume=resume,
+            record_overflows=False)
+    finally:
+        ahead.shutdown(wait=False, cancel_futures=True)
     return TrainResult(params=params_of(state, cfg), history=history,
                        examples_per_sec=eps)
 

@@ -15,11 +15,12 @@ tower. Port of ``sparkfm_tpu/parallel/sharded_deepfm.py`` onto
   tail shards give the one-device objective.
 
 Tables update by adagrad or plain sgd, the optimizers whose updates split
-into per-shard sums; anything else is refused.
+into per-shard sums; anything else is refused, as is tower dropout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -41,8 +42,7 @@ from sparkfm_tpu_torch.solvers.sgd_fused import valid_slots
 
 def padded_config(cfg: DeepFMConfig, model_size: int) -> DeepFMConfig:
     """The tables padded as ``sharded_sgd.padded_config`` pads them."""
-    return DeepFMConfig(fm=S.padded_config(cfg.fm, model_size),
-                        hidden=cfg.hidden)
+    return dataclasses.replace(cfg, fm=S.padded_config(cfg.fm, model_size))
 
 
 def _shard(full: DeepFMState, mesh) -> DeepFMState:
@@ -90,6 +90,9 @@ def make_sharded_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, mesh):
             f"sharded deepfm supports optimizer='adagrad' or plain 'sgd' "
             f"(got {sgd_cfg.optimizer!r}, momentum={sgd_cfg.momentum}); "
             "the unique-row exchange needs per-row-decomposable updates")
+    if cfg.dropout > 0:
+        raise ValueError("sharded deepfm has no tower dropout; train with "
+                         "dropout=0 or on one device")
     fm_cfg = cfg.fm
     k = fm_cfg.num_factors
     fill = fm_cfg.num_features - 1

@@ -27,7 +27,9 @@ META_FILE = "meta.json"
 STATE_FILE = "state.pt"
 EXTRA_FILE = "extra.json"
 _STATE_TYPES = {t.__name__: t for t in (FusedState, SGDState, FMParams)}
-_TOWER = ("mlp_w", "mlp_b", "smw", "smb")     # DeepFMState's tuples
+# DeepFMState's tuples; a state without adam has no smw2/smb2 entries,
+# the layout of checkpoints written before adam's second moments existed
+_TOWER = ("mlp_w", "mlp_b", "smw", "smb", "smw2", "smb2")
 
 
 def save(directory: str, state: Dict[str, torch.Tensor], meta: dict) -> None:
@@ -57,9 +59,10 @@ def state_tensors(state) -> Dict[str, torch.Tensor]:
     """A training state's tensors by name: the fields of a
     :class:`FusedState` or :class:`SGDState` (its parameters as
     ``params.w0``, ``params.w``, ``params.v``), of :class:`FMParams`, or
-    of a ``DeepFMState`` (its FM state's as ``fm.<name>``, its tower as
-    ``mlp_w.<layer>``, ``mlp_b.<layer>``, ``smw.<layer>``,
-    ``smb.<layer>``)."""
+    of a ``DeepFMState`` (its FM state's as ``fm.<name>``, adam's slot2
+    rows among them, its tower as ``mlp_w.<layer>``, ``mlp_b.<layer>``,
+    ``smw.<layer>``, ``smb.<layer>`` and, under adam, ``smw2.<layer>``,
+    ``smb2.<layer>``)."""
     if isinstance(state, FMParams):
         return {"w0": state.w0, "w": state.w, "v": state.v}
     if isinstance(state, DeepFMState):

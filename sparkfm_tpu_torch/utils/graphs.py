@@ -126,10 +126,18 @@ def capture(step: Callable, state, group: _Group, pool) -> None:
     with torch.cuda.stream(side):
         body()
     current.wait_stream(side)
+    group.graph, group.launches = record(body, pool)
+
+
+def record(body: Callable, pool) -> tuple:
+    """``body()`` captured as a ``torch.cuda.CUDAGraph`` in ``pool``:
+    returns the graph and the kernel launches counted during the capture,
+    which are taken back (it ran nothing), to be added on each
+    :func:`replay`. The capture mode is thread-local, so that the
+    prefetch thread goes on staging batches."""
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
     try:
-        # thread_local: the prefetch thread goes on staging batches
         with torch.cuda.graph(graph, pool=pool,
                               capture_error_mode="thread_local"):
             body()
@@ -137,9 +145,16 @@ def capture(step: Callable, state, group: _Group, pool) -> None:
     finally:
         for kernel, n in before.items():
             kernel.launches = n
-    group.launches = {k: after[k] - n for k, n in before.items()
-                      if after[k] != n}
-    group.graph = graph
+    return graph, {k: after[k] - n for k, n in before.items()
+                   if after[k] != n}
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
+    """Replay ``graph`` and add its captured launches to the kernels'
+    counts (:func:`record`)."""
+    graph.replay()
+    for kernel, n in launches.items():
+        kernel.launches += n
 
 
 class MultiStep:
@@ -215,9 +230,7 @@ class MultiStep:
             capture(self.step, state, group, self._pool)
             self.captures += 1
         else:
-            group.graph.replay()
-            for kernel, n in group.launches.items():
-                kernel.launches += n
+            replay(group.graph, group.launches)
         return group.losses.clone()
 
 

@@ -19,8 +19,14 @@ METRICS = os.path.join(os.path.dirname(os.path.dirname(
 READERS = ["data.input_wait_pct.train", "plan.host_dedup_ms.train",
            "copy.h2d_pageable_mb_per_step.train", "als.gather_ms.als",
            "als.streams_ms.als", "als.patch_ms.als",
-           "als.stream_sums_ms.als"]
-REC = types.SimpleNamespace(window_s=2.0, steps=8)
+           "als.stream_sums_ms.als", "deepfm.dense_ms.train",
+           "deepfm.dense_fp32_pct.train", "deepfm.rows_ms.train",
+           "deepfm.tower_update_ms.train"]
+REC = types.SimpleNamespace(window_s=2.0, steps=8,
+                            notes={"deepfm_dense_flops": 4.7e10},
+                            peaks={"fp32_flops_per_s": 67e12})
+DEEPFM = ("deepfm.gather", "deepfm.dense", "deepfm.update",
+          "deepfm.tower_update")
 
 
 def _reader(name):
@@ -106,3 +112,61 @@ def test_als_readers_read_device_ms_a_sweep(record, monkeypatch, name):
         return out
     monkeypatch.setattr(profiling, "recorded", with_device)
     assert reader(REC) == pytest.approx(1e3 * device[name] / REC.steps)
+
+
+def _deepfm_record(monkeypatch, device):
+    """Eight DeepFM steps' spans recorded in a session, their device
+    times set by hand (the CPU records none)."""
+    with profile():
+        for _ in range(REC.steps):
+            with profiling.annotate("train.dispatch"):
+                for name in DEEPFM:
+                    with profiling.annotate(name):
+                        pass
+    recorded = profiling.recorded
+
+    def with_device():
+        out = recorded()
+        for span, secs in device.items():
+            out["spans"][span]["device_s"] = secs
+        return out
+    monkeypatch.setattr(profiling, "recorded", with_device)
+
+
+def test_deepfm_readers_read_none_without_device_times(record):
+    with profile():
+        for name in DEEPFM:
+            with profiling.annotate(name):
+                pass
+    for name in ("dense_ms", "dense_fp32_pct", "rows_ms", "tower_update_ms"):
+        assert _reader(f"deepfm.{name}.train")(REC) is None
+
+
+def test_deepfm_readers_read_device_ms_a_step(record, monkeypatch):
+    device = {"deepfm.gather": 0.0016, "deepfm.dense": 0.012,
+              "deepfm.update": 0.0024, "deepfm.tower_update": 0.004}
+    _deepfm_record(monkeypatch, device)
+    assert _reader("deepfm.dense_ms.train")(REC) == pytest.approx(1.5)
+    assert _reader("deepfm.rows_ms.train")(REC) == pytest.approx(0.5)
+    assert _reader("deepfm.tower_update_ms.train")(REC) == pytest.approx(
+        0.5)
+    # 8 calls of 4.7e10 FLOPs at 67 TFLOP/s over 12 ms of device time
+    assert _reader("deepfm.dense_fp32_pct.train")(REC) == pytest.approx(
+        100.0 * 8 * 4.7e10 / 67e12 / 0.012)
+    # without the entry's count of the dense FLOPs: nothing to read
+    no_note = types.SimpleNamespace(**dict(vars(REC), notes={}))
+    assert _reader("deepfm.dense_fp32_pct.train")(no_note) is None
+
+
+def test_deepfm_rows_reader_needs_both_spans(record, monkeypatch):
+    with profile():
+        with profiling.annotate("deepfm.gather"):
+            pass
+    recorded = profiling.recorded
+
+    def with_device():
+        out = recorded()
+        out["spans"]["deepfm.gather"]["device_s"] = 0.001
+        return out
+    monkeypatch.setattr(profiling, "recorded", with_device)
+    assert _reader("deepfm.rows_ms.train")(REC) is None

@@ -323,3 +323,62 @@ def test_corrupt_or_missing_file_raises_as_itself(tmp_path):
     with pytest.raises(FileNotFoundError):
         _port_run(cfg_kw, dict(sgd_kw, epochs=2), pds, params,
                   checkpoint_dir=ckdir)
+
+
+def _deepfm_run(ds, epochs, dropout=0.5, **kw):
+    from sparkfm_tpu_torch.models import deepfm as DF
+    cfg = DF.DeepFMConfig(fm=FMConfig(num_features=ds.num_features,
+                                      num_factors=4, num_fields=5,
+                                      task=Task.CLASSIFICATION, reg_w=1e-3,
+                                      reg_v=1e-3, seed=11),
+                          hidden=(8, 8), dropout=dropout)
+    return DF.train_deepfm(cfg, SGDConfig(
+        optimizer="adam", learning_rate=1e-2, batch_size=64, epochs=epochs,
+        update_path="dedup"), ds,
+        generator=torch.Generator().manual_seed(0), device="cpu", **kw)
+
+
+def test_deepfm_adam_dropout_resume_is_bit_exact(tmp_path):
+    """DeepFM under adam with dropout 0.5: 2 epochs into a checkpoint,
+    then a new run resumed to 4 equals 4 straight epochs bit for bit (the
+    rows' slot2 and the tower's second moments saved and restored, the
+    dropout masks keyed on the restored global step)."""
+    ds = psynth.synth_ctr(num_examples=200, num_fields=5,
+                          num_buckets=1 << 16, seed=2)
+    ck = str(tmp_path / "ck")
+    _deepfm_run(ds, 2, checkpoint_dir=ck)
+    saved, _ = Checkpointer(ck).restore()
+    tensors = checkpoint.state_tensors(saved)
+    assert {"fm.slot2_v", "fm.slot2_w", "smw2.0", "smb2.2"} <= set(tensors)
+    assert tensors["fm.slot2_v"].shape == (ds.num_features + 1, 4)
+    assert float(tensors["smw2.0"].abs().sum()) > 0
+    resumed = _deepfm_run(ds, 4, checkpoint_dir=ck)
+    straight = _deepfm_run(ds, 4)
+    assert resumed.history == straight.history
+    for a, b in zip(resumed.params.parameters(),
+                    straight.params.parameters()):
+        assert torch.equal(a, b)
+    # dropout on: the run differs from one without it
+    plain = _deepfm_run(ds, 4, dropout=0.0)
+    assert plain.history != straight.history
+
+
+def test_deepfm_checkpoint_of_the_old_layout_still_loads(tmp_path):
+    """A DeepFM checkpoint written before adam's second moments existed
+    (no smw2/smb2 entries) restores into a state without adam, as
+    before."""
+    from sparkfm_tpu_torch.models import deepfm as DF
+    cfg = DF.DeepFMConfig(fm=FMConfig(num_features=64, num_factors=4,
+                                      num_fields=5), hidden=(8,))
+    state = DF.init_state(DF.init_params(cfg, torch.Generator().manual_seed(
+        1), device="cpu"))
+    assert state.smw2 == () and state.smb2 == ()
+    old = {k: t.clone() for k, t in checkpoint.state_tensors(state).items()}
+    assert not any(k.startswith(("smw2", "smb2")) for k in old)
+    os.makedirs(tmp_path / "ck" / "3")
+    torch.save({"kind": "DeepFMState", "tensors": old},
+               tmp_path / "ck" / "3" / checkpoint.STATE_FILE)
+    got, _ = Checkpointer(str(tmp_path / "ck")).restore(template=state)
+    assert got.smw2 == () and got.smb2 == ()
+    for k, t in checkpoint.state_tensors(got).items():
+        assert torch.equal(t, old[k]), k

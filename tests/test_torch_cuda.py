@@ -1288,6 +1288,137 @@ def test_deepfm_steps_on_card_match_cpu(dev, name):
                                    atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("path", ["dedup", "direct"])
+def test_deepfm_adam_dropout_on_card_matches_the_reference(dev, path):
+    """3 DeepFM steps under adam with dropout 0.5 on the card: B1 three
+    two-table gathers and B2 six writes a step (adam's second moments
+    too), B6 once; two card runs equal bit for bit (the masks redrawn
+    from the same seeds); against the benchmark's float64 reference on
+    the card, drawing the same masks there (losses rtol 1e-5; per leaf the
+    change after 3 steps within 1e-3 of the reference's norm, as
+    tests/test_torch_deepfm_reference.py holds it on the CPU)."""
+    from portbench.reference import deepfm as R
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    feats, b = 1 << 16, 256
+    cfg = PDF.DeepFMConfig(fm=FMConfig(
+        num_features=feats, num_factors=10, num_fields=8, reg_w=1e-3,
+        reg_v=1e-3, task=Task.CLASSIFICATION, seed=21), hidden=(64, 64, 64),
+        dropout=0.5)
+    sgd = SGDConfig(batch_size=b, optimizer="adam", learning_rate=1e-2,
+                    update_path=path)
+    ds = psynth.synth_ctr(num_examples=3 * b, num_fields=8,
+                          num_buckets=feats, seed=6)
+    wts = _deepfm_weights(cfg, seed=3)
+    kernels = {"GATHER_VW": rowio.GATHER_VW, "SCATTER": rowio.SCATTER,
+               "ROWSUM_SQ": segsum.ROWSUM_SQ}
+    runs = []
+    for _ in range(2):
+        state = PDF.initial_state(cfg, sgd, start=PDF.
+                                  deepfm_params_from_numpy(*wts, device=dev),
+                                  device=dev)
+        step = PDF.make_train_step(cfg, sgd)
+        counts = {k: kern.launches for k, kern in kernels.items()}
+        losses = [float(step(state, x)[1]["loss"])
+                  for x in batch_iterator(ds, b, device=dev)]
+        assert {k: kern.launches - counts[k] for k, kern in
+                kernels.items()} == {"GATHER_VW": 9, "SCATTER": 18,
+                                     "ROWSUM_SQ": 3}
+        runs.append((losses, PDF.params_of(state, cfg)))
+    (l1, p1), (l2, p2) = runs
+    assert l1 == l2
+    assert all(torch.equal(x, y) for x, y in zip(p1.parameters(),
+                                                 p2.parameters()))
+    t = [torch.as_tensor(x, device=dev) for x in wts[:3]]
+    tw = [[torch.as_tensor(x, device=dev) for x in xs] for xs in wts[3:]]
+    batches = [{"idx": torch.as_tensor(ds.ids[i * b:(i + 1) * b],
+                                       device=dev),
+                "vals": torch.as_tensor(ds.vals[i * b:(i + 1) * b],
+                                        device=dev),
+                "y": torch.as_tensor(ds.y[i * b:(i + 1) * b], device=dev),
+                "step": i} for i in range(3)]
+    ref = R.train_steps(*t, *tw, batches, lr=1e-2, reg_w=1e-3, reg_v=1e-3,
+                        dropout=0.5, seed=21)
+    np.testing.assert_allclose(l1, ref["losses"], rtol=1e-5)
+    got = R.leaves(p1.fm.w0, p1.fm.w, p1.fm.v, p1.mlp_w, p1.mlp_b)
+    for name, x in got.items():
+        want = ref["params"][-1][name] - ref["init"][name]
+        gap = float((x.double() - ref["init"][name] - want).norm())
+        assert gap <= 1e-3 * float(want.norm()) + 1e-7, name
+
+
+@pytest.mark.parametrize("path,opt", [("dedup", "adam"), ("direct", "adam"),
+                                      ("fused", "adagrad")])
+def test_deepfm_graphed_steps_equal_eager_steps(dev, path, opt):
+    """The card's DeepFM step as four CUDA graphs a batch shape (the
+    default) against its phases run eagerly (cuda_graphs=False), with
+    dropout 0.5 over 6 steps of two batch shapes: a shape's first step
+    runs eagerly, the others replay, and every loss, score and tensor of
+    the state equals the eager run's bit for bit; aux holds fresh tensors
+    (step 2's loss survives step 3), and the row kernels' launch counts
+    are the eager step's."""
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    from sparkfm_tpu_torch.utils.checkpoint import state_tensors
+    feats, b = 1 << 16, 256
+    cfg = PDF.DeepFMConfig(fm=FMConfig(
+        num_features=feats, num_factors=10, num_fields=8, reg_w=1e-3,
+        reg_v=1e-3, task=Task.CLASSIFICATION, seed=21), hidden=(64, 64, 64),
+        dropout=0.5)
+    ds = psynth.synth_ctr(num_examples=4 * b, num_fields=8,
+                          num_buckets=feats, seed=6)
+    wts = _deepfm_weights(cfg, seed=3)
+    kernels = (rowio.GATHER, rowio.GATHER_VW, rowio.SCATTER,
+               segsum.ROWSUM_SQ)
+    runs = []
+    for graphed in (False, True):
+        sgd = SGDConfig(batch_size=b, optimizer=opt, learning_rate=1e-2,
+                        update_path=path)
+        state = PDF.initial_state(cfg, sgd, start=PDF.
+                                  deepfm_params_from_numpy(*wts, device=dev),
+                                  device=dev)
+        step = PDF.make_train_step(cfg, sgd, cuda_graphs=graphed)
+        before = [kern.launches for kern in kernels]
+        auxes = []
+        for size in (b, b // 2):
+            for x in batch_iterator(ds, size, device=dev):
+                auxes.append(step(state, x)[1])
+                if len(auxes) in (3, 6):
+                    break
+        launches = [kern.launches - n for kern, n in zip(kernels, before)]
+        runs.append((auxes, {k: t.clone() for k, t in
+                             state_tensors(state).items()}, launches))
+    (a1, s1, n1), (a2, s2, n2) = runs
+    assert n1 == n2 and sum(n1) > 0
+    for x, y in zip(a1, a2):
+        assert set(x) == set(y)
+        for key in x:
+            assert torch.equal(x[key], y[key]), key
+    assert set(s1) == set(s2)
+    for key in s1:
+        assert torch.equal(s1[key], s2[key]), key
+
+
+def test_pinned_batches_equal_pageable_ones(dev):
+    """batch_iterator(pinned=True) on the card gives the batches of the
+    pageable copies, tail included, and counts its copies as pinned."""
+    from torch.profiler import profile
+
+    from sparkfm_tpu_torch.utils import profiling
+    ds = psynth.synth_ctr(num_examples=1000, num_fields=8,
+                          num_buckets=1 << 10, seed=4)
+    kw = dict(shuffle=True, seed=3, epoch=1)
+    profiling.clear()
+    with profile():
+        got = list(batch_iterator(ds, 256, device=dev, pinned=True, **kw))
+    counters = profiling.recorded()["counters"]
+    want = list(batch_iterator(ds, 256, device=dev, **kw))
+    assert len(got) == len(want) == 4
+    for a, b in zip(got, want):
+        for name in ("ids", "vals", "y", "mask"):
+            assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert counters["copy.h2d_pinned_bytes"] > 0
+    assert "copy.h2d_pageable_bytes" not in counters
+
+
 def test_deepfm_serving_on_card(dev):
     """MicroBatcher(model="deepfm") on the card: one two-table gather per
     chunk, of its unique rows with use_plans and of its slots' rows by

@@ -342,3 +342,47 @@ def test_card_spans_time_the_device_and_count_copies(record):
     assert rec["spans"]["card.work"]["device_s"] > 0
     assert rec["counters"] == {"copy.h2d_pageable_bytes": host.nbytes,
                                "copy.h2d_pinned_bytes": pinned.nbytes}
+
+
+@pytest.mark.parametrize("path", ["dedup", "direct"])
+def test_deepfm_step_records_its_four_spans_without_a_host_sync(
+        record, monkeypatch, path):
+    """Each DeepFM step (adam, dropout 0.5) records deepfm.gather,
+    deepfm.dense, deepfm.update and deepfm.tower_update once, each a child
+    of the trainer's dispatch, and reads nothing of the device to the
+    host after its first step (which reads the global step once for the
+    dropout masks): any read of a tensor's value raises there."""
+    from sparkfm_tpu_torch.models import deepfm as DF
+    ds = synth.synth_ctr(num_examples=256, num_fields=5, num_buckets=1 << 16,
+                         seed=3)
+    cfg = DF.DeepFMConfig(fm=FMConfig(num_features=ds.num_features,
+                                      num_factors=4, num_fields=5, seed=2),
+                          hidden=(8, 8), dropout=0.5)
+    sgd_cfg = SGDConfig(optimizer="adam", batch_size=64, update_path=path)
+    state = DF.initial_state(cfg, sgd_cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+    step = DF.make_train_step(cfg, sgd_cfg)
+    batches = list(batch_iterator(ds, 64, device="cpu"))
+    names = ("deepfm.gather", "deepfm.dense", "deepfm.update",
+             "deepfm.tower_update")
+    with profile():
+        with profiling.annotate("train.dispatch"):
+            step(state, batches[0])
+
+        def no_sync(*a, **k):
+            raise AssertionError("the step read a tensor to the host")
+        for attr in ("item", "tolist", "__bool__", "__int__", "__float__",
+                     "__index__"):
+            monkeypatch.setattr(torch.Tensor, attr, no_sync)
+        monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+        for b in batches[1:]:
+            with profiling.annotate("train.dispatch"):
+                step(state, b)
+        monkeypatch.undo()
+    spans = profiling.recorded()["spans"]
+    assert spans["train.dispatch"]["calls"] == len(batches) == 4
+    for name in names:
+        assert spans[name]["calls"] == 4, name
+        assert spans[name]["parent"] == "train.dispatch"
+        assert spans[name]["device_s"] is None      # no card: no events
+    assert int(state.fm.step) == 4
