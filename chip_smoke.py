@@ -82,21 +82,26 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      the five products of a (factor, block), formed in the kernel from e,
      q and x) on the user block (no rows) and the movie block (its rows)
      bit for bit against B7 over the streams torch forms and against their
-     plain version in float64, and times them beside that sequence;
+     plain version in float64, and times them beside that sequence; then
+     holds the ALS patch of e and q (``als_patch``, in place, on a (U, 2)
+     table) bit for bit to its plain version on each block's rows of the
+     rank-space view and on rows 12 bytes past a 16-byte bound, and times
+     both against the bound;
  12. trains BASELINE config 2 with ALS: the structure flags must be
      column_pure / csc_uniform / slice_identity = True / True / (True,
-     False); one sweep with the kernels and one with their float64 plain
-     versions swapped in, from the same parameters, must agree; then
+     False); one sweep with the kernels and one with their plain versions
+     swapped in (float64 for the sums, the patch's torch lines), from the
+     same parameters, must agree; then
      ``train_als`` runs 3 sweeps with the launch counts set to 0 just
      before and read just after (B7 3 x 2 = 6 for the w blocks, the
-     stream sums 3 x 32 x 2 = 192), and the
+     stream sums and the patch kernel 3 x 32 x 2 = 192 each), and the
      regularized squared loss, in float64 from the parameters, must fall
      after sweep 1 and again by sweep 3;
  13. fits ``FM(solver="als")`` on the card on ``synth_movielens`` and
      checks its eval RMSE;
  14. profiles ALS: the device's busy share of one sweep with its top
-     device events and B7's and the stream sums' passes 1 and 2, and the
-     host time
+     device events, B7's and the stream sums' passes 1 and 2 and the
+     patch, and the host time
      of the workspace build, part by part;
  15. holds the row-sum kernel B5 (``segment_rowsum``) against its plain
      version in float64 (max |a - b| / (1 + |b|) < 1e-4; 2.5e-4 at W = 354,
@@ -1184,9 +1189,9 @@ def colsums_entry(label, streams, seg, u, launches, path, checked, card):
 
 
 def als_phases(dev, gen, card):
-    """Phases 11-14, the ALS path; returns the JSON entries of B7 and of
-    the ALS stream sums, and the data and workspace for phases 28-30
-    (``ctx``)."""
+    """Phases 11-14, the ALS path; returns the JSON entries of B7, of
+    the ALS stream sums and of the patch, and the data and workspace for
+    phases 28-30 (``ctx``)."""
     from sparkfm_tpu_torch import FM, ALSConfig, FMConfig, train_als
     from sparkfm_tpu_torch.data import split, synth
     from sparkfm_tpu_torch.models import fm as fm_model
@@ -1379,8 +1384,53 @@ def als_phases(dev, gen, card):
               for label, t in stream_blocks.items()) + f"; {card}",
           flush=True)
 
+    # the ALS patch of e and q, as the sweep calls it: each block's rows of
+    # the rank-space view (both start on a 16-byte bound at this N) and a
+    # third pair of rows 12 bytes past one, with a (U, 2) table, in place;
+    # held bit for bit to its plain version on the same inputs, then both
+    # timed against the bound (rank, vals, e and q read once, e and q
+    # written once, the table read once)
+    e_t, q_t = (torch.randn(ALS_N, generator=gen, device=dev)
+                for _ in range(2))
+    table = torch.randn((n_ranks, 2), generator=gen, device=dev)
+    patch_nbytes = segsum.als_patch_bytes(ALS_N, n_ranks)
+    patch_blocks = {}
+    for label, start in (("user", 0), ("movie", ALS_N), ("offset", 3)):
+        rows = tuple(t.view(-1)[start:start + ALS_N]
+                     for t in (ws.slot_rank, ws.slot_val))
+        ek, qk, ep, qp = (t.clone() for t in (e_t, q_t, e_t, q_t))
+        segsum.als_patch(ek, qk, table, *rows)
+        segsum.als_patch_reference(ep, qp, table, *rows)
+        if not (torch.equal(ek, ep) and torch.equal(qk, qp)):
+            raise AssertionError(f"the patch kernel differs from its plain "
+                                 f"version on the {label} rows")
+        us = 1e3 * spun_ms(lambda r=rows: segsum.als_patch(ek, qk, table, *r))
+        ref_us = 1e3 * spun_ms(
+            lambda r=rows: segsum.als_patch_reference(ep, qp, table, *r),
+            reps=5)
+        patch_blocks[label] = {
+            "all": us, "plain_us": ref_us,
+            "ms": time_ms(segsum.als_patch, [(ek, qk, table, *rows)],
+                          reps=10, windows=3),
+            "plain_ms": time_ms(segsum.als_patch_reference,
+                                [(ep, qp, table, *rows)], reps=10,
+                                windows=3),
+            "offset_bytes": rows[0].data_ptr() % 16,
+            **bound(patch_nbytes, 11 * ALS_N, us / 1e3)}
+    del e_t, q_t, table, ek, qk, ep, qp, rows
+    print("check: ALS patch equals its plain version (the torch lines it "
+          "replaces) bit for bit, in place; device (CUDA events, behind a "
+          "spin kernel): " + "; ".join(
+              f"{label} rows (offset {t['offset_bytes']} bytes) "
+              f"{t['all']:.2f} us, bound {t['bound_us']:.2f} us "
+              f"({t['bound_bytes'] / 1e6:.1f} MB), "
+              f"{pct(t['share_of_bound'])}; plain {t['plain_us']:.2f} us"
+              for label, t in patch_blocks.items()) + f"; {card}",
+          flush=True)
+
     # 12. one sweep with the kernels and one with their float64 plain
-    # versions swapped in, from the same parameters
+    # versions (the patch's in float32: its kernel equals it bit for bit)
+    # swapped in, from the same parameters
     p0 = fm_model.init_params(cfg, torch.Generator(device=dev).manual_seed(
         SEED), device=dev)
     rw, rv = (torch.as_tensor(r, device=dev) for r in cfg.reg_vectors())
@@ -1396,11 +1446,14 @@ def als_phases(dev, gen, card):
     p_kernel = sweep(p0)
     torch.cuda.synchronize()
     first_sweep_s = time.perf_counter() - t0
-    count = segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches
+    count = (segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches,
+             segsum.ALS_PATCH.launches)
     with swapped([(segsum, "segment_colsums", colsums64),
-                  (segsum, "als_stream_sums", stream_sums64)]):
+                  (segsum, "als_stream_sums", stream_sums64),
+                  (segsum, "als_patch", segsum.als_patch_reference)]):
         p_plain = sweep(p0)
-    if (segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches) != count:
+    if (segsum.COLSUMS.launches, segsum.STREAM_SUMS.launches,
+            segsum.ALS_PATCH.launches) != count:
         raise AssertionError("the plain sweep launched a kernel")
     loss_k, loss_p = als_loss(p_kernel, ws, cfg), als_loss(p_plain, ws, cfg)
     if abs(loss_k - loss_p) > 1e-6 * abs(loss_p):
@@ -1425,8 +1478,9 @@ def als_phases(dev, gen, card):
         raise AssertionError(f"{flips} guard flips between the sweeps")
     np.testing.assert_allclose(float(p_kernel.w0), float(p_plain.w0),
                                rtol=1e-6)
-    print(f"check: one sweep with the kernels vs with their float64 plain "
-          f"versions from the same parameters: losses {loss_k:.10g} vs "
+    print(f"check: one sweep with the kernels vs with their plain versions "
+          f"(float64 for the sums) from the same parameters: losses "
+          f"{loss_k:.10g} vs "
           f"{loss_p:.10g} (rtol 1e-6); w, V equal at rtol 1e-3, atol 1e-4 "
           f"but for {flips} den > 0 guard flips (<= 1e-4 of V's entries); "
           f"first sweep {first_sweep_s:.3f} s", flush=True)
@@ -1445,6 +1499,7 @@ def als_phases(dev, gen, card):
 
     torch.cuda.synchronize()
     segsum.COLSUMS.launches = segsum.STREAM_SUMS.launches = 0
+    segsum.ALS_PATCH.launches = 0
     with swapped([(A, "als_sweep_compact", keeping)]):
         t0 = time.perf_counter()
         res = train_als(cfg, als_cfg, ds, params=p0, device=dev)
@@ -1452,11 +1507,13 @@ def als_phases(dev, gen, card):
         train_s = time.perf_counter() - t0
     launches = segsum.COLSUMS.launches
     stream_launches = segsum.STREAM_SUMS.launches
-    expected = (ALS_SWEEPS * nb, ALS_SWEEPS * RANK * nb)
-    if (launches, stream_launches) != expected:
-        raise AssertionError(f"train_als launched B7 and the stream sums "
-                             f"{launches} and {stream_launches} times, "
-                             f"expected {expected}")
+    patch_launches = segsum.ALS_PATCH.launches
+    expected = (ALS_SWEEPS * nb, ALS_SWEEPS * RANK * nb,
+                ALS_SWEEPS * RANK * nb)
+    if (launches, stream_launches, patch_launches) != expected:
+        raise AssertionError(f"train_als launched B7, the stream sums and "
+                             f"the patch {launches}, {stream_launches} and "
+                             f"{patch_launches} times, expected {expected}")
     losses = [als_loss(fm_model.FMParams(*t), ws, cfg) for t in after]
     if not (np.all(np.isfinite(losses)) and losses[0] < loss0
             and losses[-1] < losses[0]):
@@ -1470,8 +1527,8 @@ def als_phases(dev, gen, card):
           f"{' -> '.join(f'{x:.10g}' for x in losses)}; "
           f"{res.examples_per_sec:.0f} swept ex/s, {sweep_ms:.3f} ms per "
           f"sweep ({train_s:.3f} s wall with the workspace build and its "
-          f"checks); launches B7 {launches}, stream sums {stream_launches}; "
-          f"{card}", flush=True)
+          f"checks); launches B7 {launches}, stream sums {stream_launches}, "
+          f"patch {patch_launches}; {card}", flush=True)
     del res, after
 
     # 13. the facade on the card
@@ -1510,7 +1567,8 @@ def als_phases(dev, gen, card):
                     ("B7 pass 1", "colsums_chunks"),
                     ("B7 pass 2", "colsums_crossing"),
                     ("stream sums pass 1", "als_stream_sums_kernel"),
-                    ("stream sums pass 2", "als_stream_sums_crossing"))}
+                    ("stream sums pass 2", "als_stream_sums_crossing"),
+                    ("patch", "als_patch_kernel"))}
     print(f"profile: one ALS sweep: device busy {busy / 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms untraced wall ({100 * (1 - busy / 1e6 / wall):.1f}"
           f"% idle); "
@@ -1537,6 +1595,24 @@ def als_phases(dev, gen, card):
         "device_us_by_block": stream_blocks,
         "library": "none (the gathers, torch products and B7 it replaces: "
                    "replaced_us)"}
+    patch_entry = {
+        "name": "als_patch", "route": "cuda",
+        "source": "sparkfm_tpu_torch/csrc/segsum.cu",
+        "replaces": "none; the compact sweep's torch lines of the patch",
+        "launches": patch_launches,
+        "path": "train_als, one call a (factor, block) (phase 12)",
+        "max_abs_err": 0.0, "err_against": "plain version, bit for bit",
+        "ms": patch_blocks["movie"]["ms"],
+        "plain_ms": patch_blocks["movie"]["plain_ms"],
+        "library_ms": None,
+        "library": "none (the plain version's torch lines: plain_ms)",
+        "device_ms": patch_blocks["movie"]["all"] / 1e3,
+        "plain_device_ms": patch_blocks["movie"]["plain_us"] / 1e3,
+        **{k: v for k, v in patch_blocks["movie"].items()
+           if k.startswith("bound") or k == "share_of_bound"},
+        "device_us_by_block": patch_blocks,
+        "sweep_device_ms": sweep_b7["patch"][0] / 1e3,
+        "sweep_launches": sweep_b7["patch"][1]}
     return [{"name": "segment_colsums", "route": "cuda",
             "source": "sparkfm_tpu_torch/csrc/segsum.cu",
             "replaces": "sparkfm_tpu/ops/pallas_segsum.py:808",
@@ -1559,7 +1635,7 @@ def als_phases(dev, gen, card):
             "plain_device_us_user": plain_us[1],
             "sweep_device_ms": {k: v[0] / 1e3 for k, v in sweep_b7.items()},
             "sweep_launches": {k: v[1] for k, v in sweep_b7.items()}},
-            stream_entry], dict(
+            stream_entry, patch_entry], dict(
         ds=ds, ws=ws, nb=nb, cfg=cfg, feature_blocks=als_cfg.feature_blocks,
         flags=dict(column_pure=cpure, csc_uniform=uniform,
                    slice_identity=ident))

@@ -53,7 +53,13 @@ seed, so every root sees the same data:
   held equal to B7 over the streams torch forms, bit for bit; each by CUDA
   events behind a spin kernel, split into pass 1 and pass 2 by
   torch.profiler, beside the sequence the stream sums replace (the
-  gathers, the five torch products and B7) and the byte bound.
+  gathers, the five torch products and B7) and the byte bound; and, where
+  the root has ``segsum.als_patch``, the patch of q and e on each block's
+  row of the rank-space view (the movie block's 12 bytes past a 16-byte
+  bound), in place on a (U, 2) table as the sweep runs it, held equal to
+  its plain version (the torch lines it replaces) bit for bit and timed
+  beside it, with its bound (``segsum.als_patch_bytes``: 24 bytes an
+  example and the table, 602 MB, 180 us) and its share of it.
 
 With ``--paths`` each child instead trains one epoch (after a warm-up
 epoch) of BASELINE config 3 (2^24 buckets, rank 32, ``synth_ctr`` 16384 x
@@ -365,6 +371,7 @@ col_rank = torch.cat([ids2[:, 0], ids2[order, 1]]).contiguous()
 col_row = torch.cat([torch.arange(n2, device=dev), order]).int()
 col_val = torch.ones(2 * n2, device=dev)
 assert int(torch.unique(col_rank).numel()) == u2
+slot_rank = ids2.t().contiguous().int()     # the (L, N) rank-space view
 del ids2, order
 e2 = torch.randn(n2, generator=gen, device=dev)
 q2 = torch.randn(n2, generator=gen, device=dev)
@@ -374,6 +381,31 @@ def stream_passes(fn, *names):
     total = spun_us(fn, reps=5, windows=3)
     res = split(device_us(fn, reps=5), *names)
     return {"spun_us": total, "profiled": res}
+
+
+def patch_entry(b):
+    # the patch of q and e after a (factor, block) on block b's row of the
+    # rank-space view (x all ones, as the cell's), in place, beside its
+    # plain version: the torch lines it replaces, which here also square
+    # vals (the sweep hoisted that) and copy the results into e and q
+    rank_b, vals_b = slot_rank[b], torch.ones(n2, device=dev)
+    table = torch.randn((u2, 2), generator=gen, device=dev)
+    ek, qk, ep, qp = e2.clone(), q2.clone(), e2.clone(), q2.clone()
+
+    def kernel():
+        segsum.als_patch(ek, qk, table, rank_b, vals_b)
+
+    def plain():
+        segsum.als_patch_reference(ep, qp, table, rank_b, vals_b)
+    kernel(), plain()
+    assert torch.equal(ek, ep) and torch.equal(qk, qp), ("patch", b)
+    nbytes = segsum.als_patch_bytes(n2, u2)
+    rec = {"rank_offset_bytes": rank_b.data_ptr() % 16,
+           "kernel": stream_passes(kernel, "als_patch_kernel"),
+           "plain": stream_passes(plain), "bound_mb": nbytes / 1e6,
+           "bound_us": 1e6 * nbytes / 3.35e12}
+    rec["share"] = rec["bound_us"] / rec["kernel"]["spun_us"]
+    return rec
 
 
 for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
@@ -414,6 +446,8 @@ for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
             fused, "als_stream_sums_kernel", "als_stream_sums_crossing"),
             err=err, bound_us=1e6 * 4 * ((5 if gather else 4) * n2
                                          + 5 * u2) / 3.35e12)
+    if hasattr(segsum, "als_patch"):
+        rec2["patch"] = patch_entry(b)
     out[f"ALS {label}"] = rec2
 print(json.dumps({"root": ROOT, "us": out}))
 """

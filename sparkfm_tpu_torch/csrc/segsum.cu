@@ -9,9 +9,12 @@
 // * B7, segment_colsums (colsums_chunks_kernel and
 //   colsums_crossing_kernel), and the ALS stream sums, B7 over five
 //   products it forms itself (als_stream_sums_kernel and
-//   als_stream_sums_crossing_kernel), last.
+//   als_stream_sums_crossing_kernel), after them;
+// * and, beside the sums, the compact ALS sweep's patch of q and e after
+//   each (factor, block) (als_patch_kernel), last: a streaming pass, no
+//   sum.
 //
-// All cut the sorted stream into chunks (B3/B4: equal spans, one per
+// All the sums cut the sorted stream into chunks (B3/B4: equal spans, one per
 // warp; B5's wide rows, B7: fixed chunks; the tiles: chunks that fall
 // with N), write runs that lie inside a chunk straight out, and sum the
 // partial rows of runs that cross chunks in a second pass, in a fixed
@@ -1822,6 +1825,100 @@ void launch_als_stream_sums(const float* e, const float* q, const float* x,
       e, q, x, row, seg, out, partials, n, num_rows, num_segments, tile);
 }
 
+// ---------------------------------------------------------------------------
+// The ALS patch (als_patch_kernel): q and e after a (factor, block) of the
+// compact ALS sweep (sparkfm_tpu_torch/solvers/als.py) whose block is
+// column-pure (block b is slot b of every example), for every example n,
+//
+//   q'[n] = q[n] + delta[r] v
+//   e'[n] = (e[n] + 0.5 (q'[n] q'[n] - q[n] q[n])) - 0.5 (dsq[r] (v v)),
+//   r = rank[n], v = vals[n],
+//
+// with rank and vals the block's row of the (L, N) rank-space view and
+// (delta, dsq) = table[r] the per-rank change of the factor and of its
+// square, interleaved. It replaces no TPU kernel: the JAX package and the
+// sweep before it ran these lines as ~12 XLA or torch passes, each writing
+// a 25M-long temporary that the next read back (~3.0 GB a call at N =
+// 25M), and one kernel that reads each stream once is the whole gain.
+//
+// What bounds it: bytes. It reads rank, vals, e and q and writes e and q
+// once, 24 bytes an example: 600 MB at N = 25,000,095, a 179 us floor at
+// 3.35 TB/s. The table (1.8 MB at U = 221,588) stays in L2 and, for the
+// ranks an SM meets often, in L1. The design:
+//
+// * Each thread takes kPatchElems examples, kPatchThreads apart, so a
+//   warp's loads of each stream are 128 contiguous bytes, and starts all
+//   their loads of the four streams before the first is used; then the
+//   gathers of the table, all in flight; then the arithmetic and the
+//   stores. Scalar loads: the block's row of rank and vals sits at element
+//   offset b N, off any 16-byte bound (12 bytes past one for b = 1 at
+//   config 2), so no vector width lines up across the six arrays.
+// * One 8-byte gather an example: the movie block's ranks fall on
+//   scattered movies, so most gathers miss L1 and fetch a 32-byte sector
+//   from L2. With delta and dsq as two arrays that was two sectors an
+//   example, and the call took 333 us against the user block's 200; the
+//   interleaved table takes it to 213 us (PERF.md). Four examples a
+//   thread measured as fast as eight, a persistent software-pipelined
+//   form and a larger L1 carve-out no faster.
+// * The streams are loaded and stored with the evict-first hint (ld/st
+//   .cs), so they pass through the caches without pushing out the table,
+//   which is read through the read-only path.
+// * Numerics: torch's order, one rounding an operation, by __fmul_rn,
+//   __fadd_rn and __fsub_rn, which the compiler does not contract into
+//   FMAs, so q' and e' equal the torch lines bit for bit (v v is
+//   torch.square's x x).
+// * e and q are written in place: each thread writes only the examples it
+//   has read, and they are not read through the read-only path.
+//
+// A rank outside [0, num_ranks) traps, before its table row is read.
+
+constexpr int kPatchThreads = 256;
+constexpr int kPatchElems = 4;         // examples a thread, kPatchThreads apart
+constexpr int64_t kPatchTile = kPatchThreads * kPatchElems;
+
+__global__ void __launch_bounds__(kPatchThreads)
+als_patch_kernel(float* e, float* q,                     // (N,), in place
+                 const float2* __restrict__ table,       // (U,): delta, dsq
+                 const int32_t* __restrict__ rank,       // (N,)
+                 const float* __restrict__ vals,         // (N,)
+                 int64_t n, int64_t num_ranks) {
+  const int64_t base = blockIdx.x * kPatchTile + threadIdx.x;
+  int32_t r[kPatchElems];
+  float v[kPatchElems], e0[kPatchElems], q0[kPatchElems];
+  float2 t[kPatchElems];
+#pragma unroll
+  for (int j = 0; j < kPatchElems; ++j) {
+    const int64_t i = base + j * kPatchThreads;
+    r[j] = 0;
+    if (i < n) {
+      r[j] = __ldcs(rank + i);
+      v[j] = __ldcs(vals + i);
+      e0[j] = __ldcs(e + i);
+      q0[j] = __ldcs(q + i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPatchElems; ++j) {
+    if (base + j * kPatchThreads < n) {
+      if (r[j] < 0 || r[j] >= num_ranks) __trap();
+      t[j] = __ldg(table + r[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPatchElems; ++j) {
+    const int64_t i = base + j * kPatchThreads;
+    if (i < n) {
+      const float qn = __fadd_rn(q0[j], __fmul_rn(t[j].x, v[j]));
+      const float dq = __fsub_rn(__fmul_rn(qn, qn), __fmul_rn(q0[j], q0[j]));
+      const float en = __fsub_rn(
+          __fadd_rn(e0[j], __fmul_rn(0.5f, dq)),
+          __fmul_rn(0.5f, __fmul_rn(t[j].y, __fmul_rn(v[j], v[j]))));
+      __stcs(q + i, qn);
+      __stcs(e + i, en);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1978,6 +2075,29 @@ int sfm_als_stream_sums(const float* e, const float* q, const float* x,
     als_stream_sums_crossing_kernel<<<crossing_blocks(num_chunks, num_sms),
                                       kColThreads2, 0, st>>>(
         seg, partials, out, n, num_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the ALS patch on `stream` and returns cudaGetLastError() (0 on
+// success): for each of the N examples, in place, q' = q + delta[r] v and
+// e' = (e + 0.5 (q'^2 - q^2)) - 0.5 dsq[r] v^2 with r = rank[n], v =
+// vals[n] and (delta[r], dsq[r]) the two floats of table row r. `table`
+// holds num_ranks such rows, 8-byte aligned; e, q, rank and vals N
+// elements each, at any 4-byte offset; e and q overlap neither each other
+// nor any other input. A rank outside [0, num_ranks) traps. The caller checks
+// shapes and types and keeps the tensors alive until the stream has run
+// the kernel.
+int sfm_als_patch(float* e, float* q, const float* table,
+                  const int32_t* rank, const float* vals, int64_t n,
+                  int64_t num_ranks, int num_sms, void* stream) {
+  (void)num_sms;
+  if (n <= 0) return 0;
+  const int64_t blocks = (n + kPatchTile - 1) / kPatchTile;
+  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  als_patch_kernel<<<static_cast<unsigned>(blocks), kPatchThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      e, q, reinterpret_cast<const float2*>(table), rank, vals, n,
+      num_ranks);
   return static_cast<int>(cudaGetLastError());
 }
 

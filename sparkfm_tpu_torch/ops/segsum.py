@@ -26,7 +26,10 @@ and only CPU tensors take the plain version (``*_reference``):
   streams per rank, for the ALS, MCMC and BS-ALS sweeps;
 - :func:`als_stream_sums`, B7 over the five product streams of a (factor,
   block) of the compact ALS sweep (``solvers/als.py``), formed in the
-  kernel from e, q (gathered by the block's rows) and x.
+  kernel from e, q (gathered by the block's rows) and x;
+- :func:`als_patch`, no sum but the same sweep's patch of q and e, in
+  place, after a (factor, block) of a column-pure block, one streaming
+  pass.
 
 All keep the JAX signatures and contract: ``seg`` holds the sorted rank of
 each sorted slot in [0, num_segments), and ranks that no slot has come out
@@ -77,6 +80,8 @@ COLSUMS = CudaKernel(
     + [ctypes.c_int64] * 2)
 STREAM_SUMS = CudaKernel("segsum", SOURCE, "sfm_als_stream_sums",
                          [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
+ALS_PATCH = CudaKernel("segsum", SOURCE, "sfm_als_patch",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2)
 
 
 def _partials(kernel: CudaKernel, symbol: str, width: int, device,
@@ -480,3 +485,70 @@ def als_stream_sums(e: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
                        seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,
                        e.shape[0], num_segments)
     return out
+
+
+def als_patch_bytes(n: int, num_ranks: int) -> int:
+    """Bytes one :func:`als_patch` call must move: rank, vals, e and q read
+    once and e and q written once (24 bytes an example), and the (U, 2)
+    table read once."""
+    return 24 * n + 8 * num_ranks
+
+
+def als_patch_reference(e: torch.Tensor, q: torch.Tensor,
+                        table: torch.Tensor, rank: torch.Tensor,
+                        vals: torch.Tensor) -> None:
+    """Plain version of :func:`als_patch`: the compact sweep's torch lines
+    for a column-pure block, in their order, copied into e and q."""
+    delta, dsq = table[:, 0], table[:, 1]
+    q_new = q + delta.index_select(0, rank) * vals
+    e_new = (e + 0.5 * (q_new.square() - q.square())
+             - 0.5 * (dsq.index_select(0, rank) * vals.square()))
+    e.copy_(e_new)
+    q.copy_(q_new)
+
+
+def _check_patch(e, q, table, rank, vals) -> None:
+    for name, t in (("e", e), ("q", q), ("vals", vals), ("rank", rank)):
+        dtype = "int32" if name == "rank" else "float32"
+        if (t.dtype != getattr(torch, dtype) or t.dim() != 1
+                or not t.is_contiguous()):
+            raise ValueError(f"als_patch takes a contiguous 1-D {dtype} "
+                             f"{name}, got {t.dtype} {tuple(t.shape)}")
+    if (table.dtype != torch.float32 or table.dim() != 2
+            or table.shape[1] != 2 or not table.is_contiguous()
+            or table.data_ptr() % 8):
+        raise ValueError(f"als_patch takes a contiguous 8-byte-aligned "
+                         f"(U, 2) float32 table, got {table.dtype} "
+                         f"{tuple(table.shape)}")
+    n = e.shape[0]
+    if not q.shape[0] == rank.shape[0] == vals.shape[0] == n:
+        raise ValueError(f"lengths: e {n}, q {q.shape[0]}, rank "
+                         f"{rank.shape[0]}, vals {vals.shape[0]}; want one")
+    devices = {t.device for t in (e, q, table, rank, vals)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    if e.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"als_patch has no kernel for {e.device}")
+    if n and e.data_ptr() == q.data_ptr():
+        raise ValueError("als_patch writes e and q: they are one tensor")
+
+
+def als_patch(e: torch.Tensor, q: torch.Tensor, table: torch.Tensor,
+              rank: torch.Tensor, vals: torch.Tensor) -> None:
+    """Patches e and q in place after a (factor, block) of the compact ALS
+    sweep whose block is column-pure: ``q' = q + delta[rank] vals`` and
+    ``e' = (e + 0.5 (q'² - q²)) - 0.5 dsq[rank] vals²``, with ``(delta,
+    dsq)`` the rows of the float32 (U, 2) ``table`` (the per-rank change
+    of the factor and of its square). ``e``, ``q``, ``vals`` (N,) are
+    float32 and ``rank`` (N,) int32; rank and vals may be views at any
+    element offset (the sweep passes rows of its (L, N) view). CUDA
+    tensors run the kernel, whose results equal the plain version's torch
+    lines bit for bit (it traps on a rank outside [0, U)); CPU tensors run
+    the plain version."""
+    _check_patch(e, q, table, rank, vals)
+    if e.device.type == "cpu":
+        als_patch_reference(e, q, table, rank, vals)
+    elif e.shape[0]:
+        ALS_PATCH.launch(e.device, e.data_ptr(), q.data_ptr(),
+                         table.data_ptr(), rank.data_ptr(), vals.data_ptr(),
+                         e.shape[0], table.shape[0])

@@ -32,7 +32,9 @@ The compact sweep keeps the JAX package's algorithm:
 - ``csc_uniform``: when every block owns one contiguous N-run of the CSC
   view, each block's streams cover only that run (1/L of the stream work);
   ``column_pure``: when block b is exactly slot b, a patch reads one row of
-  the (L, N) view; ``slice_identity``: a block whose CSC run is the example
+  the (L, N) view, and a (factor, block)'s patch of q and e is one kernel
+  that reads each stream once (``ops/segsum.py::als_patch``);
+  ``slice_identity``: a block whose CSC run is the example
   order itself (block 0 after :func:`build_workspace`'s reorder) skips its
   e/q gathers.
 
@@ -358,7 +360,8 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
     sweep is ``als.sweep``; in it the forward is ``als.forward``, the w
     blocks ``als.linear``, and each (factor, block) is
     ``als.stream_sums`` (the five per-rank sums), ``als.solve`` (num, den,
-    the new factors) and ``als.patch`` (q and e patched)."""
+    the new factors) and ``als.patch`` (q and e patched; in place by
+    ``segsum.als_patch`` when ``column_pure``)."""
     on_card = ws.y.is_cuda
     with annotate("als.sweep", device=on_card):
         return _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w,
@@ -373,7 +376,8 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
     k = params.v.shape[1]
     present = ws.present
     rank_csr, vals_csr = ws.slot_rank, ws.slot_val
-    vals_sq = vals_csr.square()
+    # a column-pure block's patch is one kernel that squares vals itself
+    vals_sq = None if views.column_pure else vals_csr.square()
     col_row, x, col_rank = ws.col_row, ws.col_val, ws.col_rank
     w_c = params.w.index_select(0, present)
     v_t = params.v.index_select(0, present).t().contiguous()    # (K, Fp)
@@ -382,6 +386,11 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
     in_block = [block_c == b for b in range(num_blocks)]
     rw_c, rv_c = _compact(reg_w, present), _compact(reg_v, present)
     csc = views.csc
+    # each (factor, block)'s delta and dsq are written as the two columns
+    # of the table whose rows the patch kernel gathers
+    table = torch.empty((num_ranks, 2), dtype=torch.float32,
+                        device=ws.y.device)
+    zero = table.new_zeros(())
 
     with annotate("als.forward", device=on_card):
         score, q_bank = compact_forward(ws, params.w0, w_c, v_t, use_bias,
@@ -418,15 +427,21 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
                 den = (sums[:, 2] - 2.0 * vf * sums[:, 3]
                        + vf.square() * sums[:, 4]).clamp_min(0.0)
                 theta = _guarded_theta(vf, num, den, rv_c)
-                delta = torch.where(in_block[b], theta - vf, 0.0)
+                delta = torch.where(in_block[b], theta - vf, zero,
+                                    out=table[:, 0])
                 vf_new = vf + delta
                 dsq = torch.where(in_block[b],
-                                  vf_new.square() - vf.square(), 0.0)
+                                  vf_new.square() - vf.square(), zero,
+                                  out=table[:, 1])
             with annotate("als.patch", device=on_card):
-                q_new = q + views.patch(delta, rank_csr, vals_csr, b)
-                e = (e + 0.5 * (q_new.square() - q.square())
-                     - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
-            vf, q = vf_new, q_new
+                if views.column_pure:               # e and q in place
+                    segsum.als_patch(e, q, table, rank_csr[b], vals_csr[b])
+                else:
+                    q_new = q + views.patch(delta, rank_csr, vals_csr, b)
+                    e = (e + 0.5 * (q_new.square() - q.square())
+                         - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
+                    q = q_new
+            vf = vf_new
         v_t[f] = vf
 
     return scatter_compact(params, present, w0_new,
@@ -641,6 +656,7 @@ def train_als(cfg: FMConfig, als_cfg: ALSConfig, train: SparseDataset,
     if device.type == "cuda" and n_ranks:
         segsum.COLSUMS.build()
         segsum.STREAM_SUMS.build()
+        segsum.ALS_PATCH.build()
 
     history = []
     n_examples = 0

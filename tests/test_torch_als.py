@@ -489,3 +489,54 @@ def test_params_type():
     assert isinstance(res.params, FMParams)
     assert res.params.v.shape == (ds.num_features, 2)
     assert res.params.w.dtype == torch.float32
+
+
+def _former_patch(e, q, table, rank, vals):
+    """The compact sweep's patch of a column-pure block as it was before
+    ``segsum.als_patch``: ``BlockViews.patch`` on the block's row, copied
+    into e and q."""
+    views = PA.BlockViews(rank.shape[0], column_pure=True)
+    q_new = q + views.patch(table[:, 0], rank[None], vals[None], 0)
+    e.copy_(e + 0.5 * (q_new.square() - q.square())
+            - 0.5 * views.patch(table[:, 1], rank[None],
+                                vals.square()[None], 0))
+    q.copy_(q_new)
+
+
+@pytest.mark.parametrize("column_pure", [True, False])
+def test_sweep_patch_gives_the_former_parameters(column_pure, monkeypatch):
+    """A CPU compact sweep patches a column-pure block by
+    ``segsum.als_patch``, once a (factor, block), and gives the parameters
+    of the sweep's former lines bit for bit; without column_pure it keeps
+    the torch lines over all slots, calls no ``als_patch``, and on these
+    column-pure blocks gives the same parameters too."""
+    ds = _two_slot(23, n=301)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=3, reg_w=0.1,
+                   reg_v=0.5)
+    fb = PA.slot_blocks(ds)
+    ws, nb = PA.build_workspace(ds, cfg, ALSConfig(feature_blocks=fb),
+                                device="cpu")
+    nr = int(ws.present.shape[0])
+    rw, rv = (torch.from_numpy(r) for r in cfg.reg_vectors())
+
+    def sweeps(pure):
+        p = params_from_numpy(*_params(cfg, 23), device="cpu")
+        for _ in range(2):
+            p = PA.als_sweep_compact(p, ws, nb, nr, cfg.reg0, rw, rv,
+                                     column_pure=pure)
+        return p
+
+    calls = []
+    patch = segsum.als_patch
+
+    def counting(*a, **k):
+        calls.append(a[3].storage_offset())
+        return patch(*a, **k)
+
+    monkeypatch.setattr(segsum, "als_patch", counting)
+    got = sweeps(column_pure)
+    assert calls == ([0, ds.num_examples] * 3 * 2 if column_pure else [])
+    monkeypatch.setattr(segsum, "als_patch", _former_patch)
+    want = sweeps(True)
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name

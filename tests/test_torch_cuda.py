@@ -580,6 +580,102 @@ def test_train_als_stream_sums_equal_torch_streams(dev, monkeypatch, blocks):
         assert torch.equal(getattr(fused.params, name),
                            getattr(formed.params, name)), name
 
+
+CELL_N, CELL_USERS, CELL_RANKS = 25_000_095, 162_541, 221_588
+
+
+def _patch_case(dev, n, u, users):
+    """The compact sweep's patch inputs at a block's shapes: e, q (n,), the
+    (u, 2) table [delta | dsq] with zero rows off the block, and the
+    (2, n) rows of ranks (slot 0 sorted users, slot 1 random movies) and
+    values."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    e, q = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    table = torch.randn((u, 2), generator=gen, device=dev)
+    table[torch.rand(u, generator=gen, device=dev) < 0.3] = 0.0
+    rank = torch.stack([
+        torch.sort(torch.randint(0, users, (n,), generator=gen,
+                                 device=dev))[0],
+        torch.randint(users, u, (n,), generator=gen, device=dev)]).int()
+    vals = torch.randn((2, n), generator=gen, device=dev)
+    return e, q, table, rank, vals
+
+
+@pytest.mark.parametrize("b", [0, 1])
+@pytest.mark.parametrize("n", [1, 2049, CELL_N])
+def test_patch_kernel_equals_the_torch_lines(dev, n, b):
+    """The ALS patch kernel patches e and q in place to what its plain
+    version, the compact sweep's torch lines run on the card, gives, bit
+    for bit: at the ml25m-als-sweep cell's N and U (block 1's rank and
+    vals rows 12 bytes past a 16-byte bound) and at N not a multiple of
+    the kernel's tile; a second call from the same inputs repeats the
+    first."""
+    u, users = (CELL_RANKS, CELL_USERS) if n == CELL_N else (300, 100)
+    e, q, table, rank, vals = _patch_case(dev, n, u, users)
+    if n == CELL_N:
+        assert rank[b].data_ptr() % 16 == vals[b].data_ptr() % 16 == 12 * b
+    want = e.clone(), q.clone()
+    segsum.als_patch_reference(*want, table, rank[b], vals[b])
+    for _ in range(2):
+        got = e.clone(), q.clone()
+        before = segsum.ALS_PATCH.launches
+        segsum.als_patch(*got, table, rank[b], vals[b])
+        assert segsum.ALS_PATCH.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_patch_kernel_traps_on_a_rank_out_of_range(dev):
+    """A rank outside [0, U) traps the kernel before its table row is
+    read. In a child process: a trap leaves its CUDA context unusable."""
+    code = ("import torch\n"
+            "from sparkfm_tpu_torch.ops import segsum\n"
+            "e, q, v = (torch.ones(4, device='cuda') for _ in range(3))\n"
+            "t = torch.ones((4, 2), device='cuda')\n"
+            "r = torch.tensor([0, 1, 4, 2], dtype=torch.int32, "
+            "device='cuda')\n"
+            "segsum.als_patch(e, q, t, r, v)\n"
+            "torch.cuda.synchronize()\n")
+    child = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=300, cwd=REPO)
+    assert child.returncode != 0
+    assert "unspecified launch failure" in child.stderr, child.stderr[-2000:]
+
+
+@pytest.mark.parametrize("blocks", ["slots", "contiguous"])
+def test_train_als_patch_kernel_equals_the_torch_lines(dev, monkeypatch,
+                                                       blocks):
+    """train_als on the card patches q and e by the kernel once a (factor,
+    block) when the blocks are column-pure (slot blocks), and gives the
+    parameters of the same run with the plain version's torch lines bit
+    for bit; contiguous blocks of 100 features (not column-pure) and MCMC
+    keep the torch lines and launch it not at all."""
+    from sparkfm_tpu_torch import MCMCConfig
+    from sparkfm_tpu_torch.solvers.mcmc import train_mcmc
+    ds = psynth.synth_movielens(300, 400, 20000, rank=3, seed=3)
+    k, sweeps = 4, 2
+    cfg = FMConfig(num_features=ds.num_features, num_factors=k, reg_w=0.1,
+                   reg_v=0.5, seed=3)
+    fb = pals.slot_blocks(ds)
+    als_cfg = (ALSConfig(epochs=sweeps, feature_blocks=fb)
+               if blocks == "slots"
+               else ALSConfig(epochs=sweeps, block_size=100))
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(3),
+                           device="cpu")
+    before = segsum.ALS_PATCH.launches
+    kernel = train_als(cfg, als_cfg, ds, params=init, device=dev)
+    assert segsum.ALS_PATCH.launches - before == (
+        sweeps * k * 2 if blocks == "slots" else 0)
+    before = segsum.ALS_PATCH.launches
+    train_mcmc(cfg, MCMCConfig(epochs=2, burn_in=1, feature_blocks=fb), ds,
+               params=init, device=dev)
+    assert segsum.ALS_PATCH.launches == before
+    monkeypatch.setattr(segsum, "als_patch", segsum.als_patch_reference)
+    plain = train_als(cfg, als_cfg, ds, params=init, device=dev)
+    assert segsum.ALS_PATCH.launches == before
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(kernel.params, name),
+                           getattr(plain.params, name)), name
+
 def _rows_case(dev, n, w, kind, seed):
     """Sorted ranks of a kind and (N, W) normal rows on the card."""
     rng = np.random.default_rng(seed)

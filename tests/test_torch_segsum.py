@@ -816,3 +816,73 @@ _N5, _I32 = torch.zeros(5), torch.zeros(5, dtype=torch.int32)
 def test_stream_sums_reject_what_the_kernel_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
         segsum.als_stream_sums(*args, 5)
+
+
+# ---- the ALS patch: q and e after a (factor, block) of a column-pure block
+
+def _patch_case(rng, n, u):
+    """e, q (n,), the (u, 2) table [delta | dsq] with zero rows off the
+    block, and the (2, n) rank-space rows of ranks and values, as the
+    compact sweep holds them."""
+    f32 = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    e, q, table = f32(n), f32(n), f32(u, 2)
+    table[torch.from_numpy(rng.random(u) < 0.3)] = 0.0
+    rank = torch.from_numpy(rng.integers(0, u, (2, n)).astype(np.int32))
+    return e, q, table, rank, f32(2, n)
+
+
+@pytest.mark.parametrize("n", [1, 3001])
+@pytest.mark.parametrize("b", [0, 1])
+def test_patch_plain_equals_the_sweeps_lines(b, n):
+    """The plain version (what CPU tensors run) patches e and q in place
+    to the compact sweep's patch lines through ``BlockViews.patch``, bit
+    for bit, on row b of the (2, N) view (a view at element offset b N, N
+    odd)."""
+    from sparkfm_tpu_torch.solvers import als as PA
+    rng = np.random.default_rng(70 + 2 * b + n)
+    e, q, table, rank, vals = _patch_case(rng, n, 257)
+    assert rank[b].storage_offset() == vals[b].storage_offset() == b * n
+    views = PA.BlockViews(n, column_pure=True)
+    q_want = q + views.patch(table[:, 0], rank, vals, b)
+    e_want = (e + 0.5 * (q_want.square() - q.square())
+              - 0.5 * views.patch(table[:, 1], rank, vals.square(), b))
+    before = segsum.ALS_PATCH.launches
+    for fn in (segsum.als_patch, segsum.als_patch_reference):
+        e_got, q_got = e.clone(), q.clone()
+        assert fn(e_got, q_got, table, rank[b], vals[b]) is None
+        assert torch.equal(e_got, e_want) and torch.equal(q_got, q_want)
+    assert segsum.ALS_PATCH.launches == before        # CPU: plain version
+    assert not torch.equal(e, e_want) and not torch.equal(q, q_want)
+
+
+_P5, _T3 = torch.zeros(5), torch.zeros(3, 2)
+_R5 = torch.zeros(5, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("args,match", [
+    ((_P5.double(), _P5, _T3, _R5, _P5), "float32 e"),
+    ((_P5, _P5.half(), _T3, _R5, _P5), "float32 q"),
+    ((_P5, _P5, _T3, _R5.long(), _P5), "int32 rank"),
+    ((_P5, _P5, _T3, _R5, torch.zeros(2, 5)), "1-D float32 vals"),
+    ((torch.zeros(10)[::2], _P5, _T3, _R5, _P5), "contiguous"),
+    ((_P5, _P5, _T3.double(), _R5, _P5), "float32 table"),
+    ((_P5, _P5, torch.zeros(3), _R5, _P5), r"\(U, 2\) float32 table"),
+    ((_P5, _P5, torch.zeros(3, 3), _R5, _P5), r"\(U, 2\) float32 table"),
+    ((_P5, _P5, torch.zeros(2, 3).t(), _R5, _P5), "contiguous 8-byte"),
+    ((_P5, _P5, torch.zeros(7)[1:].view(3, 2), _R5, _P5), "8-byte-aligned"),
+    ((_P5, torch.zeros(6), _T3, _R5, _P5), "lengths"),
+    ((_P5, _P5, _T3, torch.zeros(4, dtype=torch.int32), _P5), "lengths"),
+    ((_P5, _P5, _T3, _R5, torch.zeros(6)), "lengths"),
+    ((_P5, _P5, _T3, _R5, _P5), "one tensor"),
+    ((_P5, _P5.clone(), torch.zeros((3, 2), device="meta"), _R5, _P5),
+     "devices"),
+    ((torch.zeros(5, device="meta"), torch.zeros(5, device="meta"),
+      torch.zeros((3, 2), device="meta"),
+      torch.zeros(5, dtype=torch.int32, device="meta"),
+      torch.zeros(5, device="meta")), "no kernel for meta"),
+])
+def test_patch_rejects_what_the_kernel_does_not_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        segsum.als_patch(*args)
+
