@@ -3385,7 +3385,7 @@ def graph_checkpoint_phases(dev, cfg, gen, rng, card, root):
                                                  batch_iterator)
     from sparkfm_tpu_torch.ops import rowio, segsum
     from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
-    from sparkfm_tpu_torch.utils import graphs, profiling
+    from sparkfm_tpu_torch.utils import profiling
     from sparkfm_tpu_torch.utils.checkpoint import Checkpointer
 
     kernels = {"gather_rows": rowio.GATHER, "scatter_set_rows": rowio.SCATTER,
@@ -3417,18 +3417,28 @@ def graph_checkpoint_phases(dev, cfg, gen, rng, card, root):
         return SGDConfig(batch_size=BATCH, learning_rate=0.05,
                          optimizer="adagrad", epochs=epochs,
                          steps_per_dispatch=g)
-    captured = []
-    graphs_capture = graphs.capture
+    made = []
+    make_multi = sgd_hybrid.make_hybrid_multi_step
 
-    def counting_capture(step, state, group, pool):
-        captured.append((group.batches[0]["plan.uids"].shape[0],
-                         len(group.batches)))
-        return graphs_capture(step, state, group, pool)
+    def keeping_multi(*args, **kw):
+        made.append(make_multi(*args, **kw))
+        return made[-1]
+
+    def captures():
+        """(rung, G) of each graph the run's multi-steps captured."""
+        out = []
+        for multi in made:
+            for _, sig in multi.graphs.entries:
+                shapes = {name: shape for name, shape, _ in sig}
+                out.append((shapes[(0, "plan.uids")][0],
+                            len({i for (i, _), _, _ in sig})))
+        return out
     first = None
     for g in (1, 2, 4):
-        captured.clear()
+        made.clear()
         zero_counts()
-        with swapped([(graphs, "capture", counting_capture)]):
+        with swapped([(sgd_hybrid, "make_hybrid_multi_step",
+                       keeping_multi)]):
             t0 = time.perf_counter()
             res = train_sgd(cfg, sgd_of(g), ds, generator=torch.Generator(
                 device=dev).manual_seed(SEED), device=dev)
@@ -3442,6 +3452,7 @@ def graph_checkpoint_phases(dev, cfg, gen, rng, card, root):
                                  f"{want}")
         rungs = (expected_graphs(ds, BATCH, cfg.seed, 2, g, BUCKETS)
                  if g > 1 else set())
+        captured = captures()
         if sorted(captured) != sorted((r, g) for r in rungs):
             raise AssertionError(f"G={g}: graphs captured {captured}, "
                                  f"expected one per rung {sorted(rungs)}")

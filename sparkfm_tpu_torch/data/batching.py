@@ -124,11 +124,14 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
 
     Each batch's assembly, plan and copies are the span ``data.batch``;
     the copies are counted by ``utils/profiling.py::to_device``. With
-    ``pinned`` and a card, the batch's arrays (not a host plan's) go
+    ``pinned`` and a card, the batch's arrays and its host plan's go
     through pinned host memory and are copied without blocking the
     producer: a pageable copy waits for the stream's queued work, so a
-    step that leaves the host idle (DeepFM's CUDA graphs) would wait on
-    it. torch's pinned-memory cache keeps a buffer until its copy ran.
+    step that leaves the host idle (CUDA graphs) would wait on it.
+    torch's pinned-memory cache keeps a buffer until its copy ran. The
+    plan's count stays on the host, as a 0-d tensor (pinned on a card),
+    which a graph's feed copies into its static input without blocking
+    (``utils/graphs.py::GraphCache``).
     """
     ladder = dedup_budget == "ladder"
     if not (dedup_budget is None or ladder or (
@@ -142,9 +145,7 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
     plans = dedup_budget is not None and dedup_fill is not None
     ladder_cap = E.auto_budget(batch_size * ds.max_nnz)
     rung = 1
-    move = profiling.to_device
-    if pinned and torch.device(device).type == "cuda":
-        move = _pinned_to_device
+    move = _pinned_to_device if pinned else profiling.to_device
     for start in range(0, n, batch_size):
         idx = order[start:start + batch_size]
         b = len(idx)
@@ -173,7 +174,9 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
                     rung = max(rung, E.ladder_budget(int(hp.count),
                                                      cap=ladder_cap))
                     hp = hp._replace(uids=hp.uids[:rung])
-                plan = E.plan_to_device(hp, device)
+                plan = E.plan_to_device(hp, device, move)
+                if pinned:
+                    plan = plan._replace(count=_pinned(hp.count, device))
             batch = SparseBatch(
                 ids=move(ids_np, device), vals=move(vals_np, device),
                 y=move(ds.y[idx] * mask, device), mask=move(mask, device),
@@ -183,9 +186,14 @@ def batch_iterator(ds: SparseDataset, batch_size: int, *, device,
         yield batch
 
 
+def _pinned(x, device) -> torch.Tensor:
+    """``x`` as a host tensor, in pinned memory if ``device`` is a card."""
+    t = torch.as_tensor(x)
+    return t.pin_memory() if torch.device(device).type == "cuda" else t
+
+
 def _pinned_to_device(x, device) -> torch.Tensor:
-    return profiling.to_device(torch.as_tensor(x).pin_memory(), device,
-                               non_blocking=True)
+    return profiling.to_device(_pinned(x, device), device, non_blocking=True)
 
 
 def prefetch(it: Iterator, depth: int = 2) -> Iterator:

@@ -61,7 +61,7 @@ from torch import nn
 
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig, Task
 from sparkfm_tpu_torch.data.batching import (SparseBatch, batch_iterator,
-                                             epoch_order, prefetch)
+                                             epoch_order)
 from sparkfm_tpu_torch.models import fm as fm_model
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import embedding as E
@@ -487,16 +487,14 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
     On the card (``cuda_graphs``), a batch without a host plan runs as
     four CUDA graphs, one a phase, replayed inside its span, so that the
     host issues a handful of calls a step where the phases launch ~400
-    kernels. The graphs are captured per state and batch shape: that
-    shape's first step runs eagerly on a side stream (it builds the
-    kernels and fills the lazy caches) before the capture. A graph reads
-    the batch from static device buffers, filled by device copies, and
-    the dropout masks from static uniform draws, drawn before its replay
-    from the generator seeded for the step (:func:`dropout_draws`); its
-    outputs are cloned into aux. All graphs of a step function share one
-    memory pool: a shape's four graphs replay one after another, and only
-    the static inputs and outputs outlive a capture. Host plans, whose
-    budget moves with the batch, and CPU tensors run the phases eagerly.
+    kernels. They are the step function's ``utils/graphs.py::GraphCache``,
+    captured per state and batch shape after that shape's first step ran
+    eagerly. A graph reads the batch from static device buffers, filled
+    by device copies, and the dropout masks from static uniform draws,
+    drawn before the dense phase's replay from the generator seeded for
+    the step (:func:`dropout_draws`); its outputs are cloned into aux.
+    Host plans, whose budget moves with the batch, and CPU tensors run
+    the phases eagerly.
 
     With dropout the step keeps the global step on the host: it reads
     the state's counter at its first call (one wait for the device) and
@@ -525,8 +523,7 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
     writes_slot = opt != "sgd" or sgd_cfg.momentum > 0
     clock: list = []                # the global step of the next call
     generators: Dict[torch.device, torch.Generator] = {}
-    groups: Dict[tuple, _StepGraphs] = {}
-    pool: list = []
+    cache = graphs.GraphCache()
 
     def plan_of(batch, rows: int):
         if path == "direct":
@@ -669,42 +666,24 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
         return aux
 
     def graphed(state, batch, t: int) -> dict:
-        inputs = {name: getattr(batch, name) for name in _INPUTS
-                  if getattr(batch, name) is not None}
-        key = (_addresses(state), tuple((name, tuple(x.shape), x.dtype)
-                                        for name, x in inputs.items()))
-        group = groups.get(key)
-        if group is None:
-            aux = _warm_up(lambda: eager(state, batch, t, True),
-                           batch.ids.device)
-            groups[key] = capture(state, inputs)
-            return aux
-        for name, x in group.inputs.items():
-            x.copy_(inputs[name])
-        for name, (graph, launches) in zip(_SPANS, group.graphs):
-            with profiling.annotate(name, device=True):
-                if name == "deepfm.dense" and group.draws is not None:
-                    draws_of(t, batch.vals.shape[0], batch.vals.device,
-                             group.draws)
-                graphs.replay(graph, launches)
-        return {name: x.clone() for name, x in group.aux.items()}
+        rows = batch.vals.shape[0]
+        drawn = () if cfg.dropout <= 0 else tuple(
+            (f"draws.{layer}", (rows, width), torch.float32)
+            for layer, width in enumerate(cfg.hidden))
 
-    def capture(state, inputs) -> _StepGraphs:
-        device = inputs["ids"].device
-        static = {name: torch.empty_like(x) for name, x in inputs.items()}
-        rows = static["vals"].shape[0]
-        draws = (None if cfg.dropout <= 0 else
-                 [torch.empty((rows, width), device=device)
-                  for width in cfg.hidden])
-        if not pool:
-            pool.append(torch.cuda.graph_pool_handle())
-        run = phases(state, SparseBatch(**static), draws)
-        out, recorded = [], []
-        for _ in _SPANS:
-            recorded.append(graphs.record(lambda: out.append(next(run)),
-                                          pool[0]))
-        return _StepGraphs(inputs=static, draws=draws, graphs=recorded,
-                           aux=out[-1])
+        def before(i, static):
+            if drawn and _SPANS[i] == "deepfm.dense":
+                draws_of(t, rows, batch.vals.device,
+                         [static[name] for name, _, _ in drawn])
+
+        def run(static):
+            return phases(state, SparseBatch(**{
+                name: static[name] for name in _INPUTS if name in static}),
+                [static[name] for name, _, _ in drawn] or None)
+
+        return cache(state, {name: getattr(batch, name) for name in _INPUTS
+                             if getattr(batch, name) is not None},
+                     run, drawn=drawn, before=before, spans=_SPANS)
 
     def train_step(state: DeepFMState, batch):
         fm = state.fm
@@ -736,42 +715,6 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
 _SPANS = ("deepfm.gather", "deepfm.dense", "deepfm.update",
           "deepfm.tower_update")
 _INPUTS = ("ids", "vals", "y", "mask")       # what the step reads
-
-
-@dataclasses.dataclass
-class _StepGraphs:
-    """One state's and batch shape's captured step: its static inputs,
-    the dropout masks' static draws, a (graph, launches) pair a phase and
-    the static outputs."""
-
-    inputs: Dict[str, torch.Tensor]
-    draws: Optional[list]
-    graphs: list
-    aux: Dict[str, torch.Tensor]
-
-
-def _addresses(state: DeepFMState) -> tuple:
-    """The device addresses of the state's tensors, which a captured step
-    reads and writes."""
-    fm = state.fm
-    ts = [getattr(fm, f.name) for f in dataclasses.fields(fm)]
-    if isinstance(fm, SGDState):
-        ts += [fm.params.w0, fm.params.w, fm.params.v]
-    ts += [*state.mlp_w, *state.mlp_b, *state.smw, *state.smb, *state.smw2,
-           *state.smb2]
-    return tuple(t.data_ptr() for t in ts if torch.is_tensor(t))
-
-
-def _warm_up(run, device):
-    """``run()`` on a side stream of ``device`` (a step before its
-    capture), ordered after and before the current stream's work."""
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        out = run()
-    current.wait_stream(side)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -865,8 +808,8 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
     params are DeepFMParams of F rows.
     """
     # imported here: the trainer imports this module
-    from sparkfm_tpu_torch.training.trainer import (PREFETCH_DEPTH,
-                                                    TrainResult, run_epochs)
+    from sparkfm_tpu_torch.training.trainer import (TrainResult, run_epochs,
+                                                    step_loop)
 
     device = device_util.resolve(device)
     if mesh is not None:
@@ -898,19 +841,10 @@ def train_deepfm(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
         pending = orders.pop(epoch, None)
         order = order_of(epoch) if pending is None else pending.result()
         orders[epoch + 1] = ahead.submit(order_of, epoch + 1)
-        flags = []
-        for batch in prefetch(batch_iterator(
-                train, sgd_cfg.batch_size, device=device,
-                dedup_budget=dedup_budget, dedup_fill=cfg.fm.num_features,
-                pinned=True, order=order), PREFETCH_DEPTH):
-            def single(b=batch):
-                nonlocal state
-                state, aux = step_fn(state, b)
-                return aux
-            aux = dispatch(single, 1)
-            if "unique_overflow" in aux:
-                flags.append(aux["unique_overflow"])
-        return state, flags
+        return step_loop(state, step_fn, batch_iterator(
+            train, sgd_cfg.batch_size, device=device,
+            dedup_budget=dedup_budget, dedup_fill=cfg.fm.num_features,
+            pinned=True, order=order), dispatch)
 
     # the JAX package's DeepFM records hold no unique_overflow_steps
     try:
@@ -945,9 +879,8 @@ def _train_deepfm_sharded(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
     from sparkfm_tpu_torch.parallel import mesh as Mesh
     from sparkfm_tpu_torch.parallel import multihost as MH
     from sparkfm_tpu_torch.parallel import sharded_deepfm as SD
-    from sparkfm_tpu_torch.training.trainer import (PREFETCH_DEPTH,
-                                                    TrainResult, _rank_dir,
-                                                    run_epochs)
+    from sparkfm_tpu_torch.training.trainer import (TrainResult, _rank_dir,
+                                                    run_epochs, step_loop)
 
     mesh, exchange = Mesh.resolve_mesh(mesh, device=device)
     if exchange not in ("auto", "global", "unique"):
@@ -1001,13 +934,7 @@ def _train_deepfm_sharded(cfg: DeepFMConfig, sgd_cfg: SGDConfig, train,
         batches = batch_iterator(train, sgd_cfg.batch_size, device="cpu",
                                  shuffle=sgd_cfg.shuffle_each_epoch,
                                  seed=cfg.fm.seed, epoch=epoch)
-        for batch in prefetch(map(lift, batches), PREFETCH_DEPTH):
-            def single(b=batch):
-                nonlocal state
-                state, aux = step_fn(state, b)
-                return aux
-            dispatch(single, 1)
-        return state, []
+        return step_loop(state, step_fn, map(lift, batches), dispatch)
 
     state, history, eps = run_epochs(
         state, sgd_cfg, train.num_examples, run_epoch,

@@ -318,15 +318,17 @@ def stack_hybrid_extras(ranks, vals, num_shards: int,
             np.stack([p[2] for p in per]), np.stack(gmaps), u_cap)
 
 
-def plan_to_device(plan: DedupBatch, device) -> DedupBatch:
-    """A host plan with its per-slot arrays as tensors on ``device``
-    (copies counted by ``utils/profiling.py::to_device``); count and
+def plan_to_device(plan: DedupBatch, device,
+                   move=profiling.to_device) -> DedupBatch:
+    """A host plan with its per-slot arrays as tensors on ``device``, each
+    copied by ``move(array, device)`` (by default
+    ``utils/profiling.py::to_device``, which counts the copy); count and
     overflow stay host numbers, for the host to branch on."""
-    def move(x):
-        return None if x is None else profiling.to_device(x, device)
-    return plan._replace(uids=move(plan.uids), ranks=move(plan.ranks),
-                         order=move(plan.order), seg=move(plan.seg),
-                         svals=move(plan.svals), sex=move(plan.sex))
+    def to(x):
+        return None if x is None else move(x, device)
+    return plan._replace(uids=to(plan.uids), ranks=to(plan.ranks),
+                         order=to(plan.order), seg=to(plan.seg),
+                         svals=to(plan.svals), sex=to(plan.sex))
 
 
 def auto_budget(n_slots: int, cap: int = 1 << 18) -> int:

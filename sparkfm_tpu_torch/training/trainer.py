@@ -18,7 +18,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -110,8 +110,9 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     consecutive batches whose plans share a ladder rung and runs each
     full group by ``sgd_hybrid.make_hybrid_multi_step``: on the card one
     CUDA graph of G steps per rung, captured at the rung's first group,
-    fed from pinned buffers that the background thread fills
-    (``utils/graphs.py::PinnedStage``); tails and rung changes run single.
+    whose static inputs are filled from batches that the background
+    thread copies through pinned memory (``batch_iterator(pinned=True)``);
+    tails and rung changes run single.
     A group's ``loss_mean`` is logged once for each of its steps, as the
     JAX trainer does. The steps are those of G = 1, so the tables and
     histories equal G = 1's bit for bit (the epoch mean in float64: for G
@@ -188,52 +189,29 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
         dedup_budget = sgd_cfg.unique_budget or "ladder"
     group = (sgd_cfg.steps_per_dispatch
              if path == "hybrid" and sgd_cfg.steps_per_dispatch > 1 else 1)
-    stage = multi = None
     if group > 1:
         multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd_cfg)
-        stage = graphs.PinnedStage(group + PREFETCH_DEPTH + 2, device)
         log.info("hybrid multi-step: %d steps a dispatch", group)
 
+        def grouped(state, batches):
+            if len(batches) < group:    # one batch, run as G = 1 runs it
+                return state, graphs.run_steps(step_fn, state, batches)[0]
+            state, aux = multi.run(state, batches)
+            # the group's overflowed steps, as G single steps count them
+            return state, dict(aux, unique_overflow=sum(
+                bool(b.plan.overflow) for b in batches))
+
     def run_epoch(state, epoch, dispatch):
-        flags = []      # overflow per step; device plans' on the card
-        buf: List[graphs.Staged] = []
-
-        def flush():
-            if len(buf) == group:
-                dispatch(lambda: multi.run_staged(state, stage, buf), group)
-            else:
-                for s in buf:
-                    dispatch(lambda: graphs.run_steps(
-                        step_fn, state, [stage.to_device(s)])[0], 1)
-            flags.extend(s.overflow for s in buf)
-            buf.clear()
-
         batches = batch_iterator(
-            train, sgd_cfg.batch_size,
-            device=device if stage is None else "cpu",
+            train, sgd_cfg.batch_size, device=device,
             shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed,
             epoch=epoch, drop_remainder=False,
-            dedup_budget=dedup_budget, dedup_fill=cfg.num_features)
-        if stage is not None:
-            batches = stage.fill(batches)
-        for batch in prefetch(batches, PREFETCH_DEPTH):
-            if stage is None:
-                def single(b=batch):
-                    nonlocal state
-                    state, aux = step_fn(state, b)
-                    return aux
-                aux = dispatch(single, 1)
-                if "unique_overflow" in aux:
-                    flags.append(aux["unique_overflow"])
-                continue
-            if buf and buf[-1].sig != batch.sig:
-                flush()
-            buf.append(batch)
-            if len(buf) == group:
-                flush()
-        if stage is not None:
-            flush()
-        return state, flags
+            dedup_budget=dedup_budget, dedup_fill=cfg.num_features,
+            pinned=group > 1)
+        if group == 1:
+            return step_loop(state, step_fn, batches, dispatch)
+        return step_loop(state, grouped, _groups(batches, group), dispatch,
+                         steps=len)
 
     state, history, eps = run_epochs(
         state, sgd_cfg, train.num_examples, run_epoch, path=path,
@@ -245,6 +223,44 @@ def train_sgd(cfg: FMConfig, sgd_cfg: SGDConfig, train: SparseDataset,
     return TrainResult(
         params=sgd_solver.trim_params(get_params(state), cfg.num_features),
         history=history, examples_per_sec=eps)
+
+
+def _groups(batches: Iterable, group: int) -> Iterator[list]:
+    """Consecutive ``batches`` of one signature (for ladder plans: one
+    rung) in lists of ``group``; those left over where the signature
+    changes or the batches end in lists of one."""
+    buf, sig = [], None
+    for b in batches:
+        s = graphs.signature(graphs.batch_fields(b))
+        if buf and s != sig:
+            yield from ([x] for x in buf)
+            buf = []
+        buf.append(b)
+        sig = s
+        if len(buf) == group:
+            yield buf
+            buf = []
+    yield from ([x] for x in buf)
+
+
+def step_loop(state, step: Callable, batches: Iterable, dispatch: Callable,
+              steps: Optional[Callable] = None):
+    """An epoch's steps for :func:`run_epochs`' ``run_epoch``:
+    ``batches`` are built ahead in a background thread, and each is one
+    dispatch of ``step(state, batch) -> (state, aux)``, of
+    ``steps(batch)`` steps (one without ``steps``). Returns ``(state,
+    flags)``: the auxes' ``unique_overflow``, where they have one (a flag,
+    or a number of overflowed steps)."""
+    flags = []
+    for batch in prefetch(batches, PREFETCH_DEPTH):
+        def run(b=batch):
+            nonlocal state
+            state, aux = step(state, b)
+            return aux
+        aux = dispatch(run, 1 if steps is None else steps(batch))
+        if "unique_overflow" in aux:
+            flags.append(aux["unique_overflow"])
+    return state, flags
 
 
 def _rank_dir(checkpoint_dir: Optional[str], mesh) -> Optional[str]:
@@ -346,20 +362,11 @@ def _train_sgd_sharded(cfg: FMConfig, sgd_cfg: SGDConfig,
         return MH.global_batch(mesh, batch, ffm, plan, "global_hybrid")
 
     def run_epoch(state, epoch, dispatch):
-        flags = []
         batches = batch_iterator(train, sgd_cfg.batch_size, device="cpu",
                                  shuffle=sgd_cfg.shuffle_each_epoch,
                                  seed=cfg.seed, epoch=epoch,
                                  drop_remainder=False)
-        for batch in prefetch(map(lift, batches), PREFETCH_DEPTH):
-            def single(b=batch):
-                nonlocal state
-                state, aux = step_fn(state, b)
-                return aux
-            aux = dispatch(single, 1)
-            if "unique_overflow" in aux:
-                flags.append(aux["unique_overflow"])
-        return state, flags
+        return step_loop(state, step_fn, map(lift, batches), dispatch)
 
     state, history, eps = run_epochs(
         state, sgd_cfg, train.num_examples, run_epoch,
@@ -426,19 +433,14 @@ def train_sgd_relational(cfg: FMConfig, sgd_cfg: SGDConfig, train,
         batches = R.relational_batch_iterator(
             train, sgd_cfg.batch_size, device=device,
             shuffle=sgd_cfg.shuffle_each_epoch, seed=cfg.seed, epoch=epoch)
-        for batch in prefetch(batches, PREFETCH_DEPTH):
-            def single(b=batch):
-                nonlocal state
-                state, aux = step_fn(state, b, tables)
-                return aux
-            dispatch(single, 1)
-        return state, []
+        return step_loop(state, lambda s, b: step_fn(s, b, tables), batches,
+                         dispatch)
 
     state, history, eps = run_epochs(
         state, sgd_cfg, train.num_examples, run_epoch, path=path,
         evaluate_state=None if eval_ds is None else (
             lambda s: evaluate(s.params, cfg, eval_ds, sgd_cfg.batch_size)),
-        eval_every=eval_every)
+        eval_every=eval_every, record_overflows=False)
     return TrainResult(
         params=sgd_solver.trim_params(state.params, cfg.num_features),
         history=history, examples_per_sec=eps)
@@ -459,7 +461,8 @@ def run_epochs(state, sgd_cfg: SGDConfig, num_examples: int,
 
     ``run_epoch(state, epoch, dispatch)`` runs one epoch's steps of
     ``num_examples`` examples and returns ``(state, flags)``, ``flags``
-    the steps' plan overflow indicators (bools or 0-d tensors). It runs
+    the steps' plan overflow indicators (bools or 0-d tensors, or for a
+    dispatch of several steps the number that overflowed). It runs
     each dispatch as ``dispatch(run, n)``: ``run()`` takes n steps and
     returns their aux, whose ``loss`` (n = 1) or ``loss_mean`` (n > 1) is
     logged once a step; ``dispatch`` returns the aux. A record holds the

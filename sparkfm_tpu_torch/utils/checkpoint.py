@@ -8,7 +8,6 @@
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -21,6 +20,7 @@ from sparkfm_tpu_torch.models.deepfm import DeepFMState
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.solvers.sgd import SGDState
 from sparkfm_tpu_torch.solvers.sgd_fused import FusedState
+from sparkfm_tpu_torch.utils import graphs
 
 PARAMS_FILE = "params.pt"
 META_FILE = "meta.json"
@@ -56,34 +56,18 @@ class LayoutMismatch(ValueError):
 
 
 def state_tensors(state) -> Dict[str, torch.Tensor]:
-    """A training state's tensors by name: the fields of a
-    :class:`FusedState` or :class:`SGDState` (its parameters as
-    ``params.w0``, ``params.w``, ``params.v``), of :class:`FMParams`, or
-    of a ``DeepFMState`` (its FM state's as ``fm.<name>``, adam's slot2
-    rows among them, its tower as ``mlp_w.<layer>``, ``mlp_b.<layer>``,
-    ``smw.<layer>``, ``smb.<layer>`` and, under adam, ``smw2.<layer>``,
-    ``smb2.<layer>``)."""
-    if isinstance(state, FMParams):
-        return {"w0": state.w0, "w": state.w, "v": state.v}
-    if isinstance(state, DeepFMState):
-        out = {f"fm.{k}": t for k, t in state_tensors(state.fm).items()}
-        for name in _TOWER:
-            out.update((f"{name}.{i}", t)
-                       for i, t in enumerate(getattr(state, name)))
-        return out
-    if not isinstance(state, (FusedState, SGDState)):
+    """A training state's tensors by name (``utils/graphs.py::
+    state_tensors``): the fields of a :class:`FusedState` or
+    :class:`SGDState` (its parameters as ``params.w0``, ``params.w``,
+    ``params.v``), of :class:`FMParams`, or of a ``DeepFMState`` (its FM
+    state's as ``fm.<name>``, adam's slot2 rows among them, its tower as
+    ``mlp_w.<layer>``, ``mlp_b.<layer>``, ``smw.<layer>``, ``smb.<layer>``
+    and, under adam, ``smw2.<layer>``, ``smb2.<layer>``)."""
+    if not isinstance(state, (FusedState, SGDState, FMParams, DeepFMState)):
         raise TypeError(f"no checkpoint layout for {type(state).__name__}; "
                         "expected FusedState, SGDState, FMParams or "
                         "DeepFMState")
-    out = {}
-    for f in dataclasses.fields(state):
-        value = getattr(state, f.name)
-        if isinstance(value, FMParams):
-            out.update({f"{f.name}.{k}": t
-                        for k, t in state_tensors(value).items()})
-        else:
-            out[f.name] = value
-    return out
+    return graphs.state_tensors(state)
 
 
 def _build(kind: str, tensors: Dict[str, torch.Tensor]):

@@ -1,5 +1,5 @@
-"""Several train steps per dispatch: CUDA graphs of G steps, and the
-pinned stage that feeds them.
+"""CUDA graphs of train steps: the one cache that captures and replays
+them (:class:`GraphCache`), and several steps per dispatch on it.
 
 Port of the JAX package's multi-steps
 (``sparkfm_tpu/solvers/sgd_hybrid.py::make_hybrid_multi_step``,
@@ -10,33 +10,34 @@ one jitted dispatch. Here (:class:`MultiStep`):
 - CUDA tensors run one ``torch.cuda.CUDAGraph`` of the G steps per input
   signature (the state's tensors, the batches' shapes and G: for ladder
   plans, one graph per rung and G), replayed for every later group of
-  that signature. A signature's first group runs eagerly on a side
-  stream before the capture. Those are that group's real steps, and they
-  build the kernels, read the device's properties and fill the steps'
-  lazy caches, so that nothing is built, looked up or copied from the
-  host inside the capture. All graphs share one memory pool: they replay
-  one after another on one stream, and no tensor allocated in a capture
-  outlives it.
+  that signature.
 
-A graph reads its batches from static device buffers, one set per
-signature, and writes each step's loss into a static (G,) buffer. The
-trainer fills the batches from :class:`PinnedStage` by non-blocking
-host-to-device copies; the API form (``MultiStep.__call__``) copies them
-from a stacked batch already on the device. The steps update the table in
-place (kernel B2). The bias, its slot and the step count, which an eager
-step returns as new tensors, are copied into the state's own tensors at
-the end of the group (:func:`run_steps`), so the graph's addresses stay
-the state's. A graph records the kernel launches it captured and adds
-them to the kernels' counts on every replay (``utils/build.py``), so a
-count stays the number of times the kernel ran.
+A :class:`GraphCache` holds the graphs of one step function, keyed by the
+addresses of every tensor of the state (:func:`state_tensors`) and the
+names, shapes and dtypes of the static inputs. A key's first call runs the
+step eagerly on a side stream: those are that call's real steps, and they
+build the kernels, read the device's properties and fill the steps' lazy
+caches, so that nothing is built, looked up or copied from the host inside
+the capture. Then its phases are captured, one graph each (DeepFM's step
+has four, ``models/deepfm.py::make_train_step``; a multi-step one). Later
+calls copy their inputs into the static ones and replay the phases. All
+graphs of a cache share one memory pool: they replay one after another on
+one stream, and only the static outputs, cloned after each replay,
+outlive a capture. A graph records the kernel launches it captured and
+adds them to the kernels' counts on every replay (``utils/build.py``), so
+a count stays the number of times the kernel ran.
+
+The multi-step's steps update the table in place (kernel B2). The bias,
+its slot and the step count, which an eager step returns as new tensors,
+are copied into the state's own tensors at the end of the group
+(:func:`run_steps`), so the graph's addresses stay the state's.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import math
-import queue
-from typing import Callable, Dict, Iterable, Iterator, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -76,10 +77,35 @@ def batch_from_fields(fields: Dict[str, torch.Tensor],
                        plan=plan)
 
 
-def signature(fields: Dict[str, torch.Tensor]) -> tuple:
+def signature(fields: Dict) -> tuple:
     """Names, shapes and dtypes: what a graph's static inputs fix."""
     return tuple((name, tuple(t.shape), t.dtype)
                  for name, t in fields.items())
+
+
+def state_tensors(state, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Every tensor of a train state by its dotted path, in order: those
+    of its dataclass fields, list or tuple items (by index) and module
+    parameters (``FMParams``: ``w0``, ``w``, ``v``), so ``table`` of a
+    ``FusedState``, ``params.v`` of an ``SGDState``, ``fm.step`` and
+    ``mlp_w.0`` of a ``DeepFMState``. A captured step reads and writes
+    them all (:class:`GraphCache` keys on their addresses);
+    ``utils/checkpoint.py`` saves them under these names."""
+    if isinstance(state, (list, tuple)):
+        items = enumerate(state)
+    elif isinstance(state, torch.nn.Module):
+        items = state.named_parameters(recurse=False)
+    elif dataclasses.is_dataclass(state):
+        items = vars(state).items()         # its fields, in order
+    else:
+        return {}
+    out = {}
+    for name, x in items:
+        if isinstance(x, torch.Tensor):
+            out[prefix + str(name)] = x
+        else:
+            out.update(state_tensors(x, prefix + str(name) + "."))
+    return out
 
 
 def run_steps(step: Callable, state, batches: Iterable[SparseBatch]
@@ -97,44 +123,12 @@ def run_steps(step: Callable, state, batches: Iterable[SparseBatch]
     return auxes
 
 
-@dataclasses.dataclass
-class _Group:
-    """The static inputs and outputs of one signature's graph."""
-
-    batches: List[Dict[str, torch.Tensor]]      # one dict of fields a step
-    losses: torch.Tensor                        # (G,) float32
-    graph: Optional[torch.cuda.CUDAGraph] = None
-    launches: Optional[dict] = None             # kernel -> launches a replay
-
-
-def capture(step: Callable, state, group: _Group, pool) -> None:
-    """Run the group's steps eagerly on a side stream (they are the
-    group's real steps and leave the state updated), then capture the same
-    steps as ``group.graph``. The launches counted during the capture are
-    taken back (it ran nothing) and kept in ``group.launches``, to be
-    added on each replay."""
-    device = state.table.device
-    batches = [batch_from_fields(b) for b in group.batches]
-
-    def body():
-        for i, aux in enumerate(run_steps(step, state, batches)):
-            group.losses[i].copy_(aux["loss"])
-
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.stream(side):
-        body()
-    current.wait_stream(side)
-    group.graph, group.launches = record(body, pool)
-
-
 def record(body: Callable, pool) -> tuple:
     """``body()`` captured as a ``torch.cuda.CUDAGraph`` in ``pool``:
     returns the graph and the kernel launches counted during the capture,
     which are taken back (it ran nothing), to be added on each
     :func:`replay`. The capture mode is thread-local, so that the
-    prefetch thread goes on staging batches."""
+    prefetch thread goes on building batches."""
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
     try:
@@ -157,86 +151,153 @@ def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
         kernel.launches += n
 
 
+@dataclasses.dataclass
+class Captured:
+    """One key's static inputs, a ``(graph, launches)`` pair a phase, and
+    the static outputs that the last phase yielded."""
+
+    inputs: Dict[str, torch.Tensor]
+    graphs: list
+    outputs: object
+
+
+class GraphCache:
+    """The CUDA graphs of one step function, one set a key (the module doc
+    says how). Call it as ``cache(state, inputs, phases)``:
+
+    - ``inputs``: the call's tensors by name, copied into static tensors
+      of the same names, shapes and dtypes without blocking (a host
+      tensor, such as a host plan's count, from pinned memory);
+    - ``drawn``: (name, shape, dtype) of more static inputs, which
+      ``before(i, static)`` writes before phase i (DeepFM's dropout draws);
+    - ``phases(static)``: a generator of the step over the static inputs
+      and ``state``, yielding after each phase; the last yield gives the
+      outputs, a tensor or a dict of tensors;
+    - ``spans``: a name a phase, each phase run inside its span
+      (``utils/profiling.py::annotate``, with device times); without
+      them the step is one phase.
+
+    Returns the outputs: a key's first call the eager run's, every later
+    one the static outputs cloned. ``entries`` holds the captured keys."""
+
+    def __init__(self):
+        self.entries: Dict[tuple, Captured] = {}
+        self._pool = None
+
+    def __call__(self, state, inputs: Dict[str, torch.Tensor],
+                 phases: Callable, *, drawn: Sequence[tuple] = (),
+                 before: Optional[Callable] = None,
+                 spans: Sequence[str] = ()):
+        sig = signature(inputs) + tuple(drawn)
+        key = (tuple((t.data_ptr(), t.shape)
+                     for t in state_tensors(state).values()), sig)
+        entry = self.entries.get(key)
+        device = next(iter(inputs.values())).device
+        static = entry.inputs if entry else {
+            name: torch.empty(shape, dtype=dtype, device=device)
+            for name, shape, dtype in sig}
+        for name, x in inputs.items():
+            profiling.count_h2d(x, device)
+            static[name].copy_(x, non_blocking=True)
+        steps = range(max(len(spans), 1))
+        if entry is not None:
+            for i, (graph, launches) in zip(steps, entry.graphs):
+                with _span(spans, i):
+                    if before is not None:
+                        before(i, static)
+                    replay(graph, launches)
+            if isinstance(entry.outputs, dict):
+                return {name: x.clone() for name, x in entry.outputs.items()}
+            return entry.outputs.clone()
+        # the first call: eagerly on a side stream, ordered after and
+        # before the current stream's work; then each phase recorded
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        run = phases(static)
+        with torch.cuda.stream(side):
+            for i in steps:
+                with _span(spans, i):
+                    if before is not None:
+                        before(i, static)
+                    out = next(run)
+        current.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        run, outs = phases(static), []
+        recorded = [record(lambda: outs.append(next(run)), self._pool)
+                    for _ in steps]
+        self.entries[key] = Captured(static, recorded, outs[-1])
+        return out
+
+
+def _span(spans: Sequence[str], i: int):
+    if not spans:
+        return contextlib.nullcontext()
+    return profiling.annotate(spans[i], device=True)
+
+
 class MultiStep:
     """G train steps per call, for a step ``(FusedState, SparseBatch) ->
     (FusedState, aux)`` (the hybrid or the fused step): the module doc
     says how. Call it as the JAX multi-step, ``multi(state, stacked)``, on
-    a batch of :func:`stack_batches`; the trainer calls :meth:`run_staged`.
-    Both update ``state``'s tensors in place and return aux with the last
-    step's ``loss``, ``loss_mean`` (in float64, so that the group's mean
-    logged once a step sums exactly to its steps' losses when G is a power
-    of two) and ``unique_overflow`` (a host bool, ORed over the group).
-    ``captures`` counts the graphs captured."""
+    a batch of :func:`stack_batches`, or on the G batches themselves,
+    ``multi.run(state, batches)``, which the trainer does: the cache
+    copies them straight into the graph's static inputs. Both update
+    ``state``'s tensors in place and return ``(state, aux)``, aux with the
+    last step's ``loss``, ``loss_mean`` (in float64, so that the group's
+    mean logged once a step sums exactly to its steps' losses when G is a
+    power of two) and ``unique_overflow`` (a host bool, ORed over the
+    group). ``captures`` counts the graphs captured; ``graphs`` is their
+    cache."""
 
     def __init__(self, step: Callable):
         self.step = step
-        self.captures = 0
-        self._groups: Dict[tuple, _Group] = {}
-        self._pool = None
+        self.graphs = GraphCache()
+
+    @property
+    def captures(self) -> int:
+        return len(self.graphs.entries)
 
     def __call__(self, state, stacked: SparseBatch):
         fields = batch_fields(stacked)
-        g = fields["ids"].shape[0]
-        steps = [{name: t[i] for name, t in fields.items()}
-                 for i in range(g)]
-
-        def fill(static):
-            for dst, src in zip(static, steps):
-                for name, t in dst.items():
-                    t.copy_(src[name])
-
-        losses = self._run(state, signature(steps[0]), g, fill,
-                           lambda: [batch_from_fields(s) for s in steps])
         overflow = (stacked.plan is not None
                     and bool(torch.as_tensor(stacked.plan.overflow).any()))
-        return state, _aux(losses, overflow)
+        return self._run(state, [{name: t[i] for name, t in fields.items()}
+                                 for i in range(fields["ids"].shape[0])],
+                         overflow)
 
-    def run_staged(self, state, stage: "PinnedStage",
-                   staged: List["Staged"]) -> dict:
-        """The steps of ``staged`` (batches of one signature from
-        ``stage``), copied from their pinned buffers straight into the
-        graph's static inputs. Returns the aux."""
-        losses = self._run(
-            state, staged[0].sig, len(staged),
-            lambda static: [stage.load(s, dst)
-                            for s, dst in zip(staged, static)],
-            lambda: [stage.to_device(s) for s in staged])
-        return _aux(losses, any(s.overflow for s in staged))
+    def run(self, state, batches: List[SparseBatch]):
+        """The steps of ``batches``, G batches of one signature."""
+        overflow = (batches[0].plan is not None
+                    and any(bool(b.plan.overflow) for b in batches))
+        return self._run(state, [batch_fields(b) for b in batches], overflow)
 
-    def _run(self, state, sig: tuple, g: int, fill: Callable,
-             eager: Callable) -> torch.Tensor:
-        """The (G,) losses of G steps on ``state``: ``eager()`` gives the
-        CPU path its batches; ``fill(static)`` writes a group's batches
-        into a graph's static inputs."""
-        device = state.table.device
-        if device.type == "cpu":
-            auxes = run_steps(self.step, state, eager())
-            return torch.stack([a["loss"] for a in auxes])
-        key = (tuple((t.data_ptr(), tuple(t.shape)) for t in (
-            state.table, *(getattr(state, n) for n in _SCALARS))), sig, g)
-        group = self._groups.get(key)
-        if group is None:
-            group = self._groups[key] = _Group(
-                batches=[{name: torch.empty(shape, dtype=dtype,
-                                            device=device)
-                          for name, shape, dtype in sig}
-                         for _ in range(g)],
-                losses=torch.empty((g,), dtype=torch.float32,
-                                   device=device))
-        fill(group.batches)
-        if group.graph is None:
-            if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-            capture(self.step, state, group, self._pool)
-            self.captures += 1
+    def _run(self, state, steps: List[Dict[str, torch.Tensor]],
+             overflow: bool):
+        g = len(steps)
+        if state.table.device.type == "cpu":
+            losses = self._losses(state, [batch_from_fields(f)
+                                          for f in steps])
         else:
-            replay(group.graph, group.launches)
-        return group.losses.clone()
+            # one static tensor a step and field, each aligned as the
+            # kernels' vector loads need
+            losses = self.graphs(
+                state, {(i, name): t for i, f in enumerate(steps)
+                        for name, t in f.items()},
+                lambda static: self._phase(state, static, g))
+        return state, {"loss": losses[-1],
+                       "loss_mean": losses.double().mean(),
+                       "unique_overflow": overflow}
 
+    def _phase(self, state, static, g: int):
+        yield self._losses(state, [
+            batch_from_fields({name: t for (j, name), t in static.items()
+                               if j == i}) for i in range(g)])
 
-def _aux(losses: torch.Tensor, overflow: bool) -> dict:
-    return {"loss": losses[-1], "loss_mean": losses.double().mean(),
-            "unique_overflow": overflow}
+    def _losses(self, state, batches: List[SparseBatch]) -> torch.Tensor:
+        return torch.stack([a["loss"]
+                            for a in run_steps(self.step, state, batches)])
 
 
 def stack_batches(batches: List[SparseBatch]) -> SparseBatch:
@@ -252,89 +313,3 @@ def stack_batches(batches: List[SparseBatch]) -> SparseBatch:
     if batches[0].plan is not None:
         overflow = np.array([bool(b.plan.overflow) for b in batches])
     return batch_from_fields(stacked, overflow)
-
-
-@dataclasses.dataclass
-class Staged:
-    """A host batch in a stage's buffer: its fields (views of the
-    buffer), their signature, and the plan's overflow flag."""
-
-    slot: "_Slot"
-    fields: Dict[str, torch.Tensor]
-    sig: tuple
-    overflow: bool
-
-
-class _Slot:
-    """One batch's host buffers, one a field, grown as needed; ``done``
-    is the event recorded behind the copies that last read them."""
-
-    def __init__(self):
-        self.buffers: Dict[str, torch.Tensor] = {}
-        self.done: Optional[torch.cuda.Event] = None
-
-    def view(self, name: str, shape, dtype, pin: bool) -> torch.Tensor:
-        n = math.prod(shape)
-        buf = self.buffers.get(name)
-        if buf is None or buf.dtype != dtype or buf.numel() < n:
-            buf = self.buffers[name] = torch.empty((max(n, 1),),
-                                                   dtype=dtype,
-                                                   pin_memory=pin)
-        return buf[:n].view(shape)
-
-
-class PinnedStage:
-    """A ring of ``slots`` host buffers that batches pass through on their
-    way to ``device``: pinned for a CUDA device, so that their copies run
-    without the host, and plain host memory for the CPU. :meth:`fill`
-    (run in the prefetch thread) writes each host batch into a free slot;
-    :meth:`load` or :meth:`to_device` (run by the consumer) copies it to
-    the device, records an event behind the copies on the current stream
-    and frees the slot. A slot is written again only after that event has
-    completed, so the producer never overwrites a buffer that a copy still
-    reads. Slots in flight at once: those queued by the prefetch thread,
-    those a consumer holds for a group and the one being written, so a
-    ring of G + prefetch depth + 2 never starves."""
-
-    def __init__(self, slots: int, device):
-        self.device = torch.device(device)
-        self._pin = self.device.type == "cuda"
-        self._free: "queue.Queue[_Slot]" = queue.Queue()
-        for _ in range(slots):
-            self._free.put(_Slot())
-
-    def fill(self, batches: Iterable[SparseBatch]) -> Iterator[Staged]:
-        """Stage each batch of CPU tensors (with its host plan)."""
-        for b in batches:
-            slot = self._free.get()
-            if slot.done is not None:
-                slot.done.synchronize()
-            fields = {name: slot.view(name, t.shape, t.dtype,
-                                      self._pin).copy_(t)
-                      for name, t in batch_fields(b).items()}
-            yield Staged(slot=slot, fields=fields, sig=signature(fields),
-                         overflow=(b.plan is not None
-                                   and bool(b.plan.overflow)))
-
-    def load(self, staged: Staged, dst: Dict[str, torch.Tensor]) -> None:
-        """Copy the staged batch into the device tensors ``dst``."""
-        for name, t in dst.items():
-            src = staged.fields[name]
-            profiling.count_h2d(src, t.device)
-            t.copy_(src, non_blocking=True)
-        self._release(staged.slot)
-
-    def to_device(self, staged: Staged) -> SparseBatch:
-        """The staged batch as a new SparseBatch on the device."""
-        fields = {name: profiling.to_device(t, self.device,
-                                            non_blocking=True, copy=True)
-                  for name, t in staged.fields.items()}
-        self._release(staged.slot)
-        return batch_from_fields(fields, staged.overflow)
-
-    def _release(self, slot: _Slot) -> None:
-        if self._pin:
-            if slot.done is None:
-                slot.done = torch.cuda.Event()
-            slot.done.record(torch.cuda.current_stream(self.device))
-        self._free.put(slot)

@@ -122,3 +122,26 @@ def test_to_device_arrays_matches_jax(fields):
         assert got[name].device.type == "cpu"
         np.testing.assert_array_equal(got[name].numpy(), np.asarray(arr),
                                       err_msg=name)
+
+
+@pytest.mark.parametrize("budget", [None, "ladder"])
+def test_pinned_batches_and_plans_equal_pageable_ones(datasets, budget):
+    """batch_iterator(pinned=True), the feed of the grouped hybrid steps
+    and of DeepFM, yields the batches and host plans of pinned=False,
+    tail included, with each plan's count a 0-d host tensor (which a
+    graph's feed copies without blocking) where pinned=False leaves a
+    number. The pinning itself needs a card: tests/test_torch_cuda.py
+    holds the pinned copies to the pageable ones there."""
+    _, pds = datasets
+    kw = dict(shuffle=True, seed=5, epoch=2, dedup_budget=budget,
+              dedup_fill=F)
+    got = list(pbatching.batch_iterator(pds, 128, device="cpu", pinned=True,
+                                        **kw))
+    want = list(pbatching.batch_iterator(pds, 128, device="cpu", **kw))
+    assert len(got) == 6
+    _assert_same(got, want, plans=budget is not None)
+    for g, w in zip(got, want):
+        if budget is not None:
+            assert torch.is_tensor(g.plan.count) and g.plan.count.ndim == 0
+            assert g.plan.count.device.type == "cpu"
+            assert not torch.is_tensor(w.plan.count)

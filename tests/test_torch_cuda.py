@@ -25,13 +25,12 @@ import torch
 from sparkfm_tpu_torch import (ALSConfig, FMConfig, MicroBatcher,
                                SGDConfig, Task, train_als, train_sgd)
 from sparkfm_tpu_torch.data import synth as psynth
-from sparkfm_tpu_torch.data.batching import batch_iterator, prefetch
+from sparkfm_tpu_torch.data.batching import batch_iterator
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
 from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import als as pals
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
-from sparkfm_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -1211,39 +1210,10 @@ def test_graph_replay_adds_captured_launches(dev):
         multi(state, stacked)
         seen.append(rowio.GATHER.launches - before)
     assert seen == [2, 2, 2]
-    (group,) = multi._groups.values()
-    assert group.launches == {rowio.GATHER: 2, rowio.SCATTER: 2,
-                              segsum.FACTORED: 2}
-
-
-def test_pinned_stage_reuse_across_three_groups(dev):
-    """The trainer's feed: a ring of G + 4 pinned slots carries 3 groups
-    (and a tail) through the prefetch thread into the graph's static
-    inputs. Each group equals its eager steps on the same batches bit for
-    bit, so no slot was rewritten before its copy had run."""
-    cfg = FMConfig(num_features=1 << 16, num_factors=8, seed=7)
-    sgd = SGDConfig(batch_size=256, learning_rate=0.1, unique_budget=4096)
-    ds, batches = _ctr_batches(dev, 13, seed=7, budget=4096)
-    stage = graphs.PinnedStage(2 + 4, dev)
-    assert stage._pin
-    multi = sgd_hybrid.make_hybrid_multi_step(cfg, sgd)
-    state = _fused_state(cfg, dev, 8)
-    host = batch_iterator(ds, 256, device="cpu", dedup_budget=4096,
-                          dedup_fill=1 << 16)
-    buf, groups = [], 0
-    for staged in prefetch(stage.fill(host)):
-        assert staged.fields["ids"].is_pinned()
-        buf.append(staged)
-        if len(buf) == 2:
-            multi.run_staged(state, stage, buf)
-            buf, groups = [], groups + 1
-    graphs.run_steps(multi.step, state, [stage.to_device(s) for s in buf])
-    assert groups == 6 and multi.captures == 1
-    eager = _fused_state(cfg, dev, 8)
-    step = sgd_hybrid.make_hybrid_train_step(cfg, sgd)
-    for b in batches:
-        eager, _ = step(eager, b)
-    _same_state(state, eager)
+    (entry,) = multi.graphs.entries.values()
+    ((_, launches),) = entry.graphs
+    assert launches == {rowio.GATHER: 2, rowio.SCATTER: 2,
+                        segsum.FACTORED: 2}
 
 
 @pytest.mark.parametrize("spd", [2, 4])
@@ -1493,15 +1463,18 @@ def test_deepfm_graphed_steps_equal_eager_steps(dev, path, opt):
         assert torch.equal(s1[key], s2[key]), key
 
 
-def test_pinned_batches_equal_pageable_ones(dev):
-    """batch_iterator(pinned=True) on the card gives the batches of the
-    pageable copies, tail included, and counts its copies as pinned."""
+@pytest.mark.parametrize("budget", [None, "ladder"])
+def test_pinned_batches_equal_pageable_ones(dev, budget):
+    """batch_iterator(pinned=True) on the card gives the batches and host
+    plans of the pageable copies, tail included, counts every copy as
+    pinned, and leaves each plan's count a pinned 0-d host tensor."""
     from torch.profiler import profile
 
     from sparkfm_tpu_torch.utils import profiling
     ds = psynth.synth_ctr(num_examples=1000, num_fields=8,
                           num_buckets=1 << 10, seed=4)
-    kw = dict(shuffle=True, seed=3, epoch=1)
+    kw = dict(shuffle=True, seed=3, epoch=1, dedup_budget=budget,
+              dedup_fill=1 << 10)
     profiling.clear()
     with profile():
         got = list(batch_iterator(ds, 256, device=dev, pinned=True, **kw))
@@ -1511,6 +1484,16 @@ def test_pinned_batches_equal_pageable_ones(dev):
     for a, b in zip(got, want):
         for name in ("ids", "vals", "y", "mask"):
             assert torch.equal(getattr(a, name), getattr(b, name)), name
+        if budget is None:
+            assert a.plan is None and b.plan is None
+            continue
+        for name in ("uids", "ranks", "order", "seg", "svals", "sex"):
+            x, y = getattr(a.plan, name), getattr(b.plan, name)
+            assert x.device == y.device == dev, name
+            assert torch.equal(x, y), name
+        assert a.plan.count.is_pinned() and a.plan.count.ndim == 0
+        assert int(a.plan.count) == int(b.plan.count)
+        assert bool(a.plan.overflow) == bool(b.plan.overflow)
     assert counters["copy.h2d_pinned_bytes"] > 0
     assert "copy.h2d_pageable_bytes" not in counters
 

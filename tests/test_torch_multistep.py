@@ -13,8 +13,6 @@ sums in another order); the trainers are held at
 1e-5 on losses). The CUDA graphs themselves are held to eager steps bit
 for bit in ``tests/test_torch_cuda.py``."""
 
-import threading
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,8 +31,7 @@ from sparkfm_tpu.solvers import sgd_hybrid as jhybrid
 from sparkfm_tpu.training import trainer as jtrainer
 from sparkfm_tpu_torch import FMConfig, SGDConfig, Task, train_sgd
 from sparkfm_tpu_torch.data import synth as psynth
-from sparkfm_tpu_torch.data.batching import (SparseBatch, batch_iterator,
-                                             prefetch)
+from sparkfm_tpu_torch.data.batching import SparseBatch, batch_iterator
 from sparkfm_tpu_torch.models.fm import params_from_numpy
 from sparkfm_tpu_torch.ops import embedding as PE
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
@@ -246,17 +243,37 @@ def test_grouped_train_sgd_equals_single_steps_bit_for_bit(spd):
     assert one.history == grouped.history
 
 
+@pytest.mark.parametrize("spd", [2, 4])
+def test_grouped_train_sgd_counts_overflowed_steps(spd):
+    """With a unique budget below some batches' unique counts, G > 1
+    records each epoch's overflowed steps, not groups, as G = 1 does:
+    the same histories and parameters, bit for bit."""
+    one, grouped = _ctr_runs([1, spd], unique_budget=286)
+    counts = [h["unique_overflow_steps"] for h in one.history]
+    assert 0 < min(counts) and max(counts) < 8
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(one.params, name),
+                           getattr(grouped.params, name)), name
+    assert one.history == grouped.history
+
+
 def test_grouped_train_sgd_dispatches_full_groups(monkeypatch):
-    """Full groups of one rung go through the multi-step; each group's
-    batches share the plan shape."""
+    """Full groups of one rung go to the multi-step as lists of batches
+    (MultiStep.run, nothing stacked); each group's batches share the plan
+    shape."""
     groups = []
-    orig = graphs.MultiStep.run_staged
+    orig = graphs.MultiStep.run
 
-    def spy(self, state, stage, staged):
-        groups.append({s.sig for s in staged})
-        return orig(self, state, stage, staged)
+    def spy(self, state, batches):
+        groups.append({graphs.signature(graphs.batch_fields(b))
+                       for b in batches})
+        return orig(self, state, batches)
 
-    monkeypatch.setattr(graphs.MultiStep, "run_staged", spy)
+    def unstacked(batches):
+        raise AssertionError("the trainer stacked a group")
+
+    monkeypatch.setattr(graphs.MultiStep, "run", spy)
+    monkeypatch.setattr(graphs, "stack_batches", unstacked)
     (res,) = _ctr_runs([2])
     assert len(groups) == 8 and all(len(g) == 1 for g in groups)
     assert [h["unique_overflow_steps"] for h in res.history] == [0, 0]
@@ -294,62 +311,6 @@ def test_grouped_train_sgd_matches_jax_trainer():
                                    rtol=2e-4, atol=2e-5, err_msg=name)
 
 
-def test_pinned_stage_reuses_slots_in_order():
-    """On the CPU the stage is a ring of host buffers: fed through the
-    prefetch thread to a consumer that holds two batches at a time (a
-    group), batches come out in order with their own contents while freed
-    slots are refilled, and no slot is handed out twice at once."""
-    arrays = _arrays(seed=11) * 3
-    depth, group = 2, 2
-    stage = graphs.PinnedStage(group + depth + 2, "cpu")
-    held, got, slots = [], [], set()
-    for staged in prefetch(stage.fill(_port_batch(*a) for a in arrays),
-                           depth):
-        held.append(staged)
-        slots.add(id(staged.slot))
-        if len(held) == group:
-            assert held[0].slot is not held[1].slot
-            got.extend(stage.to_device(s) for s in held)
-            held.clear()
-    assert len(got) == len(arrays) and len(slots) <= group + depth + 2
-    for b, (ids, vals, y) in zip(got, arrays):
-        assert np.array_equal(b.ids.numpy(), ids)
-        assert np.array_equal(b.y.numpy(), y)
-        assert int(b.plan.count) == int(PE.host_dedup(ids, 512, F).count)
-    assert stage._free.qsize() == group + depth + 2
-
-
-def test_pinned_stage_producer_waits_for_a_free_slot():
-    """With every slot held by the consumer the producer blocks, and it
-    goes on once one is released."""
-    arrays = _arrays(seed=12)
-    stage = graphs.PinnedStage(2, "cpu")
-    it = stage.fill(_port_batch(*a) for a in arrays)
-    first, second = next(it), next(it)
-    out = []
-    t = threading.Thread(target=lambda: out.append(next(it)), daemon=True)
-    t.start()
-    t.join(0.2)
-    assert t.is_alive() and not out
-    stage.to_device(first)
-    t.join(10)
-    assert not t.is_alive() and out and out[0].slot is first.slot
-    stage.to_device(second)
-    stage.to_device(out[0])
-
-
-def test_load_copies_into_static_tensors():
-    ids, vals, y = _arrays(seed=13)[0]
-    stage = graphs.PinnedStage(2, "cpu")
-    (staged,) = stage.fill([_port_batch(ids, vals, y)])
-    dst = {name: torch.empty(shape, dtype=dtype)
-           for name, shape, dtype in staged.sig}
-    stage.load(staged, dst)
-    assert np.array_equal(dst["ids"].numpy(), ids)
-    assert dst["plan.count"].dtype == torch.int32
-    assert stage._free.qsize() == 2
-
-
 def test_run_steps_copies_the_scalars_into_the_state():
     """run_steps leaves the bias, its slot and the step count in the
     state's own tensors, as a graph needs them."""
@@ -368,24 +329,80 @@ def test_run_steps_copies_the_scalars_into_the_state():
 
 
 def test_grouped_iterator_batches_match_single_ones():
-    """The grouped trainer reads host batches (device="cpu") through the
-    stage; they are the batches the single path reads."""
-    ds = psynth.synth_ctr(num_examples=300, num_fields=5, num_buckets=4096,
+    """The grouped trainer's feed, batch_iterator(pinned=True) grouped by
+    trainer._groups: full groups of one signature, and single batches
+    where the rung changes or the epoch ends; in order they are the
+    batches the single path reads."""
+    from sparkfm_tpu_torch.training import trainer
+
+    ds = psynth.synth_ctr(num_examples=600, num_fields=5, num_buckets=4096,
                           seed=3)
     kw = dict(shuffle=True, seed=3, epoch=1, dedup_budget="ladder",
               dedup_fill=4096)
-    stage = graphs.PinnedStage(4, "cpu")
-    staged = [stage.to_device(s) for s in stage.fill(
-        batch_iterator(ds, 64, device="cpu", **kw))]
+    items = list(trainer._groups(
+        batch_iterator(ds, 64, device="cpu", pinned=True, **kw), 2))
     direct = list(batch_iterator(ds, 64, device="cpu", **kw))
-    assert len(staged) == len(direct) == 5
-    for a, b in zip(staged, direct):
+    assert all(len(i) in (1, 2) for i in items)
+    groups = [i for i in items if len(i) == 2]
+    assert groups
+    for g in groups:
+        a, b = (graphs.signature(graphs.batch_fields(x)) for x in g)
+        assert a == b
+    flat = [b for i in items for b in i]
+    assert len(flat) == len(direct) == 10
+    for a, b in zip(flat, direct):
         for name in ("ids", "vals", "y", "mask"):
             assert torch.equal(getattr(a, name), getattr(b, name))
         for name in ("uids", "ranks", "order", "seg", "svals", "sex"):
             assert torch.equal(getattr(a.plan, name), getattr(b.plan, name))
         assert int(a.plan.count) == int(b.plan.count)
         assert a.plan.overflow == bool(b.plan.overflow)
+
+
+_TOWER3 = [f"{name}.{i}" for name in ("mlp_w", "mlp_b", "smw", "smb")
+           for i in range(3)]
+_LAYOUTS = {
+    "fm fused": ["table", "w0", "slot_w0", "step"],
+    "deepfm dedup": [
+        "fm.params.w0", "fm.params.w", "fm.params.v", "fm.slot_w0",
+        "fm.slot_w", "fm.slot_v", "fm.slot2_w0", "fm.slot2_w", "fm.slot2_v",
+        "fm.step", *_TOWER3,
+        *[f"{name}.{i}" for name in ("smw2", "smb2") for i in range(3)]],
+    "deepfm fused": ["fm.table", "fm.w0", "fm.slot_w0", "fm.step", *_TOWER3],
+}
+
+
+@pytest.mark.parametrize("path,opt", [("fm fused", "adagrad"),
+                                      ("deepfm dedup", "adam"),
+                                      ("deepfm fused", "adagrad")])
+def test_graph_key_covers_every_state_tensor(path, opt):
+    """A graph cache's key holds the address of every tensor a captured
+    step reads and writes, walked by graphs.state_tensors through a
+    FusedState and a DeepFMState (an SGDState with FMParams and adam's
+    moments, or a FusedState, and the tower of two hidden layers and the
+    output): each tensor once, under the names that the checkpoint
+    layout (utils/checkpoint.py, the same walk) has always written."""
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    from sparkfm_tpu_torch.utils import checkpoint
+
+    if path == "fm fused":
+        state = _states(*_configs()[::2])[1]()
+    else:
+        cfg = PDF.DeepFMConfig(fm=FMConfig(num_features=F, num_factors=K,
+                                           num_fields=L, seed=2),
+                               hidden=(8, 4))
+        sgd = SGDConfig(batch_size=B, optimizer=opt,
+                        update_path=path.split()[1])
+        state = PDF.initial_state(cfg, sgd, torch.Generator().manual_seed(2),
+                                  device="cpu")
+    got = graphs.state_tensors(state)
+    assert list(got) == _LAYOUTS[path]
+    assert len({id(t) for t in got.values()}) == len(got)
+    assert ({k: id(t) for k, t in checkpoint.state_tensors(state).items()}
+            == {k: id(t) for k, t in got.items()})
+    if path != "fm fused":
+        assert got["fm.step"] is state.fm.step
+        assert got["mlp_w.2"] is state.mlp_w[2]
 
 
 def test_kernels_refuse_to_build_inside_a_capture(monkeypatch):
