@@ -79,14 +79,15 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      its sums repeat exactly and, in a child process, that a rank out of
      range traps; times each block's call, pass 1 and pass 2, against its
      bound; then holds the ALS stream sums (``als_stream_sums``: B7 over
-     the five products of a (factor, block), formed in the kernel from e,
-     q and x) on the user block (no rows) and the movie block (its rows)
-     bit for bit against B7 over the streams torch forms and against their
-     plain version in float64, and times them beside that sequence; then
-     holds the ALS patch of e and q (``als_patch``, in place, on a (U, 2)
-     table) bit for bit to its plain version on each block's rows of the
-     rank-space view and on rows 12 bytes past a 16-byte bound, and times
-     both against the bound;
+     the five products of a (factor, block), formed in the kernel from the
+     (N, 2) pairs of e and q and from x) on the user block (no rows) and
+     the movie block (its rows) bit for bit against B7 over the streams
+     torch forms and against their plain version in float64, and times
+     them beside that sequence; then holds the ALS patch of the pairs
+     (``als_patch``, in place, on a (U, 2) table) bit for bit to its plain
+     version on each block's rows of the rank-space view, on rows 12 bytes
+     past a 16-byte bound and, on the movie rows, with the next factor's
+     q loaded into the q column, and times both against the bound;
  12. trains BASELINE config 2 with ALS: the structure flags must be
      column_pure / csc_uniform / slice_identity = True / True / (True,
      False); one sweep with the kernels and one with their plain versions
@@ -1104,18 +1105,20 @@ def colsums64(streams, seg, num_segments):
         [s.double() for s in streams], seg, num_segments).float()
 
 
-def stream_sums64(e, q, x, row, seg, num_segments):
+def stream_sums64(eq, x, row, seg, num_segments):
     """The ALS stream sums' plain version in float64, rounded to float32:
     the oracle of the kernel in the sweep's twin (phase 12)."""
     from sparkfm_tpu_torch.ops import segsum
     return segsum.als_stream_sums_reference(
-        e.double(), q.double(), x.double(), row, seg, num_segments).float()
+        eq.double(), x.double(), row, seg, num_segments).float()
 
 
-def torch_streams(e, q, x, row, seg, num_segments):
-    """What the ALS stream sums replace: e and q gathered into CSC order,
-    the five streams formed by torch, then B7; their bit-exact oracle."""
+def torch_streams(eq, x, row, seg, num_segments):
+    """What the ALS stream sums replace: e and q (eq's columns) gathered
+    into CSC order, the five streams formed by torch, then B7; their
+    bit-exact oracle."""
     from sparkfm_tpu_torch.ops import segsum
+    e, q = eq[:, 0], eq[:, 1]
     e_c = e if row is None else e.index_select(0, row)
     q_c = q if row is None else q.index_select(0, row)
     x2 = x * x
@@ -1329,20 +1332,20 @@ def als_phases(dev, gen, card):
           f"{card}", flush=True)
     del streams, args, library
 
-    # the ALS stream sums on both blocks, as the sweep calls them: the user
-    # block's CSC run is the example order (no rows), the movie block
-    # gathers e and q by its rows; held bit for bit to B7 over the streams
-    # torch forms and to the float64 plain version, then timed beside that
-    # sequence against the bound (seg, x, e and q read once; the movie
-    # block's rows too; (U, 5) written)
-    e_t, q_t = (torch.randn(ALS_N, generator=gen, device=dev)
-                for _ in range(2))
+    # the ALS stream sums on both blocks, as the sweep calls them on its
+    # (N, 2) pairs of e and q: the user block's CSC run is the example
+    # order (no rows), the movie block gathers its pairs by its rows; held
+    # bit for bit to B7 over the streams torch forms and to the float64
+    # plain version, then timed beside that sequence against the bound
+    # (seg, x and the pairs read once; the movie block's rows too; (U, 5)
+    # written)
+    eq_t = torch.randn((ALS_N, 2), generator=gen, device=dev)
     stream_blocks = {}
     for label, b, gather in (("user", 0, False), ("movie", 1, True)):
         seg_b = ws.col_rank[b * ALS_N:(b + 1) * ALS_N]
         x_b = ws.col_val[b * ALS_N:(b + 1) * ALS_N]
         row_b = ws.col_row[b * ALS_N:(b + 1) * ALS_N] if gather else None
-        args = (e_t, q_t, x_b, row_b, seg_b, n_ranks)
+        args = (eq_t, x_b, row_b, seg_b, n_ranks)
         got = segsum.als_stream_sums(*args)
         if not torch.equal(got, torch_streams(*args)):
             raise AssertionError(f"stream sums differ from B7 over the "
@@ -1352,8 +1355,7 @@ def als_phases(dev, gen, card):
             raise AssertionError(f"stream sums do not repeat on the {label} "
                                  f"block")
         err = max_rel_err(got, segsum.als_stream_sums_reference(
-            e_t.double(), q_t.double(), x_b.double(), row_b, seg_b,
-            n_ranks))
+            eq_t.double(), x_b.double(), row_b, seg_b, n_ranks))
         if not err < 1e-4:
             raise AssertionError(f"stream sums off on the {label} block: "
                                  f"{err:.3g} from float64")
@@ -1372,7 +1374,7 @@ def als_phases(dev, gen, card):
             "max_rel_err": err,
             **bound(4 * ((5 if gather else 4) * ALS_N + 5 * n_ranks),
                     9 * ALS_N, us / 1e3)}
-    del e_t, q_t, args
+    del eq_t, args
     print("check: ALS stream sums equal B7 over the torch-formed streams "
           "bit for bit, repeat exactly, and hold to float64 (max "
           "|a-b|/(1+|b|) < 1e-4); device (CUDA events, behind a spin "
@@ -1384,40 +1386,45 @@ def als_phases(dev, gen, card):
               for label, t in stream_blocks.items()) + f"; {card}",
           flush=True)
 
-    # the ALS patch of e and q, as the sweep calls it: each block's rows of
-    # the rank-space view (both start on a 16-byte bound at this N) and a
-    # third pair of rows 12 bytes past one, with a (U, 2) table, in place;
-    # held bit for bit to its plain version on the same inputs, then both
-    # timed against the bound (rank, vals, e and q read once, e and q
-    # written once, the table read once)
-    e_t, q_t = (torch.randn(ALS_N, generator=gen, device=dev)
-                for _ in range(2))
+    # the ALS patch of the (N, 2) pairs of e and q, as the sweep calls it:
+    # each block's rows of the rank-space view (both start on a 16-byte
+    # bound at this N) and a third pair of rows 12 bytes past one, with a
+    # (U, 2) table, in place; held bit for bit to its plain version on the
+    # same inputs, then both timed against the bound (rank, vals and the
+    # pairs read once, the pairs written once, the table read once); on
+    # the movie rows also with the next factor's q loaded into the q
+    # column, as a factor's last patch runs (its q read once more)
+    eq_t = torch.randn((ALS_N, 2), generator=gen, device=dev)
+    q_next = torch.randn(ALS_N, generator=gen, device=dev)
     table = torch.randn((n_ranks, 2), generator=gen, device=dev)
-    patch_nbytes = segsum.als_patch_bytes(ALS_N, n_ranks)
     patch_blocks = {}
-    for label, start in (("user", 0), ("movie", ALS_N), ("offset", 3)):
+    for label, start, nxt in (("user", 0, None), ("movie", ALS_N, None),
+                              ("offset", 3, None),
+                              ("movie, q_next", ALS_N, q_next)):
         rows = tuple(t.view(-1)[start:start + ALS_N]
-                     for t in (ws.slot_rank, ws.slot_val))
-        ek, qk, ep, qp = (t.clone() for t in (e_t, q_t, e_t, q_t))
-        segsum.als_patch(ek, qk, table, *rows)
-        segsum.als_patch_reference(ep, qp, table, *rows)
-        if not (torch.equal(ek, ep) and torch.equal(qk, qp)):
+                     for t in (ws.slot_rank, ws.slot_val)) + (nxt,)
+        eqk, eqp = eq_t.clone(), eq_t.clone()
+        segsum.als_patch(eqk, table, *rows)
+        segsum.als_patch_reference(eqp, table, *rows)
+        if not torch.equal(eqk, eqp):
             raise AssertionError(f"the patch kernel differs from its plain "
                                  f"version on the {label} rows")
-        us = 1e3 * spun_ms(lambda r=rows: segsum.als_patch(ek, qk, table, *r))
+        us = 1e3 * spun_ms(lambda r=rows: segsum.als_patch(eqk, table, *r))
         ref_us = 1e3 * spun_ms(
-            lambda r=rows: segsum.als_patch_reference(ep, qp, table, *r),
+            lambda r=rows: segsum.als_patch_reference(eqp, table, *r),
             reps=5)
         patch_blocks[label] = {
             "all": us, "plain_us": ref_us,
-            "ms": time_ms(segsum.als_patch, [(ek, qk, table, *rows)],
+            "ms": time_ms(segsum.als_patch, [(eqk, table, *rows)],
                           reps=10, windows=3),
             "plain_ms": time_ms(segsum.als_patch_reference,
-                                [(ep, qp, table, *rows)], reps=10,
+                                [(eqp, table, *rows)], reps=10,
                                 windows=3),
             "offset_bytes": rows[0].data_ptr() % 16,
-            **bound(patch_nbytes, 11 * ALS_N, us / 1e3)}
-    del e_t, q_t, table, ek, qk, ep, qp, rows
+            **bound(segsum.als_patch_bytes(ALS_N, n_ranks,
+                                           q_next=nxt is not None),
+                    11 * ALS_N, us / 1e3)}
+    del eq_t, q_next, table, eqk, eqp, rows
     print("check: ALS patch equals its plain version (the torch lines it "
           "replaces) bit for bit, in place; device (CUDA events, behind a "
           "spin kernel): " + "; ".join(

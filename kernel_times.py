@@ -3,7 +3,7 @@
 shapes, for one or more checkouts of the repository, taken in turns on one
 card.
 
-    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0] [--als]
+    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0] [--als | --sweeps]
 
 Each ROOT is a checkout (the repository root, or a ``git archive`` of
 another commit unpacked somewhere). For each entry of ``--order`` (default:
@@ -59,7 +59,22 @@ seed, so every root sees the same data:
   bound), in place on a (U, 2) table as the sweep runs it, held equal to
   its plain version (the torch lines it replaces) bit for bit and timed
   beside it, with its bound (``segsum.als_patch_bytes``: 24 bytes an
-  example and the table, 602 MB, 180 us) and its share of it.
+  example and the table, 602 MB, 180 us) and its share of it. Where the
+  root's kernels take e and q as one (N, 2) array of pairs (its
+  ``als_stream_sums`` has an ``eq`` argument), both kernels run on such
+  an array, and the patch is also timed with the next factor's q loaded
+  into the q column (28 bytes an example), beside the patch followed by
+  a strided copy of that q into the column.
+
+With ``--sweeps`` each child instead runs whole ALS sweeps on the
+``ml25m-als-sweep`` cell's ratings and weights (seed 0) as ``train_als``
+runs them with its default ``ALSConfig``: contiguous blocks of 4,096
+features (55 blocks, not column-pure, so every block gathers in the stream
+sums and patches by the torch lines). One warm sweep, then three timed on
+the host's clock behind a sync and one under torch.profiler for the
+sweep's spans (CUDA-event ms); it prints the sha256 of the parameters
+after each sweep, which must agree between roots whose sums and patch
+keep their order.
 
 With ``--paths`` each child instead trains one epoch (after a warm-up
 epoch) of BASELINE config 3 (2^24 buckets, rank 32, ``synth_ctr`` 16384 x
@@ -375,6 +390,13 @@ slot_rank = ids2.t().contiguous().int()     # the (L, N) rank-space view
 del ids2, order
 e2 = torch.randn(n2, generator=gen, device=dev)
 q2 = torch.randn(n2, generator=gen, device=dev)
+qn2 = torch.randn(n2, generator=gen, device=dev)
+# a root whose ALS kernels take e and q as the two columns of one (N, 2)
+# array of pairs, as its sweep holds them; else two vectors
+import inspect
+PAIRS = (hasattr(segsum, "als_stream_sums") and "eq" in
+         inspect.signature(segsum.als_stream_sums).parameters)
+eq2 = torch.stack([e2, q2], dim=1) if PAIRS else None
 
 
 def stream_passes(fn, *names):
@@ -387,24 +409,50 @@ def patch_entry(b):
     # the patch of q and e after a (factor, block) on block b's row of the
     # rank-space view (x all ones, as the cell's), in place, beside its
     # plain version: the torch lines it replaces, which here also square
-    # vals (the sweep hoisted that) and copy the results into e and q
+    # vals (the sweep hoisted that) and copy the results into e and q (on
+    # a root with pairs, into eq's columns); there also the factor's last
+    # patch, which loads the next factor's q into the q column, beside the
+    # patch and a strided copy of that q into the column, the alternative
     rank_b, vals_b = slot_rank[b], torch.ones(n2, device=dev)
     table = torch.randn((u2, 2), generator=gen, device=dev)
-    ek, qk, ep, qp = e2.clone(), q2.clone(), e2.clone(), q2.clone()
+    if PAIRS:
+        k_args, p_args = (eq2.clone(),), (eq2.clone(),)
+    else:
+        k_args, p_args = (e2.clone(), q2.clone()), (e2.clone(), q2.clone())
 
     def kernel():
-        segsum.als_patch(ek, qk, table, rank_b, vals_b)
+        segsum.als_patch(*k_args, table, rank_b, vals_b)
 
     def plain():
-        segsum.als_patch_reference(ep, qp, table, rank_b, vals_b)
+        segsum.als_patch_reference(*p_args, table, rank_b, vals_b)
     kernel(), plain()
-    assert torch.equal(ek, ep) and torch.equal(qk, qp), ("patch", b)
+    assert all(torch.equal(k, p) for k, p in zip(k_args, p_args)), (
+        "patch", b)
     nbytes = segsum.als_patch_bytes(n2, u2)
     rec = {"rank_offset_bytes": rank_b.data_ptr() % 16,
            "kernel": stream_passes(kernel, "als_patch_kernel"),
            "plain": stream_passes(plain), "bound_mb": nbytes / 1e6,
            "bound_us": 1e6 * nbytes / 3.35e12}
     rec["share"] = rec["bound_us"] / rec["kernel"]["spun_us"]
+    if PAIRS:
+        eqk, eqp = eq2.clone(), eq2.clone()
+
+        def with_next():
+            segsum.als_patch(eqk, table, rank_b, vals_b, qn2)
+
+        def then_copy():
+            segsum.als_patch(eqp, table, rank_b, vals_b)
+            eqp[:, 1].copy_(qn2)
+        with_next(), then_copy()
+        assert torch.equal(eqk, eqp), ("patch with q_next", b)
+        nb = segsum.als_patch_bytes(n2, u2, q_next=True)
+        rec["with q_next"] = {
+            "kernel": stream_passes(with_next, "als_patch_kernel"),
+            "bound_us": 1e6 * nb / 3.35e12,
+            "patch then copy": stream_passes(then_copy, "als_patch_kernel")}
+        rec["with q_next"]["share"] = (rec["with q_next"]["bound_us"]
+                                       / rec["with q_next"]["kernel"]
+                                       ["spun_us"])
     return rec
 
 
@@ -434,13 +482,15 @@ for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
     del streams
     rec2["gathers, streams and B7"] = stream_passes(torch_streams)
     if hasattr(segsum, "als_stream_sums"):
+        ins = (eq2,) if PAIRS else (e2, q2)
+
         def fused():
-            return segsum.als_stream_sums(e2, q2, x_b, row_b, seg_b, u2)
+            return segsum.als_stream_sums(*ins, x_b, row_b, seg_b, u2)
         got = fused()
         assert torch.equal(got, torch_streams()), ("stream sums", label)
         assert torch.equal(got, fused()), ("stream sums repeat", label)
         err = rel(got, segsum.als_stream_sums_reference(
-            e2.double(), q2.double(), x_b.double(), row_b, seg_b, u2))
+            *(t.double() for t in ins), x_b.double(), row_b, seg_b, u2))
         assert err < 1e-4, ("stream sums", label, err)
         rec2["stream sums"] = dict(stream_passes(
             fused, "als_stream_sums_kernel", "als_stream_sums_crossing"),
@@ -450,6 +500,74 @@ for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
         rec2["patch"] = patch_entry(b)
     out[f"ALS {label}"] = rec2
 print(json.dumps({"root": ROOT, "us": out}))
+"""
+
+SWEEPS = r"""
+import hashlib, json, sys, time
+import torch
+from torch.profiler import profile
+sys.path.insert(0, ROOT)
+sys.path.append(HERE)
+from portbench.gen import ratings as R
+from portbench.gen import weights as W
+from sparkfm_tpu_torch.config import ALSConfig, FMConfig
+from sparkfm_tpu_torch.data.batching import SparseDataset
+from sparkfm_tpu_torch.models.fm import FMParams
+from sparkfm_tpu_torch.solvers import als as A
+from sparkfm_tpu_torch.utils import profiling
+
+dev = torch.device("cuda", 0)
+c = json.load(open(f"{HERE}/portbench/configs/ml25m-als-r32.json"))
+ids, vals, y = R.ratings(c, 0, dev)
+nf, k = int(c["num_users"]) + int(c["num_movies"]), int(c["num_factors"])
+ds = SparseDataset(ids=ids, vals=vals, y=y, num_features=nf)
+cfg = FMConfig(num_features=nf, num_factors=k, reg0=c["reg0"],
+               reg_w=c["reg_w"], reg_v=c["reg_v"], init_stdev=c["init_stdev"])
+als_cfg = ALSConfig()
+params = FMParams(*W.fm_weights(nf, k, 0, dev, v_stdev=c["init_stdev"]))
+# train_als's set-up, step for step
+ws, nb = A.build_workspace(ds, cfg, als_cfg, device=dev)
+reg_w, reg_v = (torch.as_tensor(r, device=dev) for r in cfg.reg_vectors())
+nr = ws.present.shape[0]
+bof, _ = A.feature_blocks_of(nf, als_cfg)
+cpure = bool(nr) and A.blocks_are_column_pure(ds, bof)
+uni = cpure and A.csc_blocks_uniform(ds, bof)
+ident = A.csc_slice_identity(ws, nb, ds.num_examples) if uni else ()
+
+
+def sweep(p):
+    return A.als_sweep_compact(p, ws, nb, nr, cfg.reg0, reg_w, reg_v,
+                               cfg.use_bias, cfg.use_linear,
+                               column_pure=cpure, csc_uniform=uni,
+                               slice_identity=ident)
+
+
+def digest(p):
+    h = hashlib.sha256()
+    for t in (p.w0, p.w, p.v):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+params = sweep(params)
+torch.cuda.synchronize()
+hashes, wall = [digest(params)], []
+for _ in range(3):
+    t0 = time.perf_counter()
+    params = sweep(params)
+    torch.cuda.synchronize()
+    wall.append(1e3 * (time.perf_counter() - t0))
+    hashes.append(digest(params))
+profiling.clear()
+with profile():
+    sweep(params)
+    torch.cuda.synchronize()
+spans = {name: 1e3 * rec["device_s"]
+         for name, rec in profiling.recorded()["spans"].items()
+         if rec["device_s"] is not None}
+print(json.dumps({"root": ROOT, "blocks": nb, "column_pure": cpure,
+                  "sweep_ms": wall, "sha256_after_sweeps": hashes,
+                  "traced_sweep_span_ms": spans}))
 """
 
 PATHS = r"""
@@ -522,6 +640,9 @@ def main():
                     help="profile one epoch of each SGD path instead")
     ap.add_argument("--als", action="store_true",
                     help="time only the ALS sweep's per-rank sums")
+    ap.add_argument("--sweeps", action="store_true",
+                    help="time whole ALS sweeps on train_als's default "
+                         "blocks instead")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -539,8 +660,8 @@ def main():
         child = subprocess.run(
             [sys.executable, "-c",
              f"ROOT = {roots[i]!r}\nHERE = {HERE!r}\n"
-             + (PATHS if args.paths else COMMON + ALS if args.als
-                else COMMON + KERNELS + ALS)],
+             + (PATHS if args.paths else SWEEPS if args.sweeps
+                else COMMON + ALS if args.als else COMMON + KERNELS + ALS)],
             capture_output=True, text=True, timeout=900)
         if child.returncode != 0:
             sys.exit(f"kernel_times: {roots[i]} failed:\n{child.stdout}"

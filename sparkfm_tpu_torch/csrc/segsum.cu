@@ -1196,29 +1196,34 @@ int launch_rowsum_tiles(const float* g, const int32_t* seg, float* out,
 //
 //   out[r] = sum over the slots i of run r of
 //            [e_c x q_c, e_c x^2, x^2 q_c^2, x^3 q_c, x^4],
-//   e_c = e[row[i]], q_c = q[row[i]]  (e[i], q[i] when row is null),
+//   (e_c, q_c) = eq[row[i]]  (eq[i] when row is null),
 //
-// with x, row and seg the block's slice of the CSC view, e the residual
-// and q the factor's sum per example. It stands beside the TPU kernel
+// with x, row and seg the block's slice of the CSC view and eq the (N, 2)
+// array that holds each example's residual e and the factor's sum q side
+// by side. It stands beside the TPU kernel
 // sparkfm_tpu/ops/pallas_segsum.py::_segsum_streams_kernel (B7), whose
 // function it extends: the JAX package gathers e and q and forms the
 // streams in XLA, then sums them with B7. 64 calls a sweep of BASELINE
 // config 2 (K = 32, two blocks).
 //
 // What bounds it: bytes. Without rows (block 0, whose CSC order is the
-// example order) it reads seg, x, e and q once: 16 bytes a slot, 400 MB at
+// example order) it reads seg, x and eq once: 16 bytes a slot, 400 MB at
 // N = 25M, a 121 us floor at 3.35 TB/s. With rows it reads seg, x and the
-// rows (12 bytes a slot) and e[row] and q[row], which on the movie block
-// land on scattered examples: a 32-byte sector each, most of them from
-// DRAM, since e and q hold 100 MB each against a 50 MB L2. The torch
-// passes it replaces wrote and read back the two gathered arrays and the
-// five streams, 56 bytes a slot more, in 11 launches. The design is
-// B7's (above), with three changes:
+// rows (12 bytes a slot) and eq[row], which on the movie block lands on
+// scattered examples: one 32-byte sector a slot, most of them from DRAM,
+// since eq holds 200 MB against a 50 MB L2. Interleaving e and q is what
+// makes it one sector: as two arrays of 4 bytes they cost two sectors a
+// slot. The torch passes it replaces wrote and read back the two gathered
+// arrays and the five streams, 56 bytes a slot more, in 11 launches. The
+// design is B7's (above), with these changes:
 //
-// * What a tile stages: seg, x and the rows (or e and q) by bulk copies,
-//   as B7 stages its streams. A lane then loads e[row] and q[row] of its
-//   V = 16 slots from device memory, all 32 loads issued before the first
-//   is used, and forms the products in registers.
+// * What a tile stages: seg, x and the rows (or eq, two floats a slot, in
+//   two strides of a buffer) by bulk copies, as B7 stages its streams. A
+//   lane then loads eq[row] of its V = 16 slots from device memory, 16
+//   loads of 8 bytes all issued before the first is used, and forms the
+//   products in registers. Staged pairs are read by rotated 16-byte loads
+//   (staged_pairs): a lane's pairs span 128 bytes, and straight loads
+//   met eight-way bank conflicts that cost the user block 8-12%.
 // * Numerics: each product is formed as torch forms its stream, (e x) q,
 //   e (x x), ((x x) q) q, ((x x) x) q, (x x)(x x), by __fmul_rn, which the
 //   compiler does not contract into the sum's add, and summed in B7's
@@ -1229,12 +1234,13 @@ int launch_rowsum_tiles(const float* g, const int32_t* seg, float* out,
 //   warps an SM, which the gathers need.
 //
 // What holds it, measured on the H100 (PERF.md): at config 2's shapes the
-// user block takes ~162 us (74% of its floor) against ~1.08 ms for the
-// streams and B7, and the movie block ~1.49 ms against ~2.50 ms for the
-// gathers, streams and B7. Its 50M gathers run at ~34G a second, the
-// rate at which the two index_selects it replaces gathered them (~35G):
-// the scattered sectors of e and q, not the kernel, set that block's
-// time.
+// user block takes ~162 us (74% of its floor), as with e and q apart,
+// against ~1.08 ms for the streams and B7; the movie block ~0.81 ms
+// (1.49 ms with e and q apart) against ~2.50 ms for the gathers, streams
+// and B7. Its 25M gathers of 8 bytes run at ~31G a second: the scattered
+// sectors of eq still set that block's time. Half as many loads a lane
+// keep enough in flight: forcing more warps an SM by launch bounds (16,
+// 24 blocks) made it spill and run 1.7-2.6x longer.
 //
 // No kernel of it has "colsums" in its name, so that a trace's B7 time
 // stays B7's. A row outside [0, rows) traps, as a rank outside [0, U)
@@ -1293,6 +1299,8 @@ struct StreamSlots {
 
   __device__ __forceinline__ int width() const { return s; }
   __device__ __forceinline__ int arrays() const { return s + 1; }
+  __device__ __forceinline__ int span() const { return s + 1; }
+  __device__ __forceinline__ int floats(int) const { return 1; }
   __device__ __forceinline__ const float* array(int a) const {
     return a == 0 ? reinterpret_cast<const float*>(seg) : streams.p[a - 1];
   }
@@ -1331,31 +1339,84 @@ struct StreamSlots {
   }
 };
 
+// V slots' (e, q) pairs of a lane from a staged (N, 2) array, `sh` floats
+// past the 16-byte boundary its copy starts at (0 or 2: the array is
+// 8-byte aligned). When that is 0, 16-byte loads of two slots each, lane
+// L's k-th load taking its chunk (k + L) % (V / 2): a lane's V pairs span
+// 128 bytes, so the lanes of a quarter warp reading the same chunk would
+// fall on the same four banks, eight ways over; rotated, they fall on
+// distinct banks, and a rotation by L % (V / 2) in registers (three
+// stages of selects) puts the chunks back in slot order. Without it the
+// user block ran 8-12% longer than with e and q as two arrays of 4 bytes
+// (PERF.md).
+template <int V>
+__device__ __forceinline__ void staged_pairs(const float* src, int sh,
+                                             float (&a)[V], float (&b)[V]) {
+  if (sh == 0) {
+    constexpr int C = V / 2;
+    const int r = threadIdx.x & (C - 1);
+    float4 c[C];
+#pragma unroll
+    for (int k = 0; k < C; ++k)
+      c[k] = *reinterpret_cast<const float4*>(src + 4 * ((k + r) & (C - 1)));
+#pragma unroll
+    for (int bit = 1; bit < C; bit <<= 1) {
+      const bool on = (r & bit) != 0;
+      float4 t[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) t[j] = c[(j - bit) & (C - 1)];
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        c[j].x = on ? t[j].x : c[j].x;
+        c[j].y = on ? t[j].y : c[j].y;
+        c[j].z = on ? t[j].z : c[j].z;
+        c[j].w = on ? t[j].w : c[j].w;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      a[2 * j] = c[j].x; b[2 * j] = c[j].y;
+      a[2 * j + 1] = c[j].z; b[2 * j + 1] = c[j].w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const float2 f = *reinterpret_cast<const float2*>(src + 2 * i);
+      a[i] = f.x; b[i] = f.y;
+    }
+  }
+}
+
 // What pass 1 stages and sums for the ALS stream sums: seg, x and, with
-// kGather, the rows (e and q are then gathered from device memory per
-// slot, every lane's loads in flight at once), else e and q themselves;
-// each slot's five products formed in registers in the order torch forms
-// the streams, by round-to-nearest multiplies that the compiler may not
-// contract into a sum's add.
+// kGather, the rows (each slot's (e, q) pair is then gathered from device
+// memory by one 8-byte load, every lane's loads in flight at once), else
+// the pairs themselves (array 2, two floats a slot, two strides of a
+// buffer); each slot's five products formed in registers in the order
+// torch forms the streams, by round-to-nearest multiplies that the
+// compiler may not contract into a sum's add.
 template <bool kGather>
 struct ProductSlots {
-  static constexpr int kArrays = kGather ? 3 : 4;
+  static constexpr int kArrays = 3;
+  static constexpr int kSpan = kGather ? 3 : 4;  // strides a buffer holds
   const int32_t* seg;
   const float* x;
   const int32_t* row;
-  const float* e;
-  const float* q;
-  uint32_t num_rows;                    // e's and q's length
+  const float2* eq;                     // (num_rows,): e, q
+  uint32_t num_rows;
 
   __device__ __forceinline__ int width() const { return kProducts; }
   __device__ __forceinline__ int arrays() const { return kArrays; }
+  __device__ __forceinline__ int span() const { return kSpan; }
+  __device__ __forceinline__ int floats(int a) const {
+    return !kGather && a == 2 ? 2 : 1;
+  }
   __device__ __forceinline__ const float* array(int a) const {
     return a == 0 ? reinterpret_cast<const float*>(seg)
            : a == 1 ? x
            : kGather ? reinterpret_cast<const float*>(row)
-           : a == 2 ? e : q;
+           : reinterpret_cast<const float*>(eq);
   }
-  // e[row] and q[row] of the first lc slots
+  // eq[row] of the first lc slots
   template <int V>
   __device__ __forceinline__ void gather(const float (&rw)[V], int lc,
                                          float (&ev)[V],
@@ -1365,8 +1426,9 @@ struct ProductSlots {
       if (i < lc) {
         const uint32_t j = __float_as_uint(rw[i]);
         if (j >= num_rows) __trap();
-        ev[i] = __ldg(e + j);
-        qv[i] = __ldg(q + j);
+        const float2 p = __ldg(eq + j);
+        ev[i] = p.x;
+        qv[i] = p.y;
       }
     }
   }
@@ -1404,8 +1466,8 @@ struct ProductSlots {
       staged<V>(buf + 2 * stride + shift(2) + off, shift(2), rw);
       gather<V>(rw, V, ev, qv);
     } else {
-      staged<V>(buf + 2 * stride + shift(2) + off, shift(2), ev);
-      staged<V>(buf + 3 * stride + shift(3) + off, shift(3), qv);
+      staged_pairs<V>(buf + 2 * stride + shift(2) + 2 * off, shift(2), ev,
+                      qv);
     }
     products<V>(sg, xv, ev, qv, V, r, v);
   }
@@ -1422,8 +1484,9 @@ struct ProductSlots {
         if (kGather) {
           rw[i] = __int_as_float(row[slot0 + i]);
         } else {
-          ev[i] = e[slot0 + i];
-          qv[i] = q[slot0 + i];
+          const float2 p = eq[slot0 + i];
+          ev[i] = p.x;
+          qv[i] = p.y;
         }
       }
     }
@@ -1435,8 +1498,9 @@ struct ProductSlots {
 // Pass 1 of B7 and of the ALS stream sums: the sums of chunk blockIdx.x's
 // slots, as `slots` gives them (SM: the values a slot holds; V: its slots
 // a lane), in B7's order (the design note above). The dynamic shared
-// memory holds two buffers of the slots' staged arrays, tile + kColPad
-// floats each.
+// memory holds two buffers of the slots' staged arrays, each span()
+// strides of tile + kColPad floats: an array of floats(a) floats a slot
+// takes that many strides (only the last array may take two).
 template <int SM, int V, class Slots>
 __device__ __forceinline__ void chunk_sums(const Slots& slots,
                                            const int32_t* __restrict__ seg,
@@ -1449,6 +1513,7 @@ __device__ __forceinline__ void chunk_sums(const Slots& slots,
   constexpr int A = Slots::kArrays;
   const int s = slots.width();
   const int arrays = slots.arrays();
+  const int span = slots.span();
   const int lane = threadIdx.x;
   const int64_t c = blockIdx.x;
   const int64_t s0 = c * kColChunk;
@@ -1457,7 +1522,8 @@ __device__ __forceinline__ void chunk_sums(const Slots& slots,
   const int32_t after = s1 < n ? seg[s1] : -1;
   const int stride = tile + kColPad;
   // floats from the 16-byte boundary below an array's tile start to it;
-  // tiles start at multiples of 4 slots, so the same for every tile
+  // tiles start at multiples of 4 slots, so the same for every tile and
+  // array width
   auto shift = [&](int a) -> int {
     return static_cast<int>(
         reinterpret_cast<uintptr_t>(slots.array(a)) >> 2 & 3);
@@ -1471,15 +1537,17 @@ __device__ __forceinline__ void chunk_sums(const Slots& slots,
     uint32_t bytes = 0;
 #pragma unroll
     for (int a = 0; a < A; ++a)
-      if (a < arrays) bytes += (tile + (shift(a) ? kColPad : 0)) * 4;
+      if (a < arrays)
+        bytes += (slots.floats(a) * tile + (shift(a) ? kColPad : 0)) * 4;
     sfm::mbar_expect_bytes(&bar[b], bytes);
 #pragma unroll
     for (int a = 0; a < A; ++a) {
       if (a < arrays) {
         const int sh = shift(a);
-        sfm::bulk_load(smem + (b * arrays + a) * stride,
-                       slots.array(a) + i0 - sh,
-                       (tile + (sh ? kColPad : 0)) * 4, &bar[b]);
+        const int w = slots.floats(a);
+        sfm::bulk_load(smem + (b * span + a) * stride,
+                       slots.array(a) + w * i0 - sh,
+                       (w * tile + (sh ? kColPad : 0)) * 4, &bar[b]);
       }
     }
   };
@@ -1519,7 +1587,7 @@ __device__ __forceinline__ void chunk_sums(const Slots& slots,
       sfm::mbar_wait(&bar[b], parity >> b & 1u);
       parity ^= 1u << b;
     }
-    const float* buf = smem + b * arrays * stride;
+    const float* buf = smem + b * span * stride;
     const int len = static_cast<int>(s1 - i0 < tile ? s1 - i0 : tile);
     for (int j0 = 0; j0 < len; j0 += 32 * V) {
       const int cnt = len - j0 < 32 * V ? len - j0 : 32 * V;
@@ -1657,11 +1725,10 @@ colsums_chunks_kernel(Streams streams, int s,
 }
 
 // The ALS stream sums' pass 1: B7's at S = 5, V = 16, on products formed
-// from e, q (gathered by `row` when kGather) and x.
+// from the (e, q) pairs (gathered by `row` when kGather) and x.
 template <bool kGather>
 __global__ void __launch_bounds__(32)
-als_stream_sums_kernel(const float* __restrict__ e,     // (rows,)
-                       const float* __restrict__ q,     // (rows,)
+als_stream_sums_kernel(const float2* __restrict__ eq,   // (rows,): e, q
                        const float* __restrict__ x,     // (N,)
                        const int32_t* __restrict__ row, // (N,) or null
                        const int32_t* __restrict__ seg, // (N,) sorted
@@ -1670,7 +1737,7 @@ als_stream_sums_kernel(const float* __restrict__ e,     // (rows,)
                        int64_t n, int64_t num_rows, int64_t num_segments,
                        int tile) {
   chunk_sums<kProducts, 16>(
-      ProductSlots<kGather>{seg, x, row, e, q,
+      ProductSlots<kGather>{seg, x, row, eq,
                             static_cast<uint32_t>(num_rows)},
       seg, out, partials, n, num_segments, tile);
 }
@@ -1808,7 +1875,7 @@ void launch_colsums_chunks(const Streams& streams, int s, const int32_t* seg,
 }
 
 template <bool kGather>
-void launch_als_stream_sums(const float* e, const float* q, const float* x,
+void launch_als_stream_sums(const float2* eq, const float* x,
                             const int32_t* row, const int32_t* seg,
                             float* out, float* partials, int64_t n,
                             int64_t num_rows, int64_t num_segments,
@@ -1818,41 +1885,46 @@ void launch_als_stream_sums(const float* e, const float* q, const float* x,
   // 22% longer and its user block 8%)
   constexpr int tile = 32 * 16;
   const size_t smem =
-      2 * static_cast<size_t>(ProductSlots<kGather>::kArrays) *
+      2 * static_cast<size_t>(ProductSlots<kGather>::kSpan) *
       (tile + kColPad) * 4;
   als_stream_sums_kernel<kGather><<<static_cast<unsigned>(num_chunks), 32,
                                     smem, stream>>>(
-      e, q, x, row, seg, out, partials, n, num_rows, num_segments, tile);
+      eq, x, row, seg, out, partials, n, num_rows, num_segments, tile);
 }
 
 // ---------------------------------------------------------------------------
-// The ALS patch (als_patch_kernel): q and e after a (factor, block) of the
-// compact ALS sweep (sparkfm_tpu_torch/solvers/als.py) whose block is
-// column-pure (block b is slot b of every example), for every example n,
+// The ALS patch (als_patch_kernel): the (e, q) pairs after a (factor,
+// block) of the compact ALS sweep (sparkfm_tpu_torch/solvers/als.py)
+// whose block is column-pure (block b is slot b of every example), for
+// every example n, with (e, q) = eq[n],
 //
-//   q'[n] = q[n] + delta[r] v
-//   e'[n] = (e[n] + 0.5 (q'[n] q'[n] - q[n] q[n])) - 0.5 (dsq[r] (v v)),
+//   q' = q + delta[r] v
+//   e' = (e + 0.5 (q' q' - q q)) - 0.5 (dsq[r] (v v)),
 //   r = rank[n], v = vals[n],
+//   eq[n] = (e', q'), or (e', q_next[n]) with kNext,
 //
 // with rank and vals the block's row of the (L, N) rank-space view and
 // (delta, dsq) = table[r] the per-rank change of the factor and of its
-// square, interleaved. It replaces no TPU kernel: the JAX package and the
-// sweep before it ran these lines as ~12 XLA or torch passes, each writing
-// a 25M-long temporary that the next read back (~3.0 GB a call at N =
-// 25M), and one kernel that reads each stream once is the whole gain.
+// square, interleaved. A factor's last patch (kNext) loads the next
+// factor's q into the q column: nothing reads q' after it. It replaces
+// no TPU kernel: the JAX package and the sweep before it ran these lines
+// as ~12 XLA or torch passes, each writing a 25M-long temporary that the
+// next read back (~3.0 GB a call at N = 25M), and one kernel that reads
+// each stream once is the whole gain.
 //
-// What bounds it: bytes. It reads rank, vals, e and q and writes e and q
-// once, 24 bytes an example: 600 MB at N = 25,000,095, a 179 us floor at
-// 3.35 TB/s. The table (1.8 MB at U = 221,588) stays in L2 and, for the
-// ranks an SM meets often, in L1. The design:
+// What bounds it: bytes. It reads rank, vals and eq and writes eq once,
+// 24 bytes an example (28 with q_next): 600 MB at N = 25,000,095, a
+// 179 us floor at 3.35 TB/s (209 us with q_next). The table (1.8 MB at U
+// = 221,588) stays in L2 and, for the ranks an SM meets often, in L1. The
+// design:
 //
 // * Each thread takes kPatchElems examples, kPatchThreads apart, so a
-//   warp's loads of each stream are 128 contiguous bytes, and starts all
-//   their loads of the four streams before the first is used; then the
-//   gathers of the table, all in flight; then the arithmetic and the
-//   stores. Scalar loads: the block's row of rank and vals sits at element
-//   offset b N, off any 16-byte bound (12 bytes past one for b = 1 at
-//   config 2), so no vector width lines up across the six arrays.
+//   warp's loads of each stream are contiguous (128 bytes, 256 for eq),
+//   and starts all their loads of the streams before the first is used;
+//   then the gathers of the table, all in flight; then the arithmetic and
+//   the stores. Scalar loads of rank and vals: the block's row sits at
+//   element offset b N, off any 16-byte bound (12 bytes past one for b =
+//   1 at config 2); eq is loaded and stored as float2.
 // * One 8-byte gather an example: the movie block's ranks fall on
 //   scattered movies, so most gathers miss L1 and fetch a 32-byte sector
 //   from L2. With delta and dsq as two arrays that was two sectors an
@@ -1860,6 +1932,9 @@ void launch_als_stream_sums(const float* e, const float* q, const float* x,
 //   interleaved table takes it to 213 us (PERF.md). Four examples a
 //   thread measured as fast as eight, a persistent software-pipelined
 //   form and a larger L1 carve-out no faster.
+// * q_next in the same pass: ~259 us on the movie block and ~236 on the
+//   user block, against ~236 / ~202 without it; the patch followed by a
+//   strided copy of the next q into the column took ~411 / ~373 (PERF.md).
 // * The streams are loaded and stored with the evict-first hint (ld/st
 //   .cs), so they pass through the caches without pushing out the table,
 //   which is read through the read-only path.
@@ -1867,8 +1942,8 @@ void launch_als_stream_sums(const float* e, const float* q, const float* x,
 //   __fadd_rn and __fsub_rn, which the compiler does not contract into
 //   FMAs, so q' and e' equal the torch lines bit for bit (v v is
 //   torch.square's x x).
-// * e and q are written in place: each thread writes only the examples it
-//   has read, and they are not read through the read-only path.
+// * eq is written in place: each thread writes only the examples it has
+//   read, and eq is not read through the read-only path.
 //
 // A rank outside [0, num_ranks) traps, before its table row is read.
 
@@ -1876,16 +1951,18 @@ constexpr int kPatchThreads = 256;
 constexpr int kPatchElems = 4;         // examples a thread, kPatchThreads apart
 constexpr int64_t kPatchTile = kPatchThreads * kPatchElems;
 
+template <bool kNext>
 __global__ void __launch_bounds__(kPatchThreads)
-als_patch_kernel(float* e, float* q,                     // (N,), in place
+als_patch_kernel(float2* eq,                             // (N,): e, q in place
                  const float2* __restrict__ table,       // (U,): delta, dsq
                  const int32_t* __restrict__ rank,       // (N,)
                  const float* __restrict__ vals,         // (N,)
+                 const float* __restrict__ q_next,       // (N,) if kNext
                  int64_t n, int64_t num_ranks) {
   const int64_t base = blockIdx.x * kPatchTile + threadIdx.x;
   int32_t r[kPatchElems];
-  float v[kPatchElems], e0[kPatchElems], q0[kPatchElems];
-  float2 t[kPatchElems];
+  float v[kPatchElems], qx[kPatchElems];
+  float2 p[kPatchElems], t[kPatchElems];
 #pragma unroll
   for (int j = 0; j < kPatchElems; ++j) {
     const int64_t i = base + j * kPatchThreads;
@@ -1893,8 +1970,8 @@ als_patch_kernel(float* e, float* q,                     // (N,), in place
     if (i < n) {
       r[j] = __ldcs(rank + i);
       v[j] = __ldcs(vals + i);
-      e0[j] = __ldcs(e + i);
-      q0[j] = __ldcs(q + i);
+      p[j] = __ldcs(eq + i);
+      if (kNext) qx[j] = __ldcs(q_next + i);
     }
   }
 #pragma unroll
@@ -1908,13 +1985,13 @@ als_patch_kernel(float* e, float* q,                     // (N,), in place
   for (int j = 0; j < kPatchElems; ++j) {
     const int64_t i = base + j * kPatchThreads;
     if (i < n) {
-      const float qn = __fadd_rn(q0[j], __fmul_rn(t[j].x, v[j]));
-      const float dq = __fsub_rn(__fmul_rn(qn, qn), __fmul_rn(q0[j], q0[j]));
+      const float e0 = p[j].x, q0 = p[j].y;
+      const float qn = __fadd_rn(q0, __fmul_rn(t[j].x, v[j]));
+      const float dq = __fsub_rn(__fmul_rn(qn, qn), __fmul_rn(q0, q0));
       const float en = __fsub_rn(
-          __fadd_rn(e0[j], __fmul_rn(0.5f, dq)),
+          __fadd_rn(e0, __fmul_rn(0.5f, dq)),
           __fmul_rn(0.5f, __fmul_rn(t[j].y, __fmul_rn(v[j], v[j]))));
-      __stcs(q + i, qn);
-      __stcs(e + i, en);
+      __stcs(eq + i, make_float2(en, kNext ? qx[j] : qn));
     }
   }
 }
@@ -2047,26 +2124,28 @@ int sfm_segment_colsums(const void* stream_ptrs, int64_t s,
 // Launches both passes of the ALS stream sums on `stream` and returns
 // cudaGetLastError() (0 on success): out[r] = the five sums of
 // segment_colsums over [e_c x q_c, e_c x^2, x^2 q_c^2, x^3 q_c, x^4] with
-// e_c = e[row[i]], q_c = q[row[i]] (e[i], q[i] when `row` is null). e
-// and q hold num_rows floats (N when `row` is null), x, row and seg N, each
-// at any 4-byte offset; a row outside [0, num_rows) or a rank outside [0,
-// num_segments) traps. The caller zero-fills `out` (num_segments x 5),
-// allocates `partials` (sfm_colsums_partial_rows(n) x 5), checks shapes
-// and types, and keeps the tensors alive until the stream has run the
-// kernels.
-int sfm_als_stream_sums(const float* e, const float* q, const float* x,
-                        const int32_t* row, const int32_t* seg, float* out,
-                        float* partials, int64_t n, int64_t num_rows,
-                        int64_t num_segments, int num_sms, void* stream) {
+// (e_c, q_c) = eq[row[i]] (eq[i] when `row` is null). eq holds num_rows
+// (e, q) pairs (N when `row` is null), 8-byte aligned; x, row and seg N
+// elements each, at any 4-byte offset; a row outside [0, num_rows) or a
+// rank outside [0, num_segments) traps. The caller zero-fills `out`
+// (num_segments x 5), allocates `partials` (sfm_colsums_partial_rows(n) x
+// 5), checks shapes and types, and keeps the tensors alive until the
+// stream has run the kernels.
+int sfm_als_stream_sums(const float* eq, const float* x, const int32_t* row,
+                        const int32_t* seg, float* out, float* partials,
+                        int64_t n, int64_t num_rows, int64_t num_segments,
+                        int num_sms, void* stream) {
   if (n <= 0) return 0;
-  if (num_rows > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_rows > INT32_MAX || reinterpret_cast<uintptr_t>(eq) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t num_chunks = (n + kColChunk - 1) / kColChunk;
+  const float2* pairs = reinterpret_cast<const float2*>(eq);
   if (row != nullptr) {
-    launch_als_stream_sums<true>(e, q, x, row, seg, out, partials, n,
+    launch_als_stream_sums<true>(pairs, x, row, seg, out, partials, n,
                                  num_rows, num_segments, num_chunks, st);
   } else {
-    launch_als_stream_sums<false>(e, q, x, row, seg, out, partials, n,
+    launch_als_stream_sums<false>(pairs, x, row, seg, out, partials, n,
                                   num_rows, num_segments, num_chunks, st);
   }
   const cudaError_t err = cudaGetLastError();
@@ -2079,25 +2158,35 @@ int sfm_als_stream_sums(const float* e, const float* q, const float* x,
 }
 
 // Launches the ALS patch on `stream` and returns cudaGetLastError() (0 on
-// success): for each of the N examples, in place, q' = q + delta[r] v and
-// e' = (e + 0.5 (q'^2 - q^2)) - 0.5 dsq[r] v^2 with r = rank[n], v =
-// vals[n] and (delta[r], dsq[r]) the two floats of table row r. `table`
-// holds num_ranks such rows, 8-byte aligned; e, q, rank and vals N
-// elements each, at any 4-byte offset; e and q overlap neither each other
-// nor any other input. A rank outside [0, num_ranks) traps. The caller checks
+// success): for each of the N examples, in place, with (e, q) = eq[n], r =
+// rank[n], v = vals[n] and (delta[r], dsq[r]) the two floats of table row
+// r, q' = q + delta[r] v and e' = (e + 0.5 (q'^2 - q^2)) - 0.5 dsq[r] v^2,
+// and eq[n] = (e', q'), or (e', q_next[n]) when `q_next` is not null.
+// `eq` holds N pairs and `table` num_ranks rows, each 8-byte aligned;
+// rank, vals and q_next N elements each, at any 4-byte offset; eq overlaps
+// no other input. A rank outside [0, num_ranks) traps. The caller checks
 // shapes and types and keeps the tensors alive until the stream has run
 // the kernel.
-int sfm_als_patch(float* e, float* q, const float* table,
-                  const int32_t* rank, const float* vals, int64_t n,
+int sfm_als_patch(float* eq, const float* table, const int32_t* rank,
+                  const float* vals, const float* q_next, int64_t n,
                   int64_t num_ranks, int num_sms, void* stream) {
   (void)num_sms;
   if (n <= 0) return 0;
   const int64_t blocks = (n + kPatchTile - 1) / kPatchTile;
-  if (blocks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  als_patch_kernel<<<static_cast<unsigned>(blocks), kPatchThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      e, q, reinterpret_cast<const float2*>(table), rank, vals, n,
-      num_ranks);
+  if (blocks > INT32_MAX || reinterpret_cast<uintptr_t>(eq) % 8 ||
+      reinterpret_cast<uintptr_t>(table) % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float2* pairs = reinterpret_cast<float2*>(eq);
+  const float2* rows = reinterpret_cast<const float2*>(table);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (q_next != nullptr)
+    als_patch_kernel<true><<<static_cast<unsigned>(blocks), kPatchThreads, 0,
+                             st>>>(pairs, rows, rank, vals, q_next, n,
+                                   num_ranks);
+  else
+    als_patch_kernel<false><<<static_cast<unsigned>(blocks), kPatchThreads,
+                              0, st>>>(pairs, rows, rank, vals, nullptr, n,
+                                       num_ranks);
   return static_cast<int>(cudaGetLastError());
 }
 

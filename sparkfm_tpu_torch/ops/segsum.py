@@ -26,8 +26,9 @@ and only CPU tensors take the plain version (``*_reference``):
   streams per rank, for the ALS, MCMC and BS-ALS sweeps;
 - :func:`als_stream_sums`, B7 over the five product streams of a (factor,
   block) of the compact ALS sweep (``solvers/als.py``), formed in the
-  kernel from e, q (gathered by the block's rows) and x;
-- :func:`als_patch`, no sum but the same sweep's patch of q and e, in
+  kernel from the (e, q) pairs of one (N, 2) array (gathered by the
+  block's rows, one 8-byte load a slot) and x;
+- :func:`als_patch`, no sum but the same sweep's patch of those pairs, in
   place, after a (factor, block) of a column-pure block, one streaming
   pass.
 
@@ -53,6 +54,7 @@ from typing import Optional
 
 import torch
 
+from sparkfm_tpu_torch.utils import profiling
 from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
 
 SOURCE = os.path.join(PACKAGE_DIR, "csrc", "segsum.cu")
@@ -79,7 +81,7 @@ COLSUMS = CudaKernel(
     [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3
     + [ctypes.c_int64] * 2)
 STREAM_SUMS = CudaKernel("segsum", SOURCE, "sfm_als_stream_sums",
-                         [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
+                         [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3)
 ALS_PATCH = CudaKernel("segsum", SOURCE, "sfm_als_patch",
                        [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2)
 
@@ -408,43 +410,49 @@ def segment_colsums(streams, seg: torch.Tensor,
     return out
 
 
-def als_stream_sums_reference(e: torch.Tensor, q: torch.Tensor,
-                              x: torch.Tensor, row: Optional[torch.Tensor],
+def als_stream_sums_reference(eq: torch.Tensor, x: torch.Tensor,
+                              row: Optional[torch.Tensor],
                               seg: torch.Tensor,
                               num_segments: int) -> torch.Tensor:
-    """Plain version of :func:`als_stream_sums`: e and q gathered into CSC
-    order, the five streams formed in torch, each product in the order the
-    kernel forms it, then :func:`segment_colsums_reference`. Keeps the
-    inputs' dtype (the card's checks run it in float64)."""
-    e_c = e if row is None else e.index_select(0, row)
-    q_c = q if row is None else q.index_select(0, row)
+    """Plain version of :func:`als_stream_sums`: the (e, q) pairs gathered
+    into CSC order, the five streams formed in torch, each product in the
+    order the kernel forms it, then :func:`segment_colsums_reference`.
+    Keeps the inputs' dtype (the card's checks run it in float64)."""
+    eq_c = eq if row is None else eq.index_select(0, row)
+    e_c, q_c = eq_c[:, 0], eq_c[:, 1]
     x2 = x * x
     return segment_colsums_reference(
         [e_c * x * q_c, e_c * x2, x2 * q_c * q_c, x2 * x * q_c, x2 * x2],
         seg, num_segments)
 
 
-def _check_stream_sums(e, q, x, row, seg, num_segments) -> None:
-    for name, t in (("e", e), ("q", q), ("x", x)):
-        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError(f"als_stream_sums takes a contiguous 1-D "
-                             f"float32 {name}, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+def _check_pairs(name, eq) -> None:
+    """eq must be a contiguous, 8-byte-aligned (R, 2) float32 array."""
+    if (eq.dtype != torch.float32 or eq.dim() != 2 or eq.shape[1] != 2
+            or not eq.is_contiguous() or eq.data_ptr() % 8):
+        raise ValueError(f"{name} takes a contiguous 8-byte-aligned (R, 2) "
+                         f"float32 eq, got {eq.dtype} {tuple(eq.shape)}")
+
+
+def _check_stream_sums(eq, x, row, seg, num_segments) -> None:
+    _check_pairs("als_stream_sums", eq)
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"als_stream_sums takes a contiguous 1-D float32 "
+                         f"x, got {x.dtype} {tuple(x.shape)}")
     for name, t in (("seg", seg), ("row", row)):
         if t is not None and (t.dtype != torch.int32 or t.dim() != 1
                               or not t.is_contiguous()):
             raise ValueError(f"als_stream_sums takes a contiguous 1-D int32 "
                              f"{name}, got {t.dtype} {tuple(t.shape)}")
     n = seg.shape[0]
-    rows = n if row is None else e.shape[0]
+    rows = n if row is None else eq.shape[0]
     if (x.shape[0] != n or (row is not None and row.shape[0] != n)
-            or e.shape[0] != rows or q.shape[0] != rows):
+            or eq.shape[0] != rows):
         raise ValueError(
-            f"lengths: e {e.shape[0]}, q {q.shape[0]}, x {x.shape[0]}, row "
+            f"lengths: eq {eq.shape[0]}, x {x.shape[0]}, row "
             f"{None if row is None else row.shape[0]}, seg {n}; want x, row "
-            "and seg of one length, and e and q of one length (seg's when "
-            "row is None)")
-    devices = {t.device for t in (e, q, x, row, seg) if t is not None}
+            "and seg of one length, and eq of seg's when row is None")
+    devices = {t.device for t in (eq, x, row, seg) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
     if seg.device.type not in ("cpu", "cuda"):
@@ -452,66 +460,75 @@ def _check_stream_sums(e, q, x, row, seg, num_segments) -> None:
     if num_segments < 0:
         raise ValueError(f"num_segments must be >= 0, got {num_segments}")
     if rows >= 1 << 31:
-        raise ValueError(f"e and q hold {rows} floats; the kernel takes "
-                         "fewer than 2^31")
+        raise ValueError(f"eq holds {rows} pairs; the kernel takes fewer "
+                         "than 2^31")
 
 
-def als_stream_sums(e: torch.Tensor, q: torch.Tensor, x: torch.Tensor,
+def als_stream_sums(eq: torch.Tensor, x: torch.Tensor,
                     row: Optional[torch.Tensor], seg: torch.Tensor,
                     num_segments: int) -> torch.Tensor:
     """(U, 5) float32 per-rank sums of the compact ALS sweep's five
     streams, ``segment_colsums([e_c x q_c, e_c x², x² q_c², x³ q_c, x⁴],
-    seg, U)`` with ``e_c = e[row]``, ``q_c = q[row]``, without forming the
-    streams or the gathered e and q in memory. ``e``, ``q`` (R,) and ``x``
-    (N,) are float32; ``row`` (N,) int32 indexes e and q, or is None when
-    they are already in seg's order (R = N); ``seg`` (N,) holds the sorted
-    int32 ranks. x, row and seg may be views at any element offset, as
-    for :func:`segment_colsums`. CUDA tensors run the kernel, whose sums
-    equal B7's over the streams torch forms, bit for bit (it traps on a
-    row outside [0, R) or a rank outside [0, U)); CPU tensors run the
-    plain version."""
-    _check_stream_sums(e, q, x, row, seg, num_segments)
+    seg, U)`` with ``(e_c, q_c) = eq[row]``, without forming the streams
+    or the gathered pairs in memory. ``eq`` (R, 2) holds each example's
+    residual e and factor sum q side by side (float32, contiguous, 8-byte
+    aligned), so one 8-byte load fetches both; ``x`` (N,) is float32;
+    ``row`` (N,) int32 indexes eq, or is None when eq is already in seg's
+    order (R = N); ``seg`` (N,) holds the sorted int32 ranks. x, row and
+    seg may be views at any element offset, as for
+    :func:`segment_colsums`. CUDA tensors run the kernel, whose sums equal
+    B7's over the streams torch forms, bit for bit (it traps on a row
+    outside [0, R) or a rank outside [0, U)); CPU tensors run the plain
+    version. A call with rows counts its N slots on
+    ``als.paired_gather_slots`` (``utils/profiling.py::count``)."""
+    _check_stream_sums(eq, x, row, seg, num_segments)
+    n = seg.shape[0]
+    if row is not None:
+        profiling.count("als.paired_gather_slots", n)
     device = seg.device
     if device.type == "cpu":
-        return als_stream_sums_reference(e, q, x, row, seg, num_segments)
-    n = seg.shape[0]
+        return als_stream_sums_reference(eq, x, row, seg, num_segments)
     out = torch.zeros((num_segments, 5), dtype=torch.float32, device=device)
     if n == 0:
         return out
     partials = _partials(STREAM_SUMS, "sfm_colsums_partial_rows", 5, device,
                          n)
-    STREAM_SUMS.launch(device, e.data_ptr(), q.data_ptr(), x.data_ptr(),
+    STREAM_SUMS.launch(device, eq.data_ptr(), x.data_ptr(),
                        None if row is None else row.data_ptr(),
                        seg.data_ptr(), out.data_ptr(), partials.data_ptr(), n,
-                       e.shape[0], num_segments)
+                       eq.shape[0], num_segments)
     return out
 
 
-def als_patch_bytes(n: int, num_ranks: int) -> int:
-    """Bytes one :func:`als_patch` call must move: rank, vals, e and q read
-    once and e and q written once (24 bytes an example), and the (U, 2)
-    table read once."""
-    return 24 * n + 8 * num_ranks
+def als_patch_bytes(n: int, num_ranks: int, q_next: bool = False) -> int:
+    """Bytes one :func:`als_patch` call must move: rank, vals and the (e,
+    q) pairs read once and the pairs written once (24 bytes an example),
+    q_next read once when given (4 more), and the (U, 2) table read
+    once."""
+    return (28 if q_next else 24) * n + 8 * num_ranks
 
 
-def als_patch_reference(e: torch.Tensor, q: torch.Tensor,
-                        table: torch.Tensor, rank: torch.Tensor,
-                        vals: torch.Tensor) -> None:
+def als_patch_reference(eq: torch.Tensor, table: torch.Tensor,
+                        rank: torch.Tensor, vals: torch.Tensor,
+                        q_next: Optional[torch.Tensor] = None) -> None:
     """Plain version of :func:`als_patch`: the compact sweep's torch lines
-    for a column-pure block, in their order, copied into e and q."""
+    for a column-pure block, in their order, on eq's two columns, copied
+    into them."""
+    e, q = eq[:, 0], eq[:, 1]
     delta, dsq = table[:, 0], table[:, 1]
     q_new = q + delta.index_select(0, rank) * vals
     e_new = (e + 0.5 * (q_new.square() - q.square())
              - 0.5 * (dsq.index_select(0, rank) * vals.square()))
     e.copy_(e_new)
-    q.copy_(q_new)
+    q.copy_(q_new if q_next is None else q_next)
 
 
-def _check_patch(e, q, table, rank, vals) -> None:
-    for name, t in (("e", e), ("q", q), ("vals", vals), ("rank", rank)):
+def _check_patch(eq, table, rank, vals, q_next) -> None:
+    _check_pairs("als_patch", eq)
+    for name, t in (("vals", vals), ("rank", rank), ("q_next", q_next)):
         dtype = "int32" if name == "rank" else "float32"
-        if (t.dtype != getattr(torch, dtype) or t.dim() != 1
-                or not t.is_contiguous()):
+        if t is not None and (t.dtype != getattr(torch, dtype)
+                              or t.dim() != 1 or not t.is_contiguous()):
             raise ValueError(f"als_patch takes a contiguous 1-D {dtype} "
                              f"{name}, got {t.dtype} {tuple(t.shape)}")
     if (table.dtype != torch.float32 or table.dim() != 2
@@ -520,35 +537,56 @@ def _check_patch(e, q, table, rank, vals) -> None:
         raise ValueError(f"als_patch takes a contiguous 8-byte-aligned "
                          f"(U, 2) float32 table, got {table.dtype} "
                          f"{tuple(table.shape)}")
-    n = e.shape[0]
-    if not q.shape[0] == rank.shape[0] == vals.shape[0] == n:
-        raise ValueError(f"lengths: e {n}, q {q.shape[0]}, rank "
-                         f"{rank.shape[0]}, vals {vals.shape[0]}; want one")
-    devices = {t.device for t in (e, q, table, rank, vals)}
+    n = eq.shape[0]
+    if not (rank.shape[0] == vals.shape[0] == n
+            and (q_next is None or q_next.shape[0] == n)):
+        raise ValueError(f"lengths: eq {n}, rank {rank.shape[0]}, vals "
+                         f"{vals.shape[0]}, q_next "
+                         f"{None if q_next is None else q_next.shape[0]}; "
+                         "want one")
+    devices = {t.device for t in (eq, table, rank, vals, q_next)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
-    if e.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"als_patch has no kernel for {e.device}")
-    if n and e.data_ptr() == q.data_ptr():
-        raise ValueError("als_patch writes e and q: they are one tensor")
+    if eq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"als_patch has no kernel for {eq.device}")
+    for name, t in (("table", table), ("rank", rank), ("vals", vals),
+                    ("q_next", q_next)):
+        if t is not None and n and _overlap(eq, t):
+            raise ValueError(f"als_patch writes eq: it overlaps {name}")
 
 
-def als_patch(e: torch.Tensor, q: torch.Tensor, table: torch.Tensor,
-              rank: torch.Tensor, vals: torch.Tensor) -> None:
-    """Patches e and q in place after a (factor, block) of the compact ALS
-    sweep whose block is column-pure: ``q' = q + delta[rank] vals`` and
-    ``e' = (e + 0.5 (q'² - q²)) - 0.5 dsq[rank] vals²``, with ``(delta,
-    dsq)`` the rows of the float32 (U, 2) ``table`` (the per-rank change
-    of the factor and of its square). ``e``, ``q``, ``vals`` (N,) are
-    float32 and ``rank`` (N,) int32; rank and vals may be views at any
-    element offset (the sweep passes rows of its (L, N) view). CUDA
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the memory of contiguous ``a`` and ``b`` overlaps."""
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.nbytes and b0 < a0 + a.nbytes
+
+
+def als_patch(eq: torch.Tensor, table: torch.Tensor, rank: torch.Tensor,
+              vals: torch.Tensor,
+              q_next: Optional[torch.Tensor] = None) -> None:
+    """Patches the (e, q) pairs ``eq`` in place after a (factor, block) of
+    the compact ALS sweep whose block is column-pure: ``q' = q +
+    delta[rank] vals`` and ``e' = (e + 0.5 (q'² - q²)) - 0.5 dsq[rank]
+    vals²``, with ``(delta, dsq)`` the rows of the float32 (U, 2)
+    ``table`` (the per-rank change of the factor and of its square). The
+    q column then holds q', or ``q_next`` where given: the next factor's
+    q, which the sweep loads with the factor's last patch, since nothing
+    reads q' after it. ``eq`` is a contiguous 8-byte-aligned (N, 2)
+    float32 array; ``vals``, ``q_next`` (N,) are float32 and ``rank``
+    (N,) int32; rank, vals and q_next may be views at any element offset
+    (the sweep passes rows of its (L, N) view and of its q bank). CUDA
     tensors run the kernel, whose results equal the plain version's torch
     lines bit for bit (it traps on a rank outside [0, U)); CPU tensors run
-    the plain version."""
-    _check_patch(e, q, table, rank, vals)
-    if e.device.type == "cpu":
-        als_patch_reference(e, q, table, rank, vals)
-    elif e.shape[0]:
-        ALS_PATCH.launch(e.device, e.data_ptr(), q.data_ptr(),
-                         table.data_ptr(), rank.data_ptr(), vals.data_ptr(),
-                         e.shape[0], table.shape[0])
+    the plain version. A call with q_next counts on
+    ``als.q_next_patches``."""
+    _check_patch(eq, table, rank, vals, q_next)
+    if q_next is not None:
+        profiling.count("als.q_next_patches", 1)
+    if eq.device.type == "cpu":
+        als_patch_reference(eq, table, rank, vals, q_next)
+    elif eq.shape[0]:
+        ALS_PATCH.launch(eq.device, eq.data_ptr(), table.data_ptr(),
+                         rank.data_ptr(), vals.data_ptr(),
+                         None if q_next is None else q_next.data_ptr(),
+                         eq.shape[0], table.shape[0])

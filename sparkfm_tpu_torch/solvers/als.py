@@ -361,7 +361,12 @@ def als_sweep_compact(params: FMParams, ws: ALSWorkspace, num_blocks: int,
     blocks ``als.linear``, and each (factor, block) is
     ``als.stream_sums`` (the five per-rank sums), ``als.solve`` (num, den,
     the new factors) and ``als.patch`` (q and e patched; in place by
-    ``segsum.als_patch`` when ``column_pure``)."""
+    ``segsum.als_patch`` when ``column_pure``).
+
+    From the factor loop on, e and the current factor's q live as the two
+    columns of one (N, 2) array, so the stream sums fetch both by one
+    8-byte load a slot; the factor's last patch writes the next factor's
+    q into the q column."""
     on_card = ws.y.is_cuda
     with annotate("als.sweep", device=on_card):
         return _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w,
@@ -415,13 +420,20 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
                 e = e + views.patch(delta, rank_csr, vals_csr, b)
                 w_c = w_c + delta
 
+    # the factor loop keeps e and the current factor's q side by side, one
+    # (N, 2) pair an example, which the stream sums gather by one 8-byte
+    # load; a factor's last patch writes the next factor's q in place of
+    # its own, which nothing reads after it
+    eq = torch.stack([e, q_bank[0]], dim=1) if k else None
+    del e
     for f in range(k):
-        vf, q = v_t[f], q_bank[f]
+        vf = v_t[f]
+        q_next = q_bank[f + 1] if f + 1 < k else None
         for b in range(num_blocks):
             with annotate("als.stream_sums", device=on_card):
                 sums = segsum.als_stream_sums(
-                    e, q, csc(x, b), views.rows(col_row, b),
-                    csc(col_rank, b), num_ranks)                # (Fp, 5)
+                    eq, csc(x, b), views.rows(col_row, b), csc(col_rank, b),
+                    num_ranks)                                  # (Fp, 5)
             with annotate("als.solve", device=on_card):
                 num = sums[:, 0] - vf * sums[:, 1]
                 den = (sums[:, 2] - 2.0 * vf * sums[:, 3]
@@ -434,13 +446,19 @@ def _sweep_compact(params, ws, num_blocks, num_ranks, reg0, reg_w, reg_v,
                                   vf_new.square() - vf.square(), zero,
                                   out=table[:, 1])
             with annotate("als.patch", device=on_card):
-                if views.column_pure:               # e and q in place
-                    segsum.als_patch(e, q, table, rank_csr[b], vals_csr[b])
-                else:
-                    q_new = q + views.patch(delta, rank_csr, vals_csr, b)
-                    e = (e + 0.5 * (q_new.square() - q.square())
-                         - 0.5 * views.patch(dsq, rank_csr, vals_sq, b))
-                    q = q_new
+                nxt = q_next if b == num_blocks - 1 else None
+                if views.column_pure:               # eq in place
+                    segsum.als_patch(eq, table, rank_csr[b], vals_csr[b],
+                                     nxt)
+                else:       # eq's columns in place, no whole-column copy
+                    e, q = eq[:, 0], eq[:, 1]
+                    q_sq = q.square()
+                    q.add_(views.patch(delta, rank_csr, vals_csr, b))
+                    torch.sub(e + 0.5 * (q.square() - q_sq),
+                              0.5 * views.patch(dsq, rank_csr, vals_sq, b),
+                              out=e)
+                    if nxt is not None:
+                        q.copy_(nxt)
             vf = vf_new
         v_t[f] = vf
 

@@ -315,9 +315,9 @@ def test_sweep_sums_through_segment_colsums(monkeypatch):
         calls.append(len(streams))
         return colsums(streams, seg, num_segments)
 
-    def counting_products(e, q, x, row, seg, num_segments):
+    def counting_products(eq, x, row, seg, num_segments):
         calls.append("rows" if row is not None else "identity")
-        return stream_sums(e, q, x, row, seg, num_segments)
+        return stream_sums(eq, x, row, seg, num_segments)
 
     monkeypatch.setattr(segsum, "segment_colsums", counting)
     monkeypatch.setattr(segsum, "als_stream_sums", counting_products)
@@ -491,22 +491,24 @@ def test_params_type():
     assert res.params.w.dtype == torch.float32
 
 
-def _former_patch(e, q, table, rank, vals):
+def _former_patch(eq, table, rank, vals, q_next=None):
     """The compact sweep's patch of a column-pure block as it was before
     ``segsum.als_patch``: ``BlockViews.patch`` on the block's row, copied
-    into e and q."""
+    into e and q (eq's columns), then the next factor's q where given."""
+    e, q = eq[:, 0], eq[:, 1]
     views = PA.BlockViews(rank.shape[0], column_pure=True)
     q_new = q + views.patch(table[:, 0], rank[None], vals[None], 0)
     e.copy_(e + 0.5 * (q_new.square() - q.square())
             - 0.5 * views.patch(table[:, 1], rank[None],
                                 vals.square()[None], 0))
-    q.copy_(q_new)
+    q.copy_(q_new if q_next is None else q_next)
 
 
 @pytest.mark.parametrize("column_pure", [True, False])
 def test_sweep_patch_gives_the_former_parameters(column_pure, monkeypatch):
     """A CPU compact sweep patches a column-pure block by
-    ``segsum.als_patch``, once a (factor, block), and gives the parameters
+    ``segsum.als_patch``, once a (factor, block), the factor's last patch
+    with the next factor's q, and gives the parameters
     of the sweep's former lines bit for bit; without column_pure it keeps
     the torch lines over all slots, calls no ``als_patch``, and on these
     column-pure blocks gives the same parameters too."""
@@ -530,13 +532,77 @@ def test_sweep_patch_gives_the_former_parameters(column_pure, monkeypatch):
     patch = segsum.als_patch
 
     def counting(*a, **k):
-        calls.append(a[3].storage_offset())
+        calls.append((a[2].storage_offset(), a[4] is not None))
         return patch(*a, **k)
 
     monkeypatch.setattr(segsum, "als_patch", counting)
     got = sweeps(column_pure)
-    assert calls == ([0, ds.num_examples] * 3 * 2 if column_pure else [])
+    # (block 0's row, block 1's), the last block's carrying the next
+    # factor's q but in the last factor; 3 factors, 2 sweeps
+    n = ds.num_examples
+    assert calls == (([(0, False), (n, True)] * 2 + [(0, False), (n, False)])
+                     * 2 if column_pure else [])
     monkeypatch.setattr(segsum, "als_patch", _former_patch)
     want = sweeps(True)
     for name in ("w0", "w", "v"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("name,column_pure,k", [("slot_blocks", False, 3),
+                                                ("slot_blocks", True, 3),
+                                                ("dense_block4", False, 3),
+                                                ("slot_blocks", True, 0)])
+def test_compact_sweep_matches_the_direct_sweep(name, column_pure, k):
+    """The compact sweep, its factor loop on the (N, 2) pairs of e and q,
+    against the port's direct sweep ``als_sweep`` (the full-F form, e and
+    q two vectors) over 3 sweeps at the JAX package's tolerance between
+    its two sweeps: on slot blocks by the torch patch lines (not
+    column-pure) and by ``segsum.als_patch``, on dense blocks of 4
+    features, which no patch kernel takes, and with no factors (w0 and w
+    alone, no pairs)."""
+    ds, blocks = DATASETS[name]()
+    cfg = FMConfig(num_features=ds.num_features, num_factors=k, reg_w=0.1,
+                   reg_v=0.5, reg0=0.05)
+    als_cfg, _ = _als_cfgs(ds, blocks)
+    ws, nb = PA.build_workspace(ds, cfg, als_cfg, device="cpu")
+    assert column_pure <= PA.blocks_are_column_pure(
+        ds, PA.feature_blocks_of(cfg.num_features, als_cfg)[0])
+    nr = int(ws.present.shape[0])
+    rw, rv = (torch.from_numpy(r) for r in cfg.reg_vectors())
+    compact = direct = params_from_numpy(*_params(cfg, 31), device="cpu")
+    for _ in range(3):
+        compact = PA.als_sweep_compact(compact, ws, nb, nr, cfg.reg0, rw, rv,
+                                       column_pure=column_pure)
+        direct = PA.als_sweep(direct, ws, nb, cfg.num_features, cfg.reg0,
+                              rw, rv)
+    _assert_params(compact, direct, **SWEEP_TOL)
+
+
+def test_counters_read_paired_gathers_and_q_next_patches():
+    """In a profiler session a column-pure sweep of K factors over two
+    slot blocks counts on ``als.paired_gather_slots`` the N slots of each
+    factor's gathering block (block 1; block 0 is the example order) and
+    on ``als.q_next_patches`` the K - 1 factors whose last patch loads the
+    next factor's q; contiguous blocks of 20 features (not column-pure:
+    every block gathers over all 2 N entries) count no such patch."""
+    from torch.profiler import profile
+    from sparkfm_tpu_torch.utils import profiling
+    ds = _two_slot(29, n=257)
+    k, sweeps, n = 4, 2, ds.num_examples
+    cfg = FMConfig(num_features=ds.num_features, num_factors=k, reg_v=0.5)
+    for als_cfg, want in (
+            (ALSConfig(epochs=sweeps, feature_blocks=PA.slot_blocks(ds)),
+             {"als.paired_gather_slots": sweeps * k * n,
+              "als.q_next_patches": sweeps * (k - 1)}),
+            (ALSConfig(epochs=sweeps, block_size=20),
+             {"als.paired_gather_slots":
+              sweeps * k * -(-ds.num_features // 20) * (2 * n)})):
+        profiling.clear()
+        try:
+            with profile():
+                train_als(cfg, als_cfg, ds, device="cpu")
+            counters = profiling.recorded()["counters"]
+        finally:
+            profiling.clear()
+        assert {c: counters[c] for c in counters if c.startswith("als.")} \
+            == want

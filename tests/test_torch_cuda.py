@@ -25,7 +25,7 @@ import torch
 from sparkfm_tpu_torch import (ALSConfig, FMConfig, MicroBatcher,
                                SGDConfig, Task, train_als, train_sgd)
 from sparkfm_tpu_torch.data import synth as psynth
-from sparkfm_tpu_torch.data.batching import batch_iterator
+from sparkfm_tpu_torch.data.batching import SparseDataset, batch_iterator
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
 from sparkfm_tpu_torch.ops import rowio, segsum
@@ -459,9 +459,11 @@ def test_train_als_on_card_matches_cpu(dev):
 
 
 
-def _torch_streams(e, q, x, row, seg, u):
-    """B7 over the five streams as torch forms them on the card (the
-    compact sweep's former form): the ALS stream sums' bit-exact oracle."""
+def _torch_streams(eq, x, row, seg, u):
+    """B7 over the five streams as torch forms them on the card from e and
+    q, eq's columns (the compact sweep's former form): the ALS stream
+    sums' bit-exact oracle."""
+    e, q = eq[:, 0], eq[:, 1]
     e_c = e if row is None else e.index_select(0, row)
     q_c = q if row is None else q.index_select(0, row)
     x2 = x * x
@@ -472,23 +474,26 @@ def _torch_streams(e, q, x, row, seg, u):
 
 def _stream_sums_case(dev, n, kind, gather, offset, seed):
     """A block as the compact sweep hands it over: seg of the given kind
-    (``_colsums_case``), x, and e, q with the rows into them (or none:
-    e, q in seg's order). With ``offset`` x, the rows and seg are the
-    second half of arrays of 2N, N odd: views off 16-byte bounds, as
-    ``col_rank[b*N:(b+1)*N]`` is at config 2."""
+    (``_colsums_case``), x, and the (e, q) pairs eq with the rows into
+    them (or none: eq in seg's order). With ``offset`` x, the rows and seg
+    are the second half of arrays of 2N, N odd: views off 16-byte bounds,
+    as ``col_rank[b*N:(b+1)*N]`` is at config 2, and eq a view 8 bytes
+    past a 16-byte bound."""
     rng = np.random.default_rng(seed)
     (x,), seg, u = _colsums_case(dev, n, 1, kind, seed)
     rows = max(1, n // 3) if gather else n
-    e, q = (torch.as_tensor(rng.normal(size=rows).astype(np.float32),
-                            device=dev) for _ in range(2))
+    eq = torch.as_tensor(rng.normal(size=(rows, 2)).astype(np.float32),
+                         device=dev)
     row = (torch.as_tensor(rng.integers(0, rows, n).astype(np.int32),
                            device=dev) if gather else None)
     if offset:
         x = torch.cat([x.flip(0), x])[n:]
         seg = torch.cat([seg.flip(0), seg])[n:]
         row = None if row is None else torch.cat([row, row])[n:]
+        eq = torch.cat([eq[:1], eq])[1:]
         assert seg.data_ptr() % 16 == 4 * (n % 4)
-    return e, q, x, row, seg, u
+        assert eq.data_ptr() % 16 == 8
+    return eq, x, row, seg, u
 
 
 STREAM_CASES = [  # (n, kind, gather)
@@ -503,23 +508,24 @@ STREAM_CASES = [  # (n, kind, gather)
 def test_stream_sums_kernel_equals_b7_on_torch_streams(dev, n, kind, gather,
                                                        offset):
     """The ALS stream sums on the card equal B7 over the streams torch
-    forms, bit for bit: without and with rows, at N not a multiple of the
-    chunk or tile, gapped ranks, one run, unique ranks, runs crossing one
-    or two chunk boundaries, a run over 33 partial rows and a run across
-    ~44 chunks (pass 2's block-wide case), inputs at odd offsets. A second
+    forms from e and q, bit for bit: without and with rows, at N not a
+    multiple of the chunk or tile, gapped ranks, one run, unique ranks,
+    runs crossing one or two chunk boundaries, a run over 33 partial rows
+    and a run across ~44 chunks (pass 2's block-wide case), inputs at odd
+    offsets (eq staged from 8 bytes past a 16-byte bound). A second
     call repeats the first bit for bit; the sums hold to the plain version
     in float64 at B7's tolerance; ranks without slots are zero."""
-    e, q, x, row, seg, u = _stream_sums_case(dev, n, kind, gather, offset,
-                                             seed=n + 2 * gather + offset)
+    eq, x, row, seg, u = _stream_sums_case(dev, n, kind, gather, offset,
+                                           seed=n + 2 * gather + offset)
     before = segsum.STREAM_SUMS.launches, segsum.COLSUMS.launches
-    got = segsum.als_stream_sums(e, q, x, row, seg, u)
+    got = segsum.als_stream_sums(eq, x, row, seg, u)
     assert (segsum.STREAM_SUMS.launches, segsum.COLSUMS.launches) == (
         before[0] + 1, before[1])
     assert got.shape == (u, 5)
-    assert torch.equal(got, _torch_streams(e, q, x, row, seg, u))
-    assert torch.equal(got, segsum.als_stream_sums(e, q, x, row, seg, u))
-    want = segsum.als_stream_sums_reference(e.double(), q.double(),
-                                            x.double(), row, seg, u)
+    assert torch.equal(got, _torch_streams(eq, x, row, seg, u))
+    assert torch.equal(got, segsum.als_stream_sums(eq, x, row, seg, u))
+    want = segsum.als_stream_sums_reference(eq.double(), x.double(), row,
+                                            seg, u)
     assert float(((got.double() - want).abs() / (1 + want.abs())).max()) \
         < 1e-4
     empty = torch.ones(u, dtype=torch.bool, device=dev)
@@ -529,8 +535,8 @@ def test_stream_sums_kernel_equals_b7_on_torch_streams(dev, n, kind, gather,
 
 def test_stream_sums_kernel_on_no_slots_gives_zeros(dev):
     before = segsum.STREAM_SUMS.launches
-    none = torch.zeros((0,), device=dev)
-    got = segsum.als_stream_sums(none, none, none, None,
+    got = segsum.als_stream_sums(torch.zeros((0, 2), device=dev),
+                                 torch.zeros((0,), device=dev), None,
                                  torch.zeros((0,), dtype=torch.int32,
                                              device=dev), 7)
     assert got.shape == (7, 5) and not got.any()
@@ -538,14 +544,15 @@ def test_stream_sums_kernel_on_no_slots_gives_zeros(dev):
 
 
 def test_stream_sums_kernel_traps_on_a_row_out_of_range(dev):
-    """A row outside [0, len(e)) traps the kernel before e and q are read.
-    In a child process: a trap leaves its CUDA context unusable."""
+    """A row outside [0, len(eq)) traps the kernel before its pair is
+    read. In a child process: a trap leaves its CUDA context unusable."""
     code = ("import torch\n"
             "from sparkfm_tpu_torch.ops import segsum\n"
-            "e = torch.ones(4, device='cuda')\n"
+            "eq = torch.ones((4, 2), device='cuda')\n"
+            "x = torch.ones(4, device='cuda')\n"
             "i = lambda v: torch.tensor(v, dtype=torch.int32, "
             "device='cuda')\n"
-            "segsum.als_stream_sums(e, e, e, i([0, 1, 4, 2]), i([0, 0, 1, 2]),"
+            "segsum.als_stream_sums(eq, x, i([0, 1, 4, 2]), i([0, 0, 1, 2]),"
             " 3)\n"
             "torch.cuda.synchronize()\n")
     child = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -584,12 +591,12 @@ CELL_N, CELL_USERS, CELL_RANKS = 25_000_095, 162_541, 221_588
 
 
 def _patch_case(dev, n, u, users):
-    """The compact sweep's patch inputs at a block's shapes: e, q (n,), the
-    (u, 2) table [delta | dsq] with zero rows off the block, and the
-    (2, n) rows of ranks (slot 0 sorted users, slot 1 random movies) and
-    values."""
+    """The compact sweep's patch inputs at a block's shapes: the (e, q)
+    pairs eq (n, 2), the (u, 2) table [delta | dsq] with zero rows off the
+    block, the (2, n) rows of ranks (slot 0 sorted users, slot 1 random
+    movies) and values, and a next factor's q (n,)."""
     gen = torch.Generator(device=dev).manual_seed(n)
-    e, q = (torch.randn(n, generator=gen, device=dev) for _ in range(2))
+    eq = torch.randn((n, 2), generator=gen, device=dev)
     table = torch.randn((u, 2), generator=gen, device=dev)
     table[torch.rand(u, generator=gen, device=dev) < 0.3] = 0.0
     rank = torch.stack([
@@ -597,30 +604,33 @@ def _patch_case(dev, n, u, users):
                                  device=dev))[0],
         torch.randint(users, u, (n,), generator=gen, device=dev)]).int()
     vals = torch.randn((2, n), generator=gen, device=dev)
-    return e, q, table, rank, vals
+    q_next = torch.randn(n, generator=gen, device=dev)
+    return eq, table, rank, vals, q_next
 
 
 @pytest.mark.parametrize("b", [0, 1])
 @pytest.mark.parametrize("n", [1, 2049, CELL_N])
 def test_patch_kernel_equals_the_torch_lines(dev, n, b):
-    """The ALS patch kernel patches e and q in place to what its plain
-    version, the compact sweep's torch lines run on the card, gives, bit
-    for bit: at the ml25m-als-sweep cell's N and U (block 1's rank and
-    vals rows 12 bytes past a 16-byte bound) and at N not a multiple of
-    the kernel's tile; a second call from the same inputs repeats the
-    first."""
+    """The ALS patch kernel patches the (e, q) pairs in place to what its
+    plain version, the compact sweep's torch lines run on the card on eq's
+    columns, gives, bit for bit, with and without the next factor's q: at
+    the ml25m-als-sweep cell's N and U (block 1's rank and vals rows 12
+    bytes past a 16-byte bound, its q_next row 4 bytes past one) and at N
+    not a multiple of the kernel's tile; a second call from the same
+    inputs repeats the first."""
     u, users = (CELL_RANKS, CELL_USERS) if n == CELL_N else (300, 100)
-    e, q, table, rank, vals = _patch_case(dev, n, u, users)
+    eq, table, rank, vals, q_next = _patch_case(dev, n, u, users)
     if n == CELL_N:
         assert rank[b].data_ptr() % 16 == vals[b].data_ptr() % 16 == 12 * b
-    want = e.clone(), q.clone()
-    segsum.als_patch_reference(*want, table, rank[b], vals[b])
-    for _ in range(2):
-        got = e.clone(), q.clone()
-        before = segsum.ALS_PATCH.launches
-        segsum.als_patch(*got, table, rank[b], vals[b])
-        assert segsum.ALS_PATCH.launches == before + 1
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for nxt in (None, torch.cat([q_next[:1], q_next])[1:]):
+        want = eq.clone()
+        segsum.als_patch_reference(want, table, rank[b], vals[b], nxt)
+        for _ in range(2):
+            got = eq.clone()
+            before = segsum.ALS_PATCH.launches
+            segsum.als_patch(got, table, rank[b], vals[b], nxt)
+            assert segsum.ALS_PATCH.launches == before + 1
+            assert torch.equal(got, want)
 
 
 def test_patch_kernel_traps_on_a_rank_out_of_range(dev):
@@ -628,11 +638,11 @@ def test_patch_kernel_traps_on_a_rank_out_of_range(dev):
     read. In a child process: a trap leaves its CUDA context unusable."""
     code = ("import torch\n"
             "from sparkfm_tpu_torch.ops import segsum\n"
-            "e, q, v = (torch.ones(4, device='cuda') for _ in range(3))\n"
-            "t = torch.ones((4, 2), device='cuda')\n"
+            "eq, t = (torch.ones((4, 2), device='cuda') for _ in range(2))\n"
+            "v = torch.ones(4, device='cuda')\n"
             "r = torch.tensor([0, 1, 4, 2], dtype=torch.int32, "
             "device='cuda')\n"
-            "segsum.als_patch(e, q, t, r, v)\n"
+            "segsum.als_patch(eq, t, r, v)\n"
             "torch.cuda.synchronize()\n")
     child = subprocess.run([sys.executable, "-c", code], capture_output=True,
                            text=True, timeout=300, cwd=REPO)
@@ -674,6 +684,49 @@ def test_train_als_patch_kernel_equals_the_torch_lines(dev, monkeypatch,
     for name in ("w0", "w", "v"):
         assert torch.equal(getattr(kernel.params, name),
                            getattr(plain.params, name)), name
+
+def test_compact_sweeps_on_pairs_equal_plain_sums_and_patch(dev,
+                                                            monkeypatch):
+    """Three compact sweeps on a config-2-shaped dataset (slot 0 users in
+    example order, slot 1 movies scattered over the examples, so block 1
+    gathers its (e, q) pairs by its rows) give, bit for bit, the
+    parameters of the same sweeps with the stream sums formed by torch
+    from e and q and summed by B7 and the patch's torch lines; the
+    counters read one gathered slot an example a factor and K - 1
+    patches with the next factor's q a sweep."""
+    from torch.profiler import profile
+    from sparkfm_tpu_torch.utils import profiling
+    rng = np.random.default_rng(8)
+    n, users, movies, k, sweeps = 200_003, 5_000, 2_000, 4, 3
+    ids = np.stack([rng.integers(0, users, n),
+                    users + (rng.zipf(1.3, n) % movies)], axis=1)
+    ds = SparseDataset(ids=ids.astype(np.int32),
+                       vals=np.ones((n, 2), np.float32),
+                       y=rng.normal(size=n).astype(np.float32),
+                       num_features=users + movies)
+    cfg = FMConfig(num_features=ds.num_features, num_factors=k, reg_w=0.1,
+                   reg_v=0.5, seed=8)
+    als_cfg = ALSConfig(epochs=sweeps, feature_blocks=pals.slot_blocks(ds))
+    init = pfm.init_params(cfg, torch.Generator().manual_seed(8),
+                           device="cpu")
+    profiling.clear()
+    try:
+        with profile():
+            kernels = train_als(cfg, als_cfg, ds, params=init, device=dev)
+        counters = profiling.recorded()["counters"]
+    finally:
+        profiling.clear()
+    assert counters["als.paired_gather_slots"] == sweeps * k * n
+    assert counters["als.q_next_patches"] == sweeps * (k - 1)
+    monkeypatch.setattr(segsum, "als_stream_sums", _torch_streams)
+    monkeypatch.setattr(segsum, "als_patch", segsum.als_patch_reference)
+    before = segsum.STREAM_SUMS.launches, segsum.ALS_PATCH.launches
+    plain = train_als(cfg, als_cfg, ds, params=init, device=dev)
+    assert (segsum.STREAM_SUMS.launches, segsum.ALS_PATCH.launches) == before
+    for name in ("w0", "w", "v"):
+        assert torch.equal(getattr(kernels.params, name),
+                           getattr(plain.params, name)), name
+
 
 def _rows_case(dev, n, w, kind, seed):
     """Sorted ranks of a kind and (N, W) normal rows on the card."""

@@ -741,8 +741,8 @@ def _stream_sums_case(rng, n, rows, gather, unit_x, kind="gaps"):
 
 def _sweep_streams(e, q, x, row, seg, u):
     """The streams as the compact sweep formed them before it summed them
-    in one call: e and q gathered into CSC order, five torch products,
-    then B7's plain version."""
+    in one call: e and q, two vectors, gathered into CSC order, five torch
+    products, then B7's plain version."""
     e_csc = e if row is None else e.index_select(0, row)
     q_csc = q if row is None else q.index_select(0, row)
     xb2 = x * x
@@ -754,20 +754,22 @@ def _sweep_streams(e, q, x, row, seg, u):
 @pytest.mark.parametrize("unit_x", [False, True])
 @pytest.mark.parametrize("gather", [False, True])
 def test_stream_sums_plain_equals_the_sweeps_streams(gather, unit_x):
-    """The plain version (what CPU tensors run) equals the sweep's streams
-    summed by B7's plain version, bit for bit, and JAX
-    ``segment_colsums(force="xla")`` over the same streams at 1e-5."""
+    """The plain version (what CPU tensors run) on the (e, q) pairs equals
+    the sweep's streams from e and q as two vectors, summed by B7's plain
+    version, bit for bit, and JAX ``segment_colsums(force="xla")`` over
+    the same streams at 1e-5."""
     rng = np.random.default_rng(50 + 2 * gather + unit_x)
     n = 3001
     e, q, x, row, seg, u = _stream_sums_case(rng, n, 700 if gather else n,
                                              gather, unit_x)
+    eq = torch.stack([e, q], dim=1)
     before = segsum.STREAM_SUMS.launches
-    got = segsum.als_stream_sums(e, q, x, row, seg, u)
+    got = segsum.als_stream_sums(eq, x, row, seg, u)
     assert segsum.STREAM_SUMS.launches == before      # CPU: plain version
     assert got.shape == (u, 5) and got.dtype == torch.float32
     assert torch.equal(got, _sweep_streams(e, q, x, row, seg, u))
     assert torch.equal(got, segsum.als_stream_sums_reference(
-        e, q, x, row, seg, u))
+        eq, x, row, seg, u))
     ec = e if row is None else e[row.long()]
     qc = q if row is None else q[row.long()]
     streams = [ec * x * qc, ec * x * x, x * x * qc * qc, x * x * x * qc,
@@ -784,64 +786,70 @@ def test_stream_sums_plain_keeps_float64_and_takes_no_slots():
     give zeros."""
     rng = np.random.default_rng(60)
     e, q, x, row, seg, u = _stream_sums_case(rng, 200, 50, True, False)
-    got = segsum.als_stream_sums_reference(e.double(), q.double(),
-                                           x.double(), row, seg, u)
+    got = segsum.als_stream_sums_reference(
+        torch.stack([e, q], dim=1).double(), x.double(), row, seg, u)
     assert got.dtype == torch.float64
     np.testing.assert_allclose(
         got.numpy(), _sweep_streams(e.double(), q.double(), x.double(), row,
                                     seg, u).numpy(), rtol=1e-12)
-    empty = segsum.als_stream_sums(torch.zeros(0), torch.zeros(0),
-                                   torch.zeros(0), None,
+    empty = segsum.als_stream_sums(torch.zeros(0, 2), torch.zeros(0), None,
                                    torch.zeros(0, dtype=torch.int32), 4)
     assert empty.shape == (4, 5) and not empty.any()
 
 
-_N5, _I32 = torch.zeros(5), torch.zeros(5, dtype=torch.int32)
+_N5, _I32, _EQ5 = torch.zeros(5), torch.zeros(5, dtype=torch.int32), \
+    torch.zeros(5, 2)
 
 
 @pytest.mark.parametrize("args,match", [
-    ((_N5, _N5, _N5, _I32.long(), _I32), "int32 row"),
-    ((_N5, _N5, _N5, None, _I32.long()), "int32 seg"),
-    ((_N5, _N5, _N5, None, torch.zeros(6, dtype=torch.int32)), "lengths"),
-    ((torch.zeros(9), _N5, _N5, _I32, _I32), "lengths"),
-    ((_N5, _N5, torch.zeros(4), _I32, _I32), "lengths"),
-    ((_N5, _N5, _N5, torch.zeros(4, dtype=torch.int32), _I32), "lengths"),
-    ((torch.zeros(10)[::2], _N5, _N5, None, _I32), "contiguous"),
-    ((_N5, _N5, _N5, torch.zeros(10, dtype=torch.int32)[::2], _I32),
+    ((_EQ5, _N5, _I32.long(), _I32), "int32 row"),
+    ((_EQ5, _N5, None, _I32.long()), "int32 seg"),
+    ((_EQ5, _N5, None, torch.zeros(6, dtype=torch.int32)), "lengths"),
+    ((torch.zeros(9, 2), _N5, None, _I32), "lengths"),
+    ((_EQ5, torch.zeros(4), _I32, _I32), "lengths"),
+    ((_EQ5, _N5, torch.zeros(4, dtype=torch.int32), _I32), "lengths"),
+    ((torch.zeros(2, 5).t(), _N5, None, _I32), "contiguous"),
+    ((_EQ5, _N5, torch.zeros(10, dtype=torch.int32)[::2], _I32),
      "contiguous"),
-    ((_N5, _N5.double(), _N5, None, _I32), "float32 q"),
-    ((_N5, _N5, _N5.half(), None, _I32), "float32 x"),
-    ((_N5, torch.zeros(5, device="meta"), _N5, None, _I32), "devices"),
+    ((_EQ5.double(), _N5, None, _I32), "float32 eq"),
+    ((_EQ5, _N5.half(), None, _I32), "float32 x"),
+    ((_EQ5, torch.zeros(5, device="meta"), None, _I32), "devices"),
+    ((torch.zeros(10), torch.zeros(10), None,
+      torch.zeros(10, dtype=torch.int32)), r"\(R, 2\) float32 eq"),
+    ((torch.zeros(5, 3), _N5, None, _I32), r"\(R, 2\) float32 eq"),
+    ((torch.zeros(11)[1:].view(5, 2), _N5, None, _I32), "8-byte-aligned"),
 ])
 def test_stream_sums_reject_what_the_kernel_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
         segsum.als_stream_sums(*args, 5)
 
 
-# ---- the ALS patch: q and e after a (factor, block) of a column-pure block
+# ---- the ALS patch: the (e, q) pairs after a (factor, block) of a
+# column-pure block
 
 def _patch_case(rng, n, u):
     """e, q (n,), the (u, 2) table [delta | dsq] with zero rows off the
-    block, and the (2, n) rank-space rows of ranks and values, as the
-    compact sweep holds them."""
+    block, the (2, n) rank-space rows of ranks and values, as the compact
+    sweep holds them, and a next factor's q (n,)."""
     f32 = lambda *shape: torch.from_numpy(
         rng.normal(size=shape).astype(np.float32))
     e, q, table = f32(n), f32(n), f32(u, 2)
     table[torch.from_numpy(rng.random(u) < 0.3)] = 0.0
     rank = torch.from_numpy(rng.integers(0, u, (2, n)).astype(np.int32))
-    return e, q, table, rank, f32(2, n)
+    return e, q, table, rank, f32(2, n), f32(n)
 
 
 @pytest.mark.parametrize("n", [1, 3001])
 @pytest.mark.parametrize("b", [0, 1])
 def test_patch_plain_equals_the_sweeps_lines(b, n):
-    """The plain version (what CPU tensors run) patches e and q in place
-    to the compact sweep's patch lines through ``BlockViews.patch``, bit
-    for bit, on row b of the (2, N) view (a view at element offset b N, N
-    odd)."""
+    """The plain version (what CPU tensors run) patches the (e, q) pairs
+    in place to the compact sweep's former patch lines on e and q as two
+    vectors through ``BlockViews.patch``, bit for bit, on row b of the
+    (2, N) view (a view at element offset b N, N odd); with ``q_next`` the
+    q column takes it instead of q', and e' is the same."""
     from sparkfm_tpu_torch.solvers import als as PA
     rng = np.random.default_rng(70 + 2 * b + n)
-    e, q, table, rank, vals = _patch_case(rng, n, 257)
+    e, q, table, rank, vals, q_next = _patch_case(rng, n, 257)
     assert rank[b].storage_offset() == vals[b].storage_offset() == b * n
     views = PA.BlockViews(n, column_pure=True)
     q_want = q + views.patch(table[:, 0], rank, vals, b)
@@ -849,40 +857,50 @@ def test_patch_plain_equals_the_sweeps_lines(b, n):
               - 0.5 * views.patch(table[:, 1], rank, vals.square(), b))
     before = segsum.ALS_PATCH.launches
     for fn in (segsum.als_patch, segsum.als_patch_reference):
-        e_got, q_got = e.clone(), q.clone()
-        assert fn(e_got, q_got, table, rank[b], vals[b]) is None
-        assert torch.equal(e_got, e_want) and torch.equal(q_got, q_want)
+        for nxt in (None, q_next):
+            eq = torch.stack([e, q], dim=1)
+            assert fn(eq, table, rank[b], vals[b], nxt) is None
+            assert torch.equal(eq[:, 0], e_want)
+            assert torch.equal(eq[:, 1], q_want if nxt is None else nxt)
     assert segsum.ALS_PATCH.launches == before        # CPU: plain version
     assert not torch.equal(e, e_want) and not torch.equal(q, q_want)
 
 
-_P5, _T3 = torch.zeros(5), torch.zeros(3, 2)
+_P5, _T3, _Q5 = torch.zeros(5), torch.zeros(3, 2), torch.zeros(5, 2)
 _R5 = torch.zeros(5, dtype=torch.int32)
 
 
 @pytest.mark.parametrize("args,match", [
-    ((_P5.double(), _P5, _T3, _R5, _P5), "float32 e"),
-    ((_P5, _P5.half(), _T3, _R5, _P5), "float32 q"),
-    ((_P5, _P5, _T3, _R5.long(), _P5), "int32 rank"),
-    ((_P5, _P5, _T3, _R5, torch.zeros(2, 5)), "1-D float32 vals"),
-    ((torch.zeros(10)[::2], _P5, _T3, _R5, _P5), "contiguous"),
-    ((_P5, _P5, _T3.double(), _R5, _P5), "float32 table"),
-    ((_P5, _P5, torch.zeros(3), _R5, _P5), r"\(U, 2\) float32 table"),
-    ((_P5, _P5, torch.zeros(3, 3), _R5, _P5), r"\(U, 2\) float32 table"),
-    ((_P5, _P5, torch.zeros(2, 3).t(), _R5, _P5), "contiguous 8-byte"),
-    ((_P5, _P5, torch.zeros(7)[1:].view(3, 2), _R5, _P5), "8-byte-aligned"),
-    ((_P5, torch.zeros(6), _T3, _R5, _P5), "lengths"),
-    ((_P5, _P5, _T3, torch.zeros(4, dtype=torch.int32), _P5), "lengths"),
-    ((_P5, _P5, _T3, _R5, torch.zeros(6)), "lengths"),
-    ((_P5, _P5, _T3, _R5, _P5), "one tensor"),
-    ((_P5, _P5.clone(), torch.zeros((3, 2), device="meta"), _R5, _P5),
-     "devices"),
-    ((torch.zeros(5, device="meta"), torch.zeros(5, device="meta"),
-      torch.zeros((3, 2), device="meta"),
+    ((_Q5.double(), _T3, _R5, _P5), "float32 e"),
+    ((_Q5, _T3, _R5, _P5, _P5.half()), "float32 q"),
+    ((_Q5, _T3, _R5.long(), _P5), "int32 rank"),
+    ((_Q5, _T3, _R5, torch.zeros(2, 5)), "1-D float32 vals"),
+    ((torch.zeros(2, 5).t(), _T3, _R5, _P5), "contiguous"),
+    ((_Q5, _T3.double(), _R5, _P5), "float32 table"),
+    ((_Q5, torch.zeros(3), _R5, _P5), r"\(U, 2\) float32 table"),
+    ((_Q5, torch.zeros(3, 3), _R5, _P5), r"\(U, 2\) float32 table"),
+    ((_Q5, torch.zeros(2, 3).t(), _R5, _P5), "contiguous 8-byte"),
+    ((_Q5, torch.zeros(7)[1:].view(3, 2), _R5, _P5), "8-byte-aligned"),
+    ((_Q5, _T3, _R5, _P5, torch.zeros(6)), "lengths"),
+    ((_Q5, _T3, torch.zeros(4, dtype=torch.int32), _P5), "lengths"),
+    ((_Q5, _T3, _R5, torch.zeros(6)), "lengths"),
+    ((_Q5, _T3, _R5, _P5, _Q5.view(-1)[:5]), "overlaps q_next"),
+    ((_Q5, torch.zeros((3, 2), device="meta"), _R5, _P5), "devices"),
+    ((torch.zeros((5, 2), device="meta"), torch.zeros((3, 2), device="meta"),
       torch.zeros(5, dtype=torch.int32, device="meta"),
       torch.zeros(5, device="meta")), "no kernel for meta"),
+    ((torch.zeros(5), _T3, _R5, _P5), r"\(R, 2\) float32 eq"),
+    ((torch.zeros(5, 3), _T3, _R5, _P5), r"\(R, 2\) float32 eq"),
+    ((torch.zeros(11)[1:].view(5, 2), _T3, _R5, _P5), "8-byte-aligned"),
+    ((_Q5, _Q5.view(-1)[2:8].view(3, 2), _R5, _P5), "overlaps table"),
 ])
 def test_patch_rejects_what_the_kernel_does_not_take(args, match):
     with pytest.raises(ValueError, match=match):
         segsum.als_patch(*args)
 
+
+def test_patch_bytes_count_q_next():
+    """``als_patch_bytes``: 24 bytes an example and the table once, 28
+    with the next factor's q."""
+    assert segsum.als_patch_bytes(10, 3) == 24 * 10 + 8 * 3
+    assert segsum.als_patch_bytes(10, 3, q_next=True) == 28 * 10 + 8 * 3
