@@ -14,8 +14,10 @@ one for batches whose slot l holds a feature of field l
 (:func:`ffm_interaction_slot_major`), and the per-pair oracle
 (:func:`ffm_scores_pairwise`).
 
-The math stays plain torch, as the JAX package left it to XLA: it is a
-small share of a call next to the table reads.
+The math stays plain torch, as the JAX package left it to XLA. For the
+plain FM it is a small share of a call next to the table reads; FFM at
+Criteo's 39 fields (741 pairs an example, (B, 39, 39, K) tensors) makes
+it most of a fused training step (``PERF.md``).
 """
 
 from __future__ import annotations

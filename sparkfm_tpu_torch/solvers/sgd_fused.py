@@ -45,6 +45,13 @@ The train step (:func:`make_fused_train_step`):
 
 It takes the batch's host plan when it has one, else builds a plan on the
 device (``ops/embedding.py::dedup_ids``) with no host round trip.
+
+Each step runs in three consecutive spans (``utils/profiling.py::
+annotate``, with CUDA-event device times on the card outside a graph
+capture): ``fused.rows`` (the plan, step 1 and the spread),
+``fused.interaction`` (the loss and ``torch.autograd.grad``) and
+``fused.update`` (steps 3 to 5); the counter ``fused.slot_rows`` adds the
+batch's B * L slots. Both are no-ops outside a profiler session.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import embedding as E
 from sparkfm_tpu_torch.ops import segsum
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
-from sparkfm_tpu_torch.utils import graphs
+from sparkfm_tpu_torch.utils import graphs, profiling
 
 _INIT_CHUNK_BYTES = 1 << 28        # V drawn 256 MiB at a time
 
@@ -252,39 +259,52 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
 
     def train_step(state: FusedState, batch):
         device = state.table.device
-        plan = batch.plan
-        if plan is not None:
-            budget = plan.uids.shape[0]
-        else:
-            budget = sgd_cfg.unique_budget or E.auto_budget(batch.ids.numel())
-            plan = E.dedup_ids(batch.ids, budget,
-                               fill=state.table.shape[0] - 1)
-        use_segsum = segsum_accumulate(sgd_cfg.accumulate, device)
-        if use_segsum and plan.order is None:
-            raise ValueError(
-                f"accumulate={sgd_cfg.accumulate!r} on {device} sums by "
-                "sorted runs and requires a plan with the id-sort "
-                "permutation (plan.order/plan.seg); both dedup_ids and "
-                "host_dedup emit it - this plan was built without it")
+        # CUDA events cannot be recorded into a graph being captured (the
+        # multi-step's), so its spans there are host ranges only
+        on_card = (profiling.session() and device.type == "cuda"
+                   and not torch.cuda.is_current_stream_capturing())
+        profiling.count("fused.slot_rows", batch.ids.numel())
         if reg_cpu is not None and device not in reg_on:
             reg_on[device] = tuple(r.to(device) for r in reg_cpu)
 
-        with torch.no_grad():
-            rec_u = E.gather_unique(state.table, plan)          # (U, W)
-            rec_u = torch.where(
-                valid_slots(plan.count, budget, device)[:, None], rec_u, 0.0)
-            vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]], 1)
-            vw_rows = E.spread(vw_u, plan)                      # (B, L, k+1)
-        w0 = state.w0.detach().requires_grad_()
-        w_rows = vw_rows[..., k].detach().requires_grad_()
-        v_rows = vw_rows[..., :k].detach().requires_grad_()
-        with torch.enable_grad():
-            total, (scores, data_loss) = sgd_solver._batch_loss_from_rows(
-                w0, w_rows, v_rows, batch, cfg, reg_on.get(device))
-            g_w0, g_wrows, g_vrows = torch.autograd.grad(
-                total, (w0, w_rows, v_rows))
+        with profiling.annotate("fused.rows", device=on_card):
+            plan = batch.plan
+            if plan is not None:
+                budget = plan.uids.shape[0]
+            else:
+                budget = (sgd_cfg.unique_budget
+                          or E.auto_budget(batch.ids.numel()))
+                plan = E.dedup_ids(batch.ids, budget,
+                                   fill=state.table.shape[0] - 1)
+            use_segsum = segsum_accumulate(sgd_cfg.accumulate, device)
+            if use_segsum and plan.order is None:
+                raise ValueError(
+                    f"accumulate={sgd_cfg.accumulate!r} on {device} sums by "
+                    "sorted runs and requires a plan with the id-sort "
+                    "permutation (plan.order/plan.seg); both dedup_ids and "
+                    "host_dedup emit it - this plan was built without it")
+            with torch.no_grad():
+                rec_u = E.gather_unique(state.table, plan)      # (U, W)
+                rec_u = torch.where(
+                    valid_slots(plan.count, budget, device)[:, None], rec_u,
+                    0.0)
+                vw_u = torch.cat([rec_u[:, :k], rec_u[:, 2 * k:2 * k + 1]],
+                                 1)
+                vw_rows = E.spread(vw_u, plan)                  # (B, L, k+1)
 
-        with torch.no_grad():
+        with profiling.annotate("fused.interaction", device=on_card):
+            w0 = state.w0.detach().requires_grad_()
+            w_rows = vw_rows[..., k].detach().requires_grad_()
+            v_rows = vw_rows[..., :k].detach().requires_grad_()
+            with torch.enable_grad():
+                total, (scores, data_loss) = (
+                    sgd_solver._batch_loss_from_rows(
+                        w0, w_rows, v_rows, batch, cfg, reg_on.get(device)))
+                g_w0, g_wrows, g_vrows = torch.autograd.grad(
+                    total, (w0, w_rows, v_rows))
+
+        with profiling.annotate("fused.update", device=on_card), \
+                torch.no_grad():
             gv_s = g_vrows.reshape(-1, k)
             gw_s = g_wrows.reshape(-1, 1)
             if use_segsum:

@@ -1465,6 +1465,80 @@ def test_deepfm_adam_dropout_on_card_matches_the_reference(dev, path):
         assert gap <= 1e-3 * float(want.norm()) + 1e-7, name
 
 
+def test_ffm_juan16_fused_step_on_card_matches_the_reference(dev):
+    """One step of the field-aware FM at Juan et al.'s (2016) Criteo
+    settings (39 fields, k = 4, no bias or linear term, adagrad with eps
+    1, V ~ U(0, 1/sqrt(k)), values 1/sqrt(39)) at B = 4,096 on the card,
+    by "auto" on the fused path with a device plan: B1, B6 and B2 once;
+    inside a profiler session, whose record holds the step's three spans
+    with CUDA-event device times and B * 39 slots on ``fused.slot_rows``.
+    Against the benchmark's float64 per-pair reference on the card, with
+    tests/test_torch_ffm_juan16.py's tolerances: the loss rtol 1e-6, the
+    slots rtol 1e-4 (atol 1e-15), V atol 2e-7 (a few float32 ulps at
+    |v| <= 0.5)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.gen import ffm as gen_ffm
+    from portbench.reference import ffm as R
+    from sparkfm_tpu_torch.solvers import sgd as psgd
+    from sparkfm_tpu_torch.utils import profiling
+    fields, k, b, feats = 39, 4, 4096, 1 << 20
+    cfg = FMConfig(num_features=feats, num_factors=k, num_fields=fields,
+                   slot_major_fields=True, use_bias=False, use_linear=False,
+                   task=Task.CLASSIFICATION, reg_w=0.0, reg_v=1e-5)
+    sgd = SGDConfig(batch_size=b, optimizer="adagrad", learning_rate=0.2,
+                    adagrad_eps=1.0, host_plan=False)
+    assert psgd.resolve_update_path(cfg, sgd) == "fused"
+    rng = np.random.default_rng(3)
+    per = feats // fields
+    ids = ((rng.zipf(1.3, (b, fields)) - 1) % per
+           + per * np.arange(fields)).astype(np.int32)
+    vals = np.full((b, fields), 1 / np.sqrt(fields), np.float32)
+    y = rng.integers(0, 2, b).astype(np.float32)
+    ds = SparseDataset(ids=ids, vals=vals, y=y, num_features=feats)
+    w0, w, v = gen_ffm.ffm_weights(feats, fields, k, 7, dev)
+    state = sgd_fused.fused_from_params(pfm.FMParams(w0, w, v), cfg,
+                                        device=dev)
+    step = sgd_fused.make_fused_train_step(cfg, sgd)
+    batch = next(batch_iterator(ds, b, device=dev))
+    kernels = (rowio.GATHER, segsum.ROWSUM_SQ, rowio.SCATTER)
+    counts = [kern.launches for kern in kernels]
+    profiling.clear()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            with profiling.annotate("train.dispatch"):
+                state, aux = step(state, batch)
+            torch.cuda.synchronize()
+        got = profiling.recorded()
+    finally:
+        profiling.clear()
+    assert [kern.launches - c for kern, c in zip(kernels, counts)] == [1] * 3
+    for name in ("fused.rows", "fused.interaction", "fused.update"):
+        span = got["spans"][name]
+        assert span["calls"] == 1 and span["device_s"] > 0, name
+    assert got["counters"]["fused.slot_rows"] == b * fields
+    rows = np.unique(ids)
+    r = torch.as_tensor(rows, dtype=torch.long, device=dev)
+    ref = R.sgd_steps(v[r], [{
+        "idx": torch.as_tensor(np.searchsorted(rows, ids), device=dev),
+        "vals": torch.as_tensor(vals, device=dev),
+        "y": torch.as_tensor(y, device=dev),
+        "field_ids": torch.arange(fields, device=dev).expand(b, -1)}],
+        fields=fields, lr=0.2, eps=1.0, reg_v=1e-5)
+    np.testing.assert_allclose(float(aux["loss"]), ref["losses"][0],
+                               rtol=1e-6)
+    vk = fields * k
+    table = state.table[r]
+    np.testing.assert_allclose(table[:, vk:2 * vk].double().cpu().numpy(),
+                               ref["slot1"].cpu().numpy(), rtol=1e-4,
+                               atol=1e-15)
+    np.testing.assert_allclose(table[:, :vk].double().cpu().numpy(),
+                               ref["params"][0].cpu().numpy(), rtol=0,
+                               atol=2e-7)
+    assert not table[:, 2 * vk:].any()
+
+
 @pytest.mark.parametrize("path,opt", [("dedup", "adam"), ("direct", "adam"),
                                       ("fused", "adagrad")])
 def test_deepfm_graphed_steps_equal_eager_steps(dev, path, opt):
