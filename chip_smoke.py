@@ -165,8 +165,12 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
      5 steps against the plain versions, one ``MicroBatcher`` flush with
      field_ids against the plain per-slot path, the kernels timed at these
      shapes (B6 beside the squares, ``cat`` and B5 it replaced), and one
-     profiled epoch of ``train_sgd`` (20 steps: B1 = B2 = B6 = 20) with its
-     peak device memory;
+     profiled epoch of ``train_sgd`` (20 steps: B1 = B2 = B6 = 20, and
+     the one-pass FFM kernel 20) with its peak device memory;
+     then the one-pass kernel (``ops/interaction.py::
+     ffm_slot_major_loss_grad``) at config 4's shape and at the
+     ``ffm-train-criteo`` cell's (B = 65,536, F = 39, K = 4) against its
+     plain version in float64 and timed beside it and its bound;
  22. grouped hybrid steps as CUDA graphs at BASELINE config 3's full
      width, on phase 9's data: ``train_sgd`` with ``steps_per_dispatch``
      = 1, 2 and 4 from one initial table must give the same tables and
@@ -2892,13 +2896,16 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     kernels = {"gather_rows": rowio.GATHER, "gather_vw_rows": rowio.GATHER_VW,
                "scatter_set_rows": rowio.SCATTER,
                "segment_rowsum": segsum.ROWSUM,
-               "segment_rowsum_sq": segsum.ROWSUM_SQ}
+               "segment_rowsum_sq": segsum.ROWSUM_SQ,
+               "ffm_slot_major_loss_grad": I.FFM_SLOT_MAJOR}
     plain_swaps = [(rowio, "gather_rows", rowio.gather_rows_reference),
                    (rowio, "gather_vw_rows", rowio.gather_vw_rows_reference),
                    (rowio, "scatter_set_rows",
                     rowio.scatter_set_rows_reference),
                    (segsum, "segment_rowsum", rowsum64),
-                   (segsum, "segment_rowsum_sq", rowsum_sq64)]
+                   (segsum, "segment_rowsum_sq", rowsum_sq64),
+                   (I, "ffm_slot_major_loss_grad",
+                    I.ffm_slot_major_loss_grad_reference)]
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -3292,9 +3299,11 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
     launches4 = profile_epoch("BASELINE config 4 FFM, fused", cfg4, sgd4, ds4)
     steps4 = -(-ds4.num_examples // FFM_BATCH)
     if launches4 != {"gather_rows": steps4, "scatter_set_rows": steps4,
-                     "segment_rowsum_sq": steps4}:
+                     "segment_rowsum_sq": steps4,
+                     "ffm_slot_major_loss_grad": steps4}:
         raise AssertionError(f"config 4 launches {launches4}, expected "
-                             f"{steps4} of B1, B2 and B6")
+                             f"{steps4} of B1, B2, B6 and the one-pass FFM "
+                             "kernel")
     path4 = "train_sgd fused, BASELINE config 4 FFM (phase 21)"
     for name, line, src, t, err, lib in (
             ("gather_rows (FFM record)", "pallas_rowio.py:140", "rowio.cu",
@@ -3319,7 +3328,92 @@ def direct_dedup_ffm_phases(dev, cfg, gen, rng, card):
           f"{1e3 * entries[-1]['device_ms']:.2f} us (CUDA events, queued "
           f"behind a spin kernel); {card}", flush=True)
     del g177
+    # the slot-major FFM's one-pass kernel at config 4's shape and at the
+    # ffm-train-criteo cell's (one launch a step there)
+    for label, shape, launches in (
+            ("config 4", (FFM_BATCH, FFM_FIELDS, FFM_RANK),
+             launches4["ffm_slot_major_loss_grad"]),
+            ("ffm-train-criteo", (65536, 39, 4), None)):
+        entries.append(slot_major_entry(dev, gen, label, *shape, launches,
+                                        path4, card))
+        torch.cuda.empty_cache()
     return entries
+
+
+def slot_major_entry(dev, gen, label, b, f, k, launches, path, card):
+    """The slot-major FFM's loss and row gradients by the one-pass kernel
+    (``ops/interaction.py::ffm_slot_major_loss_grad``) on B examples of F
+    per-slot rows of F K + 1 floats (the cell's model: logistic, no bias
+    or linear term, values 1/sqrt(F), L2 1e-5): its launch on the whole
+    batch held to its plain version in float64, run on blocks of 8,192
+    examples (float64 autograd over the cell's whole batch would take ~40
+    GB) whose loss, g_w0 and gradient rows are scaled by the block's share
+    of the batch, as both denominators are B (scores, data loss, g_w0 and
+    every lane of every gradient row: max error over the largest entry <
+    1e-5, float32 rounding of sums of up to 741 pairs), then timed
+    beside the plain version (the former autograd route, float32) and
+    its bound: each slot's row and value read once, its gradient row
+    written once and the scores (``portbench/counts/ffm_sgd.py::
+    interaction_bytes``). Returns its kernel entry."""
+    from sparkfm_tpu_torch.config import Task
+    from sparkfm_tpu_torch.ops import interaction as I
+    rows = 0.5 * torch.rand((b, f, f * k + 1), generator=gen, device=dev)
+    vals = torch.full((b, f), f ** -0.5, device=dev)
+    y = torch.randint(0, 2, (b,), generator=gen, device=dev).float()
+    w0 = torch.zeros((), device=dev)
+    kw = dict(use_bias=False, use_linear=False, reg0=0.0, reg_w=0.0,
+              reg_v=1e-5)
+    n = min(b, 8192)
+    got = I.ffm_slot_major_loss_grad(w0, rows, vals, y, None,
+                                     Task.CLASSIFICATION, **kw)
+    err = torch.zeros(4, dtype=torch.float64, device=dev)
+    top = torch.zeros(4, dtype=torch.float64, device=dev)
+    sums = torch.zeros(2, dtype=torch.float64, device=dev)
+    for i in range(0, b, n):
+        m = min(n, b - i)
+        want = I.ffm_slot_major_loss_grad_reference(
+            w0.double(), rows[i:i + m].double(), vals[i:i + m].double(),
+            y[i:i + m].double(), None, Task.CLASSIFICATION, **kw)
+        share = m / b
+        for j, a, c in ((0, got[0][i:i + m], want[0]),
+                        (3, got[3][i * f:(i + m) * f], want[3] * share)):
+            err[j] = torch.maximum(err[j], (a.double() - c).abs().max())
+            top[j] = torch.maximum(top[j], c.abs().max())
+        sums += torch.stack([want[1], want[2]]) * share
+        del want
+    for j, a, c in ((1, got[1], sums[0]), (2, got[2], sums[1])):
+        err[j] = (a.double() - c).abs()
+        top[j] = c.abs()
+    errs = (err / top.clamp_min(1e-30)).tolist()
+    if max(errs) > 1e-5:
+        raise AssertionError(f"one-pass FFM kernel at {label}: error over "
+                             f"the largest entry {errs} (scores, loss, "
+                             f"g_w0, rows)")
+    del got
+
+    def fn(*a):
+        return I.ffm_slot_major_loss_grad(*a, **kw)
+
+    def plain(*a):
+        return I.ffm_slot_major_loss_grad_reference(*a, **kw)
+    slots, vk = b * f, f * k
+    nbytes = slots * (2 * (vk + 1) + 1) * 4 + b * 4
+    ops = b * f * (f - 1) // 2 * (4 * k + 5) + slots * 2 * vk
+    t = timed_kernel(f"ffm_slot_major_loss_grad ({label}, B={b}, F={f}, "
+                     f"K={k})", fn, plain,
+                     (w0, rows, vals, y, None, Task.CLASSIFICATION), None,
+                     nbytes, ops, card)
+    print(f"check: one-pass FFM kernel at {label} on all {b} examples "
+          f"against float64 in blocks of {n}: scores {errs[0]:.3g}, loss "
+          f"{errs[1]:.3g}, g_w0 {errs[2]:.3g}, rows {errs[3]:.3g} of the "
+          f"largest entry; {card}", flush=True)
+    return {"name": f"ffm_slot_major_loss_grad ({label})", "route": "cuda",
+            "source": "sparkfm_tpu_torch/csrc/interaction.cu",
+            "replaces": "none: autograd over ops/interaction.py's "
+                        "slot-major form (XLA in the JAX package)",
+            "launches": launches, "path": path if launches else
+            "train_sgd fused, ffm-train-criteo (1 a step)",
+            "max_abs_err": errs[3], "library": None, **t}
 
 
 GRAPH_TRAP_CHILD = """

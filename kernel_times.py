@@ -3,7 +3,8 @@
 shapes, for one or more checkouts of the repository, taken in turns on one
 card.
 
-    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0] [--als | --sweeps]
+    python3 kernel_times.py ROOT [ROOT ...] [--order 0,1,1,0]
+        [--als | --sweeps | --paths | --ffm]
 
 Each ROOT is a checkout (the repository root, or a ``git archive`` of
 another commit unpacked somewhere). For each entry of ``--order`` (default:
@@ -66,6 +67,20 @@ seed, so every root sees the same data:
   into the q column (28 bytes an example), beside the patch followed by
   a strided copy of that q into the column.
 
+With ``--ffm`` each child instead times the slot-major FFM's loss and
+row gradients at the ``ffm-train-criteo`` cell's shape (B = 65,536, F =
+39, K = 4: 2,555,904 slots) and at BASELINE config 4's (B = 8,192, F =
+22, K = 8), on per-slot rows made from a seed: the fused step's former
+route (``_batch_loss_from_rows``, ``torch.autograd.grad`` and the update's
+``cat`` of ``[g_v | g_w]``) and, where the root has
+``ops/interaction.py::ffm_slot_major_loss_grad``, its kernel, held to the
+former route's float64 twin on the first 8,192 examples (max error over
+the largest entry < 1e-5)
+and timed beside its bound (``portbench/counts/ffm_sgd.py::
+interaction_bytes`` at 3.35 TB/s) and its share of it; each by CUDA
+events behind a spin kernel, and by torch.profiler split into the
+kernel's own time.
+
 With ``--sweeps`` each child instead runs whole ALS sweeps on the
 ``ml25m-als-sweep`` cell's ratings and weights (seed 0) as ``train_als``
 runs them with its default ``ALSConfig``: contiguous blocks of 4,096
@@ -97,7 +112,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 COMMON = r"""
-import json, sys
+import dataclasses, json, sys
 import numpy as np
 import torch
 from torch.autograd import DeviceType
@@ -502,6 +517,77 @@ for label, b, gather in (("user block", 0, False), ("movie block", 1, True)):
 print(json.dumps({"root": ROOT, "us": out}))
 """
 
+FFM = r"""
+sys.path.append(HERE)
+from portbench.counts import ffm_sgd
+from sparkfm_tpu_torch.config import FMConfig, Task
+from sparkfm_tpu_torch.data.batching import SparseBatch
+from sparkfm_tpu_torch.ops import interaction as I
+from sparkfm_tpu_torch.solvers import sgd as S
+
+ONE_PASS = hasattr(I, "ffm_slot_major_loss_grad")
+
+
+def former_route(cfg, batch, vw_rows):
+    # the fused step's interaction before the kernel, and the update's cat
+    vk = vw_rows.shape[-1] - 1
+    w0 = torch.zeros((), dtype=vw_rows.dtype, device=dev).requires_grad_()
+    w_rows = vw_rows[..., vk].detach().requires_grad_()
+    v_rows = vw_rows[..., :vk].detach().requires_grad_()
+    with torch.enable_grad():
+        total, _ = S._batch_loss_from_rows(w0, w_rows, v_rows, batch, cfg)
+        _, g_w, g_v = torch.autograd.grad(total, (w0, w_rows, v_rows))
+    return torch.cat([g_v.reshape(-1, vk), g_w.reshape(-1, 1)], 1)
+
+
+for label, b, f, k in (("cell", 65536, 39, 4), ("config 4", 8192, 22, 8)):
+    cfg = FMConfig(num_features=1 << 20, num_factors=k, num_fields=f,
+                   slot_major_fields=True, use_bias=False, use_linear=False,
+                   task=Task.CLASSIFICATION, reg_v=1e-5)
+    vw_rows = 0.5 * torch.rand((b, f, f * k + 1), generator=gen, device=dev)
+    vals = torch.full((b, f), f ** -0.5, device=dev)
+    y = torch.randint(0, 2, (b,), generator=gen, device=dev).float()
+    ids = torch.zeros((b, f), dtype=torch.int32, device=dev)
+    batch = SparseBatch(ids=ids, vals=vals, y=y)
+    nbytes = ffm_sgd.interaction_bytes(b * f, f, k)
+    rec = {"b": b, "fields": f, "k": k, "bound_mb": nbytes / 1e6,
+           "bound_us": 1e6 * nbytes / 3.35e12}
+    rec["former route"] = {
+        "spun_us": spun_us(lambda: former_route(cfg, batch, vw_rows), reps=3),
+        "profiled": split(device_us(
+            lambda: former_route(cfg, batch, vw_rows), reps=3))}
+    if ONE_PASS:
+        w0 = torch.zeros((), device=dev)
+
+        def one_pass(n=b):
+            return I.ffm_slot_major_loss_grad(
+                w0, vw_rows[:n], vals[:n], y[:n], None, Task.CLASSIFICATION,
+                use_bias=False, use_linear=False, reg0=0.0, reg_w=0.0,
+                reg_v=1e-5)
+        assert torch.equal(one_pass()[3], one_pass()[3]), ("repeat", label)
+        # the check on the first 8,192 examples (float64 autograd over the
+        # whole cell's batch would take ~40 GB)
+        n = min(b, 8192)
+        got = one_pass(n)[3]
+        b64 = SparseBatch(ids=ids[:n], vals=vals[:n].double(),
+                          y=y[:n].double())
+        want = former_route(dataclasses.replace(cfg, compute_dtype="float64"),
+                            b64, vw_rows[:n].double())
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err < 1e-5, ("one pass", label, err)
+        del got, want
+        torch.cuda.empty_cache()
+        rec["kernel"] = {"spun_us": spun_us(one_pass),
+                         "profiled": split(device_us(one_pass),
+                                           "ffm_slot_major"),
+                         "err": err}
+        rec["share"] = rec["bound_us"] / rec["kernel"]["spun_us"]
+    out[f"FFM {label}"] = rec
+    del vw_rows
+    torch.cuda.empty_cache()
+print(json.dumps({"root": ROOT, "us": out}))
+"""
+
 SWEEPS = r"""
 import hashlib, json, sys, time
 import torch
@@ -640,6 +726,9 @@ def main():
                     help="profile one epoch of each SGD path instead")
     ap.add_argument("--als", action="store_true",
                     help="time only the ALS sweep's per-rank sums")
+    ap.add_argument("--ffm", action="store_true",
+                    help="time the slot-major FFM's loss and row gradients "
+                         "instead")
     ap.add_argument("--sweeps", action="store_true",
                     help="time whole ALS sweeps on train_als's default "
                          "blocks instead")
@@ -661,6 +750,7 @@ def main():
             [sys.executable, "-c",
              f"ROOT = {roots[i]!r}\nHERE = {HERE!r}\n"
              + (PATHS if args.paths else SWEEPS if args.sweeps
+                else COMMON + FFM if args.ffm
                 else COMMON + ALS if args.als else COMMON + KERNELS + ALS)],
             capture_output=True, text=True, timeout=900)
         if child.returncode != 0:

@@ -14,18 +14,37 @@ one for batches whose slot l holds a feature of field l
 (:func:`ffm_interaction_slot_major`), and the per-pair oracle
 (:func:`ffm_scores_pairwise`).
 
-The math stays plain torch, as the JAX package left it to XLA. For the
-plain FM it is a small share of a call next to the table reads; FFM at
-Criteo's 39 fields (741 pairs an example, (B, 39, 39, K) tensors) makes
-it most of a fused training step (``PERF.md``).
+The math stays plain torch, as the JAX package left it to XLA, with one
+exception: the slot-major FFM's loss and row gradients in a training
+step (:func:`ffm_slot_major_loss_grad`), which at Criteo's 39 fields (741
+pairs an example, (B, 39, 39, K) tensors) took most of a fused step as
+autograd over those forms (``PERF.md``). On CUDA tensors it runs one
+hand-written kernel (``csrc/interaction.cu``) that reads each slot's
+``[v | w]`` row once and writes its ``[g_v | g_w]`` row once; on CPU
+tensors its plain version, the autograd route.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+
 import torch
 import torch.nn.functional as nnf
 
+from sparkfm_tpu_torch.config import Task
+from sparkfm_tpu_torch.ops import losses as L
 from sparkfm_tpu_torch.ops import rowio
+from sparkfm_tpu_torch.utils.build import PACKAGE_DIR, CudaKernel
+
+SOURCE = os.path.join(PACKAGE_DIR, "csrc", "interaction.cu")
+MAX_FIELDS = 64                 # the largest F the step sends the kernel
+FACTORS = (1, 2, 4, 8, 16)      # the kernel's K (its template cases)
+MAX_SMEM = 227 * 1024           # a block's shared memory on the H100
+FFM_SLOT_MAJOR = CudaKernel(
+    "interaction", SOURCE, "sfm_ffm_slot_major",
+    [ctypes.c_void_p] * 8 + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int64] + [ctypes.c_int] * 5)
 
 
 def interaction_from_rows(vx: torch.Tensor) -> torch.Tensor:
@@ -161,3 +180,152 @@ def ffm_scores_pairwise(w0: torch.Tensor, w_rows: torch.Tensor,
     out = torch.where(upper, pair_dot * xx, 0.0).sum(dim=(1, 2))
     return _linear_and_bias(out, w0, w_rows, vals_c, use_bias, use_linear,
                             compute_dtype)
+
+
+def slot_major_tile_floats(fields: int, k: int) -> int:
+    """Floats of the slot-major kernel's tile in shared memory: the
+    example's F (F K + 1) floats at their offset past a 16-byte bound (0
+    to 3 floats) and their copy rounded out to 16 bytes. The kernel takes
+    it, and :func:`slot_major_smem_bytes`, from the launch."""
+    n = fields * (fields * k + 1)
+    return (n + 6) // 4 * 4
+
+
+def slot_major_smem_bytes(fields: int, k: int) -> int:
+    """Shared memory of one block of the slot-major kernel: the tile, then
+    three floats a slot (its value and two L2 coefficients)."""
+    return (slot_major_tile_floats(fields, k) + 3 * fields) * 4
+
+
+def slot_major_kernel_takes(fields: int, k: int) -> bool:
+    """Whether :func:`ffm_slot_major_loss_grad` takes F = ``fields``
+    slots of K = ``k`` factors a field: F <= MAX_FIELDS, K in FACTORS and
+    an example's rows in a block's shared memory."""
+    return (1 <= fields <= MAX_FIELDS and k in FACTORS
+            and slot_major_smem_bytes(fields, k) <= MAX_SMEM)
+
+
+def ffm_slot_major_loss_grad_reference(w0, vw_rows, vals, y, mask,
+                                       task: Task, *, use_bias: bool,
+                                       use_linear: bool, reg0, reg_w,
+                                       reg_v):
+    """Plain version of :func:`ffm_slot_major_loss_grad`: the slot-major
+    scores, the task's loss and the per-appearance L2 term
+    (``losses.appearance_l2``), differentiated by ``torch.autograd.grad``
+    in the rows' dtype, as the fused step ran them before the kernel."""
+    b, l, width = vw_rows.shape
+    vk = width - 1
+    w0 = w0.detach().requires_grad_()
+    w_rows = vw_rows[..., vk].detach().requires_grad_()
+    v_rows = vw_rows[..., :vk].detach().requires_grad_()
+    weights = None if mask is None else mask.to(torch.float32)
+    with torch.enable_grad():
+        vals_c = vals.to(vw_rows.dtype)
+        s = ffm_interaction_slot_major(_field_rows(v_rows, l), vals_c)
+        if use_linear:
+            s = s + (w_rows * vals_c).sum(dim=-1)
+        if use_bias:
+            s = s + w0
+        data_loss = L.loss_for_task(task)(s, y, weights)
+        reg = L.appearance_l2(w0, w_rows, v_rows, vals, weights, reg0, reg_w,
+                              reg_v)
+        g_w0, g_w, g_v = torch.autograd.grad(data_loss + reg,
+                                             (w0, w_rows, v_rows))
+    g = torch.cat([g_v.reshape(b * l, vk), g_w.reshape(b * l, 1)], 1)
+    return s.detach(), data_loss.detach(), g_w0, g
+
+
+def _check_loss_grad(w0, vw_rows, vals, y, mask, reg_w, reg_v) -> int:
+    """Raises on what :func:`ffm_slot_major_loss_grad` does not take;
+    returns K."""
+    if vw_rows.dim() != 3:
+        raise ValueError(f"ffm_slot_major_loss_grad takes (B, F, F K + 1) "
+                         f"rows, got {tuple(vw_rows.shape)}")
+    b, l, width = vw_rows.shape
+    k = (width - 1) // l if l else 0
+    if k * l + 1 != width or not slot_major_kernel_takes(l, k):
+        raise ValueError(f"ffm_slot_major_loss_grad takes F in [1, "
+                         f"{MAX_FIELDS}] slots of F K + 1 floats with K in "
+                         f"{FACTORS}, the F rows within {MAX_SMEM} bytes, "
+                         f"got rows {tuple(vw_rows.shape)}")
+    dtype = vw_rows.dtype
+    if vw_rows.device.type == "cuda" and dtype != torch.float32:
+        raise ValueError(f"ffm_slot_major_loss_grad's kernel takes float32 "
+                         f"rows, got {dtype}")
+    if vw_rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ffm_slot_major_loss_grad has no kernel for "
+                         f"{vw_rows.device}")
+    want = {"vw_rows": (vw_rows, (b, l, width)), "vals": (vals, (b, l)),
+            "y": (y, (b,)), "w0": (w0, ())}
+    for name, t in (("reg_w", reg_w), ("reg_v", reg_v)):
+        if torch.is_tensor(t):
+            want[name] = (t, (b, l))
+    for name, (t, shape) in want.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"ffm_slot_major_loss_grad takes a contiguous "
+                             f"{dtype} {name} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}"
+                             f"{'' if t.is_contiguous() else ', strided'}")
+    if mask is not None and (tuple(mask.shape) != (b,)
+                             or not mask.is_contiguous()):
+        raise ValueError(f"ffm_slot_major_loss_grad takes a contiguous (B,) "
+                         f"mask, got {tuple(mask.shape)}")
+    tensors = [t for t, _ in want.values()] + ([mask] if mask is not None
+                                                else [])
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {devices}")
+    return k
+
+
+def ffm_slot_major_loss_grad(w0: torch.Tensor, vw_rows: torch.Tensor,
+                             vals: torch.Tensor, y: torch.Tensor, mask,
+                             task: Task, *, use_bias: bool, use_linear: bool,
+                             reg0: float, reg_w, reg_v):
+    """The slot-major FFM's scores, data loss and gradients of data loss +
+    per-appearance L2 (``losses.appearance_l2``) for one batch, from the
+    per-slot rows ``vw_rows`` (B, F, F K + 1), each ``[v | w]`` with v's F
+    K-vectors toward each field (slot a holds field a): returns
+    ``(scores (B,), data loss (), g_w0 (), g (B F, F K + 1))``, g the
+    rows' ``[g_v | g_w]`` in their own layout. ``vals`` (B, F), ``y``
+    (B,), ``mask`` None or (B,) (False = padding), ``w0`` 0-d; ``reg_w``
+    and ``reg_v`` floats or per-slot (B, F) tensors. F <= 64, K in
+    {1, 2, 4, 8, 16}.
+
+    CUDA tensors (float32) run the kernel ``csrc/interaction.cu``, one
+    launch counted on ``FFM_SLOT_MAJOR``, then a few (B,)-sized torch ops
+    for the loss and g_w0; CPU tensors run the plain version, the
+    autograd route (:func:`ffm_slot_major_loss_grad_reference`)."""
+    k = _check_loss_grad(w0, vw_rows, vals, y, mask, reg_w, reg_v)
+    if vw_rows.device.type == "cpu":
+        return ffm_slot_major_loss_grad_reference(
+            w0, vw_rows, vals, y, mask, task, use_bias=use_bias,
+            use_linear=use_linear, reg0=reg0, reg_w=reg_w, reg_v=reg_v)
+    b, l, width = vw_rows.shape
+    weights = None if mask is None else mask.to(torch.float32)
+    wsum = None if weights is None else weights.sum()
+    g = torch.empty((b * l, width), dtype=torch.float32,
+                    device=vw_rows.device)
+    out = torch.empty((2, b), dtype=torch.float32, device=vw_rows.device)
+    if b:
+        flags = ((1 if task != Task.REGRESSION else 0)
+                 | (2 if use_bias else 0) | (4 if use_linear else 0))
+
+        def ptr(t):
+            return t.data_ptr() if torch.is_tensor(t) else None
+
+        def scalar(t):
+            return 0.0 if torch.is_tensor(t) else float(t)
+        FFM_SLOT_MAJOR.launch(
+            vw_rows.device, vw_rows.data_ptr(), vals.data_ptr(), y.data_ptr(),
+            ptr(weights), ptr(wsum), w0.data_ptr(), ptr(reg_v), ptr(reg_w),
+            scalar(reg_v), scalar(reg_w), 1.0 / b, 2.0 / b, g.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), b, l, k,
+            slot_major_tile_floats(l, k), slot_major_smem_bytes(l, k), flags)
+    scores, dlds = out[0], out[1]
+    data_loss = L.loss_for_task(task)(scores, y, weights)
+    g_w0 = w0 * (2.0 * reg0)
+    if use_bias:
+        g_w0 = g_w0 + dlds.sum()
+    return scores, data_loss, g_w0, g

@@ -127,6 +127,17 @@ def reg_vectors(cfg: FMConfig):
     return tuple(torch.from_numpy(r) for r in cfg.reg_vectors())
 
 
+def slot_reg_strengths(ids: torch.Tensor, cfg: FMConfig, reg_vecs=None):
+    """The L2 strengths (reg_w, reg_v) of a batch's slots: the floats of
+    ``cfg``, or with ``reg_vecs`` (the (F,) vectors of
+    :func:`reg_vectors`, on the batch's device) their (B, L) gathers by
+    ``ids``."""
+    if reg_vecs is None:
+        return cfg.reg_w, cfg.reg_v
+    flat = ids.reshape(-1).long()
+    return tuple(r.index_select(0, flat).view(ids.shape) for r in reg_vecs)
+
+
 def _batch_loss_from_rows(w0: torch.Tensor, w_rows: torch.Tensor,
                           v_rows: torch.Tensor, batch, cfg: FMConfig,
                           reg_vecs=None):
@@ -151,21 +162,9 @@ def _batch_loss_from_rows(w0: torch.Tensor, w_rows: torch.Tensor,
             use_linear=cfg.use_linear, compute_dtype=cdt)
     weights = None if batch.mask is None else batch.mask.to(torch.float32)
     data_loss = L.loss_for_task(cfg.task)(s, batch.y, weights)
-    active = (batch.vals != 0).to(torch.float32)
-    if weights is not None:
-        active = active * weights[:, None]
-        denom = weights.sum().clamp(min=1.0)
-    else:
-        denom = max(float(batch.vals.shape[0]), 1.0)
-    if reg_vecs is not None:
-        flat = batch.ids.reshape(-1).long()
-        rw, rv = (r.index_select(0, flat).view(batch.ids.shape)
-                  for r in reg_vecs)
-    else:
-        rw, rv = cfg.reg_w, cfg.reg_v
-    reg = (cfg.reg0 * w0.square()
-           + (rw * w_rows.square() * active).sum() / denom
-           + ((rv * active)[..., None] * v_rows.square()).sum() / denom)
+    rw, rv = slot_reg_strengths(batch.ids, cfg, reg_vecs)
+    reg = L.appearance_l2(w0, w_rows, v_rows, batch.vals, weights, cfg.reg0,
+                          rw, rv)
     return data_loss + reg, (s, data_loss)
 
 

@@ -27,7 +27,11 @@ The train step (:func:`make_fused_train_step`):
 2. the spread of ``[v | w]`` to the slots by the plan's ranks, and
    ``torch.autograd.grad`` of the batch loss
    (``solvers/sgd.py::_batch_loss_from_rows``) with respect to the bias
-   and the per-slot rows;
+   and the per-slot rows; for a slot-major FFM in float32 (at the shapes
+   its kernel takes) instead
+   ``ops/interaction.py::ffm_slot_major_loss_grad``, on CUDA tensors one
+   kernel that reads each slot's ``[v | w]`` row once and writes its
+   ``[g_v | g_w]`` row once, which step 3 permutes as it is;
 3. the per-unique reduce of ``[g_v | g_w | g_v² | g_w²]`` (adagrad_row:
    ``[g_v | mean g_v² | g_w | g_w²]``): under ``accumulate="segsum"``, and
    under ``"auto"`` for CUDA tensors, the gradients permuted into id-sorted
@@ -49,7 +53,7 @@ device (``ops/embedding.py::dedup_ids``) with no host round trip.
 Each step runs in three consecutive spans (``utils/profiling.py::
 annotate``, with CUDA-event device times on the card outside a graph
 capture): ``fused.rows`` (the plan, step 1 and the spread),
-``fused.interaction`` (the loss and ``torch.autograd.grad``) and
+``fused.interaction`` (the loss and its gradients) and
 ``fused.update`` (steps 3 to 5); the counter ``fused.slot_rows`` adds the
 batch's B * L slots. Both are no-ops outside a profiler session.
 """
@@ -65,6 +69,7 @@ import torch
 from sparkfm_tpu_torch.config import FMConfig, SGDConfig
 from sparkfm_tpu_torch.models.fm import FMParams
 from sparkfm_tpu_torch.ops import embedding as E
+from sparkfm_tpu_torch.ops import interaction as I
 from sparkfm_tpu_torch.ops import segsum
 from sparkfm_tpu_torch.solvers import sgd as sgd_solver
 from sparkfm_tpu_torch.utils import graphs, profiling
@@ -254,6 +259,14 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
             "'auto', 'scatter' or 'segsum'")
     k = v_lanes(cfg)
     opt = sgd_cfg.optimizer
+    # the slot-major FFM's loss and row gradients in one pass
+    # (ops/interaction.py::ffm_slot_major_loss_grad) at the shapes its
+    # kernel takes; every other model differentiates _batch_loss_from_rows
+    # by autograd
+    one_pass = (cfg.num_fields > 0 and cfg.slot_major_fields
+                and cfg.compute_dtype == "float32"
+                and I.slot_major_kernel_takes(cfg.num_fields,
+                                              cfg.num_factors))
     reg_cpu = sgd_solver.reg_vectors(cfg)
     reg_on = {}                         # device -> the reg vectors there
 
@@ -293,24 +306,40 @@ def make_fused_train_step(cfg: FMConfig, sgd_cfg: SGDConfig):
                 vw_rows = E.spread(vw_u, plan)                  # (B, L, k+1)
 
         with profiling.annotate("fused.interaction", device=on_card):
-            w0 = state.w0.detach().requires_grad_()
-            w_rows = vw_rows[..., k].detach().requires_grad_()
-            v_rows = vw_rows[..., :k].detach().requires_grad_()
-            with torch.enable_grad():
-                total, (scores, data_loss) = (
-                    sgd_solver._batch_loss_from_rows(
-                        w0, w_rows, v_rows, batch, cfg, reg_on.get(device)))
-                g_w0, g_wrows, g_vrows = torch.autograd.grad(
-                    total, (w0, w_rows, v_rows))
+            if one_pass:
+                rw, rv = sgd_solver.slot_reg_strengths(batch.ids, cfg,
+                                                       reg_on.get(device))
+                scores, data_loss, g_w0, g = I.ffm_slot_major_loss_grad(
+                    state.w0, vw_rows, batch.vals, batch.y, batch.mask,
+                    cfg.task, use_bias=cfg.use_bias,
+                    use_linear=cfg.use_linear, reg0=cfg.reg0, reg_w=rw,
+                    reg_v=rv)
+            else:
+                w0 = state.w0.detach().requires_grad_()
+                w_rows = vw_rows[..., k].detach().requires_grad_()
+                v_rows = vw_rows[..., :k].detach().requires_grad_()
+                with torch.enable_grad():
+                    total, (scores, data_loss) = (
+                        sgd_solver._batch_loss_from_rows(
+                            w0, w_rows, v_rows, batch, cfg,
+                            reg_on.get(device)))
+                    g_w0, g_wrows, g_vrows = torch.autograd.grad(
+                        total, (w0, w_rows, v_rows))
 
         with profiling.annotate("fused.update", device=on_card), \
                 torch.no_grad():
-            gv_s = g_vrows.reshape(-1, k)
-            gw_s = g_wrows.reshape(-1, 1)
-            if use_segsum:
-                gvw_s = torch.cat([gv_s, gw_s], 1).index_select(
-                    0, plan.order.long())
+            if one_pass:
+                # [g_v | g_w] comes as one buffer: no cat before the permute
+                gvw_s = (g.index_select(0, plan.order.long()) if use_segsum
+                         else g)
                 gv_s, gw_s = gvw_s[:, :k], gvw_s[:, k:]
+            else:
+                gv_s = g_vrows.reshape(-1, k)
+                gw_s = g_wrows.reshape(-1, 1)
+                if use_segsum:
+                    gvw_s = torch.cat([gv_s, gw_s], 1).index_select(
+                        0, plan.order.long())
+                    gv_s, gw_s = gvw_s[:, :k], gvw_s[:, k:]
             if use_segsum and opt != "adagrad_row":
                 # B6 forms the squares, so the (N, 2k+2) pack is never built
                 acc = segsum.segment_rowsum_sq(gvw_s, plan.seg, budget)

@@ -28,6 +28,7 @@ from sparkfm_tpu_torch.data import synth as psynth
 from sparkfm_tpu_torch.data.batching import SparseDataset, batch_iterator
 from sparkfm_tpu_torch.models import fm as pfm
 from sparkfm_tpu_torch.ops import embedding as PE
+from sparkfm_tpu_torch.ops import interaction as PI
 from sparkfm_tpu_torch.ops import rowio, segsum
 from sparkfm_tpu_torch.solvers import als as pals
 from sparkfm_tpu_torch.solvers import sgd_fused, sgd_hybrid
@@ -1128,7 +1129,8 @@ PATH_RUNS = {  # name: (data, FMConfig extras, SGDConfig extras, launches/step)
                                  slot_major_fields=True,
                                  task=Task.CLASSIFICATION),
                   dict(learning_rate=0.05),
-                  {"GATHER": 1, "SCATTER": 1, "ROWSUM_SQ": 1}),
+                  {"GATHER": 1, "SCATTER": 1, "ROWSUM_SQ": 1,
+                   "FFM_SLOT_MAJOR": 1}),
 }
 
 
@@ -1140,8 +1142,8 @@ def test_direct_dedup_and_ffm_train_sgd_on_card_match_cpu(dev, name):
     runs them (B1's two-table gather for [v | w], the slots and adam's
     second moments; B2 once a table; B6 for [Σg | Σg²], the fused FFM
     step's [g_v | g_w] included, or B5 for the direct step's per-slot
-    momentum and adam terms), two card runs equal bit for bit (no
-    atomics), and the
+    momentum and adam terms; the slot-major FFM's one-pass kernel once a
+    fused FFM step), two card runs equal bit for bit (no atomics), and the
     card run against the CPU's at the fused test's tolerance (rtol 1e-4;
     V at rtol 1e-4, atol 1e-5)."""
     from sparkfm_tpu_torch.solvers import sgd as psgd
@@ -1155,7 +1157,8 @@ def test_direct_dedup_and_ffm_train_sgd_on_card_match_cpu(dev, name):
                            device="cpu")
     kernels = {"GATHER": rowio.GATHER, "GATHER_VW": rowio.GATHER_VW,
                "SCATTER": rowio.SCATTER, "ROWSUM": segsum.ROWSUM,
-               "ROWSUM_SQ": segsum.ROWSUM_SQ}
+               "ROWSUM_SQ": segsum.ROWSUM_SQ,
+               "FFM_SLOT_MAJOR": PI.FFM_SLOT_MAJOR}
     counts = {k: kern.launches for k, kern in kernels.items()}
     on_card = train_sgd(cfg, sgd, ds, init_params=init, device=dev)
     steps = 2 * -(-ds.num_examples // 512)
@@ -1203,16 +1206,19 @@ def _same_state(a, b):
 
 
 @pytest.mark.parametrize("kind", ["hybrid", "fused host plans",
-                                  "fused device plans"])
+                                  "fused device plans",
+                                  "fused FFM device plans"])
 def test_multi_step_graph_equals_eager_steps(dev, kind):
     """make_hybrid_multi_step / make_fused_multi_step on the card: three
     groups of G = 4 (the first runs eagerly and is captured, the next two
     replay the graph) give the state of 12 eager steps bit for bit, with
     the same losses; one graph is captured; each kernel of the path counts
-    one launch per step, replays included."""
+    one launch per step, replays included (a slot-major FFM's one-pass
+    kernel too)."""
     f = 1 << 16
-    cfg = FMConfig(num_features=f, num_factors=8, task=Task.CLASSIFICATION,
-                   reg_v=1e-4, seed=3)
+    ffm = dict(num_fields=8, slot_major_fields=True) if "FFM" in kind else {}
+    cfg = FMConfig(num_features=f, num_factors=4 if ffm else 8,
+                   task=Task.CLASSIFICATION, reg_v=1e-4, seed=3, **ffm)
     sgd = SGDConfig(batch_size=256, learning_rate=0.1, unique_budget=0)
     if kind == "hybrid":
         make = sgd_hybrid.make_hybrid_multi_step
@@ -1221,9 +1227,10 @@ def test_multi_step_graph_equals_eager_steps(dev, kind):
     else:
         make = sgd_fused.make_fused_multi_step
         step = sgd_fused.make_fused_train_step(cfg, sgd)
-        kernels = (rowio.GATHER, segsum.ROWSUM_SQ, rowio.SCATTER)
+        kernels = (rowio.GATHER, segsum.ROWSUM_SQ, rowio.SCATTER) + (
+            (PI.FFM_SLOT_MAJOR,) if ffm else ())
     _, batches = _ctr_batches(dev, 12, seed=4)
-    if kind == "fused device plans":
+    if kind.endswith("device plans"):
         batches = [dataclasses.replace(b, plan=None) for b in batches]
     eager = _fused_state(cfg, dev, 5)
     eager_losses = []
@@ -1242,7 +1249,8 @@ def test_multi_step_graph_equals_eager_steps(dev, kind):
         assert torch.equal(aux["loss"], eager_losses[4 * g + 3])
     torch.cuda.synchronize()
     assert multi.captures == 1
-    assert [k.launches - c for k, c in zip(kernels, counts)] == [12] * 3
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [12] * len(
+        kernels)
     _same_state(state, eager)
     want = torch.stack(eager_losses).double().view(3, 4).mean(1)
     assert torch.equal(torch.stack(losses), want)
@@ -2048,3 +2056,130 @@ def test_b3_and_b7_at_sharded_shapes_equal_plain(dev):
             [t.double() for t in streams], seg7, 200_000)
         np.testing.assert_allclose(got.cpu(), want.cpu(), rtol=1e-4,
                                    atol=1e-4)
+
+
+def _slot_major_case(dev, b, f, k, variant, seed):
+    """One batch of per-slot [v | w] rows (B, F, F K + 1) on the card, as
+    the fused step spreads them, with its values, labels and L2
+    arguments. "cell": ffm-train-criteo's model (logistic, no bias or
+    linear term, values 1/sqrt(F), scalar L2); "all terms": the bias,
+    the linear term, a mask, zero-valued padding slots and per-slot L2
+    strengths; "squared": regression with bias and linear term; "offset":
+    the cell's model on rows 4 bytes past a 16-byte bound, so the first
+    and last examples' copies would leave the tensor."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    width = f * k + 1
+    n = b * f * width
+    if variant == "offset":
+        rows = torch.rand(n + 1, generator=g, device=dev)[1:].view(
+            b, f, width)
+    else:
+        rows = torch.rand((b, f, width), generator=g, device=dev)
+    rows.mul_(0.5)
+    vals = torch.full((b, f), f ** -0.5, device=dev)
+    y = torch.randint(0, 2, (b,), generator=g, device=dev).float()
+    kw = dict(use_bias=False, use_linear=False, reg0=0.0, reg_w=0.0,
+              reg_v=1e-5)
+    task, mask = Task.CLASSIFICATION, None
+    if variant == "all terms":
+        vals = vals * (torch.rand((b, f), generator=g, device=dev) > 0.2)
+        mask = torch.rand(b, generator=g, device=dev) > 0.1
+        kw.update(use_bias=True, use_linear=True, reg0=1e-3,
+                  reg_w=torch.rand((b, f), generator=g, device=dev) * 1e-3,
+                  reg_v=torch.rand((b, f), generator=g, device=dev) * 1e-3)
+    elif variant == "squared":
+        task = Task.REGRESSION
+        y = torch.randn(b, generator=g, device=dev)
+        kw.update(use_bias=True, use_linear=True, reg0=1e-3, reg_w=1e-4)
+    w0 = torch.tensor(0.1, device=dev)
+    return (w0, rows, vals, y, mask, task), kw
+
+
+SLOT_MAJOR_SHAPES = {"config 4": (8192, 22, 8), "cell": (4096, 39, 4)}
+
+
+@pytest.mark.parametrize("variant", ["cell", "all terms", "squared",
+                                     "offset"])
+@pytest.mark.parametrize("shape", list(SLOT_MAJOR_SHAPES))
+def test_slot_major_kernel_holds_to_float64(dev, shape, variant):
+    """The one-pass kernel against its plain version (autograd) on the
+    same inputs in float64, at config 4's shape (B = 8,192, F = 22, K =
+    8) and the cell's F = 39, K = 4 (B = 4,096): scores, loss, g_w0 and
+    every lane of [g_v | g_w]; one launch a call, and two calls equal bit
+    for bit. Tolerances: a score is a float32 sum of up to 741 pair dots
+    in another order than the float64 one, ~1e-7 of the sum of the
+    terms' sizes, so 1e-5 of the largest score; the gradients scale
+    dloss/ds, whose error follows the score's, by one or two float32
+    products, so 1e-5 relative and 1e-6 of the largest entry; g_w0 sums
+    B of those, so 1e-5 of the sum of |dloss/ds|; the loss, a float32
+    mean of B terms, 1e-6."""
+    b, f, k = SLOT_MAJOR_SHAPES[shape]
+    args, kw = _slot_major_case(dev, b, f, k, variant, seed=b + f)
+    before = PI.FFM_SLOT_MAJOR.launches
+    got = PI.ffm_slot_major_loss_grad(*args, **kw)
+    assert PI.FFM_SLOT_MAJOR.launches == before + 1
+    again = PI.ffm_slot_major_loss_grad(*args, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+    def dbl(t):
+        return t.double() if torch.is_tensor(t) and t.is_floating_point() \
+            else t
+    want = PI.ffm_slot_major_loss_grad_reference(
+        *(dbl(a) for a in args), **{n: dbl(v) for n, v in kw.items()})
+    s, loss, g_w0, g = (t.double().cpu().numpy() for t in got)
+    ws, wloss, wg_w0, wg = (t.detach().cpu().numpy() for t in want)
+    np.testing.assert_allclose(s, ws, rtol=1e-5, atol=1e-5 * abs(ws).max())
+    np.testing.assert_allclose(loss, wloss, rtol=1e-6)
+    np.testing.assert_allclose(g, wg, rtol=1e-5, atol=1e-6 * abs(wg).max())
+    # g_w0's scale: 2 reg0 w0 and, with the bias, the sum of |dloss/ds|
+    yv = args[3].double().cpu().numpy()
+    wt = (np.ones(b) if args[4] is None
+          else args[4].double().cpu().numpy())
+    if args[5] == Task.REGRESSION:
+        d = 2 * np.abs(ws - yv)
+    else:
+        ypm = np.where(yv > 0, 1.0, -1.0)
+        d = 1 / (1 + np.exp(ypm * ws))
+    scale = abs(wg_w0) + (float((d * wt).sum() / max(wt.sum(), 1e-12))
+                          if kw["use_bias"] else 0.0)
+    np.testing.assert_allclose(g_w0, wg_w0, rtol=1e-5, atol=1e-5 * scale)
+    assert np.count_nonzero(wg) > wg.size // 2
+
+
+def test_slot_major_kernel_counts_one_launch_a_fused_ffm_step(dev):
+    """The fused step launches the one-pass kernel once a step on a
+    slot-major FFM and never on plain FM (the same batches)."""
+    ds = _big_ctr()
+    for fields, want in ((8, 1), (0, 0)):
+        kw = dict(num_fields=fields, slot_major_fields=True) if fields \
+            else {}
+        cfg = FMConfig(num_features=ds.num_features, num_factors=4,
+                       task=Task.CLASSIFICATION, reg_v=1e-4, seed=3, **kw)
+        sgd = SGDConfig(batch_size=512, learning_rate=0.05,
+                        update_path="fused", host_plan=False)
+        state = _fused_state(cfg, dev, 3)
+        step = sgd_fused.make_fused_train_step(cfg, sgd)
+        before = PI.FFM_SLOT_MAJOR.launches
+        steps = 0
+        for batch in batch_iterator(ds, 512, device=dev):
+            state, _ = step(state, batch)
+            steps += 1
+        torch.cuda.synchronize()
+        assert PI.FFM_SLOT_MAJOR.launches - before == want * steps
+
+
+@pytest.mark.parametrize("fault", ["strided rows", "float64 rows",
+                                   "65 fields", "k = 3", "wide rows"])
+def test_slot_major_kernel_refuses_what_it_cannot_take(dev, fault):
+    f, k = {"65 fields": (65, 1), "k = 3": (4, 3),
+            "wide rows": (64, 16)}.get(fault, (5, 4))
+    (w0, rows, vals, y, mask, task), kw = _slot_major_case(
+        dev, 16, f, k, "cell", seed=1)
+    if fault == "strided rows":
+        rows = torch.cat([rows, rows], 2)[..., ::2]
+    elif fault == "float64 rows":
+        w0, rows, vals, y = (t.double() for t in (w0, rows, vals, y))
+    before = PI.FFM_SLOT_MAJOR.launches
+    with pytest.raises(ValueError, match="ffm_slot_major_loss_grad"):
+        PI.ffm_slot_major_loss_grad(w0, rows, vals, y, mask, task, **kw)
+    assert PI.FFM_SLOT_MAJOR.launches == before
