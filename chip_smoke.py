@@ -247,7 +247,19 @@ phases, on their data, MCMC, relational SGD and BS-ALS (phases 28-30).
  35. the entry points: ``FM(mesh="1x1").fit`` for sgd, als and mcmc, the
      dry run of every sharded path at one rank, and ``python -m
      sparkfm_tpu_torch train --mesh 1x1 --distributed`` under
-     ``torch.distributed.run``, each launching its kernels.
+     ``torch.distributed.run``, each launching its kernels;
+ 36. (run after phase 27) the ``xdeepfm-train-criteo`` cell's own check
+     (``portbench/entries/xdeepfm_train.py``, through
+     ``portbench.harness.run_cell``): ``train_deepfm`` at the cell's widths
+     (39 fields, D = 10, CIN 200-200-200, tower 400-400, B = 4,096, 2^24
+     buckets, adam on the dedup path; the first step eager, then six CUDA
+     graphs replayed), its first 3 steps against the benchmark's float64
+     reference (``portbench/reference/xdeepfm.py``) in blocks, judged by
+     the cell's limits: the losses, step 1's gradient of every leaf (the
+     rows, the tower, the CIN) and the change after step 3; the peak
+     device memory; then the CIN's forward and backward at that shape
+     timed by CUDA events against their float32 FLOPs
+     (``portbench/counts/xdeepfm.py::cin_flops``).
 
 Every phase raises on failure. Needs one CUDA card; without one it exits
 non-zero and prints no result. Run from the repository root:
@@ -3416,6 +3428,60 @@ def slot_major_entry(dev, gen, label, b, f, k, launches, path, card):
             "max_abs_err": errs[3], "library": None, **t}
 
 
+XDFM_FIELDS, XDFM_RANK = 39, 10
+XDFM_CIN, XDFM_HIDDEN, XDFM_BATCH = (200, 200, 200), (400, 400), 4096
+
+
+def xdeepfm_phase(dev, card):
+    """Phase 36: the ``xdeepfm-train-criteo`` cell's own check (its entry's
+    first three graphed steps at the cell's widths against the float64
+    reference in blocks, judged by its limits), then the CIN's forward and
+    backward timed."""
+    from portbench import harness
+    from portbench.counts import xdeepfm as xcounts
+    from sparkfm_tpu_torch.config import FMConfig
+    from sparkfm_tpu_torch.models import deepfm as DF
+    from sparkfm_tpu_torch.ops import interaction as I
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cell = harness.resolve_cell(harness.load_spec(root),
+                                "xdeepfm-train-criteo", root)
+    torch.cuda.reset_peak_memory_stats(dev)
+    line = harness.run_cell(cell, 2 ** 31 + 36, 0.0, False, dev,
+                            time.perf_counter())
+    checks = ", ".join(f"{k} {c['value']:.3g} (limit {c['limit']:g})"
+                       for k, c in line["checks"].items())
+    if not line["correct"]:
+        raise AssertionError(f"xDeepFM at the cell's widths against "
+                             f"float64: {checks}")
+    torch.cuda.synchronize(dev)
+    print(f"check: xdeepfm-train-criteo's check (B = {XDFM_BATCH}, CIN "
+          f"{XDFM_CIN}, tower {XDFM_HIDDEN}): {checks}; peak "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; {card}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # the CIN's forward and backward at the cell's shape
+    b = XDFM_BATCH
+    g = torch.Generator(device=dev).manual_seed(36)
+    e = 0.1 * torch.randn((b, XDFM_FIELDS, XDFM_RANK), generator=g,
+                          device=dev)
+    cfg = DF.DeepFMConfig(fm=FMConfig(num_features=8, num_factors=XDFM_RANK,
+                                      num_fields=XDFM_FIELDS),
+                          hidden=XDFM_HIDDEN, cin=XDFM_CIN)
+    layers = [w.to(dev) for w in DF.init_params(cfg, device=dev).cin[:-1]]
+    g_p = torch.randn((b, sum(XDFM_CIN)), generator=g, device=dev)
+    saved = I.cin_forward(e, layers)[1]
+    fwd = time_ms(I.cin_forward, [(e, layers)], reps=5, windows=3)
+    bwd = time_ms(I.cin_backward, [(e, layers, saved, g_p)], reps=5,
+                  windows=3)
+    flops = b * xcounts.cin_flops(XDFM_FIELDS, XDFM_RANK, XDFM_CIN)
+    share = 100.0 * flops / FP32_OPS_PER_S / ((fwd + bwd) * 1e-3)
+    print(f"time: CIN at the cell's shape forward {fwd:.3f} ms, backward "
+          f"{bwd:.3f} ms, {flops / 1e12:.3f} TFLOP: {share:.1f}% of the "
+          f"float32 peak; {card}", flush=True)
+
+
 GRAPH_TRAP_CHILD = """
 import sys, torch
 from sparkfm_tpu_torch import FMConfig, SGDConfig
@@ -5560,6 +5626,10 @@ def main():
     torch.cuda.empty_cache()
     deepfm_entries = deepfm_cli_phases(dev, gen, rng, card, root)
     elapsed("25-27")
+    # 36. xDeepFM at the cell's widths against the float64 reference
+    torch.cuda.empty_cache()
+    xdeepfm_phase(dev, card)
+    elapsed("36")
 
     print(smi)
     # one serving plan's [v | w] gather: the ids, each distinct row of V

@@ -190,11 +190,16 @@ class DeepFMModel(_Metrics):
 
     def save(self, directory: str) -> None:
         """The tables and tower with the config, tagged ``"model":
-        "deepfm"`` (the JAX package's tag)."""
-        checkpoint.save(directory, self.params.state_dict(),
-                        {"cfg": self.cfg.fm.to_json(),
-                         "hidden": list(self.cfg.hidden),
-                         "dropout": self.cfg.dropout, "model": "deepfm"})
+        "deepfm"`` (the JAX package's tag), or ``"xdeepfm"`` with the
+        CIN's widths and tensors beside them; ``reg_dense`` where set."""
+        meta = {"cfg": self.cfg.fm.to_json(),
+                "hidden": list(self.cfg.hidden),
+                "dropout": self.cfg.dropout, "model": "deepfm"}
+        if self.cfg.cin:
+            meta.update(model="xdeepfm", cin=list(self.cfg.cin))
+        if self.cfg.reg_dense:
+            meta["reg_dense"] = self.cfg.reg_dense
+        checkpoint.save(directory, self.params.state_dict(), meta)
 
     @classmethod
     def load(cls, directory: str, *,
@@ -203,19 +208,25 @@ class DeepFMModel(_Metrics):
         card; without one it raises)."""
         state, meta = checkpoint.restore(directory,
                                          device_util.resolve(device))
-        if meta.get("model") != "deepfm":
+        if meta.get("model") not in _DEEP_MODELS:
             raise ValueError(f"{directory} holds no DeepFM model; load it "
                              "with FMModel.load or load_model")
         layers = len(meta["hidden"]) + 1
+        cin = tuple(meta.get("cin", ()))
         params = deepfm_core.DeepFMParams(
             fm=FMParams(w0=state["fm.w0"], w=state["fm.w"],
                         v=state["fm.v"]),
             mlp_w=[state[f"mlp_w.{i}"] for i in range(layers)],
-            mlp_b=[state[f"mlp_b.{i}"] for i in range(layers)])
+            mlp_b=[state[f"mlp_b.{i}"] for i in range(layers)],
+            cin=[state[f"cin.{i}"] for i in range(len(cin) + bool(cin))])
         return cls(params=params, cfg=deepfm_core.DeepFMConfig(
             fm=FMConfig.from_json(meta["cfg"]),
             hidden=tuple(meta["hidden"]),
-            dropout=float(meta.get("dropout", 0.0))))
+            dropout=float(meta.get("dropout", 0.0)), cin=cin,
+            reg_dense=float(meta.get("reg_dense", 0.0))))
+
+
+_DEEP_MODELS = ("deepfm", "xdeepfm")    # the tags DeepFMModel.save writes
 
 
 def load_model(directory: str, *, device=device_util.DEFAULT):
@@ -225,7 +236,7 @@ def load_model(directory: str, *, device=device_util.DEFAULT):
     CLI loads through this."""
     with open(os.path.join(directory, checkpoint.META_FILE)) as f:
         kind = json.load(f).get("model", "fm")
-    return (DeepFMModel if kind == "deepfm" else FMModel).load(
+    return (DeepFMModel if kind in _DEEP_MODELS else FMModel).load(
         directory, device=device)
 
 
@@ -308,7 +319,11 @@ class FM:
     ``num_fields`` = slots per example) fits a DeepFM with tower widths
     ``hidden`` and tower ``dropout`` (the port's own; 0 = the JAX
     facade's) (``models/deepfm.py::train_deepfm``) and returns a
-    ``DeepFMModel``. ``feature_groups`` is a tuple of group ids or a
+    ``DeepFMModel``; ``model="xdeepfm"`` fits xDeepFM, whose CIN has
+    ``cin`` maps a layer (``DeepFMConfig.cin``; given with that model
+    and no other), in its place. ``reg_dense`` is the L2 on a deep
+    model's weight matrices (``DeepFMConfig.reg_dense``).
+    ``feature_groups`` is a tuple of group ids or a
     fitted ``Vectorizer`` (one group per source column,
     ``data/vectorizer.py::feature_groups_of``). ``timeout`` is a
     wall-clock budget in seconds, checked between epochs (0 = none). The
@@ -349,11 +364,18 @@ class FM:
                  model: str = "fm",
                  hidden: tuple = (128, 64),
                  dropout: float = 0.0,
+                 cin: tuple = (),
+                 reg_dense: float = 0.0,
                  feature_groups=None,
                  group_reg_w: Optional[tuple] = None,
                  group_reg_v: Optional[tuple] = None):
-        if model not in ("fm", "deepfm"):
+        if model not in ("fm", *_DEEP_MODELS):
             raise ValueError(f"unknown model {model!r}")
+        if bool(cin) != (model == "xdeepfm"):
+            raise ValueError("cin (the CIN's map counts) is given with "
+                             "model='xdeepfm' and no other model")
+        if reg_dense and model not in _DEEP_MODELS:
+            raise ValueError("reg_dense takes model='deepfm' or 'xdeepfm'")
         self.num_factors = num_factors
         self.task = Task(task)
         self.max_iter = max_iter
@@ -377,6 +399,8 @@ class FM:
         self.model = model
         self.hidden = tuple(hidden)
         self.dropout = float(dropout)
+        self.cin = tuple(int(h) for h in cin)
+        self.reg_dense = float(reg_dense)
         self.feature_groups = feature_groups
         self.group_reg_w = (None if group_reg_w is None
                             else tuple(float(x) for x in group_reg_w))
@@ -422,7 +446,7 @@ class FM:
             init_params=None, *, device=device_util.DEFAULT):
         """Train on ``device`` (default: the card; without one it raises)
         and return the fitted ``FMModel``, or ``DeepFMModel`` under
-        ``model="deepfm"``.
+        ``model="deepfm"`` or ``"xdeepfm"``.
 
         ``init_params`` (an FMParams or a fitted FMModel) warm-starts the
         "als", "sgd" and "mcmc" solvers on a SparseDataset; DeepFM and
@@ -458,7 +482,7 @@ class FM:
                            or checkpoint_dir is not None):
             raise ValueError("init_params warm start and checkpoint_dir "
                              "take a SparseDataset, not a relational one")
-        if relational and (self.model == "deepfm"
+        if relational and (self.model in _DEEP_MODELS
                            or self.solver not in ("sgd", "als")):
             train = train.materialize()
             relational = False
@@ -469,14 +493,16 @@ class FM:
         device = device_util.resolve(device)
         cfg = self._cfg(train)
         generator = torch.Generator(device=device).manual_seed(self.seed)
-        if self.model == "deepfm":
+        if self.model in _DEEP_MODELS:
             if self.solver != "sgd":
-                raise ValueError("model='deepfm' requires solver='sgd'")
+                raise ValueError(f"model={self.model!r} requires "
+                                 "solver='sgd'")
             if init_params is not None:
                 raise ValueError("init_params warm start supports plain "
                                  "FM on a SparseDataset")
-            dcfg = deepfm_core.DeepFMConfig(fm=cfg, hidden=self.hidden,
-                                            dropout=self.dropout)
+            dcfg = deepfm_core.DeepFMConfig(
+                fm=cfg, hidden=self.hidden, dropout=self.dropout,
+                cin=self.cin, reg_dense=self.reg_dense)
             sgd_cfg = SGDConfig(learning_rate=self.learning_rate,
                                 optimizer=self.optimizer,
                                 batch_size=self.batch_size,

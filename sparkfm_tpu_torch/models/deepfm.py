@@ -1,5 +1,6 @@
 """DeepFM: a shared-embedding FM plus an MLP tower (Guo et al. 2017). Port
-of ``sparkfm_tpu/models/deepfm.py`` for one device.
+of ``sparkfm_tpu/models/deepfm.py`` for one device; with
+``DeepFMConfig.cin`` widths, xDeepFM (Lian et al. 2018).
 
 The FM tables (w, V) double as the deep side's embedding tables, so one
 gather feeds both heads; the tower's input is the (B, num_fields * K)
@@ -46,6 +47,20 @@ step ``t`` (0 the first, the state's step counter) of a run seeded
 generator ``g`` of the step's device seeded with
 :func:`dropout_seed` ``(seed, t, l)``: a function of those three and the
 batch's shape alone, which any code can draw again on the same device.
+
+xDeepFM (``DeepFMConfig.cin`` = (H_1, ..., H_K), KDD 2018, eq. (9))
+replaces the FM head's pairwise term by a Compressed Interaction Network
+over the same field embeddings (``ops/interaction.py::cin_forward``):
+the score is w0 + sum_l w[i_l] x_l + w_cin . p+ + the tower, where p+
+(B, sum H_k) pools every CIN layer's maps. The CIN's weights W^k
+(H_k, H_{k-1} m) and w_cin (sum H_k,) are dense tensors beside the
+tower's (``cin`` of the params and the state, ``smc``/``smc2`` their
+optimizer slots), Glorot-uniform at init, trained by the dense rule.
+The CIN runs in float32 with TF32 off; its forward and backward are
+phases, and spans, of their own in the train step (``deepfm.cin``), and
+the counter ``deepfm.cin_rows`` counts the examples through it.
+``DeepFMConfig.reg_dense`` adds an L2 term reg_dense * |W|^2 on every
+weight matrix of the tower and the CIN (not the biases, w0 or rows).
 """
 
 from __future__ import annotations
@@ -86,11 +101,16 @@ class DeepFMConfig:
     """fm: the tables' shape and regularization (``num_fields`` = slots
     per example); hidden: the tower's widths (the scalar output layer is
     implicit); dropout: the probability of dropping a hidden unit in a
-    train step (0: none, the JAX package's tower)."""
+    train step (0: none, the JAX package's tower); cin: the CIN layers'
+    map counts H_k (empty: DeepFM, else xDeepFM without the FM head's
+    pairwise term); reg_dense: L2 on the tower's and the CIN's weight
+    matrices (0: none, DeepFM's)."""
 
     fm: FMConfig
     hidden: Tuple[int, ...] = (128, 64)
     dropout: float = 0.0
+    cin: Tuple[int, ...] = ()
+    reg_dense: float = 0.0
 
     @property
     def tower_in(self) -> int:
@@ -106,18 +126,22 @@ class DeepFMConfig:
 
 class DeepFMParams(nn.Module):
     """fm: the shared tables (one (F, K) V, whatever ``num_fields``);
-    mlp_w: the tower's (in, out) weights; mlp_b: its (out,) biases. The
-    train steps differentiate with respect to gathered rows and detached
-    copies, never these, so they need no gradient."""
+    mlp_w: the tower's (in, out) weights; mlp_b: its (out,) biases; cin:
+    xDeepFM's W^1..W^K (H_k, H_{k-1} m) and w_cin (sum H_k,), empty for
+    DeepFM. The train steps differentiate with respect to gathered rows
+    and detached copies, never these, so they need no gradient."""
 
     def __init__(self, fm: FMParams, mlp_w: Sequence[torch.Tensor],
-                 mlp_b: Sequence[torch.Tensor]):
+                 mlp_b: Sequence[torch.Tensor],
+                 cin: Sequence[torch.Tensor] = ()):
         super().__init__()
         self.fm = fm
         self.mlp_w = nn.ParameterList(
             [nn.Parameter(w, requires_grad=False) for w in mlp_w])
         self.mlp_b = nn.ParameterList(
             [nn.Parameter(b, requires_grad=False) for b in mlp_b])
+        self.cin = nn.ParameterList(
+            [nn.Parameter(w, requires_grad=False) for w in cin])
 
     @property
     def device(self) -> torch.device:
@@ -129,7 +153,8 @@ def init_params(cfg: DeepFMConfig,
                 device) -> DeepFMParams:
     """The FM tables as ``models/fm.py::init_params`` makes them for a
     plain FM (one shared (F, K) V), then He-initialized tower weights
-    N(0, 2 / fan_in) and zero biases, all from one generator on
+    N(0, 2 / fan_in) and zero biases, then the CIN's weights
+    Glorot-uniform (:func:`cin_shapes`), all from one generator on
     ``device`` (default: seeded from ``cfg.fm.seed``). torch's numbers
     differ from jax.random's for the same seed."""
     device = torch.device(device)
@@ -144,21 +169,44 @@ def init_params(cfg: DeepFMConfig,
                         device=device)
         ws.append(w * math.sqrt(2.0 / fan_in))
         bs.append(torch.zeros((fan_out,), device=device))
-    return DeepFMParams(fm=fm, mlp_w=ws, mlp_b=bs)
+    cin = []
+    for shape, (fan_in, fan_out) in zip(*cin_shapes(cfg)):
+        bound = math.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand(shape, generator=generator, device=device)
+        cin.append(u * (2.0 * bound) - bound)
+    return DeepFMParams(fm=fm, mlp_w=ws, mlp_b=bs, cin=cin)
 
 
-def deepfm_params_from_numpy(w0, w, v, mlp_w, mlp_b, *,
+def cin_shapes(cfg: DeepFMConfig):
+    """(shapes, (fan_in, fan_out) pairs) of the CIN's tensors: W^k
+    (H_k, H_{k-1} m) with H_0 = m, fans (H_{k-1} m, H_k), as the 1 x 1
+    convolutions of the paper's code count them; then w_cin (sum H_k,),
+    fans (sum H_k, 1). Empty without a CIN."""
+    if not cfg.cin:
+        return [], []
+    m, prev = cfg.num_fields, cfg.num_fields
+    shapes, fans = [], []
+    for h in cfg.cin:
+        shapes.append((int(h), prev * m))
+        fans.append((prev * m, int(h)))
+        prev = int(h)
+    total = sum(int(h) for h in cfg.cin)
+    return shapes + [(total,)], fans + [(total, 1)]
+
+
+def deepfm_params_from_numpy(w0, w, v, mlp_w, mlp_b, cin=(), *,
                              device) -> DeepFMParams:
     """DeepFMParams on ``device`` from numpy arrays, e.g. the JAX
     package's as ``np.asarray(params.fm.w)``, ``[np.asarray(x) for x in
-    params.mlp_w]``."""
+    params.mlp_w]``; ``cin``: xDeepFM's W^1..W^K and w_cin."""
     def t(x):
         return torch.as_tensor(np.array(x, np.float32, copy=True),
                                device=device)
     return DeepFMParams(fm=fm_model.params_from_numpy(w0, w, v,
                                                       device=device),
                         mlp_w=[t(x) for x in mlp_w],
-                        mlp_b=[t(x) for x in mlp_b])
+                        mlp_b=[t(x) for x in mlp_b],
+                        cin=[t(x) for x in cin])
 
 
 def _tower(mlp_w, mlp_b, h: torch.Tensor, masks=None) -> torch.Tensor:
@@ -238,17 +286,29 @@ def _check_field_major(cfg: DeepFMConfig, slots: int) -> None:
 
 def scores_from_rows(w0: torch.Tensor, mlp_w, mlp_b, cfg: DeepFMConfig,
                      w_rows: torch.Tensor, v_rows: torch.Tensor,
-                     vals: torch.Tensor, masks=None) -> torch.Tensor:
+                     vals: torch.Tensor, masks=None, cin=(),
+                     pooled=None) -> torch.Tensor:
     """(B,) raw scores, FM head + deep head, from gathered rows: w_rows
     (B, L), v_rows (B, L, K), vals (B, L); ``masks``: the train step's
-    dropout multipliers (:func:`dropout_masks`), None when scoring."""
+    dropout multipliers (:func:`dropout_masks`), None when scoring. With
+    ``cfg.cin`` the FM head is w0 + <w, x> + w_cin . p+: ``cin`` holds
+    W^1..W^K and w_cin, and ``pooled`` p+ when the caller computed it."""
     _check_field_major(cfg, vals.shape[1])
-    fm_s = I.fm_scores_from_gathered(
-        w0, w_rows, v_rows, vals, use_bias=cfg.fm.use_bias,
-        use_linear=cfg.fm.use_linear,
-        compute_dtype=getattr(torch, cfg.fm.compute_dtype))
-    emb = (v_rows * vals[..., None]).reshape(vals.shape[0], -1)
-    return fm_s + _tower(mlp_w, mlp_b, emb, masks)
+    if cfg.cin:
+        fm_s = I.fm_linear_from_gathered(w0, w_rows, vals,
+                                         use_bias=cfg.fm.use_bias,
+                                         use_linear=cfg.fm.use_linear)
+    else:
+        fm_s = I.fm_scores_from_gathered(
+            w0, w_rows, v_rows, vals, use_bias=cfg.fm.use_bias,
+            use_linear=cfg.fm.use_linear,
+            compute_dtype=getattr(torch, cfg.fm.compute_dtype))
+    emb = v_rows * vals[..., None]
+    if cfg.cin:
+        if pooled is None:
+            pooled = I.cin_forward(emb, cin[:-1])[0]
+        fm_s = fm_s + torch.mv(pooled, cin[-1])
+    return fm_s + _tower(mlp_w, mlp_b, emb.reshape(vals.shape[0], -1), masks)
 
 
 def scores(params: DeepFMParams, cfg: DeepFMConfig, ids: torch.Tensor,
@@ -267,7 +327,7 @@ def scores(params: DeepFMParams, cfg: DeepFMConfig, ids: torch.Tensor,
     else:
         vw = E.spread(rowio.gather_vw_rows(fm.v, fm.w, plan.uids), plan)
     return scores_from_rows(fm.w0, params.mlp_w, params.mlp_b, cfg,
-                            vw[..., k], vw[..., :k], vals)
+                            vw[..., k], vw[..., :k], vals, cin=params.cin)
 
 
 def predict(params: DeepFMParams, cfg: DeepFMConfig, ids: torch.Tensor,
@@ -289,8 +349,9 @@ class DeepFMState:
     tower's weights and biases and their optimizer slots ride beside it
     (``smw``/``smb``: adagrad's sums, momentum's velocities or adam's
     first moments; ``smw2``/``smb2``: adam's second moments, empty under
-    the other optimizers). The train steps update every tensor in
-    place."""
+    the other optimizers); xDeepFM's CIN tensors ``cin`` (W^1..W^K,
+    w_cin) with their slots ``smc`` and ``smc2`` likewise, all three
+    empty for DeepFM. The train steps update every tensor in place."""
 
     fm: Union[SGDState, FusedState]
     mlp_w: Tuple[torch.Tensor, ...]
@@ -299,32 +360,39 @@ class DeepFMState:
     smb: Tuple[torch.Tensor, ...]
     smw2: Tuple[torch.Tensor, ...] = ()
     smb2: Tuple[torch.Tensor, ...] = ()
+    cin: Tuple[torch.Tensor, ...] = ()
+    smc: Tuple[torch.Tensor, ...] = ()
+    smc2: Tuple[torch.Tensor, ...] = ()
 
 
-def _tower_state(fm_state, mlp_w, mlp_b, adam: bool = False) -> DeepFMState:
+def _tower_state(fm_state, mlp_w, mlp_b, adam: bool = False,
+                 cin=()) -> DeepFMState:
     mlp_w = tuple(w.detach().clone() for w in mlp_w)
     mlp_b = tuple(b.detach().clone() for b in mlp_b)
+    cin = tuple(w.detach().clone() for w in cin)
 
     def zeros(xs):
         return tuple(torch.zeros_like(x) for x in xs)
     return DeepFMState(fm=fm_state, mlp_w=mlp_w, mlp_b=mlp_b,
                        smw=zeros(mlp_w), smb=zeros(mlp_b),
                        smw2=zeros(mlp_w) if adam else (),
-                       smb2=zeros(mlp_b) if adam else ())
+                       smb2=zeros(mlp_b) if adam else (),
+                       cin=cin, smc=zeros(cin),
+                       smc2=zeros(cin) if adam else ())
 
 
 def init_state(params: DeepFMParams,
                optimizer: Optional[str] = None) -> DeepFMState:
     """Fresh (zero) optimizer state around ``params`` for the direct and
     dedup paths; the tables are the params' own tensors, the tower a
-    copy. Under ``optimizer="adam"`` the tables' and the tower's second
-    moments are full zeros; otherwise the tables' are 0-d placeholders
-    and the tower's empty."""
+    copy (the CIN's too). Under ``optimizer="adam"`` the tables', the
+    tower's and the CIN's second moments are full zeros; otherwise the
+    tables' are 0-d placeholders and the others empty."""
     adam = optimizer == "adam"
     return _tower_state(
         sgd_solver.init_state(params.fm,
                               optimizer="adam" if adam else "sgd"),
-        params.mlp_w, params.mlp_b, adam)
+        params.mlp_w, params.mlp_b, adam, params.cin)
 
 
 def pad_deepfm_state_for_dedup(state: DeepFMState) -> DeepFMState:
@@ -344,7 +412,7 @@ def init_fused_deepfm_state(cfg: DeepFMConfig,
     params = init_params(cfg, generator, device=device)
     fused = sgd_fused.fused_from_params(
         params.fm, cfg.fm.replace(num_fields=0), device=device)
-    return _tower_state(fused, params.mlp_w, params.mlp_b)
+    return _tower_state(fused, params.mlp_w, params.mlp_b, cin=params.cin)
 
 
 def fused_deepfm_state_from_numpy(table, w0, slot_w0, mlp_w, mlp_b, smw,
@@ -370,7 +438,8 @@ def params_from_fused_deepfm(state: DeepFMState,
         fm=sgd_fused.params_from_fused(state.fm,
                                        cfg.fm.replace(num_fields=0)),
         mlp_w=[w.clone() for w in state.mlp_w],
-        mlp_b=[b.clone() for b in state.mlp_b])
+        mlp_b=[b.clone() for b in state.mlp_b],
+        cin=[w.clone() for w in state.cin])
 
 
 def params_of(state: DeepFMState, cfg: DeepFMConfig) -> DeepFMParams:
@@ -381,7 +450,8 @@ def params_of(state: DeepFMState, cfg: DeepFMConfig) -> DeepFMParams:
     fm = sgd_solver.trim_params(state.fm.params, cfg.fm.num_features)
     return DeepFMParams(fm=FMParams(fm.w0.clone(), fm.w, fm.v),
                         mlp_w=[w.clone() for w in state.mlp_w],
-                        mlp_b=[b.clone() for b in state.mlp_b])
+                        mlp_b=[b.clone() for b in state.mlp_b],
+                        cin=[w.clone() for w in state.cin])
 
 
 # ---------------------------------------------------------------------------
@@ -419,14 +489,17 @@ def _check_deepfm_optimizer(sgd_cfg: SGDConfig, path: str) -> None:
 
 
 def _deepfm_loss(cfg: DeepFMConfig, batch, w0, w_rows, v_rows, mlp_w,
-                 mlp_b, masks=None):
+                 mlp_b, masks=None, cin=(), pooled=None):
     """The loss of all three paths: both heads from gathered rows (the
-    tower under the dropout multipliers ``masks``), plus per-appearance
-    L2 on the touched rows (each active slot of a valid example, over
-    max(Σmask, 1)). Returns (data loss + L2, (scores, data loss))."""
+    tower under the dropout multipliers ``masks``; with a CIN, p+
+    ``pooled`` times w_cin, the last of ``cin``), plus per-appearance L2
+    on the touched rows (each active slot of a valid example, over
+    max(Σmask, 1)) and ``reg_dense`` |W|^2 on the tower's weights and
+    w_cin (the train step adds the CIN layers'). Returns (data loss + L2,
+    (scores, data loss))."""
     fm_cfg = cfg.fm
     s = scores_from_rows(w0, mlp_w, mlp_b, cfg, w_rows, v_rows, batch.vals,
-                         masks)
+                         masks, cin, pooled)
     weights = None if batch.mask is None else batch.mask.to(torch.float32)
     data_loss = L.loss_for_task(fm_cfg.task)(s, batch.y, weights)
     active = (batch.vals != 0).to(torch.float32)
@@ -438,6 +511,9 @@ def _deepfm_loss(cfg: DeepFMConfig, batch, w0, w_rows, v_rows, mlp_w,
     reg = (fm_cfg.reg_w * (w_rows.square() * active).sum()
            + fm_cfg.reg_v * (v_rows.square() * active[..., None]).sum()
            ) / denom
+    if cfg.reg_dense > 0:
+        reg = reg + cfg.reg_dense * sum(
+            w.square().sum() for w in (*mlp_w, *cin[-1:]))
     return data_loss + reg, (s, data_loss)
 
 
@@ -484,10 +560,20 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
     4. ``deepfm.tower_update``: the bias and the tower by the dense rule
        (adagrad, sgd, momentum, adam), and the step count.
 
+    xDeepFM (``cfg.cin``) has two phases more, both in the span
+    ``deepfm.cin``: after the gather the CIN's forward
+    (``ops/interaction.py::cin_forward``: p+ from the spread rows, its
+    products kept), and after the dense phase, which then differentiates
+    with respect to p+ and w_cin too, the CIN's backward
+    (:func:`~sparkfm_tpu_torch.ops.interaction.cin_backward`: the W^k's
+    gradients plus reg_dense's, and the embeddings' added into the v
+    rows' gradient). The tower update covers the CIN's tensors. Each
+    step adds its batch's rows to the counter ``deepfm.cin_rows``.
+
     On the card (``cuda_graphs``), a batch without a host plan runs as
-    four CUDA graphs, one a phase, replayed inside its span, so that the
-    host issues a handful of calls a step where the phases launch ~400
-    kernels. They are the step function's ``utils/graphs.py::GraphCache``,
+    four CUDA graphs (six with a CIN), one a phase, replayed inside its
+    span, so that the host makes a handful of calls a step where the
+    phases launch ~400 kernels. They are the step function's ``utils/graphs.py::GraphCache``,
     captured per state and batch shape after that shape's first step ran
     eagerly. A graph reads the batch from static device buffers, filled
     by device copies, and the dropout masks from static uniform draws,
@@ -521,6 +607,7 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
     k = cfg.fm.num_factors
     per_slot = path == "direct" and opt == "sgd" and sgd_cfg.momentum > 0
     writes_slot = opt != "sgd" or sgd_cfg.momentum > 0
+    spans = _spans_of(cfg)
     clock: list = []                # the global step of the next call
     generators: Dict[torch.device, torch.Generator] = {}
     cache = graphs.GraphCache()
@@ -535,8 +622,9 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
         return E.dedup_ids(batch.ids, budget, fill=rows - 1), budget
 
     def phases(state: DeepFMState, batch, draws):
-        """The step's four phases, yielding after each; the last yields
-        aux. ``draws``: the dropout masks' uniform draws, or None."""
+        """The step's phases (``spans``), yielding after each; the last
+        yields aux. ``draws``: the dropout masks' uniform draws, or
+        None."""
         fm = state.fm
         fused = isinstance(fm, FusedState)
         table = fm.table if fused else fm.params.v
@@ -579,18 +667,46 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
         n_layers = len(mlp_w)
         yield
 
+        cin, pooled = (), None
+        if cfg.cin:
+            # deepfm.cin: the forward
+            with torch.no_grad():
+                emb = v_rows * batch.vals[..., None]
+                pooled, saved = I.cin_forward(emb, state.cin[:-1])
+            pooled.requires_grad_()
+            cin = (*state.cin[:-1], state.cin[-1].detach().requires_grad_())
+            yield
+
         # 2. deepfm.dense
         masks = None if draws is None else _masks_of(cfg, draws)
         with torch.enable_grad():
             total, (s, data_loss) = _deepfm_loss(
-                cfg, batch, w0, w_rows, v_rows, mlp_w, mlp_b, masks)
+                cfg, batch, w0, w_rows, v_rows, mlp_w, mlp_b, masks, cin,
+                pooled)
             # w0 is off the graph without use_bias: a zero gradient
+            extra = (cin[-1], pooled) if cfg.cin else ()
             grads = torch.autograd.grad(
-                total, (w0, w_rows, v_rows, *mlp_w, *mlp_b),
+                total, (w0, w_rows, v_rows, *mlp_w, *mlp_b, *extra),
                 materialize_grads=True)
         g_w0, g_wrows, g_vrows = grads[:3]
-        g_mw, g_mb = grads[3:3 + n_layers], grads[3 + n_layers:]
+        g_mw = grads[3:3 + n_layers]
+        g_mb = grads[3 + n_layers:3 + 2 * n_layers]
         yield
+
+        g_cin = ()
+        if cfg.cin:
+            # deepfm.cin: the backward
+            g_wcin, g_pooled = grads[3 + 2 * n_layers:]
+            with torch.no_grad():
+                g_emb, g_layers = I.cin_backward(emb, state.cin[:-1], saved,
+                                                 g_pooled)
+                del saved
+                if cfg.reg_dense > 0:
+                    g_layers = [g + (2.0 * cfg.reg_dense) * w
+                                for g, w in zip(g_layers, state.cin)]
+                g_vrows = g_vrows + g_emb * batch.vals[..., None]
+            g_cin = (*g_layers, g_wcin)
+            yield
 
         # 3. deepfm.update
         with torch.no_grad():
@@ -635,6 +751,8 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
                               state.smw2 or (None,) * n_layers, g_mw))
             dense += list(zip(state.mlp_b, state.smb,
                               state.smb2 or (None,) * n_layers, g_mb))
+            dense += list(zip(state.cin, state.smc,
+                              state.smc2 or (None,) * len(g_cin), g_cin))
             for x, slot, slot2, g in dense:
                 x_new, slot_new, slot2_new = sgd_solver._dense_scalar_update(
                     opt, lr, sgd_cfg, x, slot, slot2, g, fm.step)
@@ -660,7 +778,7 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
     def eager(state, batch, t: int, on_card: bool) -> dict:
         run = phases(state, batch, draws_of(t, batch.vals.shape[0],
                                             batch.vals.device))
-        for name in _SPANS:
+        for name in spans:
             with profiling.annotate(name, device=on_card):
                 aux = next(run)
         return aux
@@ -672,7 +790,7 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
             for layer, width in enumerate(cfg.hidden))
 
         def before(i, static):
-            if drawn and _SPANS[i] == "deepfm.dense":
+            if drawn and spans[i] == "deepfm.dense":
                 draws_of(t, rows, batch.vals.device,
                          [static[name] for name, _, _ in drawn])
 
@@ -683,7 +801,7 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
 
         return cache(state, {name: getattr(batch, name) for name in _INPUTS
                              if getattr(batch, name) is not None},
-                     run, drawn=drawn, before=before, spans=_SPANS)
+                     run, drawn=drawn, before=before, spans=spans)
 
     def train_step(state: DeepFMState, batch):
         fm = state.fm
@@ -695,6 +813,12 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
         if adam and (not state.smw2 or fm.slot2_v.dim() == 0):
             raise ValueError("adam needs the second moments of a state "
                              "from init_state(params, optimizer='adam')")
+        if len(state.cin) != len(cfg.cin) + bool(cfg.cin):
+            raise ValueError(f"the config's CIN has {len(cfg.cin)} layers "
+                             f"but the state holds {len(state.cin)} CIN "
+                             "tensors (W^1..W^K and w_cin)")
+        if cfg.cin:
+            profiling.count("deepfm.cin_rows", batch.vals.shape[0])
         t = 0
         if cfg.dropout > 0:
             if not clock:
@@ -715,6 +839,16 @@ def make_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, *,
 _SPANS = ("deepfm.gather", "deepfm.dense", "deepfm.update",
           "deepfm.tower_update")
 _INPUTS = ("ids", "vals", "y", "mask")       # what the step reads
+
+
+def _spans_of(cfg: DeepFMConfig) -> Tuple[str, ...]:
+    """The step's phases by span: DeepFM's four, or xDeepFM's six, the
+    CIN's forward after the gather and its backward after the dense
+    phase."""
+    if not cfg.cin:
+        return _SPANS
+    return ("deepfm.gather", "deepfm.cin", "deepfm.dense", "deepfm.cin",
+            "deepfm.update", "deepfm.tower_update")
 
 
 # ---------------------------------------------------------------------------
@@ -760,11 +894,13 @@ def initial_state(cfg: DeepFMConfig, sgd_cfg: SGDConfig,
         params = DeepFMParams(
             fm=FMParams(*(t.detach().to(device, copy=True) for t in (
                 start.fm.w0, start.fm.w, start.fm.v))),
-            mlp_w=list(start.mlp_w), mlp_b=list(start.mlp_b))
+            mlp_w=list(start.mlp_w), mlp_b=list(start.mlp_b),
+            cin=list(start.cin))
         if path == "fused":
             fused = sgd_fused.fused_from_params(
                 params.fm, cfg.fm.replace(num_fields=0), device=device)
-            return _tower_state(fused, params.mlp_w, params.mlp_b)
+            return _tower_state(fused, params.mlp_w, params.mlp_b,
+                                cin=params.cin)
     state = init_state(params, sgd_cfg.optimizer)
     if path == "dedup":
         state = pad_deepfm_state_for_dedup(state)

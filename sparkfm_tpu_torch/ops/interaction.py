@@ -12,7 +12,9 @@ FFM gives each feature one K-vector per field, stored flat as a
 field-aggregated one (:func:`ffm_interaction_from_rows`), the slot-major
 one for batches whose slot l holds a feature of field l
 (:func:`ffm_interaction_slot_major`), and the per-pair oracle
-(:func:`ffm_scores_pairwise`).
+(:func:`ffm_scores_pairwise`). The Compressed Interaction Network of
+xDeepFM (:func:`cin_forward`, :func:`cin_backward`) forms explicit
+interactions of every order up to its depth from the field embeddings.
 
 The math stays plain torch, as the JAX package left it to XLA, with one
 exception: the slot-major FFM's loss and row gradients in a training
@@ -75,6 +77,18 @@ def fm_scores_from_gathered(w0: torch.Tensor, w_rows: torch.Tensor,
     out = interaction_from_rows(v_rows.to(compute_dtype) * vals_c[..., None])
     return _linear_and_bias(out, w0, w_rows, vals_c, use_bias, use_linear,
                             compute_dtype)
+
+
+def fm_linear_from_gathered(w0: torch.Tensor, w_rows: torch.Tensor,
+                            vals: torch.Tensor, use_bias: bool = True,
+                            use_linear: bool = True) -> torch.Tensor:
+    """(B,) float32 first-order scores w0 + <w, x> from gathered rows:
+    xDeepFM's linear head, beside its CIN."""
+    vals_c = vals.to(torch.float32)
+    out = torch.zeros(vals.shape[:1], dtype=torch.float32,
+                      device=vals.device)
+    return _linear_and_bias(out, w0, w_rows, vals_c, use_bias, use_linear,
+                            torch.float32)
 
 
 def fm_scores(w0: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
@@ -329,3 +343,62 @@ def ffm_slot_major_loss_grad(w0: torch.Tensor, vw_rows: torch.Tensor,
     if use_bias:
         g_w0 = g_w0 + dlds.sum()
     return scores, data_loss, g_w0, g
+
+
+# ---------------------------------------------------------------------------
+# Compressed Interaction Network (xDeepFM)
+
+def cin_forward(e: torch.Tensor, weights):
+    """The Compressed Interaction Network of xDeepFM (Lian et al. 2018,
+    eqs. (6)-(8)) over the m field embeddings ``e`` (B, m, D):
+
+        X^k_{h,*} = sum_{i <= H_{k-1}} sum_{j <= m} W^k_{h,(i,j)}
+                    (X^{k-1}_{i,*} o X^0_{j,*}),   X^0 = e,
+
+    no bias, the identity activation, every layer's H_k maps sum-pooled
+    over D into p+ = [p^1 | ... | p^K]. ``weights``: W^k (H_k, H_{k-1} m),
+    column i m + j. Works on D-major rows, N = B D: row b D + d of x_k
+    (N, H_k) holds coordinate d of example b's maps, so each layer is the
+    outer product z_k = x_{k-1} o x_0 (N, H_{k-1} m) and one GEMM
+    z_k W^k^T; in float32 its products follow
+    ``torch.backends.cuda.matmul.allow_tf32``, which the port leaves False.
+
+    Returns (p+ (B, sum H_k), saved): ``saved`` = (xs, zs), the layers'
+    maps x_0..x_{K-1} and products z_1..z_K that :func:`cin_backward`
+    reads."""
+    b, m, d = e.shape
+    x = e.transpose(1, 2).reshape(b * d, m)
+    xs, zs, pools = [x], [], []
+    for w in weights:
+        z = (x[:, :, None] * xs[0][:, None, :]).view(b * d, -1)
+        x = torch.mm(z, w.t())
+        pools.append(x.view(b, d, -1).sum(1))
+        zs.append(z)
+        xs.append(x)
+    return torch.cat(pools, 1), (xs[:-1], zs)
+
+
+def cin_backward(e: torch.Tensor, weights, saved, g_p: torch.Tensor):
+    """Gradients of :func:`cin_forward` from g_p = dL/dp+ (B, sum H_k):
+    returns (dL/de (B, m, D), [dL/dW^k]). Per layer, last first: dL/dx_k
+    is g_p's block p^k spread over D plus what layer k + 1 passed down;
+    dW^k = dx_k^T z_k and dz_k = dx_k W^k (N, H_{k-1}, m), whose
+    contractions with x_0 and x_{k-1} give dL/dx_{k-1} and layer k's part
+    of dL/dx_0."""
+    b, m, d = e.shape
+    xs, zs = saved
+    x0 = xs[0]
+    widths = [w.shape[0] for w in weights]
+    g_x0 = torch.zeros_like(x0)
+    down, g_w = None, [None] * len(weights)
+    for k in reversed(range(len(weights))):
+        g = g_p[:, sum(widths[:k]):sum(widths[:k + 1])]
+        g_x = g[:, None, :].expand(b, d, widths[k]).reshape(b * d, -1)
+        if down is not None:
+            g_x = g_x + down
+        g_w[k] = torch.mm(g_x.t(), zs[k])
+        g_z = torch.mm(g_x, weights[k]).view(b * d, -1, m)
+        g_x0 += torch.bmm(xs[k][:, None, :], g_z)[:, 0]
+        down = torch.bmm(g_z, x0[:, :, None])[:, :, 0]
+    g_x0 += down
+    return g_x0.view(b, d, m).transpose(1, 2), g_w

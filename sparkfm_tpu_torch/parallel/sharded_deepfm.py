@@ -93,6 +93,11 @@ def make_sharded_train_step(cfg: DeepFMConfig, sgd_cfg: SGDConfig, mesh):
     if cfg.dropout > 0:
         raise ValueError("sharded deepfm has no tower dropout; train with "
                          "dropout=0 or on one device")
+    if cfg.cin or cfg.reg_dense > 0:
+        raise ValueError("sharded deepfm has no Compressed Interaction "
+                         "Network and no dense L2: train xDeepFM (cin="
+                         f"{tuple(cfg.cin)}, reg_dense={cfg.reg_dense}) on "
+                         "one device")
     fm_cfg = cfg.fm
     k = fm_cfg.num_factors
     fill = fm_cfg.num_features - 1

@@ -28,8 +28,10 @@ STATE_FILE = "state.pt"
 EXTRA_FILE = "extra.json"
 _STATE_TYPES = {t.__name__: t for t in (FusedState, SGDState, FMParams)}
 # DeepFMState's tuples; a state without adam has no smw2/smb2 entries,
-# the layout of checkpoints written before adam's second moments existed
-_TOWER = ("mlp_w", "mlp_b", "smw", "smb", "smw2", "smb2")
+# the layout of checkpoints written before adam's second moments existed,
+# and DeepFM's none of xDeepFM's cin/smc/smc2
+_TOWER = ("mlp_w", "mlp_b", "smw", "smb", "smw2", "smb2", "cin", "smc",
+          "smc2")
 
 
 def save(directory: str, state: Dict[str, torch.Tensor], meta: dict) -> None:
@@ -62,7 +64,8 @@ def state_tensors(state) -> Dict[str, torch.Tensor]:
     ``params.v``), of :class:`FMParams`, or of a ``DeepFMState`` (its FM
     state's as ``fm.<name>``, adam's slot2 rows among them, its tower as
     ``mlp_w.<layer>``, ``mlp_b.<layer>``, ``smw.<layer>``, ``smb.<layer>``
-    and, under adam, ``smw2.<layer>``, ``smb2.<layer>``)."""
+    and, under adam, ``smw2.<layer>``, ``smb2.<layer>``; xDeepFM's CIN as
+    ``cin.<i>``, ``smc.<i>``, ``smc2.<i>``)."""
     if not isinstance(state, (FusedState, SGDState, FMParams, DeepFMState)):
         raise TypeError(f"no checkpoint layout for {type(state).__name__}; "
                         "expected FusedState, SGDState, FMParams or "

@@ -21,9 +21,13 @@ READERS = ["data.input_wait_pct.train", "plan.host_dedup_ms.train",
            "als.streams_ms.als", "als.patch_ms.als",
            "als.stream_sums_ms.als", "deepfm.dense_ms.train",
            "deepfm.dense_fp32_pct.train", "deepfm.rows_ms.train",
-           "deepfm.tower_update_ms.train"]
+           "deepfm.tower_update_ms.train", "xdeepfm.cin_ms.train",
+           "xdeepfm.cin_fp32_pct.train"]
 REC = types.SimpleNamespace(window_s=2.0, steps=8,
-                            notes={"deepfm_dense_flops": 4.7e10},
+                            notes={"deepfm_dense_flops": 4.7e10,
+                                   "xdeepfm_cin": {"fields": 39, "k": 10,
+                                                   "widths": [200, 200,
+                                                              200]}},
                             peaks={"fp32_flops_per_s": 67e12})
 DEEPFM = ("deepfm.gather", "deepfm.dense", "deepfm.update",
           "deepfm.tower_update")
@@ -170,3 +174,50 @@ def test_deepfm_rows_reader_needs_both_spans(record, monkeypatch):
         return out
     monkeypatch.setattr(profiling, "recorded", with_device)
     assert _reader("deepfm.rows_ms.train")(REC) is None
+
+
+def test_xdeepfm_readers_read_the_cins_device_ms_and_share(record,
+                                                           monkeypatch):
+    """Two ``deepfm.cin`` calls a step (forward and backward) summed:
+    ``xdeepfm.cin_ms.train`` their device ms a step, and
+    ``xdeepfm.cin_fp32_pct.train`` the counted CIN FLOPs of the rows that
+    ``deepfm.cin_rows`` counted at the float32 peak over that time."""
+    from portbench.counts import xdeepfm
+    with profile():
+        for _ in range(REC.steps):
+            for name in ("deepfm.gather", "deepfm.cin", "deepfm.dense",
+                         "deepfm.cin"):
+                with profiling.annotate(name):
+                    pass
+            profiling.count("deepfm.cin_rows", 4096)
+    assert _reader("xdeepfm.cin_ms.train")(REC) is None     # CPU: no events
+    recorded = profiling.recorded
+
+    def with_device():
+        out = recorded()
+        out["spans"]["deepfm.cin"]["device_s"] = 0.2
+        return out
+    monkeypatch.setattr(profiling, "recorded", with_device)
+    assert recorded()["spans"]["deepfm.cin"]["calls"] == 2 * REC.steps
+    assert _reader("xdeepfm.cin_ms.train")(REC) == pytest.approx(25.0)
+    flops = 8 * 4096 * xdeepfm.cin_flops(39, 10, (200, 200, 200))
+    assert _reader("xdeepfm.cin_fp32_pct.train")(REC) == pytest.approx(
+        100.0 * flops / 67e12 / 0.2)
+    # without the entry's note of the CIN's shape: nothing to read
+    no_note = types.SimpleNamespace(**dict(vars(REC), notes={}))
+    assert _reader("xdeepfm.cin_fp32_pct.train")(no_note) is None
+
+
+def test_the_cin_share_needs_the_counter(record, monkeypatch):
+    with profile():
+        with profiling.annotate("deepfm.cin"):
+            pass
+    recorded = profiling.recorded
+
+    def with_device():
+        out = recorded()
+        out["spans"]["deepfm.cin"]["device_s"] = 0.01
+        return out
+    monkeypatch.setattr(profiling, "recorded", with_device)
+    assert _reader("xdeepfm.cin_ms.train")(REC) is not None
+    assert _reader("xdeepfm.cin_fp32_pct.train")(REC) is None

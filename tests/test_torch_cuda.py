@@ -1598,6 +1598,157 @@ def test_deepfm_graphed_steps_equal_eager_steps(dev, path, opt):
         assert torch.equal(s1[key], s2[key]), key
 
 
+def _xdeepfm_setup(dev, cin=(32, 32, 16)):
+    """A small xDeepFM on the card (8 fields, k = 10, tower (64, 64)),
+    its adam SGDConfig, data and seeded numpy weights (CIN ~ N(0, 0.1))."""
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    feats, b = 1 << 16, 256
+    cfg = PDF.DeepFMConfig(fm=FMConfig(
+        num_features=feats, num_factors=10, num_fields=8, reg_w=1e-3,
+        reg_v=1e-3, task=Task.CLASSIFICATION, seed=21), hidden=(64, 64),
+        cin=cin, reg_dense=1e-3)
+    ds = psynth.synth_ctr(num_examples=4 * b, num_fields=8,
+                          num_buckets=feats, seed=6)
+    rng = np.random.default_rng(9)
+    shapes = PDF.cin_shapes(cfg)[0]
+    wts = _deepfm_weights(cfg, seed=3) + (
+        [rng.normal(0, 0.1, s).astype(np.float32) for s in shapes],)
+    return cfg, ds, b, wts
+
+
+def _graph_records(monkeypatch):
+    """A list that grows by one for every CUDA graph captured."""
+    from sparkfm_tpu_torch.utils import graphs
+    captured, record = [], graphs.record
+
+    def counted(body, pool):
+        captured.append(1)
+        return record(body, pool)
+    monkeypatch.setattr(graphs, "record", counted)
+    return captured
+
+
+def test_xdeepfm_graphed_steps_equal_eager_steps(dev, monkeypatch):
+    """xDeepFM's step as six CUDA graphs a batch shape (gather, CIN
+    forward, dense, CIN backward, update, tower update) against its phases
+    run eagerly, over 6 steps of two batch shapes: every loss, score and
+    tensor of the state (the CIN's and its moments among them) equal bit
+    for bit, and TF32 stays off."""
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    from sparkfm_tpu_torch.utils.checkpoint import state_tensors
+    cfg, ds, b, wts = _xdeepfm_setup(dev)
+    captured = _graph_records(monkeypatch)
+    runs = []
+    for graphed in (False, True):
+        sgd = SGDConfig(batch_size=b, optimizer="adam", learning_rate=1e-2,
+                        update_path="dedup")
+        state = PDF.initial_state(cfg, sgd, start=PDF.
+                                  deepfm_params_from_numpy(*wts, device=dev),
+                                  device=dev)
+        step = PDF.make_train_step(cfg, sgd, cuda_graphs=graphed)
+        auxes = []
+        for size in (b, b // 2):
+            for x in batch_iterator(ds, size, device=dev):
+                auxes.append(step(state, x)[1])
+                if len(auxes) in (3, 6):
+                    break
+        runs.append((auxes, {k: t.clone() for k, t in
+                             state_tensors(state).items()}))
+    assert len(captured) == 2 * 6
+    (a1, s1), (a2, s2) = runs
+    for x, y in zip(a1, a2):
+        for key in x:
+            assert torch.equal(x[key], y[key]), key
+    assert set(s1) == set(s2)
+    assert {"cin.0", "cin.3", "smc.3", "smc2.3"} <= set(s1)
+    for key in s1:
+        assert torch.equal(s1[key], s2[key]), key
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def test_deepfm_graphed_step_still_captures_four_graphs(dev, monkeypatch):
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    cfg, ds, b, wts = _xdeepfm_setup(dev, cin=())
+    captured = _graph_records(monkeypatch)
+    sgd = SGDConfig(batch_size=b, optimizer="adam", learning_rate=1e-2,
+                    update_path="dedup")
+    state = PDF.initial_state(cfg, sgd, start=PDF.deepfm_params_from_numpy(
+        *wts[:5], device=dev), device=dev)
+    step = PDF.make_train_step(cfg, sgd)
+    for x in batch_iterator(ds, b, device=dev):
+        step(state, x)
+    assert len(captured) == 4
+
+
+def test_xdeepfm_on_card_matches_the_reference(dev):
+    """3 graphed xDeepFM steps on the card against the benchmark's float64
+    reference on the card (losses rtol 1e-5; per leaf the change after 3
+    steps within 1e-3 of the reference's norm, as
+    tests/test_torch_xdeepfm.py holds it on the CPU)."""
+    from portbench.reference import xdeepfm as R
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    cfg, ds, b, wts = _xdeepfm_setup(dev)
+    sgd = SGDConfig(batch_size=b, optimizer="adam", learning_rate=1e-2,
+                    update_path="dedup")
+    state = PDF.initial_state(cfg, sgd, start=PDF.deepfm_params_from_numpy(
+        *wts, device=dev), device=dev)
+    step = PDF.make_train_step(cfg, sgd)
+    batches = list(batch_iterator(ds, b, device=dev))[:3]
+    losses = [float(step(state, x)[1]["loss"]) for x in batches]
+    p = PDF.params_of(state, cfg)
+    t = [torch.as_tensor(x, device=dev) for x in wts[:3]]
+    tw = [[torch.as_tensor(x, device=dev) for x in xs] for xs in wts[3:]]
+    ref = R.train_steps(*t, *tw, [
+        {"idx": torch.as_tensor(ds.ids[i * b:(i + 1) * b], device=dev),
+         "vals": torch.as_tensor(ds.vals[i * b:(i + 1) * b], device=dev),
+         "y": torch.as_tensor(ds.y[i * b:(i + 1) * b], device=dev),
+         "step": i} for i in range(3)], lr=1e-2, reg_w=1e-3, reg_v=1e-3,
+        reg_dense=1e-3)
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-5)
+    got = R.leaves(p.fm.w0, p.fm.w, p.fm.v, p.mlp_w, p.mlp_b, p.cin)
+    for name, x in got.items():
+        want = ref["params"][-1][name] - ref["init"][name]
+        gap = float((x.double() - ref["init"][name] - want).norm())
+        assert gap <= 1e-3 * float(want.norm()) + 1e-7, name
+
+
+def test_xdeepfm_records_its_cin_span_and_counter_on_card(dev):
+    """On the card, replayed steps record ``deepfm.cin`` twice a step with
+    device time, and ``deepfm.cin_rows`` B a step; a DeepFM step records
+    neither."""
+    from torch.profiler import profile
+
+    from sparkfm_tpu_torch.models import deepfm as PDF
+    from sparkfm_tpu_torch.utils import profiling
+    recs = []
+    for cin in ((32, 32, 16), ()):
+        cfg, ds, b, wts = _xdeepfm_setup(dev, cin=cin)
+        sgd = SGDConfig(batch_size=b, optimizer="adam", learning_rate=1e-2,
+                        update_path="dedup")
+        state = PDF.initial_state(cfg, sgd, start=PDF.
+                                  deepfm_params_from_numpy(
+                                      *(wts if cin else wts[:5]),
+                                      device=dev), device=dev)
+        step = PDF.make_train_step(cfg, sgd)
+        batches = list(batch_iterator(ds, b, device=dev))
+        step(state, batches[0])                 # eager, then captured
+        profiling.clear()
+        try:
+            with profile():
+                for x in batches[1:]:
+                    step(state, x)
+            recs.append(profiling.recorded())
+        finally:
+            profiling.clear()
+    cin, plain = recs
+    assert cin["spans"]["deepfm.cin"]["calls"] == 2 * 3
+    assert cin["spans"]["deepfm.cin"]["device_s"] > 0
+    assert cin["counters"]["deepfm.cin_rows"] == 3 * 256
+    assert "deepfm.cin" not in plain["spans"]
+    assert "deepfm.cin_rows" not in plain["counters"]
+    assert plain["spans"]["deepfm.dense"]["calls"] == 3
+
+
 @pytest.mark.parametrize("budget", [None, "ladder"])
 def test_pinned_batches_equal_pageable_ones(dev, budget):
     """batch_iterator(pinned=True) on the card gives the batches and host
